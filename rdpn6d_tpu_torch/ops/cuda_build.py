@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each kernel source under ``rdpn6d_tpu_torch/csrc/`` is compiled at first use
+with ``nvcc`` for ``sm_90a`` (Hopper) into a shared library with a plain C
+interface, loaded with ctypes. Nothing is built when a module is imported.
+The library lands in ``rdpn6d_tpu_torch/_build/`` (git-ignored) under a
+name keyed by a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one loads at once. ``nvcc`` comes from
+``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run that
+must show a path went through a kernel zeroes it with ``reset_launches``
+before and reads it after.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from dataclasses import dataclass
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {}
+
+
+@dataclass
+class Built:
+    path: str           # the shared library
+    log: str            # nvcc's output, incl. -Xptxas -v register counts
+
+
+_LOADED: dict[str, tuple[ctypes.CDLL, Built]] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+             "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                       "cannot be built")
+
+
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` into ``_build/`` unless the library for
+    this exact source and these flags is already there."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = f"{name}-{digest.hexdigest()[:16]}"
+    lib = os.path.join(BUILD_DIR, stem + ".so")
+    log_path = os.path.join(BUILD_DIR, stem + ".log")
+    if os.path.exists(lib):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return Built(lib, log)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {src} "
+                           f"(rc={proc.returncode}):\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    return Built(lib, log)
+
+
+def load(name: str) -> tuple[ctypes.CDLL, Built]:
+    """The loaded library for kernel ``name``, built first if needed."""
+    if name not in _LOADED:
+        built = build(name)
+        _LOADED[name] = (ctypes.CDLL(built.path), built)
+        LAUNCHES.setdefault(name, 0)
+    return _LOADED[name]

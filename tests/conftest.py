@@ -33,3 +33,5 @@ jax.config.update("jax_default_matmul_precision", "highest")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running integration test (multi-process)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
