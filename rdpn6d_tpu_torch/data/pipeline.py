@@ -1,17 +1,26 @@
-"""ROI preprocessing, eval half: full frames + boxes -> network inputs.
+"""ROI preprocessing: full frames + boxes -> network inputs, and in train
+mode the GT labels.
 
-Counterpart of ``rdpn6d_tpu/data/pipeline.py`` with ``train=False``:
+Counterpart of ``rdpn6d_tpu/data/pipeline.py``:
 
-    test-time DZI box -> bilinear RGB crop to input_res² -> pixel normalize
-    -> bilinear depth crop -> depth / resize_ratio back-projected through
-    the crop-composed intrinsics -> the 5-channel coord map at out_res²
-    (depth xyz strided + the cropped 2-D coordinate map).
+    DZI box (jittered in train mode) -> bilinear RGB crop to input_res²
+    -> pixel normalize -> bilinear depth crop -> depth / resize_ratio
+    back-projected through the crop-composed intrinsics -> the 5-channel
+    coord map at out_res² (depth xyz strided + the cropped 2-D coordinate
+    map); in train mode also the nearest crop of the GT masks and xyz map
+    -> region ids + rotated FPS residuals (``ops/region.region_label``,
+    a CUDA kernel on the card) -> pose targets (trans_ratio, allocentric
+    rot6d) and, for CE_coor, coordinate bins.
 
 Batched over ROIs, each reading its frame by index, so frames are moved to
-the device once whatever the number of detections. The crops are gathers
-(``ops/warp.py``); the TPU path writes them as matmuls for the MXU. Depth
-stays float32 end to end. The train half (jittered boxes, GT labels) is
-not ported yet.
+the device once whatever the number of ROIs; per-instance GT maps ride the
+ROI axis. The crops are gathers (``ops/warp.py``); the TPU path writes them
+as matmuls for the MXU. Depth stays float32 end to end.
+
+The DZI draws cannot match JAX's threefry, so they are an input: pass
+``center_scale`` to use given boxes, or a ``torch.Generator`` (on the
+tensors' device) for the uniform / roi10d draws. Colour augmentation is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -19,21 +28,58 @@ from __future__ import annotations
 import torch
 
 from ..config import Config
+from ..geometry.allocentric import ego_to_allo_mat
 from ..geometry.camera import backproject_depth, crop_K
+from ..geometry.rotations import mat_to_ortho6d
+from ..ops.binning import quantize_coords
+from ..ops.region import residual_coord_target, xyz_to_region
 from ..ops.warp import crop_affine, crop_resize_frames
 
 
 def dzi_jitter(bbox_xyxy: torch.Tensor, im_hw: tuple[int, int],
-               pad_scale: float = 1.5, enable: bool = False
+               dzi_type: str = "uniform", pad_scale: float = 1.5,
+               scale_ratio: float = 0.25, shift_ratio: float = 0.25,
+               enable: bool = False,
+               generator: torch.Generator | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Test-time dynamic-zoom-in box: bbox [..., 4] -> (center [..., 2],
-    scale [...] = max side * pad_scale, clipped to [1, max(H, W)])."""
-    if enable:
-        raise NotImplementedError("DZI jitter belongs to training, which "
-                                  "is not ported yet")
+    """Dynamic-zoom-in box: bbox [B, 4] (xyxy) -> (center [B, 2],
+    scale [B] clipped to [1, max(H, W)]).
+
+    ``enable=False`` gives the test-time box (center, max side *
+    pad_scale). Enabled, ``uniform`` scales the side by 1 + scale_ratio*r
+    and shifts the center by shift_ratio*(w, h)*r, r ~ U(-1, 1);
+    ``roi10d`` moves each corner by up to 15% of the box side and clips
+    it to the frame. Draws come from ``generator``."""
     x1, y1, x2, y2 = bbox_xyxy.unbind(-1)
-    center = torch.stack([0.5 * (x1 + x2), 0.5 * (y1 + y2)], dim=-1)
-    scale = torch.maximum(y2 - y1, x2 - x1) * pad_scale
+    cx, cy = 0.5 * (x1 + x2), 0.5 * (y1 + y2)
+    bw, bh = x2 - x1, y2 - y1
+    side = torch.maximum(bh, bw)
+    B = bbox_xyxy.shape[0]
+
+    def draw(n, lo, hi):
+        r = torch.rand((B, n), generator=generator, dtype=torch.float32,
+                       device=bbox_xyxy.device)
+        return lo + (hi - lo) * r
+
+    if enable and dzi_type == "uniform":
+        r = draw(3, -1.0, 1.0)
+        center = torch.stack([cx + bw * shift_ratio * r[:, 1],
+                              cy + bh * shift_ratio * r[:, 2]], dim=-1)
+        scale = side * (1.0 + scale_ratio * r[:, 0]) * pad_scale
+    elif enable and dzi_type == "roi10d":
+        r = draw(4, -0.15, 0.15)
+        nx1 = (x1 + bw * r[:, 0]).clamp(0.0, float(im_hw[1]))
+        nx2 = (x2 + bw * r[:, 1]).clamp(0.0, float(im_hw[1]))
+        ny1 = (y1 + bh * r[:, 2]).clamp(0.0, float(im_hw[0]))
+        ny2 = (y2 + bh * r[:, 3]).clamp(0.0, float(im_hw[0]))
+        center = torch.stack([0.5 * (nx1 + nx2), 0.5 * (ny1 + ny2)], dim=-1)
+        scale = torch.maximum(ny2 - ny1, nx2 - nx1) * pad_scale
+    elif enable and dzi_type not in ("none", ""):
+        raise NotImplementedError(f"DZI type {dzi_type!r} not implemented "
+                                  "(use uniform | roi10d | none)")
+    else:
+        center = torch.stack([cx, cy], dim=-1)
+        scale = side * pad_scale
     return center, scale.clamp(1.0, float(max(im_hw)))
 
 
@@ -56,21 +102,40 @@ def _backproject_crop(depth_crop: torch.Tensor, K: torch.Tensor,
     return backproject_depth(depth_crop / resize_ratio[:, None, None], Kc)
 
 
-def preprocess_rois_grouped(cfg: Config, frames: dict[str, torch.Tensor],
-                            rois: dict[str, torch.Tensor],
-                            train: bool = False) -> dict[str, torch.Tensor]:
-    """Eval preprocessing of B ROIs cut from F frames (frame-deduplicated:
+_GT_FRAME_KEYS = ("xyz", "mask_visib", "mask_trunc")
+
+
+def preprocess_rois_grouped(
+        cfg: Config, frames: dict[str, torch.Tensor],
+        rois: dict[str, torch.Tensor], train: bool = False,
+        generator: torch.Generator | None = None,
+        center_scale: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> dict[str, torch.Tensor]:
+    """Preprocessing of B ROIs cut from F frames (frame-deduplicated:
     many ROIs share few frames).
 
     frames: rgb [F,H,W,3] (0..255, uint8 welcome), depth [F,H,W] metres or
     depth_raw [F,H,W] + depth_factor [F], K [F,3,3].
     rois: frame_idx [B] plus bbox [B,4] (xyxy), fps [B,K,3], extent [B,3];
-    roi_points / sym_rots / roi_cls pass through when present.
+    roi_points / sym_rots / roi_cls pass through when present. In train
+    mode also gt_rot [B,3,3], gt_trans [B,3], centroid_2d [B,2], and the
+    per-ROI GT maps: mask_packed [B,h,w] uint8 (visib bit 0, trunc bit 1)
+    or mask_visib [B,h,w] (+ mask_trunc), and optionally xyz [B,h,w,3]
+    (float16 welcome) with xyz_offset [B,2] when the maps are crops whose
+    top-left sits at that frame pixel. Without xyz, model-frame coords
+    come from the depth surface. ``center_scale`` replaces the DZI box;
+    ``generator`` drives its draws.
     """
-    if train:
-        raise NotImplementedError("train-mode preprocessing is not ported "
-                                  "yet")
     d = cfg.data
+    if train and any(k in frames for k in _GT_FRAME_KEYS):
+        # per-instance GT cannot live on the shared frame axis: two ROIs
+        # of different objects in one frame would share one's targets
+        raise ValueError(
+            "preprocess_rois_grouped(train=True) with per-instance GT "
+            "maps on the frame axis; pass GT maps per ROI instead")
+    if train and d.color_aug_prob > 0:
+        raise NotImplementedError("data.color_aug_prob > 0: colour "
+                                  "augmentation is not ported")
     input_res, out_res = d.input_res, d.out_res
     rgb_full = frames["rgb"]
     H, W = rgb_full.shape[1], rgb_full.shape[2]
@@ -84,7 +149,12 @@ def preprocess_rois_grouped(cfg: Config, frames: dict[str, torch.Tensor],
     bbox = rois["bbox"].float()
     K = frames["K"].float()[fidx]
 
-    center, scale = dzi_jitter(bbox, (H, W), d.dzi_pad_scale)
+    if center_scale is not None:
+        center, scale = (t.float() for t in center_scale)
+    else:
+        center, scale = dzi_jitter(
+            bbox, (H, W), d.dzi_type, d.dzi_pad_scale, d.dzi_scale_ratio,
+            d.dzi_shift_ratio, enable=train, generator=generator)
     bw = (bbox[:, 2] - bbox[:, 0]).clamp_min(1.0)
     bh = (bbox[:, 3] - bbox[:, 1]).clamp_min(1.0)
     resize_ratio = out_res / scale
@@ -100,9 +170,9 @@ def preprocess_rois_grouped(cfg: Config, frames: dict[str, torch.Tensor],
                                   out_res)
     roi_img = torch.cat([rgb, depth_xyz], dim=-1)       # [B, S, S, 6]
 
-    coord2d = crop_resize_frames(coord_2d_map(H, W, dev)[None],
-                                 torch.zeros_like(fidx), center, scale,
-                                 out_res)
+    uv01 = coord_2d_map(H, W, dev)[None]
+    zero_idx = torch.zeros_like(fidx)
+    coord2d = crop_resize_frames(uv01, zero_idx, center, scale, out_res)
     stride = input_res // out_res
     roi_coord_2d = torch.cat([depth_xyz[:, ::stride, ::stride], coord2d],
                              dim=-1)                    # [B, O, O, 5]
@@ -120,14 +190,119 @@ def preprocess_rois_grouped(cfg: Config, frames: dict[str, torch.Tensor],
     for k in ("roi_points", "sym_rots", "roi_cls"):
         if k in rois:
             out[k] = rois[k]
+    if not train:
+        return out
+    out.update(_train_labels(cfg, rois, depth_full, fidx, K, center, scale,
+                             bw, bh, resize_ratio))
+    return out
+
+
+def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
+                  depth_full: torch.Tensor, fidx: torch.Tensor,
+                  K: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
+                  bw: torch.Tensor, bh: torch.Tensor,
+                  resize_ratio: torch.Tensor) -> dict[str, torch.Tensor]:
+    """GT masks, region ids, coordinate targets and pose targets."""
+    out_res = cfg.data.out_res
+    B = fidx.shape[0]
+    own = torch.arange(B, device=fidx.device)      # each ROI's own GT map
+    if "mask_packed" in rois:
+        packed = rois["mask_packed"]
+        visib_in = (packed & 1).float()
+        trunc_in = ((packed >> 1) & 1).float()
+    else:
+        visib_in = rois["mask_visib"].float()
+        trunc_in = rois["mask_trunc"].float() if "mask_trunc" in rois \
+            else None
+    has_trunc = trunc_in is not None
+    fps, extent = rois["fps"].float(), rois["extent"].float()
+    R_gt, t_gt = rois["gt_rot"].float(), rois["gt_trans"].float()
+
+    def nearest(planes, idx, c):
+        return crop_resize_frames(planes, idx, c, scale, out_res,
+                                  interp="nearest")
+
+    if "xyz" in rois:
+        # one stacked nearest crop of the masks and the xyz map
+        xyz_full = rois["xyz"].float()
+        mask_obj = (xyz_full != 0).any(dim=-1).float()
+        planes = [(visib_in * mask_obj)[..., None], mask_obj[..., None],
+                  xyz_full]
+        if has_trunc:
+            planes.append((trunc_in * mask_obj)[..., None])
+        # crop-shipped GT: the maps' top-left sits at xyz_offset
+        gt_center = center if "xyz_offset" not in rois \
+            else center - rois["xyz_offset"].float()
+        stacked = nearest(torch.cat(planes, dim=-1), own, gt_center)
+        roi_mask_visib = stacked[..., 0]
+        roi_mask_obj = stacked[..., 1]
+        roi_xyz_raw = stacked[..., 2:5]
+        roi_mask_trunc = stacked[..., 5] if has_trunc else roi_mask_visib
+    else:
+        # no xyz map: model-frame coords from the depth surface, after the
+        # nearest crop, which picks one source pixel (u, v) per output
+        # pixel; xyz = R^T (p_cam - t) of its back-projection
+        H, W = depth_full.shape[1], depth_full.shape[2]
+        v, u = torch.meshgrid(
+            torch.arange(H, dtype=torch.float32, device=fidx.device),
+            torch.arange(W, dtype=torch.float32, device=fidx.device),
+            indexing="ij")
+        uv = nearest(torch.stack([u, v], dim=-1)[None],
+                     torch.zeros_like(fidx), center)
+        depth_c = nearest(depth_full, fidx, center)
+        masks = [visib_in] + ([trunc_in] if has_trunc else [])
+        mask_c = nearest(torch.stack(masks, dim=-1), own, center)
+        m = (depth_c > 1e-6).float() * mask_c[..., 0]
+        fx, fy = K[:, 0, 0, None, None], K[:, 1, 1, None, None]
+        px, py = K[:, 0, 2, None, None], K[:, 1, 2, None, None]
+        pc = torch.stack([(uv[..., 0] - px) * depth_c / fx,
+                          (uv[..., 1] - py) * depth_c / fy, depth_c], dim=-1)
+        roi_xyz_raw = torch.einsum("bhwj,bjk->bhwk",
+                                   pc - t_gt[:, None, None, :],
+                                   R_gt) * m[..., None]
+        roi_mask_obj = roi_mask_visib = m
+        roi_mask_trunc = mask_c[..., 1] * m if has_trunc else m
+
+    roi_xyz_raw = roi_xyz_raw.contiguous()
+    if cfg.head.coord_residual:
+        region, coord = residual_coord_target(roi_xyz_raw, fps, R_gt, extent)
+    else:
+        # GDR-Net absolute mode: extent-normalized model coordinates
+        region, _ = xyz_to_region(roi_xyz_raw, fps)
+        coord = roi_xyz_raw / extent[:, None, None, :] + 0.5
+
+    delta_c = rois["centroid_2d"].float() - center
+    trans_ratio = torch.stack([delta_c[:, 0] / bw, delta_c[:, 1] / bh,
+                               t_gt[:, 2] / resize_ratio], dim=-1)
+    out = {
+        "roi_mask_trunc": roi_mask_trunc,
+        "roi_mask_visib": roi_mask_visib,
+        "roi_mask_obj": roi_mask_obj,
+        "roi_xyz": coord,
+        "roi_region": region,
+        "gt_rot": R_gt,
+        "gt_trans": t_gt,
+        "trans_ratio": trans_ratio,
+        "gt_allo_rot6d": mat_to_ortho6d(ego_to_allo_mat(t_gt, R_gt)),
+    }
+    if cfg.head.xyz_loss == "CE_coor":
+        masks = {"trunc": roi_mask_trunc, "visib": roi_mask_visib,
+                 "obj": roi_mask_obj}
+        out["roi_xyz_bin"] = quantize_coords(
+            coord, masks[cfg.head.xyz_loss_mask], cfg.head.xyz_bin)
     return out
 
 
 def preprocess_roi(cfg: Config, sample: dict[str, torch.Tensor],
-                   train: bool = False) -> dict[str, torch.Tensor]:
+                   train: bool = False,
+                   generator: torch.Generator | None = None,
+                   center_scale: tuple[torch.Tensor, torch.Tensor]
+                   | None = None) -> dict[str, torch.Tensor]:
     """One ROI: sample holds the full frame (rgb [H,W,3], depth [H,W] or
-    depth_raw + depth_factor, K [3,3]) and bbox [4], fps [K,3],
-    extent [3]. Returns the unbatched network inputs."""
+    depth_raw + depth_factor, K [3,3]) and bbox [4], fps [K,3], extent [3]
+    (+ the train keys of ``preprocess_rois_grouped``, unbatched).
+    ``center_scale`` is (center [2], scale []). Returns the unbatched
+    network inputs (and labels)."""
     frame_keys = ("rgb", "depth", "depth_raw", "depth_factor", "K")
     frames = {k: torch.as_tensor(sample[k])[None] for k in frame_keys
               if k in sample}
@@ -135,5 +310,9 @@ def preprocess_roi(cfg: Config, sample: dict[str, torch.Tensor],
             if k not in frame_keys}
     rois["frame_idx"] = torch.zeros(1, dtype=torch.long,
                                     device=frames["rgb"].device)
-    out = preprocess_rois_grouped(cfg, frames, rois, train)
+    if center_scale is not None:
+        center_scale = tuple(torch.as_tensor(t).reshape(shape) for t, shape
+                             in zip(center_scale, ((1, 2), (1,))))
+    out = preprocess_rois_grouped(cfg, frames, rois, train, generator,
+                                  center_scale)
     return {k: v[0] for k, v in out.items()}

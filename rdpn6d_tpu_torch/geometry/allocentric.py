@@ -1,4 +1,4 @@
-"""Allocentric -> egocentric rotation conversion.
+"""Allocentric <-> egocentric rotation conversion.
 
 Counterpart of ``rdpn6d_tpu/geometry/allocentric.py``: the correction
 rotates the optical axis (0,0,1) onto the ray to the object centroid, in
@@ -28,5 +28,14 @@ def _rotation_cam_to_obj(translation: torch.Tensor,
 
 def allo_to_ego_mat(translation: torch.Tensor, rot_allo: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
-    """R_ego = R_corr(t) @ R_allo. translation [..., 3], rot [..., 3, 3]."""
-    return _rotation_cam_to_obj(translation, eps) @ rot_allo
+    """R_ego = R_corr(t) @ R_allo. translation [..., 3], rot [..., 3, 3]
+    (the product in the wider of the two dtypes)."""
+    corr = _rotation_cam_to_obj(translation, eps)
+    dt = torch.promote_types(corr.dtype, rot_allo.dtype)
+    return corr.to(dt) @ rot_allo.to(dt)
+
+
+def ego_to_allo_mat(translation: torch.Tensor, rot_ego: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """R_allo = R_corr(t)^T @ R_ego, the inverse correction."""
+    return _rotation_cam_to_obj(translation, eps).transpose(-1, -2) @ rot_ego

@@ -32,6 +32,11 @@ def ortho6d_to_mat(o6d: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)  # columns
 
 
+def mat_to_ortho6d(rot: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 6]: the first two columns."""
+    return torch.cat([rot[..., :, 0], rot[..., :, 1]], dim=-1)
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """[..., 4] (w,x,y,z), auto-normalized -> [..., 3, 3]."""
     q = normalize(q)

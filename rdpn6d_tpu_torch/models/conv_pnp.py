@@ -1,11 +1,12 @@
 """Patch-PnP: a small CNN regressing rotation and centroid/z from the dense
 correspondence features.
 
-Counterpart of ``rdpn6d_tpu/models/conv_pnp.py:ConvPnPNet`` in eval mode
-(DropBlock belongs to training and is not ported yet), NCHW, with the
-reference's ``pnp_net.*`` names: ``features`` = (conv3x3, norm, relu)
-triples, then ``fc1``, ``fc2``, ``fc_r``, ``fc_t``. ``fc1`` reads the
-feature map flattened NCHW, as the reference does.
+Counterpart of ``rdpn6d_tpu/models/conv_pnp.py`` (``dropblock``,
+``ConvPnPNet``), NCHW, with the reference's ``pnp_net.*`` names:
+``features`` = (conv3x3, norm, relu) triples, then ``fc1``, ``fc2``,
+``fc_r``, ``fc_t``. ``fc1`` reads the feature map flattened NCHW, as the
+reference does. In train mode with ``drop_prob > 0`` DropBlock masks the
+input map first.
 """
 
 from __future__ import annotations
@@ -14,15 +15,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .heads import make_norm
+from .norm import make_norm
+
+
+def dropblock(x: torch.Tensor, drop_prob: float, block_size: int = 5,
+              generator: torch.Generator | None = None,
+              seeds: torch.Tensor | None = None) -> torch.Tensor:
+    """DropBlock on x [B, C, H, W]: zero block_size² patches around seed
+    pixels drawn with rate gamma = drop_prob / block_size² (the vendored
+    variant: no edge correction), then rescale by the keep rate taken over
+    the WHOLE batch. ``seeds`` [B, 1, H, W] (0/1) replaces the draw from
+    ``generator``."""
+    B, _, H, W = x.shape
+    if seeds is None:
+        gamma = drop_prob / block_size ** 2
+        u = torch.rand((B, 1, H, W), generator=generator, device=x.device)
+        seeds = (u < gamma).to(x.dtype)
+    block = F.max_pool2d(seeds.to(x.dtype), block_size, stride=1,
+                         padding=block_size // 2)
+    mask = 1.0 - block
+    keep = mask.mean()                      # batch-global keep rate
+    return x * mask / keep.clamp_min(1e-6)
 
 
 class ConvPnPNet(nn.Module):
     def __init__(self, in_channels: int, rot_dim: int = 6,
                  featdim: int = 128, num_layers: int = 3,
                  gn_groups: int = 32, norm: str = "GN",
-                 in_res: int = 64):
+                 in_res: int = 64, drop_prob: float = 0.0,
+                 drop_block_size: int = 5):
         super().__init__()
+        self.drop_prob, self.drop_block_size = drop_prob, drop_block_size
         layers: list[nn.Module] = []
         res, cin = in_res, in_channels
         for i in range(num_layers):
@@ -41,10 +64,14 @@ class ConvPnPNet(nn.Module):
                 region: torch.Tensor | None = None,
                 extents: torch.Tensor | None = None,
                 mask_attention: torch.Tensor | None = None,
-                mask_concat: torch.Tensor | None = None):
+                mask_concat: torch.Tensor | None = None,
+                drop_scale: float = 1.0,
+                generator: torch.Generator | None = None):
         """coord_feat [B, C, 64, 64]; region [B, K, 64, 64] softmax;
-        extents [B, 3]; mask_attention / mask_concat [B, 1, 64, 64].
-        Returns float32 (rot_param [B, rot_dim], trans_param [B, 3])."""
+        extents [B, 3]; mask_attention / mask_concat [B, 1, 64, 64];
+        drop_scale ramps DropBlock's rate, whose draw comes from
+        ``generator``. Returns float32 (rot_param [B, rot_dim],
+        trans_param [B, 3])."""
         x = coord_feat
         # the reference denormalizes only bare coordinate assemblies
         # (3, 5, 6 or 8 channels, judged before region/mask concat)
@@ -60,6 +87,9 @@ class ConvPnPNet(nn.Module):
             x = x * mask_attention
         if mask_concat is not None:
             x = torch.cat([x, mask_concat], dim=1)
+        if self.training and self.drop_prob > 0:
+            x = dropblock(x, self.drop_prob * drop_scale,
+                          self.drop_block_size, generator)
         x = self.features(x.to(self.fc1.weight.dtype))
         x = x.flatten(1)
         x = F.leaky_relu(self.fc1(x), 0.1)

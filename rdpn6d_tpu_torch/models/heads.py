@@ -14,14 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import upsample_bilinear_align_corners
-
-
-def make_norm(kind: str, channels: int, gn_groups: int) -> nn.Module:
-    if kind == "BN":
-        return nn.BatchNorm2d(channels, eps=1e-5)
-    if kind == "GN":
-        return nn.GroupNorm(gn_groups, channels, eps=1e-6)  # flax's eps
-    raise ValueError(f"unknown norm: {kind}")
+from .norm import make_norm
 
 
 class DenseHead(nn.Module):

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .norm import BatchNorm2d
+
 
 class SpatialPointNet(nn.Module):
     widths = (64, 128, 256, 512)
@@ -21,13 +23,13 @@ class SpatialPointNet(nn.Module):
         widths = self.widths
         self.out_channels = 2 * widths[3]
         self.xyz_emb = nn.Conv2d(in_channels, widths[0], 1)
-        self.xb = nn.BatchNorm2d(widths[0])
+        self.xb = BatchNorm2d(widths[0])
         self.conv1 = nn.Conv2d(3 + widths[0], widths[1], 1)
-        self.b1 = nn.BatchNorm2d(widths[1])
+        self.b1 = BatchNorm2d(widths[1])
         self.conv2 = nn.Conv2d(widths[1], widths[2], 1)
-        self.b2 = nn.BatchNorm2d(widths[2])
+        self.b2 = BatchNorm2d(widths[2])
         self.conv3 = nn.Conv2d(widths[2], widths[3], 1)
-        self.b3 = nn.BatchNorm2d(widths[3])
+        self.b3 = BatchNorm2d(widths[3])
 
     def forward(self, feat: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
         """feat [B, C, H, W]; xyz [B, 3, H, W] -> [B, 1024, H, W]."""

@@ -1,12 +1,14 @@
 """RDPN top module: backbone -> fusion -> dense head -> Patch-PnP -> pose.
 
-Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN`` in eval mode, without
-int8 and remat. Submodules carry the reference checkpoint's names
-(``backbone.*``, ``backbone.spatial_net.*``, ``rot_head_net.features.*``,
-``pnp_net.*``), so ``state_dict()`` has the reference layout. The forward
-takes and returns the JAX package's layout (channels last); inside, the
-network runs NCHW in the parameters' dtype, with logits, the PnP outputs
-and the pose recovery in float32.
+Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN``, without int8 and remat.
+Submodules carry the reference checkpoint's names (``backbone.*``,
+``backbone.spatial_net.*``, ``rot_head_net.features.*``, ``pnp_net.*``), so
+``state_dict()`` has the reference layout; ``loss.use_mtl`` adds the
+``log_var_*`` parameters at the top. The forward takes and returns the JAX
+package's layout (channels last); inside, the network runs NCHW in the
+parameters' dtype (or under the caller's autocast), with logits, the PnP
+outputs and the pose recovery in float32. ``train()`` mode is the JAX
+package's ``train=True``: batch-statistics BatchNorm and DropBlock.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ from .pointnet import SpatialPointNet
 from .resnet import ResNetTrunk
 
 
+MTL_LOSSES = ("mask", "coor_x", "coor_y", "coor_z", "region")
+
+
 def head_out_res(cfg: Config) -> int:
     """Side of the dense head's maps: trunk /32, ×4 upsample, ×2 convT,
     ×2 per layer past the third."""
@@ -61,9 +66,6 @@ class RDPN(nn.Module):
             raise NotImplementedError(
                 f"pnp_head={pnp.pnp_head!r} r_only={pnp.r_only}: only "
                 "ConvPnPNet without TransHead is ported yet")
-        if cfg.loss.use_mtl:
-            raise NotImplementedError("loss.use_mtl belongs to training, "
-                                      "which is not ported yet")
         self.cfg = cfg
         self.backbone = ResNetTrunk(cfg.backbone.depth)
         ch = self.backbone.stage_channels
@@ -84,17 +86,26 @@ class RDPN(nn.Module):
         self.pnp_net = ConvPnPNet(
             pnp_in_channels(cfg), rot_dim=pnp.rot_dim, featdim=pnp.featdim,
             num_layers=pnp.num_layers, gn_groups=pnp.gn_groups,
-            norm=pnp.norm, in_res=head_out_res(cfg))
+            norm=pnp.norm, in_res=head_out_res(cfg),
+            drop_prob=pnp.drop_prob)
+        if cfg.loss.use_mtl:
+            # uncertainty weights s_i = log sigma_i^2 (loss * exp(-s) + s)
+            for name in MTL_LOSSES:
+                self.register_parameter(f"log_var_{name}",
+                                        nn.Parameter(torch.zeros(1)))
 
     @property
     def dtype(self) -> torch.dtype:
         return self.backbone.conv1.weight.dtype
 
-    def forward(self, batch: dict[str, torch.Tensor]
+    def forward(self, batch: dict[str, torch.Tensor],
+                drop_scale: float = 1.0,
+                generator: torch.Generator | None = None
                 ) -> dict[str, torch.Tensor]:
         """batch: roi_img [B,S,S,6] (rgb + depth xyz), roi_coord_2d
         [B,O,O,5], fps [B,K,3], roi_extent [B,3], roi_cam [B,3,3],
-        bbox_center [B,2], roi_wh [B,2], resize_ratio [B], roi_cls [B]."""
+        bbox_center [B,2], roi_wh [B,2], resize_ratio [B], roi_cls [B].
+        ``drop_scale`` and ``generator`` drive DropBlock in train mode."""
         cfg = self.cfg
         h, pnp = cfg.head, cfg.pnp
         img = batch["roi_img"].permute(0, 3, 1, 2)
@@ -107,6 +118,10 @@ class RDPN(nn.Module):
             skip64, skip32 = skips[0], skips[1]
         else:
             feat = self.backbone(rgb)
+        if cfg.backbone.freeze:   # the trunk takes no gradient
+            feat = feat.detach()
+            skip64 = None if skip64 is None else skip64.detach()
+            skip32 = None if skip32 is None else skip32.detach()
         h8, w8 = feat.shape[2], feat.shape[3]
         feat = upsample_bilinear_align_corners(feat, h8 * 4, w8 * 4)
         xyz32 = downsample_nearest_torch(depth_xyz, h8 * 4,
@@ -155,7 +170,8 @@ class RDPN(nn.Module):
             if pnp.region_attention else None
         rot_param, t_param = self.pnp_net(
             coord_feat, region=region_atten, extents=batch["roi_extent"],
-            mask_attention=mask_atten, mask_concat=mask_concat)
+            mask_attention=mask_atten, mask_concat=mask_concat,
+            drop_scale=drop_scale, generator=generator)
 
         if "rot6d" in pnp.rot_type:
             rot_m = ortho6d_to_mat(rot_param)
@@ -169,16 +185,22 @@ class RDPN(nn.Module):
         else:
             rot_m = quat_to_mat(rot_param)
 
-        rot_ego, trans = recover_pose_centroid_z(
-            rot_m, centroid_rel=t_param[:, :2], z_rel=t_param[:, 2],
-            K=batch["roi_cam"], bbox_center=batch["bbox_center"],
-            bbox_wh=batch["roi_wh"], resize_ratio=batch["resize_ratio"],
-            z_type=pnp.z_type, is_allo=pnp.is_allo)
+        # float32 even under autocast, which would take the 3x3 products
+        # to bf16
+        with torch.autocast(rot_m.device.type, enabled=False):
+            rot_ego, trans = recover_pose_centroid_z(
+                rot_m, centroid_rel=t_param[:, :2], z_rel=t_param[:, 2],
+                K=batch["roi_cam"], bbox_center=batch["bbox_center"],
+                bbox_wh=batch["roi_wh"], resize_ratio=batch["resize_ratio"],
+                z_type=pnp.z_type, is_allo=pnp.is_allo)
 
         def nhwc(x):
             return x.permute(0, 2, 3, 1)
 
+        extra = {f"log_var_{n}": getattr(self, f"log_var_{n}")[0]
+                 for n in MTL_LOSSES} if cfg.loss.use_mtl else {}
         return {
+            **extra,
             "mask_logits": nhwc(mask_logits),
             "coord": nhwc(coord3),
             "coord_out": nhwc(coord_out),

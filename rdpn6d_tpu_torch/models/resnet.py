@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .norm import BatchNorm2d
+
 RESNET_SPECS: dict[int, tuple[str, tuple[int, ...]]] = {
     18: ("basic", (2, 2, 2, 2)),
     34: ("basic", (3, 4, 6, 3)),
@@ -21,8 +23,8 @@ RESNET_SPECS: dict[int, tuple[str, tuple[int, ...]]] = {
 }
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)  # flax momentum 0.9
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c)  # flax momentum 0.9, eps 1e-5
 
 
 class BasicBlock(nn.Module):

@@ -1,11 +1,23 @@
-"""Coordinate-bin decoding for the CE_coor head mode.
+"""Coordinate bins for the CE_coor head mode: quantization of the targets
+and the soft decode of the logits.
 
-Counterpart of ``rdpn6d_tpu/ops/binning.py:expected_coord_from_bins``.
+Counterpart of ``rdpn6d_tpu/ops/binning.py`` (``quantize_coords``,
+``expected_coord_from_bins``).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def quantize_coords(coord: torch.Tensor, mask: torch.Tensor,
+                    num_bins: int) -> torch.Tensor:
+    """[..., H, W, 3] coords in [0, 1] -> int32 bins 0..num_bins-1;
+    pixels where mask [..., H, W] is 0 take the background bin num_bins."""
+    bins = torch.floor(coord.clamp(0.0, 0.999999) * num_bins).to(
+        torch.int32)
+    return torch.where(mask[..., None] > 0, bins,
+                       torch.full_like(bins, num_bins))
 
 
 def expected_coord_from_bins(logits: torch.Tensor,

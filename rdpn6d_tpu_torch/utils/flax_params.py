@@ -1,5 +1,6 @@
 """The weight carrier: a flax ``params``/``batch_stats`` tree, as numpy,
-to the port's ``state_dict``.
+to the port's ``state_dict`` -- and a flax gradient tree (the params
+structure) to the port's parameter names.
 
 The JAX package saves served weights as a pickle of numpy trees
 (``engine/predictor.py``'s ``params_pkl``), named by flax's auto-naming:
@@ -15,7 +16,7 @@ Layouts: conv kernels HWIO -> OIHW; the transposed conv's
 [kh, kw, out, in] -> [in, out, kh, kw]; dense kernels [in, out] -> [out, in];
 ``fc1``'s input axis from flax's NHWC flatten order to torch's NCHW one,
 over the PnP net's own output map (derived from the config, not assumed
-8x8).
+8x8). ``loss.use_mtl``'s ``log_var_*`` leaves sit at the top of both.
 """
 
 from __future__ import annotations
@@ -43,12 +44,14 @@ class _Tree:
                 self.missing.append(f"{coll}/" + "/".join(path))
                 return None
             node = node[k]
-        return np.asarray(node, np.float32)
+        arr = np.asarray(node)     # float64 trees keep their precision
+        return arr if arr.dtype == np.float64 else arr.astype(np.float32)
 
 
 class _Writer:
-    def __init__(self, tree: _Tree):
+    def __init__(self, tree: _Tree, with_stats: bool = True):
         self.t = tree
+        self.with_stats = with_stats
         self.sd: dict[str, np.ndarray] = {}
 
     def put(self, key: str, value, fn=None):
@@ -72,6 +75,8 @@ class _Writer:
     def bn(self, key: str, path: tuple[str, ...]):
         self.put(key + ".weight", self.t.get("params", path + ("scale",)))
         self.put(key + ".bias", self.t.get("params", path + ("bias",)))
+        if not self.with_stats:
+            return
         self.put(key + ".running_mean",
                  self.t.get("batch_stats", path + ("mean",)))
         self.put(key + ".running_var",
@@ -163,17 +168,19 @@ def pnp_out_res(cfg: Config) -> int:
     return res
 
 
-def carry(fill, params: dict, batch_stats: dict | None = None
-          ) -> dict[str, torch.Tensor]:
+def carry(fill, params: dict, batch_stats: dict | None = None,
+          with_stats: bool = True) -> dict[str, torch.Tensor]:
     """Run ``fill(writer)`` (which names the leaves to map, e.g.
     ``lambda w: pnp_state(w, 3, "GN", 128, 8, "", ())`` for one
     submodule) over a flax tree and return the torch tensors.
+    ``with_stats=False`` maps the parameters only (BatchNorm running
+    statistics and counters are left out).
 
     Raises ValueError naming the missing leaves when the tree does not
     cover what ``fill`` asks for: a partial tree would serve random-init
     weights."""
     tree = _Tree(params, batch_stats or {})
-    w = _Writer(tree)
+    w = _Writer(tree, with_stats)
     fill(w)
     if tree.missing:
         some = sorted(tree.missing)[:5]
@@ -184,10 +191,7 @@ def carry(fill, params: dict, batch_stats: dict | None = None
     return {k: torch.from_numpy(np.array(v)) for k, v in w.sd.items()}
 
 
-def state_dict_from_flax(cfg: Config, params: dict,
-                         batch_stats: dict | None = None,
-                         ) -> dict[str, torch.Tensor]:
-    """Map a flax RDPN tree (numpy leaves) to the port's ``state_dict``."""
+def _rdpn_fill(cfg: Config):
     def fill(w: _Writer) -> None:
         resnet_state(w, cfg.backbone.depth, "backbone", ("backbone",))
         pointnet_state(w, "backbone.spatial_net", ("spatial_net",))
@@ -195,5 +199,24 @@ def state_dict_from_flax(cfg: Config, params: dict,
                    ("dense_head",))
         pnp_state(w, cfg.pnp.num_layers, cfg.pnp.norm, cfg.pnp.featdim,
                   pnp_out_res(cfg), "pnp_net", ("pnp_net",))
+        if cfg.loss.use_mtl:
+            from ..models.rdpn import MTL_LOSSES
 
-    return carry(fill, params, batch_stats)
+            for name in MTL_LOSSES:
+                w.put(f"log_var_{name}",
+                      w.t.get("params", (f"log_var_{name}",)))
+    return fill
+
+
+def state_dict_from_flax(cfg: Config, params: dict,
+                         batch_stats: dict | None = None,
+                         ) -> dict[str, torch.Tensor]:
+    """Map a flax RDPN tree (numpy leaves) to the port's ``state_dict``."""
+    return carry(_rdpn_fill(cfg), params, batch_stats)
+
+
+def grads_from_flax(cfg: Config, grads: dict) -> dict[str, torch.Tensor]:
+    """Map a flax gradient tree (the ``params`` structure) onto the port's
+    parameter names, in the port's layouts: the keys of
+    ``RDPN.named_parameters()``."""
+    return carry(_rdpn_fill(cfg), grads, with_stats=False)

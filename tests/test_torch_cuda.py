@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against
-their plain versions on the card, and the entry points' default device.
+their plain versions on the card, one lm13 train step on the card, and the
+entry points' default device.
 
 They skip where there is no card. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
@@ -13,6 +14,7 @@ import torch
 
 from rdpn6d_tpu_torch.ops import cuda_build
 from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
+from rdpn6d_tpu_torch.ops.region import region_label, region_label_plain
 
 
 @pytest.fixture
@@ -78,3 +80,68 @@ def test_default_device_is_cuda(card):
     from rdpn6d_tpu_torch.utils.device import resolve_device
 
     assert resolve_device(None).type == "cuda"
+
+
+def _label_inputs(B, H, W, K, seed):
+    g = torch.Generator().manual_seed(seed)
+    xyz = (torch.rand(B, H, W, 3, generator=g) - 0.5) * 0.12
+    xyz[torch.rand(B, H, W, generator=g) < 0.3] = 0.0
+    fps = (torch.rand(B, K, 3, generator=g) - 0.5) * 0.1
+    q, _ = torch.linalg.qr(torch.randn(B, 3, 3, generator=g))
+    rot = q * torch.linalg.det(q).sign()[:, None, None]
+    ext = torch.rand(B, 3, generator=g) * 0.15 + 0.05
+    return xyz, fps, rot.contiguous(), ext
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,K", [(1, 7, 5, 3), (3, 33, 31, 17),
+                                     (2, 64, 64, 64), (24, 64, 64, 32)])
+def test_region_label_kernel_matches_plain(card, B, H, W, K):
+    xyz, fps, rot, ext = (t.to(card) for t in _label_inputs(B, H, W, K,
+                                                            H + K))
+    before = cuda_build.LAUNCHES.get("region_label", 0)
+    reg, coord = region_label(xyz, fps, rot, ext)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["region_label"] == before + 1
+    ref_reg, ref_coord = region_label_plain(xyz, fps, rot, ext)
+    # the kernel rounds the distances exactly as the plain version (no
+    # FMA contraction), so the ids agree everywhere
+    assert torch.equal(reg, ref_reg)
+    assert float((coord - ref_coord).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_region_label_kernel_refuses_bad_input(card):
+    xyz, fps, rot, ext = (t.to(card) for t in _label_inputs(2, 8, 8, 65, 0))
+    with pytest.raises(ValueError):
+        region_label(xyz, fps, rot, ext)                # K > 64
+    with pytest.raises(ValueError):
+        region_label(xyz, fps[:, :4].cpu(), rot, ext)   # mixed devices
+
+
+@pytest.mark.cuda
+def test_lm13_train_step_on_card(card):
+    import itertools
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.synthetic import dummy_grouped_inputs
+    from rdpn6d_tpu_torch.engine.trainer import Trainer
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+
+    cfg = lm13.get_config().apply_opts(
+        ['head.init="fan_in"', 'backbone.pretrained=""',
+         "solver.ims_per_batch=4", "train.log_period=1000"])
+    frames, rois = dummy_grouped_inputs(cfg, n_frames=2, rois_per_frame=2,
+                                        im_hw=(480, 640), ship_xyz=True,
+                                        focal=572.0)
+    model = init_weights(RDPN(cfg), torch.Generator().manual_seed(0))
+    trainer = Trainer(cfg, model, total_iters=2)
+    seen = []
+    cuda_build.reset_launches()
+    trainer.train(itertools.repeat({"frames": frames, "rois": rois}),
+                  step_hook=lambda it, m: seen.append(
+                      {k: float(v) for k, v in m.items()}))
+    assert cuda_build.LAUNCHES["region_label"] == 2
+    assert len(seen) == 2
+    assert all(np.isfinite(list(m.values())).all() for m in seen)
+    assert all(m["grad_norm"] > 0 for m in seen)
