@@ -10,8 +10,9 @@ Phases, each fatal on failure:
               with nvcc for sm_90a (in parallel, one nvcc per source);
   2. kernel — each kernel against its plain PyTorch version on the card, at
               ragged shapes and at the shape its path gives it (scoring for
-              ``min_dist2``, the train step for ``region_label``), with
-              kernel, plain, library-call and bound times;
+              ``min_dist2``, the train step for ``gt_labels`` and
+              ``region_label``), with kernel, plain, library-call and bound
+              times;
   3. serve  — the lm13 configuration at full width (ResNet-34, 256² ROIs,
               64² head maps, 32 regions, rot_concat), seeded random
               weights, through ``Predictor.predict``: 3 distinct 480x640
@@ -28,17 +29,23 @@ Phases, each fatal on failure:
               card-resident raw frames: 2 batches of 8 distinct 480x640
               RGB-D frames with 3 rendered cubes each and their per-ROI GT
               (xyz maps, packed masks), preprocessed with ``train=True`` on
-              the card (region labels through the ``region_label`` kernel,
-              whose launch count must rise); every loss finite at every
-              step, ``grad_norm`` finite and > 0, weights and BatchNorm
+              the card (masks, region ids and coordinate targets through
+              the ``gt_labels`` kernel, whose launch count must rise);
+              every loss finite at every step, ``grad_norm`` finite and
+              > 0, weights and BatchNorm
               statistics moved; median ms/step over steps 3-12, ROIs/s and
               peak memory;
   7. train parity — one float32 step (no TF32) at lm13 full width, 4 ROIs,
               same weights and inputs, on the card and on the CPU: every
-              loss and ``grad_norm`` within 1e-3 relative.
-Kernel launch counts are zeroed right before each path (phases 3-4 and
-phase 6) and read right after it. Output: the card's name and power limit
-(nvidia-smi), one ``{"kernels": [...]}`` JSON line, then
+              loss and ``grad_norm`` within 1e-3 relative;
+  8. labels — ``preprocess_rois_grouped(train=True)`` of 6 ROIs on the card
+              and on the CPU, with GT xyz maps (``gt_labels``) and without
+              (the depth surface's coordinates, ``region_label``); each
+              kernel's launch count must rise, masks equal, region ids on
+              >= 0.999 of the pixels, coordinates within 1e-5.
+Kernel launch counts are zeroed right before each path (phases 3-4, phase
+6 and each run of phase 8) and read right after it. Output: the card's name
+and power limit (nvidia-smi), one ``{"kernels": [...]}`` JSON line, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
 printing no result, without a CUDA device or without the
 ``rdpn6d_tpu_torch`` package beside this file.
@@ -72,6 +79,7 @@ MIN_DIST2_INSTR_PER_PAIR = 7
 # pair up); per pixel 12 B of xyz in, 4 B of region and 12 B of coord out
 REGION_LABEL_INSTR_PER_PAIR = 7
 REGION_LABEL_BYTES_PER_PIXEL = 28
+GT_LABELS_OUT_RES = 64       # lm13's label maps
 TRAIN_STEPS = 12
 TRAIN_ROIS = 24
 
@@ -200,9 +208,10 @@ def physical_z(pred):
     return pred
 
 
-def profile_pass(label: str, run) -> None:
+def profile_pass(label: str, run, rows: int = 15) -> None:
     """Device time by kernel over one pass of ``run()`` (torch.profiler),
-    against the wall time of that pass (synchronized)."""
+    against the wall time of that pass (synchronized), with the number of
+    kernel launches; the ``rows`` largest kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -222,9 +231,10 @@ def profile_pass(label: str, run) -> None:
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events) / 1e3   # ms
     print(f"profile: {label}: wall {secs * 1e3:.1f} ms, device busy "
-          f"{busy:.1f} ms "
-          f"({100 * busy / (secs * 1e3):.1f}%), {len(events)} kernel names")
-    for e in events[:15]:
+          f"{busy:.3f} ms ({100 * busy / (secs * 1e3):.1f}%), "
+          f"{sum(e.count for e in events)} kernel launches of "
+          f"{len(events)} kernel names")
+    for e in events[:rows]:
         print(f"profile: {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
 
@@ -270,6 +280,20 @@ def library_region_label(xyz, fps, rot, ext):
     return region.reshape(B, H, W), coord.reshape(B, H, W, 3)
 
 
+def near_ties(xyz, fps):
+    """Pixels whose two nearest keypoints' squared distances lie within
+    1e-6 of their size (float64 decides which pixels those are): there a
+    region id may differ between two float32 roundings."""
+    import torch
+
+    if fps.shape[1] < 2:
+        return torch.zeros(xyz.shape[:-1], dtype=torch.bool,
+                           device=xyz.device)
+    d2 = ((xyz.double()[..., None, :] - fps.double()[:, None, None])
+          ** 2).sum(-1).sort(-1).values
+    return (d2[..., 1] - d2[..., 0]) <= 1e-6 * d2[..., 1]
+
+
 def check_region_label(dev, card):
     """Phase 2 for ``region_label``: the kernel against its plain version
     at ragged shapes and the train shape; returns (max coord error,
@@ -285,11 +309,7 @@ def check_region_label(dev, card):
         reg, coord = region_label(xyz, fps, rot, ext)
         ref_reg, ref_coord = region_label_plain(xyz, fps, rot, ext)
         torch.cuda.synchronize()
-        # ids may differ only where the two nearest squared distances are
-        # within 1e-6 of their size (float64 decides which pixels those are)
-        d2 = ((xyz.double()[..., None, :] - fps.double()[:, None, None])
-              ** 2).sum(-1).sort(-1).values
-        tie = (d2[..., 1] - d2[..., 0]) <= 1e-6 * d2[..., 1]
+        tie = near_ties(xyz, fps)
         differ = reg != ref_reg
         check(not bool((differ & ~tie).any()),
               f"region_label ids disagree away from ties at {B}x{H}x{W}x{K}")
@@ -325,6 +345,140 @@ def check_region_label(dev, card):
                        bound_ms=bound_ms, bound_by=bound_by)
 
 
+def gt_label_inputs(B, h, w, K, seed, dev, masks, half):
+    """Per-ROI GT maps as the train path ships them: an elliptic object
+    (xyz != 0 inside), a visib mask that spills past it, a trunc mask that
+    differs; ``masks`` "packed" (uint8 bits), "trunc" (float32 visib and
+    trunc) or "visib_only"; xyz in float16 when ``half``. Crop centres
+    anywhere on the map and sides 0.3-1.3x its size, so crops run off its
+    edges. Returns ``gt_labels``' arguments before out_res, on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    c = torch.rand(B, 2, 1, 1, generator=g) * 0.4 + 0.3
+    obj = ((xx - c[:, 0] * w) / (0.3 * w)) ** 2 \
+        + ((yy - c[:, 1] * h) / (0.3 * h)) ** 2 < 1
+    xyz = (torch.rand(B, h, w, 3, generator=g) - 0.5) * 0.12 * obj[..., None]
+    visib = (obj | (torch.rand(B, h, w, generator=g) < 0.1)) \
+        & (torch.rand(B, h, w, generator=g) < 0.9)
+    trunc = visib & (torch.rand(B, h, w, generator=g) < 0.7)
+    if masks == "packed":
+        mask = visib.to(torch.uint8) | (trunc.to(torch.uint8) << 1)
+        trunc = None
+    else:
+        mask = visib.float()
+        trunc = trunc.float() if masks == "trunc" else None
+    center = torch.rand(B, 2, generator=g) * torch.tensor([w, h])
+    scale = (torch.rand(B, generator=g) + 0.3) * max(h, w)
+    _, fps, rot, ext = label_inputs(B, 1, 1, K, seed, "cpu")
+    return [None if t is None else t.contiguous().to(dev) for t in
+            (mask, trunc, xyz.half() if half else xyz, center, scale, fps,
+             rot, ext)]
+
+
+def library_gt_labels(mask, trunc, xyz, center, scale, fps, rot, ext, o):
+    """The yardstick for packed masks: an advanced-index gather of the
+    shipped maps at the rounded taps, then one library distance call
+    (``torch.cdist``), its argmin, the gather and the rotation. Timed
+    only; the port never calls it."""
+    import torch
+
+    B, h, w = mask.shape
+    grid = torch.arange(o, dtype=torch.float32, device=mask.device) - o / 2
+    r = scale[:, None] / o
+    ix = torch.round(center[:, 0:1] + grid * r).long()
+    iy = torch.round(center[:, 1:2] + grid * r).long()
+    valid = ((ix >= 0) & (ix < w))[:, None, :] \
+        & ((iy >= 0) & (iy < h))[:, :, None]
+    b = torch.arange(B, device=mask.device)[:, None, None]
+    yi, xi = iy.clamp(0, h - 1)[:, :, None], ix.clamp(0, w - 1)[:, None, :]
+    x = xyz[b, yi, xi].float() * valid[..., None]
+    bits = mask[b, yi, xi]
+    obj = (x != 0).any(-1)
+    flat = x.reshape(B, o * o, 3)
+    nearest = torch.cdist(flat, fps).argmin(-1)
+    f = torch.gather(fps, 1, nearest[..., None].expand(B, o * o, 3))
+    coord = torch.einsum("bij,bnj->bni", rot, flat - f) / ext[:, None] + 0.5
+    region = torch.where(obj.reshape(B, -1), nearest + 1, 0)
+    return (((bits & 1) > 0) & obj).float(), obj.float(), \
+        ((bits & 2) > 0).logical_and(obj).float(), \
+        region.reshape(B, o, o), coord.reshape(B, o, o, 3)
+
+
+def check_gt_labels(dev, card):
+    """Phase 2 for ``gt_labels``: the kernel against its plain version at
+    ragged shapes and the train shape (24 ROIs of 480x640 maps -> 64², K =
+    32), for both mask kinds, both xyz types and both coordinate modes;
+    returns (max coord error, times at the train shape with packed masks
+    and float16 xyz, the path's inputs)."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
+    from rdpn6d_tpu_torch.ops.warp import crop_resize_frames
+
+    worst = 0.0
+    for (B, h, w, o, K) in [(1, 7, 5, 3, 3), (3, 33, 31, 17, 17),
+                            (2, 100, 90, 33, 64),
+                            (TRAIN_ROIS, 480, 640, GT_LABELS_OUT_RES, 32)]:
+        for masks, half in (("packed", True), ("packed", False),
+                            ("trunc", False), ("visib_only", True)):
+            inp = gt_label_inputs(B, h, w, K, h + K, dev, masks, half)
+            if B == 2:    # every other source coordinate exactly on .5
+                inp[3] = inp[3].round()
+                inp[4] = torch.full_like(inp[4], o / 2)
+            xyz_c = crop_resize_frames(inp[2].float(),
+                                       torch.arange(B, device=dev), inp[3],
+                                       inp[4], o, interp="nearest")
+            tie = near_ties(xyz_c, inp[5])
+            n_differ, case_err = 0, 0.0
+            for residual in (True, False):
+                got = gt_labels(*inp, o, residual=residual)
+                ref = gt_labels_plain(*inp, o, residual=residual)
+                torch.cuda.synchronize()
+                for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+                    check(torch.equal(got[k], ref[k]), f"gt_labels {k} "
+                          f"differs at {B}x{h}x{w}->{o} K={K} {masks}")
+                differ = got["roi_region"] != ref["roi_region"]
+                check(not bool((differ & ~tie).any()), "gt_labels ids "
+                      f"disagree away from ties at {B}x{h}x{w}->{o} K={K}")
+                same = ~differ
+                err = float((got["roi_xyz"] - ref["roi_xyz"]).abs()[same]
+                            .max())
+                check(err <= 1e-5, f"gt_labels coords differ by {err:.3e} "
+                      f"at {B}x{h}x{w}->{o} K={K} {masks}")
+                case_err = max(case_err, err)
+                n_differ += int(differ.sum())
+            worst = max(worst, case_err)
+            print(f"kernel: gt_labels B={B} {h}x{w}->{o} K={K} {masks} "
+                  f"xyz {'float16' if half else 'float32'}: masks equal, ids "
+                  f"differ at {n_differ} px over both modes "
+                  f"({int(tie.sum())} near-ties), coord max_abs_err "
+                  f"{case_err:.3e} (tol 1e-5)")
+    inp = gt_label_inputs(TRAIN_ROIS, 480, 640, 32, 0, dev, "packed", True)
+    o, B, K = GT_LABELS_OUT_RES, TRAIN_ROIS, 32
+    ms = device_ms(lambda: gt_labels(*inp, o), iters=200)
+    plain_ms = device_ms(lambda: gt_labels_plain(*inp, o), iters=20)
+    lib_ms = device_ms(lambda: library_gt_labels(*inp, o), iters=20)
+    pixels = B * o * o
+    # the distance work of region_label; per output pixel its tap of the
+    # packed masks (1 B) and float16 xyz (6 B) in, 3 float32 masks, region
+    # and coord out
+    ops_s = pixels * K * REGION_LABEL_INSTR_PER_PAIR / FP32_INSTR_PER_S
+    bytes_s = (pixels * (1 + 6 + 3 * 4 + 4 + 12)
+               + B * (K * 3 + 9 + 3 + 2 + 1) * 4) / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    bound_by = "operations" if ops_s >= bytes_s else "bytes"
+    print(f"kernel: gt_labels {B}x480x640->{o} K={K} packed masks, float16 "
+          f"xyz, device time: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, "
+          f"gather+cdist {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}) [{card}]")
+    return worst, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+
+
 def train_config(amp: bool):
     """lm13 at full width, seeded fan-in init, no pretrained trunk (the
     torchvision weights are not on disk), 24 ROIs a step."""
@@ -336,14 +490,15 @@ def train_config(amp: bool):
         "train.log_period=1"])
 
 
-def train_inputs(cfg, seed, n_frames, rois_per_frame):
+def train_inputs(cfg, seed, n_frames, rois_per_frame, ship_xyz=True):
     """Raw grouped train inputs: distinct 480x640 frames of rendered cubes
-    with LineMOD's focal length, per-ROI xyz maps and packed masks."""
+    with LineMOD's focal length, packed masks and (``ship_xyz``) per-ROI
+    xyz maps."""
     from rdpn6d_tpu_torch.data.synthetic import dummy_grouped_inputs
 
     frames, rois = dummy_grouped_inputs(
         cfg, n_frames=n_frames, rois_per_frame=rois_per_frame, seed=seed,
-        im_hw=(480, 640), ship_xyz=True, focal=float(K_LM[0, 0]))
+        im_hw=(480, 640), ship_xyz=ship_xyz, focal=float(K_LM[0, 0]))
     n = n_frames * rois_per_frame
     rois["roi_cls"] = (np.arange(n) % cfg.head.num_classes).astype(np.int32)
     return frames, rois
@@ -396,8 +551,8 @@ def run_train(dev, card, profile: bool):
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         check(not bad, f"train step {i + 1}: non-finite {bad}")
         check(m["grad_norm"] > 0, f"train step {i + 1}: zero gradient")
-    check(launches.get("region_label", 0) >= TRAIN_STEPS,
-          f"region_label launched {launches.get('region_label', 0)} times "
+    check(launches.get("gt_labels", 0) >= TRAIN_STEPS,
+          f"gt_labels launched {launches.get('gt_labels', 0)} times "
           f"in {TRAIN_STEPS} train steps")
     after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     params = [n for n, _ in model.named_parameters()]
@@ -490,6 +645,62 @@ def train_parity(dev):
           f"own grad_norm moves {sens:.3e} when the input moves 1e-6)")
 
 
+def labels_card_vs_cpu(dev, card):
+    """Phase 8: the train labels of 6 ROIs (2 frames of 3 cubes, lm13's
+    64² labels, K = 32) on the card and on the CPU, from the same boxes:
+    with GT xyz maps through ``gt_labels``, without them through the
+    depth surface and ``region_label``. Returns each kernel's launches in
+    its own run."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.pipeline import (
+        dzi_jitter,
+        preprocess_rois_grouped,
+    )
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    cfg = train_config(amp=False)
+    launches = {}
+    for kernel, ship_xyz in (("gt_labels", True), ("region_label", False)):
+        frames, rois = train_inputs(cfg, 40, 2, 3, ship_xyz=ship_xyz)
+        frames = {k: torch.from_numpy(v) for k, v in frames.items()}
+        rois = {k: torch.from_numpy(v) for k, v in rois.items()}
+        box = dzi_jitter(rois["bbox"], (480, 640),
+                         pad_scale=cfg.data.dzi_pad_scale)
+        on_dev = [{k: v.to(dev) for k, v in d.items()} for d in (frames, rois)]
+        box_dev = tuple(t.to(dev) for t in box)
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        card_out = preprocess_rois_grouped(cfg, *on_dev, train=True,
+                                           center_scale=box_dev)
+        torch.cuda.synchronize()
+        launches[kernel] = cuda_build.LAUNCHES.get(kernel, 0)
+        check(launches[kernel] >= 1, f"{kernel} was not launched on the "
+              "train labels' path")
+        cpu_out = preprocess_rois_grouped(cfg, frames, rois, train=True,
+                                          center_scale=box)
+        card_out = {k: v.cpu() for k, v in card_out.items()}
+        for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+            check(torch.equal(card_out[k], cpu_out[k]),
+                  f"labels {kernel}: {k} card vs CPU differ")
+        same = card_out["roi_region"] == cpu_out["roi_region"]
+        agree = float(same.float().mean())
+        # with xyz maps both sides take the same taps and the direct
+        # distance form; from the depth surface the back-projection's
+        # einsum sums in another order, and a near-tie may flip
+        check(agree >= 0.999, f"labels {kernel}: ids agree on {agree:.5f}")
+        err = float((card_out["roi_xyz"] - cpu_out["roi_xyz"]).abs()[same]
+                    .max())
+        check(err <= 1e-5, f"labels {kernel}: coords differ by {err:.3e}")
+        fg = float(cpu_out["roi_mask_obj"].mean())
+        check(fg > 0.05, f"labels {kernel}: crops hold {fg:.3f} object")
+        print(f"labels: {'xyz maps' if ship_xyz else 'depth surface'} -> "
+              f"{kernel} x{launches[kernel]}: card vs CPU masks equal, ids "
+              f"agree on {agree:.5f} of {same.numel()} px, coord max diff "
+              f"{err:.3e} (tol 1e-5), object share {fg:.3f} [{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -569,6 +780,7 @@ def main(argv=None) -> int:
           f"{plain_ms:.4f} ms, cdist {lib_ms:.4f} ms, bound {bound_ms:.4f} "
           f"ms ({'operations' if ops_s >= bytes_s else 'bytes'}) [{card}]")
     label_err, label_times = check_region_label(dev, card)
+    gt_err, gt_times = check_gt_labels(dev, card)
 
     # 3. serve ----------------------------------------------------------------
     cfg = lm13.get_config().apply_opts(['head.init="fan_in"'])
@@ -664,6 +876,9 @@ def main(argv=None) -> int:
     # 7. train parity -------------------------------------------------------
     train_parity(dev)
 
+    # 8. labels, card vs CPU --------------------------------------------------
+    label_launches = labels_card_vs_cpu(dev, card)
+
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/min_dist2.cu",
@@ -676,8 +891,13 @@ def main(argv=None) -> int:
         "name": "region_label", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/ops/region.py:21",
-        "launches": train_launches.get("region_label", 0),
-        "max_abs_err": label_err, **label_times}], "card": card}
+        "launches": label_launches["region_label"],
+        "max_abs_err": label_err, **label_times}, {
+        "name": "gt_labels", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
+        "replaces": "rdpn6d_tpu/data/pipeline.py:197",
+        "launches": train_launches.get("gt_labels", 0),
+        "max_abs_err": gt_err, **gt_times}], "card": card}
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

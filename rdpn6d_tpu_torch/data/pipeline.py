@@ -8,9 +8,10 @@ Counterpart of ``rdpn6d_tpu/data/pipeline.py``:
     back-projected through the crop-composed intrinsics -> the 5-channel
     coord map at out_res² (depth xyz strided + the cropped 2-D coordinate
     map); in train mode also the nearest crop of the GT masks and xyz map
-    -> region ids + rotated FPS residuals (``ops/region.region_label``,
-    a CUDA kernel on the card) -> pose targets (trans_ratio, allocentric
-    rot6d) and, for CE_coor, coordinate bins.
+    -> region ids + rotated FPS residuals (``ops/gt_labels.gt_labels``,
+    one CUDA kernel on the card; without a GT xyz map, the depth surface's
+    crop -> ``ops/region.region_label``) -> pose targets (trans_ratio,
+    allocentric rot6d) and, for CE_coor, coordinate bins.
 
 Batched over ROIs, each reading its frame by index, so frames are moved to
 the device once whatever the number of ROIs; per-instance GT maps ride the
@@ -32,6 +33,7 @@ from ..geometry.allocentric import ego_to_allo_mat
 from ..geometry.camera import backproject_depth, crop_K
 from ..geometry.rotations import mat_to_ortho6d
 from ..ops.binning import quantize_coords
+from ..ops.gt_labels import gt_labels
 from ..ops.region import residual_coord_target, xyz_to_region
 from ..ops.warp import crop_affine, crop_resize_frames
 
@@ -204,17 +206,13 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
                   resize_ratio: torch.Tensor) -> dict[str, torch.Tensor]:
     """GT masks, region ids, coordinate targets and pose targets."""
     out_res = cfg.data.out_res
-    B = fidx.shape[0]
-    own = torch.arange(B, device=fidx.device)      # each ROI's own GT map
-    if "mask_packed" in rois:
-        packed = rois["mask_packed"]
-        visib_in = (packed & 1).float()
-        trunc_in = ((packed >> 1) & 1).float()
+    packed = rois.get("mask_packed")
+    if packed is not None:
+        visib_in, trunc_in = packed, None   # bits read where they are cropped
     else:
         visib_in = rois["mask_visib"].float()
         trunc_in = rois["mask_trunc"].float() if "mask_trunc" in rois \
             else None
-    has_trunc = trunc_in is not None
     fps, extent = rois["fps"].float(), rois["extent"].float()
     R_gt, t_gt = rois["gt_rot"].float(), rois["gt_trans"].float()
 
@@ -223,25 +221,30 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
                                   interp="nearest")
 
     if "xyz" in rois:
-        # one stacked nearest crop of the masks and the xyz map
-        xyz_full = rois["xyz"].float()
-        mask_obj = (xyz_full != 0).any(dim=-1).float()
-        planes = [(visib_in * mask_obj)[..., None], mask_obj[..., None],
-                  xyz_full]
-        if has_trunc:
-            planes.append((trunc_in * mask_obj)[..., None])
+        # the nearest crop of the masks and the xyz map, and the labels:
+        # one kernel on the card
+        xyz = rois["xyz"]
+        if xyz.dtype != torch.float16:
+            xyz = xyz.float()
         # crop-shipped GT: the maps' top-left sits at xyz_offset
         gt_center = center if "xyz_offset" not in rois \
             else center - rois["xyz_offset"].float()
-        stacked = nearest(torch.cat(planes, dim=-1), own, gt_center)
-        roi_mask_visib = stacked[..., 0]
-        roi_mask_obj = stacked[..., 1]
-        roi_xyz_raw = stacked[..., 2:5]
-        roi_mask_trunc = stacked[..., 5] if has_trunc else roi_mask_visib
+        labels = gt_labels(visib_in, trunc_in, xyz, gt_center, scale, fps,
+                           R_gt, extent, out_res,
+                           residual=cfg.head.coord_residual)
+        roi_mask_visib = labels["roi_mask_visib"]
+        roi_mask_obj = labels["roi_mask_obj"]
+        roi_mask_trunc = labels["roi_mask_trunc"]
+        region, coord = labels["roi_region"], labels["roi_xyz"]
     else:
         # no xyz map: model-frame coords from the depth surface, after the
         # nearest crop, which picks one source pixel (u, v) per output
         # pixel; xyz = R^T (p_cam - t) of its back-projection
+        if packed is not None:
+            visib_in = (packed & 1).float()
+            trunc_in = ((packed >> 1) & 1).float()
+        has_trunc = trunc_in is not None
+        own = torch.arange(fidx.shape[0], device=fidx.device)  # ROI's maps
         H, W = depth_full.shape[1], depth_full.shape[2]
         v, u = torch.meshgrid(
             torch.arange(H, dtype=torch.float32, device=fidx.device),
@@ -262,14 +265,14 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
                                    R_gt) * m[..., None]
         roi_mask_obj = roi_mask_visib = m
         roi_mask_trunc = mask_c[..., 1] * m if has_trunc else m
-
-    roi_xyz_raw = roi_xyz_raw.contiguous()
-    if cfg.head.coord_residual:
-        region, coord = residual_coord_target(roi_xyz_raw, fps, R_gt, extent)
-    else:
-        # GDR-Net absolute mode: extent-normalized model coordinates
-        region, _ = xyz_to_region(roi_xyz_raw, fps)
-        coord = roi_xyz_raw / extent[:, None, None, :] + 0.5
+        roi_xyz_raw = roi_xyz_raw.contiguous()
+        if cfg.head.coord_residual:
+            region, coord = residual_coord_target(roi_xyz_raw, fps, R_gt,
+                                                  extent)
+        else:
+            # GDR-Net absolute mode: extent-normalized model coordinates
+            region, _ = xyz_to_region(roi_xyz_raw, fps)
+            coord = roi_xyz_raw / extent[:, None, None, :] + 0.5
 
     delta_c = rois["centroid_2d"].float() - center
     trans_ratio = torch.stack([delta_c[:, 0] / bw, delta_c[:, 1] / bh,

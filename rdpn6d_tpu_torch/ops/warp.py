@@ -31,7 +31,11 @@ def crop_affine(center: torch.Tensor, scale: torch.Tensor,
 def _src_coords(centers: torch.Tensor, scales: torch.Tensor,
                 out_size: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-ROI source coordinates (sx, sy), each [B, out]."""
-    r = (scales / out_size)[:, None]
+    # a tensor divisor: on CUDA, torch multiplies by the reciprocal of a
+    # Python-number divisor, which may round r an ulp off scale / out and
+    # move a nearest tap; divided by a tensor, r rounds alike on every
+    # device and in csrc/region_label.cu's gt_labels
+    r = (scales / torch.full_like(scales, out_size))[:, None]
     grid = torch.arange(out_size, dtype=torch.float32,
                         device=centers.device) - out_size / 2.0
     return centers[:, 0:1] + grid * r, centers[:, 1:2] + grid * r

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from rdpn6d_tpu_torch.ops import cuda_build
+from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
 from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
 from rdpn6d_tpu_torch.ops.region import region_label, region_label_plain
+from rdpn6d_tpu_torch.ops.warp import crop_resize_frames
 
 
 @pytest.fixture
@@ -119,6 +121,98 @@ def test_region_label_kernel_refuses_bad_input(card):
         region_label(xyz, fps[:, :4].cpu(), rot, ext)   # mixed devices
 
 
+def _gt_inputs(B, h, w, K, seed, masks, half):
+    """Per-ROI GT maps (an elliptic object, a visib mask spilling past it,
+    a trunc mask that differs), and crops that may run off the maps."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    c = torch.rand(B, 2, 1, 1, generator=g) * 0.4 + 0.3
+    obj = ((xx - c[:, 0] * w) / (0.3 * w)) ** 2 \
+        + ((yy - c[:, 1] * h) / (0.3 * h)) ** 2 < 1
+    xyz = (torch.rand(B, h, w, 3, generator=g) - 0.5) * 0.12 * obj[..., None]
+    visib = (obj | (torch.rand(B, h, w, generator=g) < 0.1)) \
+        & (torch.rand(B, h, w, generator=g) < 0.9)
+    trunc = visib & (torch.rand(B, h, w, generator=g) < 0.7)
+    if masks == "packed":
+        mask, trunc = visib.to(torch.uint8) | (trunc.to(torch.uint8) << 1), \
+            None
+    else:
+        mask = visib.float()
+        trunc = trunc.float() if masks == "trunc" else None
+    center = torch.rand(B, 2, generator=g) * torch.tensor([w, h])
+    scale = (torch.rand(B, generator=g) + 0.3) * max(h, w)
+    _, fps, rot, ext = _label_inputs(B, 1, 1, K, seed)
+    return (mask, trunc, xyz.half() if half else xyz, center, scale, fps,
+            rot, ext)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [True, False])
+@pytest.mark.parametrize("masks", ["packed", "trunc", "visib_only"])
+@pytest.mark.parametrize("B,h,w,out,K", [(1, 7, 5, 3, 3),
+                                         (3, 33, 31, 17, 17),
+                                         (2, 100, 90, 33, 64),
+                                         (24, 480, 640, 64, 32)])
+def test_gt_labels_kernel_matches_plain(card, B, h, w, out, K, masks, half):
+    inp = [None if t is None else t.to(card)
+           for t in _gt_inputs(B, h, w, K, h + K, masks, half)]
+    if B == 2:      # every other source coordinate exactly on .5
+        inp[3] = inp[3].round()
+        inp[4] = torch.full_like(inp[4], out / 2)
+    xyz_c = crop_resize_frames(inp[2].float(), torch.arange(B, device=card),
+                               inp[3], inp[4], out, interp="nearest")
+    d2 = ((xyz_c.double()[..., None, :] - inp[5].double()[:, None, None])
+          ** 2).sum(-1).sort(-1).values
+    tie = (d2[..., 1] - d2[..., 0]) <= 1e-6 * d2[..., 1] if K > 1 \
+        else torch.zeros_like(d2[..., 0], dtype=torch.bool)
+    for residual in (True, False):
+        before = cuda_build.LAUNCHES.get("gt_labels", 0)
+        got = gt_labels(*inp, out, residual=residual)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["gt_labels"] == before + 1
+        ref = gt_labels_plain(*inp, out, residual=residual)
+        for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+            assert torch.equal(got[k], ref[k]), k
+        differ = got["roi_region"] != ref["roi_region"]
+        assert not bool((differ & ~tie).any())
+        same = ~differ
+        assert float((got["roi_xyz"] - ref["roi_xyz"]).abs()[same].max()) \
+            <= 1e-5
+
+
+@pytest.mark.cuda
+def test_crop_source_coords_match_cpu(card):
+    """The crops' source coordinates round alike on the card and the CPU
+    at any out size (the fused kernel computes them the same way), so a
+    nearest tap does not depend on the device."""
+    from rdpn6d_tpu_torch.ops.warp import _src_coords
+
+    g = torch.Generator().manual_seed(0)
+    scales = torch.rand(4096, generator=g) * 600 + 1
+    centers = torch.rand(4096, 2, generator=g) * 640
+    for out in (3, 33, 64, 100):
+        on_card = _src_coords(centers.to(card), scales.to(card), out)
+        for a, b in zip(on_card, _src_coords(centers, scales, out)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_gt_labels_kernel_refuses_bad_input(card):
+    inp = [None if t is None else t.to(card)
+           for t in _gt_inputs(2, 8, 8, 65, 0, "packed", True)]
+    with pytest.raises(ValueError):
+        gt_labels(*inp, 8)                              # K > 64
+    inp[5] = inp[5][:, :4]
+    with pytest.raises(ValueError):
+        gt_labels(*inp[:5], inp[5].cpu(), *inp[6:], 8)  # mixed devices
+    with pytest.raises(ValueError):                     # packed + trunc
+        gt_labels(inp[0], inp[0].float(), *inp[2:], 8)
+    with pytest.raises(TypeError):
+        gt_labels(inp[0], None, inp[2].bfloat16(), *inp[3:], 8)
+
+
 @pytest.mark.cuda
 def test_lm13_train_step_on_card(card):
     import itertools
@@ -141,7 +235,9 @@ def test_lm13_train_step_on_card(card):
     trainer.train(itertools.repeat({"frames": frames, "rois": rois}),
                   step_hook=lambda it, m: seen.append(
                       {k: float(v) for k, v in m.items()}))
-    assert cuda_build.LAUNCHES["region_label"] == 2
+    # the xyz-shipped labels go through the fused kernel
+    assert cuda_build.LAUNCHES["gt_labels"] == 2
+    assert cuda_build.LAUNCHES.get("region_label", 0) == 0
     assert len(seen) == 2
     assert all(np.isfinite(list(m.values())).all() for m in seen)
     assert all(m["grad_norm"] > 0 for m in seen)

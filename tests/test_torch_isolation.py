@@ -47,6 +47,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "profile_step.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
