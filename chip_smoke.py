@@ -82,6 +82,8 @@ REGION_LABEL_BYTES_PER_PIXEL = 28
 GT_LABELS_OUT_RES = 64       # lm13's label maps
 TRAIN_STEPS = 12
 TRAIN_ROIS = 24
+EVAL_FRAMES_PER_OBJ = 8      # 104 ROIs: 4 batches of 32, 2 past warm-up
+EVAL_SPLIT_ROIS = 1000       # LM-13's test split: ~1k instances an object
 
 
 class SmokeFailure(RuntimeError):
@@ -701,6 +703,198 @@ def labels_card_vs_cpu(dev, card):
     return launches
 
 
+def min_dist2_eval_shape(dev, card, n_points):
+    """``min_dist2`` at the eval shapes: the largest per-object launch of
+    phase 9 (its ROIs of one object x the eval bank's points) with the
+    plain version and ``cdist``, and the kernel alone at LM-13's full
+    split (~1k ROIs an object)."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
+
+    def pair(B, seed):
+        g = torch.Generator().manual_seed(seed)
+        shift = torch.tensor([0.0, 0.0, 0.9])
+        return [(torch.randn(B, n_points, 3, generator=g) * 0.05 + shift)
+                .to(dev) for _ in range(2)]
+
+    def bound(B):
+        pairs = B * n_points * n_points
+        ops_s = pairs * MIN_DIST2_INSTR_PER_PAIR / FP32_INSTR_PER_S
+        bytes_s = (2 * B * n_points * 3 + B * n_points) * 4 / HBM_BYTES_PER_S
+        return 1e3 * max(ops_s, bytes_s), \
+            "operations" if ops_s >= bytes_s else "bytes"
+
+    B = EVAL_FRAMES_PER_OBJ
+    a, b = pair(B, 1)
+    ms = cuda_ms(lambda: min_dist2(a, b), iters=50)
+    plain_ms = cuda_ms(lambda: min_dist2_plain(a, b), iters=5, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.cdist(a, b).square().amin(-1), iters=10)
+    bound_ms, by = bound(B)
+    print(f"eval: min_dist2 {B}x{n_points}x{n_points} (phase 9's largest "
+          f"per-object launch) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"cdist {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}) [{card}]")
+    a, b = pair(EVAL_SPLIT_ROIS, 2)
+    big_ms = cuda_ms(lambda: min_dist2(a, b), iters=5)
+    big_bound, by = bound(EVAL_SPLIT_ROIS)
+    print(f"eval: min_dist2 {EVAL_SPLIT_ROIS}x{n_points}x{n_points} (one "
+          f"object of LM-13's full test split) kernel {big_ms:.4f} ms, bound "
+          f"{big_bound:.4f} ms ({by}); plain and cdist not timed (cdist's "
+          f"{EVAL_SPLIT_ROIS * n_points * n_points * 4 / 2**30:.0f} GiB "
+          f"distance matrix) [{card}]")
+
+
+def time_png_decode(root, card):
+    """Host decode time of the tree's frames (written with filter 0), and
+    of one RGB frame re-written with the Paeth filter on every row (the
+    slowest filter; files written by other encoders mix the five)."""
+    import glob
+
+    from rdpn6d_tpu_torch.data import png
+
+    rgb = sorted(glob.glob(os.path.join(root, "lm/test/*/rgb/*.png")))
+    depth = sorted(glob.glob(os.path.join(root, "lm/test/*/depth/*.png")))
+    ms = {}
+    for name, files, fn in (("rgb", rgb, png.imread_rgb),
+                            ("depth", depth, png.imread_unchanged)):
+        t0 = time.perf_counter()
+        for f in files:
+            fn(f)
+        ms[name] = 1e3 * (time.perf_counter() - t0) / len(files)
+    paeth = os.path.join(root, "paeth.png")
+    png.write_png(paeth, png.imread_rgb(rgb[0]), filter_type=4)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        png.imread_rgb(paeth)
+    ms["rgb_paeth"] = 1e3 * (time.perf_counter() - t0) / 3
+    print(f"eval: host PNG decode of {len(rgb)} 480x640 frames: RGB "
+          f"{ms['rgb']:.2f} ms/frame, 16-bit depth {ms['depth']:.2f} "
+          f"ms/frame, together {ms['rgb'] + ms['depth']:.2f} ms/frame; an RGB "
+          f"frame with Paeth rows {ms['rgb_paeth']:.1f} ms [{card}]")
+
+
+def read_csv(path):
+    rows = [ln.split(",") for ln in open(path).read().splitlines()[1:]]
+    return ([tuple(r[:4]) for r in rows],
+            np.array([[float(x) for x in r[4].split()] for r in rows]),
+            np.array([[float(x) for x in r[5].split()] for r in rows]))
+
+
+def run_eval_phase(dev, card):
+    """Phase 9: the eval entry point on an LM tree written here; returns
+    ``min_dist2``'s launches in ``main``'s run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.bop import Split, register_split
+    from rdpn6d_tpu_torch.data.refs import LM, LM13_OBJECTS
+    from rdpn6d_tpu_torch.data.synthetic import write_lm_tree
+    from rdpn6d_tpu_torch.engine.checkpoint import CheckpointManager
+    from rdpn6d_tpu_torch.engine.eval_runner import run_eval
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.parallel import create_train_state
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        objs = {o: LM.obj2id[o] for o in LM13_OBJECTS}
+        n_rois = len(objs) * EVAL_FRAMES_PER_OBJ
+        t0 = time.perf_counter()
+        write_lm_tree(os.path.join(work, "data"), objs, EVAL_FRAMES_PER_OBJ,
+                      seed=9)
+        print(f"eval: wrote an LM tree of {len(objs)} objects x "
+              f"{EVAL_FRAMES_PER_OBJ} frames in "
+              f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+        time_png_decode(os.path.join(work, "data"), card)
+        os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
+
+        cfg = lm13.get_config()
+        model = init_weights(RDPN(cfg), torch.Generator().manual_seed(4))
+        with torch.no_grad():      # poses ~1 m away, as physical_z does
+            model.pnp_net.fc_t.bias[2] = 2.0
+        out = os.path.join(work, "out")
+        CheckpointManager(os.path.join(out, "ckpt")).save(
+            0, create_train_state(cfg, model))
+
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        res = port_main.main([
+            "--config-file",
+            os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
+            "--eval-only", "--opts", f'train.output_dir="{out}"'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_build.LAUNCHES.get("min_dist2", 0)
+        check(list(res) == ["lm_13_test"], f"main evaluated {list(res)}")
+        res = res["lm_13_test"]
+        check(launches == len(objs), f"min_dist2 launched {launches} times "
+              f"for {len(objs)} scored objects")
+        ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
+        check(len(ident) == n_rois, f"CSV has {len(ident)} rows for "
+              f"{n_rois} instances")
+        check(bool(np.isfinite(R).all() and np.isfinite(t).all()),
+              "non-finite poses in the CSV")
+        curves = sorted(os.listdir(os.path.join(out, "plots_lm_13_test")))
+        check("recall_ad.csv" in curves and "recall_adi.csv" in curves,
+              f"recall curves: {curves}")
+        log = open(os.path.join(out, "log.txt")).read()
+        check("MEAN" in log and all(o in log for o in LM13_OBJECTS),
+              "the per-object table is not in the log")
+        check(set(res["per_obj"]) == set(LM13_OBJECTS),
+              f"per-object table covers {sorted(res['per_obj'])}")
+        st = res["stats"]
+        check(st["n_rois"] == n_rois and st["n_timed"] > 0
+              and st["wall_s"] > 0, f"inference stats {st}")
+        rate = st["n_timed"] / st["wall_s"]
+        print(f"eval: lm13 full width bf16 main --eval-only on lm_13_test: "
+              f"{st['n_rois']} ROIs, {rate:.1f} poses/s over the "
+              f"{st['n_timed']} ROIs past warm-up ({st['wall_s']:.3f} s), "
+              f"split wall time {wall:.2f} s (records, assets, checkpoint, "
+              f"decode, model, scoring, CSV, curves); min_dist2 x{launches}; "
+              f"MEAN ad_10 {res['mean']['ad_10']:.2f} [{card}]")
+
+        register_split(Split("lm_13_test_2obj", "lm", "test",
+                             objs=LM13_OBJECTS[:2], filter_invalid=False,
+                             per_obj_index="image_set/{obj}_test.txt"))
+        f32 = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            path = os.path.join(out, f"f32_{name}.csv")
+            r = run_eval(cfg, os.path.join(out, "ckpt"), "lm_13_test_2obj",
+                         csv_path=path, dtype=torch.float32, device=d)
+            f32[name] = (read_csv(path), r["errors"])
+        (c_id, c_R, c_t), c_err = f32["card"]
+        (p_id, p_R, p_t), p_err = f32["cpu"]
+        check(c_id == p_id, "f32 eval: CSV identity columns differ")
+        dR = float(np.abs(c_R - p_R).max())
+        dt = float((np.abs(c_t - p_t).max(1) / np.abs(p_t).max(1)).max())
+        check(dR <= 1e-3 and dt <= 1e-3, f"f32 eval: card vs CPU poses "
+              f"|dR| {dR:.3e}, |dt|/|t| {dt:.3e}")
+        worst = {"add": 0.0, "adi": 0.0, "re": 0.0}
+        for obj, e in p_err.items():
+            diam = LM.diameter_m(LM.obj2id[obj])     # the tree's cube
+            for k in ("add", "adi"):
+                worst[k] = max(worst[k], float(
+                    np.abs(c_err[obj][k] - e[k]).max() / diam))
+            worst["re"] = max(worst["re"],
+                              float(np.abs(c_err[obj]["re"] - e["re"]).max()))
+        check(worst["add"] <= 1e-3 and worst["adi"] <= 1e-3
+              and worst["re"] <= 0.1, f"f32 eval: card vs CPU errors {worst}")
+        print(f"eval: f32 run_eval over {len(c_id)} ROIs of 2 objects, card "
+              f"vs CPU: identity columns equal, max |dR| {dR:.3e}, max "
+              f"|dt|/|t| {dt:.3e} (tol 1e-3); ADD {worst['add']:.3e} and "
+              f"ADI {worst['adi']:.3e} of the diameter (tol 1e-3), re "
+              f"{worst['re']:.3e} deg (tol 0.1) [{card}]")
+        min_dist2_eval_shape(dev, card, cfg.loss.num_pm_points)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -879,11 +1073,14 @@ def main(argv=None) -> int:
     # 8. labels, card vs CPU --------------------------------------------------
     label_launches = labels_card_vs_cpu(dev, card)
 
+    # 9. eval -------------------------------------------------------------------
+    eval_launches = run_eval_phase(dev, card)
+
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/min_dist2.cu",
         "replaces": "rdpn6d_tpu/ops/pallas_kernels.py:57",
-        "launches": launches.get("min_dist2", 0),
+        "launches": launches.get("min_dist2", 0) + eval_launches,
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",

@@ -9,11 +9,16 @@ is found at the same path under ``rdpn6d_tpu/``:
                  hand-written CUDA kernels (``min_dist2``) with their plain
                  PyTorch versions
     models/      ResNet trunk, PointNet fusion, dense head, Patch-PnP, RDPN
-    data/        eval-half ROI preprocessing, per-class assets
-    engine/      the serving ``Predictor``
-    evaluation/  ADD / ADI / re / te / proj pose errors
+    data/        ROI preprocessing, per-class assets, dataset refs, BOP
+                 split records, detections, PLY/JSON/CSV IO, the PNG codec,
+                 the eval decoder, synthetic fixtures
+    engine/      the serving ``Predictor``, the ``Trainer``, checkpoints,
+                 the inference driver and the split eval runner
+    evaluation/  pose errors, the ``PoseEvaluator``, recall/AUC scoring,
+                 recall curves, BOP19 MSSD/MSPD and average recalls
     utils/       device resolution, flax-tree -> state_dict weight carrier
     csrc/        CUDA C++ sources, built with nvcc at first use
+    main.py      the CLI (``--eval-only``)
 
 The package imports torch and numpy only: never jax, never ``rdpn6d_tpu``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,1 +1,2 @@
-"""Eval-half ROI preprocessing and per-class assets."""
+"""ROI preprocessing, assets, dataset refs and splits, IO and the PNG
+codec, the eval decoder, synthetic fixtures."""

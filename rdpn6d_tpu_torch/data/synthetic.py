@@ -7,15 +7,21 @@ targets consistent with the camera and box), ``render_cube_depth`` (a
 point-splat depth / xyz render of a cube, no GL) and
 ``dummy_grouped_inputs`` (raw grouped train inputs, frames + per-ROI GT,
 for ``preprocess_rois_grouped(train=True)``). Every array is numpy, so a
-test can feed the same inputs to both packages.
+test can feed the same inputs to both packages. ``write_lm_tree`` writes a
+LineMOD-layout BOP tree of rendered cubes to disk (PNGs through
+``data/png.py``), which either package's eval reads.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
 from ..config import Config
 from .assets import cube_points, fps_numpy
+from .png import write_png
 
 
 def _np_ego_to_allo(R_ego: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -209,3 +215,95 @@ def dummy_grouped_inputs(cfg: Config, n_frames: int = 2,
                 rois["xyz"].append(xyz.astype(np.float16))
     return ({k: np.stack(v) for k, v in frames.items()},
             {k: np.stack(v) for k, v in rois.items()})
+
+
+def _rodrigues(rvec: np.ndarray) -> np.ndarray:
+    theta = float(np.linalg.norm(rvec))
+    k = rvec / max(theta, 1e-12)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * Kx + (1 - np.cos(theta)) * Kx @ Kx
+
+
+def _write_points_ply(path: str, pts_mm: np.ndarray) -> None:
+    lines = ["ply", "format ascii 1.0", f"element vertex {len(pts_mm)}",
+             "property float x", "property float y", "property float z",
+             "end_header"] + [f"{x:.4f} {y:.4f} {z:.4f}" for x, y, z in pts_mm]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_lm_tree(root: str, objs: dict[str, int], frames_per_obj: int,
+                  seed: int = 0) -> None:
+    """A LineMOD-layout BOP tree under ``root/lm``: for each object
+    (``objs`` maps name -> LM obj id) a cube of its own seeded size as
+    ``models/`` and ``models_eval/`` point meshes (mm) with
+    ``models_info.json``, a scene ``test/<obj_id:06d>`` of
+    ``frames_per_obj`` 480x640 RGB-D frames rendered with LineMOD's camera
+    (rgb, depth in mm, mask_visib, scene_gt / scene_camera /
+    scene_gt_info) and ``image_set/<obj>_test.txt``. The cube sits 0.7-1.0
+    m from the camera before a background plane at 1.3 m."""
+    rng = np.random.RandomState(seed)
+    H, W = 480, 640
+    K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
+                  [0.0, 0.0, 1.0]])
+    ds = os.path.join(root, "lm")
+    info, info_eval = {}, {}
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for name, oid in objs.items():
+        half = float(rng.uniform(0.03, 0.08))
+        size = 2000.0 * half
+        for sub, n_edge, table in (("models", 25, info),
+                                   ("models_eval", 15, info_eval)):
+            _write_points_ply(os.path.join(ds, sub, f"obj_{oid:06d}.ply"),
+                              cube_points(n_edge, half) * 1000.0)
+            table[str(oid)] = {
+                "diameter": size * np.sqrt(3), "min_x": -size / 2,
+                "min_y": -size / 2, "min_z": -size / 2, "size_x": size,
+                "size_y": size, "size_z": size}
+        sdir = os.path.join(ds, "test", f"{oid:06d}")
+        scene_gt, scene_cam, scene_info = {}, {}, {}
+        for im_id in range(frames_per_obj):
+            R = _rodrigues(rng.randn(3) * 0.8)
+            t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.07, 0.07),
+                          rng.uniform(0.7, 1.0)])
+            depth, xyz = render_cube_depth(R, t, K, H, W, half=half)
+            obj = depth > 0
+            phase = rng.uniform(0, 6.28, 3)
+            bg = np.stack([127 + 90 * np.sin(xx / (37 + 11 * c) + yy / 53
+                                             + phase[c]) for c in range(3)],
+                          -1)
+            shade = 128 + 1000.0 * xyz
+            rgb = np.where(obj[..., None], shade, bg)
+            rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255)
+            write_png(os.path.join(sdir, "rgb", f"{im_id:06d}.png"),
+                      rgb.astype(np.uint8))
+            write_png(os.path.join(sdir, "depth", f"{im_id:06d}.png"),
+                      np.round(np.where(obj, depth, 1.3) * 1000.0)
+                      .astype(np.uint16))
+            write_png(os.path.join(sdir, "mask_visib",
+                                   f"{im_id:06d}_000000.png"),
+                      obj.astype(np.uint8) * 255)
+            ys, xs = np.nonzero(obj)
+            box = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min()),
+                   int(ys.max() - ys.min())]
+            scene_gt[str(im_id)] = [{"cam_R_m2c": R.reshape(-1).tolist(),
+                                     "cam_t_m2c": (t * 1000.0).tolist(),
+                                     "obj_id": oid}]
+            scene_cam[str(im_id)] = {"cam_K": K.reshape(-1).tolist(),
+                                     "depth_scale": 1.0}
+            scene_info[str(im_id)] = [{"bbox_obj": box, "bbox_visib": box,
+                                       "px_count_visib": int(obj.sum()),
+                                       "visib_fract": 1.0}]
+        for fname, data in (("scene_gt.json", scene_gt),
+                            ("scene_camera.json", scene_cam),
+                            ("scene_gt_info.json", scene_info)):
+            with open(os.path.join(sdir, fname), "w") as f:
+                json.dump(data, f)
+        os.makedirs(os.path.join(ds, "image_set"), exist_ok=True)
+        with open(os.path.join(ds, "image_set", f"{name}_test.txt"),
+                  "w") as f:
+            f.write("".join(f"{i}\n" for i in range(frames_per_obj)))
+    for sub, table in (("models", info), ("models_eval", info_eval)):
+        with open(os.path.join(ds, sub, "models_info.json"), "w") as f:
+            json.dump(table, f)

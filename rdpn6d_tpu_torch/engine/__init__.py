@@ -1,1 +1,2 @@
-"""The serving Predictor."""
+"""The serving Predictor, the Trainer, checkpoints, inference and the
+split eval runner."""

@@ -1,0 +1,330 @@
+"""Split evaluation: records -> decode -> preprocess and model on the device
+-> PoseEvaluator -> tables, BOP19 CSV, recall curves, BOP19 AR.
+
+Counterpart of ``rdpn6d_tpu/engine/eval_runner.py`` (``_eval_setup``,
+``run_eval``, ``_bop19_scores``), as ``main --eval-only`` drives it.
+Frames are grouped into batches as the JAX package groups them (frames per
+batch from the split's instances per frame) and cross to the device once
+per image; eager PyTorch needs no fixed shape, so batches are not padded
+(only the BOP CSV's ``time`` column can differ from the JAX package's).
+Not ported, and refused: int8 serving (``test.int8``), the RANSAC-Kabsch
+refinement (``test.use_pnp``), multi-process sharding, VSD.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..utils.device import resolve_device
+
+logger = logging.getLogger("rdpn6d")
+
+_EVAL_MEMO: dict = {}
+
+
+def _eval_setup(cfg: Config, split_name: str, split: Any, ref: Any,
+                dets_path: str | None):
+    """The disk-parsing half of run_eval: records (target-filtered, with
+    detections attached), GT counts and the asset banks; memoized by
+    run_eval."""
+    from ..data.assets import load_class_assets
+    from ..data.bop import build_split_records, load_bop19_targets
+    from ..data.detections import attach_detections, load_detections
+
+    records = build_split_records(split, flatten=True)
+
+    # BOP19 target filtering: score exactly the published target list
+    targets = None
+    if split.targets_file:
+        tpath = os.path.join(ref.root, split.targets_file)
+        if os.path.exists(tpath):
+            targets = load_bop19_targets(ref, split.targets_file)
+            if split.objs:
+                # an object-subset split scores only its objects' targets
+                sel = {ref.obj2id[o] for o in split.objs}
+                targets = [t for t in targets if t["obj_id"] in sel]
+            tset = {(t["scene_id"], t["im_id"], t["obj_id"])
+                    for t in targets}
+            n_before = len(records)
+            records = [r for r in records
+                       if (r["scene_id"], r["im_id"], r["obj_id"]) in tset]
+            logger.info(f"BOP19 targets: {n_before} -> {len(records)} "
+                        f"instances ({len(tset)} targets)")
+        else:
+            logger.warning(f"split declares targets_file but {tpath} "
+                           "is absent; scoring ALL images")
+
+    # GT counts BEFORE detections attach: recall denominators include the
+    # instances the detector misses
+    id2name = {oid: ref.id2obj[oid] for oid in ref.obj_ids}
+    n_gts: dict[str, int] = {}
+    for rec in records:
+        name = id2name[rec["obj_id"]]
+        n_gts[name] = n_gts.get(name, 0) + 1
+
+    # estimated boxes: the dets_path argument wins, else the config's file
+    # aligned with data.test_datasets
+    if not dets_path and cfg.test.test_bbox_type == "est" \
+            and cfg.data.det_files_test:
+        try:
+            di = list(cfg.data.test_datasets).index(split_name)
+        except ValueError:
+            if len(cfg.data.det_files_test) != 1:
+                raise ValueError(
+                    f"split {split_name!r} is not in cfg.data."
+                    f"test_datasets {cfg.data.test_datasets} — cannot "
+                    "pick among multiple det_files_test; pass dets_path")
+            di = 0
+        if len(cfg.data.det_files_test) == 1:
+            di = 0          # one shared detections file for every split
+        elif di >= len(cfg.data.det_files_test):
+            raise ValueError(
+                f"data.det_files_test has {len(cfg.data.det_files_test)} "
+                f"entries but split {split_name!r} is test_datasets[{di}] "
+                "— the lists must align (or pass a single shared file)")
+        dets_path = cfg.data.det_files_test[di]
+    # objects of the GT, before detections attach: an object the detector
+    # misses still needs assets for its failure rows
+    present = sorted({rec["obj_id"] for rec in records})
+    if dets_path:
+        records = attach_detections(records, load_detections(dets_path),
+                                    topk_per_obj=cfg.data.det_topk_per_obj)
+    logger.info(f"{len(records)} test instances in {split_name}")
+    objs = [ref.id2obj[oid] for oid in present]
+    assets = load_class_assets(ref, cfg.head.num_regions,
+                               cfg.loss.num_pm_points, objs=objs)
+    # scored on the decimated eval meshes (the train meshes when
+    # models_eval/ is absent)
+    eval_assets = load_class_assets(ref, cfg.head.num_regions,
+                                    cfg.loss.num_pm_points, objs=objs,
+                                    use_eval_models=True)
+    return records, targets, n_gts, id2name, assets, eval_assets
+
+
+def _load_model(cfg: Config, ckpt_dir: str, allow_random_init: bool,
+                device: torch.device, dtype: torch.dtype):
+    from ..models import RDPN, init_weights
+    from .checkpoint import CheckpointManager
+
+    model = RDPN(cfg)
+    mgr = CheckpointManager(ckpt_dir)
+    if mgr.latest_step() is not None:
+        from ..parallel import TrainState
+
+        mgr.restore(TrainState(model=model, optimizer=None))
+        logger.info(f"restored step {mgr.latest_step()} from {mgr.directory}")
+    elif allow_random_init:
+        init_weights(model, torch.Generator().manual_seed(0))
+    else:
+        raise FileNotFoundError(
+            f"no checkpoint in {ckpt_dir!r} — refusing to evaluate "
+            "random-init weights (pass allow_random_init=True for smoke "
+            "runs)")
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
+             dets_path: str = "", batch_size: int = 32,
+             csv_path: str | None = None,
+             allow_random_init: bool = False,
+             dtype: torch.dtype = torch.bfloat16,
+             device: str | torch.device | None = None) -> dict[str, Any]:
+    """Evaluate the latest checkpoint in ``ckpt_dir`` on a split. Returns
+    {per_obj, mean, errors (per-object error arrays), stats, and bop19
+    when the split has targets and test.error_types asks for mssd/mspd}."""
+    from ..data.bop import get_split
+    from ..data.loader import RecordDecoder
+    from ..data.pipeline import preprocess_rois_grouped
+    from ..data.refs import get_ref
+    from ..evaluation.evaluator import PoseEvaluator
+    from .inference import evaluate_and_report, inference_on_dataset
+
+    if cfg.test.int8:
+        raise NotImplementedError(f"test.int8={cfg.test.int8!r}: int8 "
+                                  "serving is not ported (ROADMAP queue 1 "
+                                  "item 12)")
+    if cfg.test.use_pnp:
+        raise NotImplementedError("test.use_pnp: the RANSAC-Kabsch "
+                                  "refinement is not ported (ROADMAP queue "
+                                  "1 item 12)")
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized() and \
+            torch.distributed.get_world_size() > 1:
+        raise NotImplementedError("multi-process eval sharding is not "
+                                  "ported (ROADMAP: DDP)")
+    device = resolve_device(device)
+    split = get_split(split_name)
+    ref = get_ref(split.ref_name)
+
+    # records/targets/assets are pure in (split, dataset root, detection
+    # config); keyed by root so a re-pointed RDPN6D_DATA_ROOT is re-read
+    memo_key = ("setup", split_name, ref.root, dets_path,
+                cfg.test.test_bbox_type,
+                tuple(cfg.data.det_files_test or ()),
+                int(cfg.data.det_topk_per_obj),
+                int(cfg.head.num_regions), int(cfg.loss.num_pm_points))
+    cached = _EVAL_MEMO.get(memo_key)
+    if cached is None:
+        cached = _eval_setup(cfg, split_name, split, ref, dets_path)
+        _EVAL_MEMO[memo_key] = cached
+    records, targets, n_gts, id2name, assets, eval_assets = cached
+    n_gts = dict(n_gts)  # the evaluator may hold it; never share the memo's
+
+    model = _load_model(cfg, ckpt_dir, allow_random_init, device, dtype)
+
+    def eval_step(b):
+        with torch.no_grad():
+            batch = preprocess_rois_grouped(cfg, b["frames"], b["rois"])
+            return model(batch)
+
+    def asset(oid, key):
+        return eval_assets.for_obj(oid)[key]
+
+    evaluator = PoseEvaluator(
+        models={ref.id2obj[o]: asset(o, "points")
+                for o in eval_assets.obj_ids},
+        diameters={ref.id2obj[o]: float(asset(o, "diameter"))
+                   or ref.diameter_m(o) for o in eval_assets.obj_ids},
+        sym_rots={ref.id2obj[o]: asset(o, "sym_rots")
+                  for o in eval_assets.obj_ids},
+        n_gts=n_gts, precision=cfg.test.eval_precision, device=device)
+
+    decoder = RecordDecoder(cfg)
+    # frames per batch from the split's instances per frame: one-instance
+    # datasets (LM) fill whole batches, cluttered ones move fewer frames
+    n_frames_total = max(
+        len({(r["scene_id"], r["im_id"]) for r in records}), 1)
+    inst_per_frame = max(len(records) / n_frames_total, 1.0)
+    max_frames = int(min(batch_size,
+                         max(1, round(batch_size / inst_per_frame))))
+
+    def _host_bbox(rec) -> np.ndarray | None:
+        bbox = rec.get("bbox_visib")
+        if bbox is not None:
+            b = np.asarray(bbox, np.float32)
+            return np.array([b[0], b[1], b[0] + b[2], b[1] + b[3]],
+                            np.float32) if rec.get(
+                "bbox_mode", "xywh") == "xywh" and b.shape[0] == 4 else b
+        # the mask (or label image) through the decoder's LRU
+        m = decoder._mask_visib(rec)
+        if m is None or not m.any():
+            return None
+        ys, xs = np.nonzero(m)
+        return np.array([xs.min(), ys.min(), xs.max(), ys.max()],
+                        np.float32)
+
+    def _flush(frames_l, rois_l, meta):
+        def stack(rows, k, dt=None):
+            a = np.stack([r[k] for r in rows])
+            return torch.from_numpy(a if dt is None else a.astype(dt)) \
+                .to(device)
+
+        # raw depth crosses as int32: torch's uint16 support is partial
+        frames = {"rgb": stack(frames_l, "rgb"),
+                  "depth_raw": stack(frames_l, "depth_raw", np.int32),
+                  "depth_factor": stack(frames_l, "depth_factor"),
+                  "K": stack(frames_l, "K")}
+        rois = {k: stack(rois_l, k) for k in rois_l[0]}
+        return {"frames": frames, "rois": rois}, meta
+
+    def batches():
+        frames_l: list[dict] = []
+        rois_l: list[dict] = []
+        meta: list[dict] = []
+        fmap: dict[tuple[int, int], int] = {}
+        for rec in records:
+            fkey = (rec["scene_id"], rec["im_id"])
+            if fkey not in fmap and (len(frames_l) == max_frames
+                                     or len(rois_l) == batch_size) \
+                    or fkey in fmap and len(rois_l) == batch_size:
+                if meta:  # all-skipped accumulations just reset
+                    yield _flush(frames_l, rois_l, meta)
+                frames_l, rois_l, meta, fmap = [], [], [], {}
+            if fkey not in fmap:
+                try:
+                    frame = decoder.read_frame(rec)
+                except (FileNotFoundError, OSError) as e:
+                    logger.warning(f"skip {rec['rgb_path']}: {e}")
+                    continue
+                fmap[fkey] = len(frames_l)
+                frames_l.append(frame)
+            bbox = _host_bbox(rec)
+            if bbox is None:
+                logger.warning(f"skip instance without bbox: {fkey} "
+                               f"obj {rec['obj_id']}")
+                continue
+            a = assets.for_obj(rec["obj_id"])
+            rois_l.append({
+                "frame_idx": np.int64(fmap[fkey]),
+                "bbox": bbox,
+                "fps": a["fps"].astype(np.float32),
+                "extent": a["extent"].astype(np.float32),
+                # the full-ref class index, as the JAX package feeds it
+                "roi_cls": np.int64(rec["cls_idx"]),
+            })
+            meta.append({
+                "obj_name": id2name[rec["obj_id"]],
+                "R_gt": rec["R"], "t_gt": rec["t"], "K": rec["K"],
+                "scene_id": rec["scene_id"], "im_id": rec["im_id"],
+                "score": rec.get("det_score", 1.0),
+            })
+        if meta:
+            yield _flush(frames_l, rois_l, meta)
+
+    stats = inference_on_dataset(eval_step, batches(), evaluator)
+
+    csv = csv_path or os.path.join(cfg.train.output_dir,
+                                   f"{split_name}_bop19.csv")
+    result = evaluate_and_report(evaluator, obj2id=ref.obj2id, csv_path=csv)
+    result["errors"] = evaluator.compute_errors()
+
+    if cfg.test.plots:
+        from ..evaluation.plots import dump_recall_curves
+
+        errs = result["errors"]
+        dump_recall_curves(
+            errs, {o: evaluator.diameters[o] for o in errs},
+            os.path.join(os.path.dirname(os.path.abspath(csv)),
+                         f"plots_{split_name}"))
+
+    # BOP19 localization AR when the config asks for toolkit error types
+    err_types = {t.strip() for t in cfg.test.error_types.split(",")}
+    if targets is not None and err_types & {"vsd", "mssd", "mspd"}:
+        if "vsd" in err_types:
+            raise NotImplementedError(
+                "test.error_types has vsd: VSD needs the depth rasterizer, "
+                "which is not ported (ROADMAP queue 1 item 9)")
+        result["bop19"] = _bop19_scores(ref, records, targets, evaluator,
+                                        eval_assets)
+        logger.info(f"BOP19 AR: {result['bop19']}")
+
+    result["stats"] = stats
+    return result
+
+
+def _bop19_scores(ref: Any, records: list[dict], targets: list[dict],
+                  evaluator: Any, eval_assets: Any) -> dict[str, float]:
+    """MSSD/MSPD average recalls over the BOP19 target list."""
+    from ..evaluation.bop_score import bop19_average_recalls
+
+    gts: dict[tuple[int, int], list[dict]] = {}
+    for r in records:
+        gts.setdefault((r["scene_id"], r["im_id"]), []).append(
+            {"obj_id": r["obj_id"], "R": r["R"], "t": r["t"], "K": r["K"]})
+
+    def bank(key):
+        return {oid: eval_assets.for_obj(oid)[key]
+                for oid in eval_assets.obj_ids}
+
+    diameters = {oid: float(eval_assets.for_obj(oid)["diameter"])
+                 or ref.diameter_m(oid) for oid in eval_assets.obj_ids}
+    return bop19_average_recalls(
+        evaluator.bop_rows(ref.obj2id), gts, targets, bank("points"),
+        bank("sym_rots"), diameters, im_width=ref.width,
+        sym_trans=bank("sym_trans"))

@@ -1,1 +1,2 @@
-"""ADD / ADI / re / te / proj pose errors."""
+"""Pose errors, the PoseEvaluator, recall/AUC scoring, recall curves,
+BOP19 errors and average recalls."""

@@ -220,3 +220,25 @@ def grads_from_flax(cfg: Config, grads: dict) -> dict[str, torch.Tensor]:
     parameter names, in the port's layouts: the keys of
     ``RDPN.named_parameters()``."""
     return carry(_rdpn_fill(cfg), grads, with_stats=False)
+
+
+def checkpoint_from_params_pkl(cfg: Config, params_pkl: str, ckpt_dir: str,
+                               step: int = 0) -> str:
+    """Write a port checkpoint (``engine/checkpoint.py``) of the weights in
+    a JAX ``params_pkl`` (the pickle the JAX ``Predictor`` reads), with a
+    fresh optimizer of the config; returns the step directory. This is how
+    JAX-trained weights reach the port's eval."""
+    import pickle
+
+    from ..engine.checkpoint import CheckpointManager
+    from ..models import RDPN
+    from ..parallel import create_train_state
+
+    with open(params_pkl, "rb") as f:
+        loaded = pickle.load(f)
+    model = RDPN(cfg)
+    model.load_state_dict(state_dict_from_flax(
+        cfg, loaded.get("params", {}), loaded.get("batch_stats", {})))
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(step, create_train_state(cfg, model))
+    return f"{mgr.directory}/{step}"

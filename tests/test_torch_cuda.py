@@ -241,3 +241,64 @@ def test_lm13_train_step_on_card(card):
     assert len(seen) == 2
     assert all(np.isfinite(list(m.values())).all() for m in seen)
     assert all(m["grad_norm"] > 0 for m in seen)
+
+
+@pytest.mark.cuda
+def test_pose_evaluator_card_matches_cpu(card):
+    """Per-object errors on the card (ADI through ``min_dist2``, one launch
+    an object) against the CPU: ADD/ADI/te within 1e-6 m, re within 1e-3
+    degrees (a few float32 ulps of the cosine at rotation errors of ~1
+    degree), proj within 1e-3 px."""
+    from rdpn6d_tpu_torch.evaluation.evaluator import PoseEvaluator
+
+    rng = np.random.RandomState(0)
+    models = {o: ((rng.rand(3000, 3) - 0.5) * 0.15).astype(np.float32)
+              for o in ("a", "b", "c")}
+    n = 24
+    names = [("a", "b", "c")[i % 3] for i in range(n)]
+    q, _ = np.linalg.qr(rng.randn(n, 3, 3))
+    R_gt = q * np.sign(np.linalg.det(q))[:, None, None]
+    q, _ = np.linalg.qr(np.eye(3) + 0.15 * rng.randn(n, 3, 3))
+    R_est = (q * np.sign(np.linalg.det(q))[:, None, None]) @ R_gt
+    t_gt = np.c_[rng.uniform(-0.1, 0.1, (n, 2)), rng.uniform(0.6, 1, n)]
+    t_est = t_gt + rng.randn(n, 3) * 0.01
+    K = np.broadcast_to(np.array([[572.4, 0, 325.3], [0, 573.6, 242.0],
+                                  [0, 0, 1]]), (n, 3, 3))
+    out = {}
+    for dev in (card, "cpu"):
+        ev = PoseEvaluator(models=models, diameters={o: 0.26 for o in models},
+                           n_gts={"a": 9, "b": 8, "c": 8}, device=dev)
+        ev.process_batch(names, R_est, t_est, R_gt, t_gt, K)
+        before = cuda_build.LAUNCHES.get("min_dist2", 0)
+        out[str(dev)] = (ev.compute_errors(), ev.evaluate())
+        if dev == card:
+            assert cuda_build.LAUNCHES["min_dist2"] == before + 3
+    (e_card, r_card), (e_cpu, r_cpu) = out.values()
+    tol = {"ad": 1e-6, "add": 1e-6, "adi": 1e-6, "te": 1e-6, "re": 1e-3,
+           "proj": 1e-3}
+    for obj in e_cpu:
+        for k, t in tol.items():
+            a, b = e_card[obj][k], e_cpu[obj][k]
+            np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
+            fin = np.isfinite(b)
+            np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=t,
+                                       err_msg=f"{obj} {k}")
+    assert r_card["per_obj"].keys() == r_cpu["per_obj"].keys()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type", [0, 1, 2, 3, 4])
+def test_png_round_trip_on_card_machine(card, tmp_path, filter_type):
+    """The PNG codec on the card's host: frames written there (every row
+    filter) read back to the arrays written."""
+    from rdpn6d_tpu_torch.data import png
+
+    rng = np.random.RandomState(filter_type)
+    rgb = rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    depth = rng.randint(0, 65536, (480, 640)).astype(np.uint16)
+    for name, img in (("rgb", rgb), ("depth", depth)):
+        path = str(tmp_path / f"{name}.png")
+        png.write_png(path, img, filter_type)
+        np.testing.assert_array_equal(png.read_png(path), img)
+    np.testing.assert_array_equal(png.imread_rgb(str(tmp_path / "rgb.png")),
+                                  rgb)

@@ -1,5 +1,7 @@
 """The port stands alone: importing it pulls in neither jax nor the JAX
-package, and no source of the port or of ``chip_smoke.py`` imports them."""
+package, and no source of the port or of ``chip_smoke.py`` imports them,
+nor OpenCV or Pillow (the GPU machine has neither; the port reads PNG
+itself)."""
 
 import ast
 import os
@@ -10,7 +12,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rdpn6d_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rdpn6d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rdpn6d_tpu", "cv2",
+             "PIL")
 
 
 def _port_modules():
