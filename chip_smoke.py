@@ -12,7 +12,8 @@ Phases, each fatal on failure:
               ragged shapes and at the shape its path gives it (scoring for
               ``min_dist2``, the train step for ``gt_labels`` and
               ``region_label``), with kernel, plain, library-call and bound
-              times;
+              times; ``min_dist2`` also with b split over blocks and with a
+              NaN row, whose NaN pattern must equal the plain version's;
   3. serve  — the lm13 configuration at full width (ResNet-34, 256² ROIs,
               64² head maps, 32 regions, rot_concat), seeded random
               weights, through ``Predictor.predict``: 3 distinct 480x640
@@ -42,13 +43,19 @@ Phases, each fatal on failure:
               and on the CPU, with GT xyz maps (``gt_labels``) and without
               (the depth surface's coordinates, ``region_label``); each
               kernel's launch count must rise, masks equal, region ids on
-              >= 0.999 of the pixels, coordinates within 1e-5.
+              >= 0.999 of the pixels, coordinates within 1e-5;
+  9. eval   — ``main --eval-only`` at lm13 full width on an LM tree of 13
+              objects x 8 frames written here (one ``min_dist2`` launch an
+              object), f32 ``run_eval`` card vs CPU on 2 objects, host PNG
+              decode times, and ``min_dist2`` at the eval shapes (8 and
+              1000 ROIs x 3000 x 3000 points) beside its plain version and
+              ``cdist``.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
-6 and each run of phase 8) and read right after it. Output: the card's name
-and power limit (nvidia-smi), one ``{"kernels": [...]}`` JSON line, then
-``{"ok": true, "device": {...}}`` as the last line. Exits non-zero,
-printing no result, without a CUDA device or without the
-``rdpn6d_tpu_torch`` package beside this file.
+6, each run of phase 8 and phase 9's ``main``) and read right after it.
+Output: the card's name and power limit (nvidia-smi), one
+``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
+the last line. Exits non-zero, printing no result, without a CUDA device or
+without the ``rdpn6d_tpu_torch`` package beside this file.
 """
 
 from __future__ import annotations
@@ -117,6 +124,53 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` in ms, the host's cost hidden: each
+    call is queued behind a float32 2048² matrix product (17 GFLOP of
+    filler, longer on the card than the host takes to launch a call), so
+    its kernels run back to back between two CUDA events. The median over
+    ``iters`` calls. For calls whose device work is shorter than their host
+    cost, where ``cuda_ms`` would time the host."""
+    import torch
+
+    x = torch.randn(2048, 2048, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        x @ x
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def min_dist2_bound(B: int, N: int, M: int) -> tuple[float, str]:
+    """Least ms the card could take for ``min_dist2`` of [B,N,3] x [B,M,3]
+    (its operations, or each input read once and the output written once,
+    the larger), and which of the two it is."""
+    ops_s = B * N * M * MIN_DIST2_INSTR_PER_PAIR / FP32_INSTR_PER_S
+    bytes_s = (B * N * 3 + B * M * 3 + B * N) * 4 / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), \
+        "operations" if ops_s >= bytes_s else "bytes"
+
+
+def min_dist2_plan(a, b) -> str:
+    """The kernel's grid for a call on a, b, as a few words."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.min_dist import launch_plan
+
+    B, N, D = a.shape
+    p = launch_plan(B, N, b.shape[1], D, torch.cuda.get_device_properties(
+        a.device).multi_processor_count)
+    return f"{p.blocks} blocks, {p.splits} split(s) of b"
 
 
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -704,10 +758,11 @@ def labels_card_vs_cpu(dev, card):
 
 
 def min_dist2_eval_shape(dev, card, n_points):
-    """``min_dist2`` at the eval shapes: the largest per-object launch of
-    phase 9 (its ROIs of one object x the eval bank's points) with the
-    plain version and ``cdist``, and the kernel alone at LM-13's full
-    split (~1k ROIs an object)."""
+    """``min_dist2`` at the eval shapes, with the plain version and
+    ``cdist``: the largest per-object launch of phase 9 (its ROIs of one
+    object x the eval bank's points), and LM-13's full split (~1k ROIs an
+    object), where ``cdist``'s distance matrix is taken over chunks of
+    ROIs and their times summed."""
     import torch
 
     from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
@@ -718,30 +773,31 @@ def min_dist2_eval_shape(dev, card, n_points):
         return [(torch.randn(B, n_points, 3, generator=g) * 0.05 + shift)
                 .to(dev) for _ in range(2)]
 
-    def bound(B):
-        pairs = B * n_points * n_points
-        ops_s = pairs * MIN_DIST2_INSTR_PER_PAIR / FP32_INSTR_PER_S
-        bytes_s = (2 * B * n_points * 3 + B * n_points) * 4 / HBM_BYTES_PER_S
-        return 1e3 * max(ops_s, bytes_s), \
-            "operations" if ops_s >= bytes_s else "bytes"
+    def report(what, a, b, iters, plain_ms, lib_ms):
+        ms = cuda_ms(lambda: min_dist2(a, b), iters=iters)
+        dev_ms = queued_ms(lambda: min_dist2(a, b), iters=iters)
+        bound_ms, by = min_dist2_bound(a.shape[0], n_points, n_points)
+        print(f"eval: min_dist2 {a.shape[0]}x{n_points}x{n_points} ({what}; "
+              f"{min_dist2_plan(a, b)}) kernel {dev_ms:.4f} ms device time "
+              f"({100 * bound_ms / dev_ms:.1f}% of bound), {ms:.4f} ms a "
+              f"call by CUDA events over a burst of {iters}, plain "
+              f"{plain_ms:.4f} ms, cdist {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}) [{card}]")
 
-    B = EVAL_FRAMES_PER_OBJ
-    a, b = pair(B, 1)
-    ms = cuda_ms(lambda: min_dist2(a, b), iters=50)
-    plain_ms = cuda_ms(lambda: min_dist2_plain(a, b), iters=5, warmup=1)
-    lib_ms = cuda_ms(lambda: torch.cdist(a, b).square().amin(-1), iters=10)
-    bound_ms, by = bound(B)
-    print(f"eval: min_dist2 {B}x{n_points}x{n_points} (phase 9's largest "
-          f"per-object launch) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"cdist {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}) [{card}]")
+    a, b = pair(EVAL_FRAMES_PER_OBJ, 1)
+    report("phase 9's largest per-object launch", a, b, 50,
+           cuda_ms(lambda: min_dist2_plain(a, b), iters=5, warmup=1),
+           cuda_ms(lambda: torch.cdist(a, b).square().amin(-1), iters=10))
     a, b = pair(EVAL_SPLIT_ROIS, 2)
-    big_ms = cuda_ms(lambda: min_dist2(a, b), iters=5)
-    big_bound, by = bound(EVAL_SPLIT_ROIS)
-    print(f"eval: min_dist2 {EVAL_SPLIT_ROIS}x{n_points}x{n_points} (one "
-          f"object of LM-13's full test split) kernel {big_ms:.4f} ms, bound "
-          f"{big_bound:.4f} ms ({by}); plain and cdist not timed (cdist's "
-          f"{EVAL_SPLIT_ROIS * n_points * n_points * 4 / 2**30:.0f} GiB "
-          f"distance matrix) [{card}]")
+    rois = 50        # a 1.8 GB distance matrix a chunk
+
+    def chunked_cdist():
+        for i in range(0, EVAL_SPLIT_ROIS, rois):
+            torch.cdist(a[i:i + rois], b[i:i + rois]).square().amin(-1)
+
+    report("one object of LM-13's full test split", a, b, 10,
+           cuda_ms(lambda: min_dist2_plain(a, b), iters=1, warmup=1),
+           cuda_ms(chunked_cdist, iters=1, warmup=1))
 
 
 def time_png_decode(root, card):
@@ -945,7 +1001,11 @@ def main(argv=None) -> int:
     # 2. kernel vs plain ------------------------------------------------------
     gen = torch.Generator(device="cpu").manual_seed(0)
     errs = {}
+    # ragged around a block's 1024 a-rows, the 256-row stage chunk and the
+    # 4-row step; (1, 300, 5001) and (1, 300, 700) split b over blocks
     for (B, n, m, d) in [(1, 7, 5, 3), (1, 300, 700, 3), (2, 100, 129, 5),
+                         (1, 1023, 255, 3), (2, 1025, 257, 3),
+                         (3, 2049, 513, 3), (1, 300, 5001, 3),
                          (16, 4096, 4096, 3)]:
         a = (torch.randn(B, n, d, generator=gen) * 0.05
              + torch.tensor([0.0, 0.0, 1.0] + [0.0] * (d - 3))).to(dev)
@@ -959,20 +1019,37 @@ def main(argv=None) -> int:
         # both run the direct form in float32; they differ only by FMA
         # contraction, a few ulps of the largest squared norm
         tol = 1e-6 * scale
-        print(f"kernel: min_dist2 B={B} N={n} M={m} D={d} max_abs_err "
-              f"{err:.3e} (tol {tol:.3e})")
+        print(f"kernel: min_dist2 B={B} N={n} M={m} D={d} "
+              f"({min_dist2_plan(a, b)}) max_abs_err {err:.3e} "
+              f"(tol {tol:.3e})")
         check(err <= tol, f"min_dist2 disagrees with plain at {B}x{n}x{m}")
         errs[(B, n, m, d)] = err
+    # a NaN in one b-row of one ROI makes that ROI's every row NaN, as the
+    # plain version (and jnp.min) does, split or not; nothing leaks
+    for shape in ((2, 300, 700), (600, 33, 130)):
+        x = torch.randn(*shape[:2], 3, generator=gen).to(dev)
+        y = torch.randn(shape[0], shape[2], 3, generator=gen)
+        y[-1, shape[2] // 2, 1] = float("nan")
+        y = y.to(dev)
+        out, ref = min_dist2(x, y), min_dist2_plain(x, y)
+        torch.cuda.synchronize()
+        check(torch.equal(out.isnan(), ref.isnan())
+              and bool(ref[-1].isnan().all())
+              and not bool(ref[:-1].isnan().any()),
+              f"min_dist2 NaN pattern differs from plain at {shape}")
+        print(f"kernel: min_dist2 B={shape[0]} N={shape[1]} M={shape[2]} "
+              f"({min_dist2_plan(x, y)}) NaN in one b-row: NaN rows equal "
+              "the plain version's")
     B, N, M = 16, 4096, 4096
     ms = cuda_ms(lambda: min_dist2(a, b), iters=50)
+    dev_ms = queued_ms(lambda: min_dist2(a, b), iters=50)
     plain_ms = cuda_ms(lambda: min_dist2_plain(a, b), iters=5, warmup=1)
     lib_ms = cuda_ms(lambda: torch.cdist(a, b).square().amin(-1), iters=10)
-    ops_s = B * N * M * MIN_DIST2_INSTR_PER_PAIR / FP32_INSTR_PER_S
-    bytes_s = (B * N * 3 + B * M * 3 + B * N) * 4 / HBM_BYTES_PER_S
-    bound_ms = 1e3 * max(ops_s, bytes_s)
-    print(f"kernel: min_dist2 16x4096x4096 kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, cdist {lib_ms:.4f} ms, bound {bound_ms:.4f} "
-          f"ms ({'operations' if ops_s >= bytes_s else 'bytes'}) [{card}]")
+    bound_ms, bound_by = min_dist2_bound(B, N, M)
+    print(f"kernel: min_dist2 16x4096x4096 ({min_dist2_plan(a, b)}) kernel "
+          f"{ms:.4f} ms by CUDA events, {100 * bound_ms / ms:.1f}% of bound "
+          f"({dev_ms:.4f} ms device time), plain {plain_ms:.4f} ms, cdist "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     label_err, label_times = check_region_label(dev, card)
     gt_err, gt_times = check_gt_labels(dev, card)
 
@@ -1083,8 +1160,7 @@ def main(argv=None) -> int:
         "launches": launches.get("min_dist2", 0) + eval_launches,
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "library_ms": lib_ms}, {
+        "bound_by": bound_by, "library_ms": lib_ms}, {
         "name": "region_label", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/ops/region.py:21",

@@ -27,8 +27,15 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,m,d", [(1, 7, 5, 3), (1, 300, 700, 3),
-                                     (3, 129, 1000, 5), (16, 4096, 4096, 3)])
+@pytest.mark.parametrize("B,n,m,d", [
+    (1, 7, 5, 3), (1, 300, 700, 3), (3, 129, 1000, 5), (16, 4096, 4096, 3),
+    # ragged around a block's 1024 a-rows, the 256-row stage chunk and the
+    # 4-row step, split (small B) and unsplit (large B)
+    (1, 1023, 255, 3), (2, 1024, 256, 3), (1, 1025, 257, 3),
+    (3, 2049, 513, 3), (1, 1, 1, 3), (5, 1, 6, 3), (1, 300, 5001, 3),
+    (600, 33, 130, 3),
+    # phase 9's largest per-object launch
+    (8, 3000, 3000, 3)])
 def test_min_dist2_kernel_matches_plain(card, B, n, m, d):
     g = torch.Generator().manual_seed(n + m)
     a = torch.randn(B, n, d, generator=g).to(card)
@@ -45,6 +52,69 @@ def test_min_dist2_kernel_matches_plain(card, B, n, m, d):
         flat = min_dist2(a[0], b[0])
         assert flat.shape == (n,)
         torch.testing.assert_close(flat, out[0], rtol=0, atol=0)
+
+
+def _nonfinite(case, B, n, m):
+    """a [B,n,3], b [B,m,3] with non-finite values in the last batch item
+    only: a NaN in one b-row (every row of that item NaN), a NaN in one
+    a-row (that row NaN), b all NaN, or a at -inf and b at +inf in one row
+    each (that a-row +inf)."""
+    g = torch.Generator().manual_seed(n + m)
+    a = torch.randn(B, n, 3, generator=g)
+    b = torch.randn(B, m, 3, generator=g)
+    if case == "nan_b_row":
+        b[-1, m // 2, 1] = float("nan")
+    elif case == "nan_a_row":
+        a[-1, n // 3, 2] = float("nan")
+    elif case == "all_nan_b":
+        b[-1] = float("nan")
+    else:
+        a[-1, n // 3] = float("-inf")
+        b[-1, m // 2] = float("inf")
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nan_b_row", "nan_a_row", "all_nan_b",
+                                  "inf"])
+@pytest.mark.parametrize("B,n,m", [(2, 300, 700), (1, 300, 5001),
+                                   (600, 33, 130)])
+def test_min_dist2_kernel_nonfinite_matches_plain(card, case, B, n, m):
+    """NaN and inf land where the plain version puts them, split or not. A
+    kernel that reduced with fminf would drop the NaN distances."""
+    a, b = (t.to(card) for t in _nonfinite(case, B, n, m))
+    out = min_dist2(a, b)
+    ref = min_dist2_plain(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.isposinf(), ref.isposinf())
+    assert bool(ref.isnan().any() or ref.isposinf().any())
+    fin = ref.isfinite()
+    assert bool(fin[:-1].all())
+    if fin.any():
+        fa, fb = (t[t.isfinite().all(-1)] for t in (a, b))
+        scale = float((fa * fa).sum(-1).max() + (fb * fb).sum(-1).max())
+        assert float((out[fin] - ref[fin]).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_min_dist2_split_equals_unsplit_bitwise(card):
+    """One ROI alone splits b over blocks; the same ROI inside a batch large
+    enough to fill the card does not. The per-pair arithmetic is written
+    out and the min is exact, so the two agree to the bit."""
+    from rdpn6d_tpu_torch.ops.min_dist import launch_plan
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    big = 4 * sms
+    g = torch.Generator().manual_seed(5)
+    a = (torch.randn(big, 300, 3, generator=g) * 0.05 + 0.9).to(card)
+    b = (torch.randn(big, 4096, 3, generator=g) * 0.05 + 0.9).to(card)
+    assert launch_plan(1, 300, 4096, 3, sms).splits > 1
+    assert launch_plan(big, 300, 4096, 3, sms).splits == 1
+    alone = min_dist2(a[17:18].contiguous(), b[17:18].contiguous())
+    batched = min_dist2(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batched[17])
 
 
 @pytest.mark.cuda

@@ -51,6 +51,7 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "profile_step.py")
+    yield os.path.join(ROOT, "time_min_dist2.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
