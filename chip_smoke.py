@@ -14,6 +14,7 @@ Phases, each fatal on failure:
               ``region_label``), with kernel, plain, library-call and bound
               times; ``min_dist2`` also with b split over blocks and with a
               NaN row, whose NaN pattern must equal the plain version's;
+              the label kernels also past 64 keypoints (65 and 200);
   3. serve  — the lm13 configuration at full width (ResNet-34, 256² ROIs,
               64² head maps, 32 regions, rot_concat), seeded random
               weights, through ``Predictor.predict``: 3 distinct 480x640
@@ -49,9 +50,32 @@ Phases, each fatal on failure:
               object), f32 ``run_eval`` card vs CPU on 2 objects, host PNG
               decode times, and ``min_dist2`` at the eval shapes (8 and
               1000 ROIs x 3000 x 3000 points) beside its plain version and
-              ``cdist``.
+              ``cdist``;
+ 10. train from disk — ``main`` (no ``--eval-only``) at lm13 full width, 24
+              ROIs a step, bf16 autocast, Ranger, on ``lm_13_train`` (phase
+              9's tree: train lists and GT xyz crops) and
+              ``lm_imgn_13_train_1k_per_obj`` (an lm_imgn tree of 13
+              objects x 4 frames written beside it), with the trunk loaded
+              from a seeded torchvision-keyed ResNet-34 .pth named by
+              ``RDPN6D_PRETRAINED_DIR``: 2 epochs (12 iterations through the
+              decode pool and the device frame cache; labels through
+              ``gt_labels``), a checkpoint each epoch, eval on
+              ``lm_13_test`` at the end (ADI on ``min_dist2``); then
+              ``main --resume`` with a 3-epoch horizon, which must start at
+              the saved step. Checks every logged loss finite, the trunk
+              equal to the .pth before the first step, the checkpoints,
+              the launch counts (``gt_labels`` one an iteration,
+              ``min_dist2`` one an evaluated object), a ``metrics.json``
+              line a log period and cache hits in the second epoch; prints
+              ms/step, the ms/step spent waiting on the loader (timed by
+              wrapping the trainer's iterator here), decode frames/s at 1
+              and at the default number of decode threads, the cache's
+              hits, misses and resident MB and peak memory; with
+              ``--profile`` also the same loop's ms/step on batches held in
+              memory with the decode pool stopped.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
-6, each run of phase 8 and phase 9's ``main``) and read right after it.
+6, each run of phase 8, phase 9's ``main`` and each of phase 10's) and
+read right after it.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -65,8 +89,10 @@ import copy
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -91,6 +117,12 @@ TRAIN_STEPS = 12
 TRAIN_ROIS = 24
 EVAL_FRAMES_PER_OBJ = 8      # 104 ROIs: 4 batches of 32, 2 past warm-up
 EVAL_SPLIT_ROIS = 1000       # LM-13's test split: ~1k instances an object
+IMGN_FRAMES_PER_OBJ = 4      # 52 lm_imgn frames: 156 train records with
+ITERS_PER_EPOCH = 13 * (EVAL_FRAMES_PER_OBJ + IMGN_FRAMES_PER_OBJ) \
+    // TRAIN_ROIS            # phase 9's 104, 6 iterations an epoch
+TRAIN_EPOCHS = 2
+RESUME_EPOCHS = 3
+DECODE_BATCHES = 4           # 96 frames of the first epoch, decode timing
 
 
 class SmokeFailure(RuntimeError):
@@ -359,7 +391,10 @@ def check_region_label(dev, card):
     from rdpn6d_tpu_torch.ops.region import region_label, region_label_plain
 
     worst = 0.0
+    # keypoints in one, two and four of the kernel's 64-keypoint tiles;
+    # the train shape last, timed below
     for (B, H, W, K) in [(1, 7, 5, 3), (3, 33, 31, 17), (2, 64, 64, 64),
+                         (2, 33, 31, 65), (2, 17, 19, 200),
                          (TRAIN_ROIS, 64, 64, 32)]:
         xyz, fps, rot, ext = label_inputs(B, H, W, K, H + K, dev)
         reg, coord = region_label(xyz, fps, rot, ext)
@@ -477,7 +512,8 @@ def check_gt_labels(dev, card):
 
     worst = 0.0
     for (B, h, w, o, K) in [(1, 7, 5, 3, 3), (3, 33, 31, 17, 17),
-                            (2, 100, 90, 33, 64),
+                            (2, 100, 90, 33, 64), (3, 50, 60, 17, 65),
+                            (2, 60, 70, 13, 200),
                             (TRAIN_ROIS, 480, 640, GT_LABELS_OUT_RES, 32)]:
         for masks, half in (("packed", True), ("packed", False),
                             ("trunc", False), ("visib_only", True)):
@@ -535,15 +571,17 @@ def check_gt_labels(dev, card):
                        bound_ms=bound_ms, bound_by=bound_by)
 
 
-def train_config(amp: bool):
+def train_config(amp: bool, out_dir: str):
     """lm13 at full width, seeded fan-in init, no pretrained trunk (the
-    torchvision weights are not on disk), 24 ROIs a step."""
+    torchvision weights are not on disk), 24 ROIs a step; the trainer's
+    metrics and checkpoint (at its last step only) under ``out_dir``."""
     from rdpn6d_tpu_torch.configs import lm13
 
     return lm13.get_config().apply_opts([
         'head.init="fan_in"', 'backbone.pretrained=""',
         f"solver.ims_per_batch={TRAIN_ROIS}", f"solver.amp={str(amp).lower()}",
-        "train.log_period=1"])
+        "train.log_period=1", "train.checkpoint_period_epochs=1e9",
+        f'train.output_dir="{out_dir}"'])
 
 
 def train_inputs(cfg, seed, n_frames, rois_per_frame, ship_xyz=True):
@@ -560,7 +598,7 @@ def train_inputs(cfg, seed, n_frames, rois_per_frame, ship_xyz=True):
     return frames, rois
 
 
-def run_train(dev, card, profile: bool):
+def run_train(dev, card, profile: bool, work: str):
     """Phase 6: ``Trainer.train`` at lm13 full width on the card; with
     ``profile``, one more step (preprocessing included) under the
     profiler after the launch counts are read."""
@@ -571,7 +609,7 @@ def run_train(dev, card, profile: bool):
     from rdpn6d_tpu_torch.models import RDPN, init_weights
     from rdpn6d_tpu_torch.ops import cuda_build
 
-    cfg = train_config(amp=True)
+    cfg = train_config(amp=True, out_dir=os.path.join(work, "phase6"))
     t0 = time.perf_counter()
     batches = []
     for s in range(2):
@@ -643,7 +681,7 @@ def run_train(dev, card, profile: bool):
     return launches
 
 
-def train_parity(dev):
+def train_parity(dev, work):
     """Phase 7: one float32 step on the card and on the CPU from the same
     weights and the same (CPU-preprocessed) batch. Every loss within 1e-3
     relative. ``grad_norm`` within 1e-3 relative or twice what the CPU's
@@ -658,7 +696,7 @@ def train_parity(dev):
     from rdpn6d_tpu_torch.parallel import create_train_state, make_train_step
     from rdpn6d_tpu_torch.solver import build_schedule
 
-    cfg = train_config(amp=False)
+    cfg = train_config(amp=False, out_dir=os.path.join(work, "phase7"))
     frames, rois = train_inputs(cfg, 30, 2, 2)
     batch = preprocess_rois_grouped(
         cfg, {k: torch.from_numpy(v) for k, v in frames.items()},
@@ -701,7 +739,7 @@ def train_parity(dev):
           f"own grad_norm moves {sens:.3e} when the input moves 1e-6)")
 
 
-def labels_card_vs_cpu(dev, card):
+def labels_card_vs_cpu(dev, card, work):
     """Phase 8: the train labels of 6 ROIs (2 frames of 3 cubes, lm13's
     64² labels, K = 32) on the card and on the CPU, from the same boxes:
     with GT xyz maps through ``gt_labels``, without them through the
@@ -715,7 +753,7 @@ def labels_card_vs_cpu(dev, card):
     )
     from rdpn6d_tpu_torch.ops import cuda_build
 
-    cfg = train_config(amp=False)
+    cfg = train_config(amp=False, out_dir=os.path.join(work, "phase8"))
     launches = {}
     for kernel, ship_xyz in (("gt_labels", True), ("region_label", False)):
         frames, rois = train_inputs(cfg, 40, 2, 3, ship_xyz=ship_xyz)
@@ -836,12 +874,9 @@ def read_csv(path):
             np.array([[float(x) for x in r[5].split()] for r in rows]))
 
 
-def run_eval_phase(dev, card):
-    """Phase 9: the eval entry point on an LM tree written here; returns
-    ``min_dist2``'s launches in ``main``'s run."""
-    import shutil
-    import tempfile
-
+def run_eval_phase(dev, card, work):
+    """Phase 9: the eval entry point on an LM tree written under
+    ``work/data``; returns ``min_dist2``'s launches in ``main``'s run."""
     import torch
 
     from rdpn6d_tpu_torch import main as port_main
@@ -855,108 +890,370 @@ def run_eval_phase(dev, card):
     from rdpn6d_tpu_torch.ops import cuda_build
     from rdpn6d_tpu_torch.parallel import create_train_state
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
-    try:
-        objs = {o: LM.obj2id[o] for o in LM13_OBJECTS}
-        n_rois = len(objs) * EVAL_FRAMES_PER_OBJ
-        t0 = time.perf_counter()
-        write_lm_tree(os.path.join(work, "data"), objs, EVAL_FRAMES_PER_OBJ,
-                      seed=9)
-        print(f"eval: wrote an LM tree of {len(objs)} objects x "
-              f"{EVAL_FRAMES_PER_OBJ} frames in "
-              f"{time.perf_counter() - t0:.1f} s (host, set-up)")
-        time_png_decode(os.path.join(work, "data"), card)
-        os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
+    objs = {o: LM.obj2id[o] for o in LM13_OBJECTS}
+    n_rois = len(objs) * EVAL_FRAMES_PER_OBJ
+    t0 = time.perf_counter()
+    write_lm_tree(os.path.join(work, "data"), objs, EVAL_FRAMES_PER_OBJ,
+                  seed=9)
+    print(f"eval: wrote an LM tree of {len(objs)} objects x "
+          f"{EVAL_FRAMES_PER_OBJ} frames in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    time_png_decode(os.path.join(work, "data"), card)
+    os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
 
-        cfg = lm13.get_config()
-        model = init_weights(RDPN(cfg), torch.Generator().manual_seed(4))
-        with torch.no_grad():      # poses ~1 m away, as physical_z does
-            model.pnp_net.fc_t.bias[2] = 2.0
-        out = os.path.join(work, "out")
-        CheckpointManager(os.path.join(out, "ckpt")).save(
-            0, create_train_state(cfg, model))
+    cfg = lm13.get_config()
+    model = init_weights(RDPN(cfg), torch.Generator().manual_seed(4))
+    with torch.no_grad():      # poses ~1 m away, as physical_z does
+        model.pnp_net.fc_t.bias[2] = 2.0
+    out = os.path.join(work, "out")
+    CheckpointManager(os.path.join(out, "ckpt")).save(
+        0, create_train_state(cfg, model))
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    res = port_main.main([
+        "--config-file",
+        os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
+        "--eval-only", "--opts", f'train.output_dir="{out}"'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_build.LAUNCHES.get("min_dist2", 0)
+    check(list(res) == ["lm_13_test"], f"main evaluated {list(res)}")
+    res = res["lm_13_test"]
+    check(launches == len(objs), f"min_dist2 launched {launches} times "
+          f"for {len(objs)} scored objects")
+    ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
+    check(len(ident) == n_rois, f"CSV has {len(ident)} rows for "
+          f"{n_rois} instances")
+    check(bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          "non-finite poses in the CSV")
+    curves = sorted(os.listdir(os.path.join(out, "plots_lm_13_test")))
+    check("recall_ad.csv" in curves and "recall_adi.csv" in curves,
+          f"recall curves: {curves}")
+    log = open(os.path.join(out, "log.txt")).read()
+    check("MEAN" in log and all(o in log for o in LM13_OBJECTS),
+          "the per-object table is not in the log")
+    check(set(res["per_obj"]) == set(LM13_OBJECTS),
+          f"per-object table covers {sorted(res['per_obj'])}")
+    st = res["stats"]
+    check(st["n_rois"] == n_rois and st["n_timed"] > 0
+          and st["wall_s"] > 0, f"inference stats {st}")
+    rate = st["n_timed"] / st["wall_s"]
+    print(f"eval: lm13 full width bf16 main --eval-only on lm_13_test: "
+          f"{st['n_rois']} ROIs, {rate:.1f} poses/s over the "
+          f"{st['n_timed']} ROIs past warm-up ({st['wall_s']:.3f} s), "
+          f"split wall time {wall:.2f} s (records, assets, checkpoint, "
+          f"decode, model, scoring, CSV, curves); min_dist2 x{launches}; "
+          f"MEAN ad_10 {res['mean']['ad_10']:.2f} [{card}]")
+
+    register_split(Split("lm_13_test_2obj", "lm", "test",
+                         objs=LM13_OBJECTS[:2], filter_invalid=False,
+                         per_obj_index="image_set/{obj}_test.txt"))
+    f32 = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        path = os.path.join(out, f"f32_{name}.csv")
+        r = run_eval(cfg, os.path.join(out, "ckpt"), "lm_13_test_2obj",
+                     csv_path=path, dtype=torch.float32, device=d)
+        f32[name] = (read_csv(path), r["errors"])
+    (c_id, c_R, c_t), c_err = f32["card"]
+    (p_id, p_R, p_t), p_err = f32["cpu"]
+    check(c_id == p_id, "f32 eval: CSV identity columns differ")
+    dR = float(np.abs(c_R - p_R).max())
+    dt = float((np.abs(c_t - p_t).max(1) / np.abs(p_t).max(1)).max())
+    check(dR <= 1e-3 and dt <= 1e-3, f"f32 eval: card vs CPU poses "
+          f"|dR| {dR:.3e}, |dt|/|t| {dt:.3e}")
+    worst = {"add": 0.0, "adi": 0.0, "re": 0.0}
+    for obj, e in p_err.items():
+        diam = LM.diameter_m(LM.obj2id[obj])     # the tree's cube
+        for k in ("add", "adi"):
+            worst[k] = max(worst[k], float(
+                np.abs(c_err[obj][k] - e[k]).max() / diam))
+        worst["re"] = max(worst["re"],
+                          float(np.abs(c_err[obj]["re"] - e["re"]).max()))
+    check(worst["add"] <= 1e-3 and worst["adi"] <= 1e-3
+          and worst["re"] <= 0.1, f"f32 eval: card vs CPU errors {worst}")
+    print(f"eval: f32 run_eval over {len(c_id)} ROIs of 2 objects, card "
+          f"vs CPU: identity columns equal, max |dR| {dR:.3e}, max "
+          f"|dt|/|t| {dt:.3e} (tol 1e-3); ADD {worst['add']:.3e} and "
+          f"ADI {worst['adi']:.3e} of the diameter (tol 1e-3), re "
+          f"{worst['re']:.3e} deg (tol 0.1) [{card}]")
+    min_dist2_eval_shape(dev, card, cfg.loss.num_pm_points)
+    return launches
+
+
+def instrument_trainer(rec: dict):
+    """Wraps ``Trainer.train`` for phase 10, with no knob of the trainer's
+    own: records the start iteration, the trunk before the first step and
+    the device frame cache (the object behind ``aux_metrics_fn``), times
+    each ``next()`` on the loader and, through ``step_hook``, each step (to
+    a synchronize) and the cache's counts after it. Returns a function that
+    undoes the wrapping."""
+    import torch
+
+    from rdpn6d_tpu_torch.engine.trainer import Trainer
+
+    orig = Trainer.train
+
+    def train(self, loader, start_iter=0, **kw):
+        cache = getattr(kw.get("aux_metrics_fn"), "__self__", None)
+        rec.update(start_iter=start_iter, cache=cache, waits=[], stamps=[],
+                   counts=[], trunk={k: v.detach().cpu().clone() for k, v
+                                     in self.model.backbone.state_dict()
+                                     .items()})
+
+        def timed():
+            while True:
+                t0 = time.perf_counter()
+                batch = next(loader)
+                rec["waits"].append(time.perf_counter() - t0)
+                yield batch
+
+        def hook(it, metrics):
+            torch.cuda.synchronize()
+            rec["stamps"].append(time.perf_counter())
+            rec["counts"].append((cache.hits, cache.misses) if cache
+                                 else (0, 0))
 
         torch.cuda.synchronize()
+        rec["t0"] = time.perf_counter()
+        return orig(self, timed(), start_iter=start_iter, step_hook=hook,
+                    **kw)
+
+    Trainer.train = train
+    return lambda: setattr(Trainer, "train", orig)
+
+
+def decode_rate(cfg, splits, assets, workers: int) -> float:
+    """Frames a second that the decode pool delivers from a cold start
+    (a decoder of its own, so no frame is cached on the host): the time
+    to the DECODE_BATCHES-th batch of ``train_group_iterator``, which holds
+    DECODE_BATCHES x 24 frames of the first epoch (LM: one instance a
+    frame), batched as the trainer takes them."""
+    from rdpn6d_tpu_torch.data.loader import (
+        RecordDecoder,
+        train_group_iterator,
+    )
+
+    decoder = RecordDecoder(cfg, assets, train=True)
+    t0 = time.perf_counter()
+    it = train_group_iterator(cfg, splits, decoder=decoder, seed=5,
+                              num_workers=workers, yield_keys=True)
+    n = 0
+    for _ in range(DECODE_BATCHES):
+        n += len({k for k, _ in next(it)["frame_slots"]})
+    secs = time.perf_counter() - t0
+    it.close()
+    return n / secs
+
+
+def held_batches_ms(cfg, splits, assets, dev, work) -> float:
+    """Phase 10's train loop with its batches held in host memory and the
+    decode pool stopped: 12 batches of ``train_group_iterator``, fed
+    through a device frame cache to ``Trainer.train`` as ``main`` feeds
+    them, twice round; each step timed to a synchronize. Returns the
+    median ms over the second round (every frame cached, as in epoch 2),
+    to set beside epoch 2's with the pool running."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.device_cache import DeviceFrameCache
+    from rdpn6d_tpu_torch.data.loader import (
+        RecordDecoder,
+        train_group_iterator,
+    )
+    from rdpn6d_tpu_torch.engine.trainer import Trainer
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+
+    it = train_group_iterator(cfg, splits, seed=3, yield_keys=True,
+                              decoder=RecordDecoder(cfg, assets, train=True))
+    held = [next(it) for _ in range(12)]
+    it.close()
+    cache = DeviceFrameCache(cfg.data.device_frame_cache_mb << 20, dev)
+
+    def feed():
+        for gb in itertools.cycle(held):
+            yield {"frames": cache.stack(gb["frame_slots"]),
+                   "rois": gb["rois"]}
+
+    cfg = cfg.apply_opts([f'train.output_dir="{os.path.join(work, "held")}"',
+                          "train.checkpoint_period_epochs=1e9"])
+    model = init_weights(RDPN(cfg), torch.Generator().manual_seed(0))
+    stamps = []
+
+    def hook(it, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    Trainer(cfg, model, total_iters=2 * len(held), device=dev).train(
+        feed(), step_hook=hook)
+    return float(np.median(1e3 * np.diff(stamps[len(held) - 1:])))
+
+
+def run_train_from_disk(dev, card, work, profile: bool):
+    """Phase 10: ``main`` trains lm13 from the trees under ``work/data``,
+    then resumes; returns each kernel's launches over both runs. With
+    ``profile``, also times the loop on held batches."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data.assets import load_class_assets
+    from rdpn6d_tpu_torch.data.loader import default_num_workers
+    from rdpn6d_tpu_torch.data.refs import LM, LM13_OBJECTS
+    from rdpn6d_tpu_torch.data.synthetic import (
+        write_lm_imgn_tree,
+        write_resnet_pth,
+    )
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    objs = {o: LM.obj2id[o] for o in LM13_OBJECTS}
+    data = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    write_lm_imgn_tree(data, objs, IMGN_FRAMES_PER_OBJ, seed=10)
+    pth = write_resnet_pth(os.path.join(work, "pretrained",
+                                        "resnet34-seeded.pth"), 34, seed=11)
+    os.environ["RDPN6D_PRETRAINED_DIR"] = os.path.dirname(pth)
+    print(f"train from disk: wrote an lm_imgn tree of {len(objs)} objects "
+          f"x {IMGN_FRAMES_PER_OBJ} frames and a seeded ResNet-34 .pth in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py")
+    out = os.path.join(work, "train")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1",
+            f"train.eval_period={TRAIN_EPOCHS * ITERS_PER_EPOCH}",
+            f'train.output_dir="{out}"']
+    cfg = load_config(config, opts)
+    check(cfg.backbone.pretrained == "torchvision://resnet34"
+          and cfg.solver.ims_per_batch == TRAIN_ROIS and cfg.solver.amp
+          and cfg.data.grouped_train and cfg.data.ship_crops
+          and cfg.data.device_frame_cache_mb == 1024,
+          "phase 10 does not run lm13's own train settings")
+
+    launches, runs = {}, []
+    for epochs, resume in ((TRAIN_EPOCHS, False), (RESUME_EPOCHS, True)):
+        rec: dict = {}
+        undo = instrument_trainer(rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         cuda_build.reset_launches()
         t0 = time.perf_counter()
-        res = port_main.main([
-            "--config-file",
-            os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
-            "--eval-only", "--opts", f'train.output_dir="{out}"'])
+        try:
+            state = port_main.main(
+                ["--config-file", config] + ["--resume"] * resume
+                + ["--opts", *opts, f"solver.total_epochs={epochs}"])
+        finally:
+            undo()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = cuda_build.LAUNCHES.get("min_dist2", 0)
-        check(list(res) == ["lm_13_test"], f"main evaluated {list(res)}")
-        res = res["lm_13_test"]
-        check(launches == len(objs), f"min_dist2 launched {launches} times "
-              f"for {len(objs)} scored objects")
-        ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
-        check(len(ident) == n_rois, f"CSV has {len(ident)} rows for "
-              f"{n_rois} instances")
-        check(bool(np.isfinite(R).all() and np.isfinite(t).all()),
-              "non-finite poses in the CSV")
-        curves = sorted(os.listdir(os.path.join(out, "plots_lm_13_test")))
-        check("recall_ad.csv" in curves and "recall_adi.csv" in curves,
-              f"recall curves: {curves}")
-        log = open(os.path.join(out, "log.txt")).read()
-        check("MEAN" in log and all(o in log for o in LM13_OBJECTS),
-              "the per-object table is not in the log")
-        check(set(res["per_obj"]) == set(LM13_OBJECTS),
-              f"per-object table covers {sorted(res['per_obj'])}")
-        st = res["stats"]
-        check(st["n_rois"] == n_rois and st["n_timed"] > 0
-              and st["wall_s"] > 0, f"inference stats {st}")
-        rate = st["n_timed"] / st["wall_s"]
-        print(f"eval: lm13 full width bf16 main --eval-only on lm_13_test: "
-              f"{st['n_rois']} ROIs, {rate:.1f} poses/s over the "
-              f"{st['n_timed']} ROIs past warm-up ({st['wall_s']:.3f} s), "
-              f"split wall time {wall:.2f} s (records, assets, checkpoint, "
-              f"decode, model, scoring, CSV, curves); min_dist2 x{launches}; "
-              f"MEAN ad_10 {res['mean']['ad_10']:.2f} [{card}]")
+        got = dict(cuda_build.LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rec.update(wall=wall, launches=got, state=state,
+                   peak=torch.cuda.max_memory_allocated())
+        runs.append(rec)
 
-        register_split(Split("lm_13_test_2obj", "lm", "test",
-                             objs=LM13_OBJECTS[:2], filter_invalid=False,
-                             per_obj_index="image_set/{obj}_test.txt"))
-        f32 = {}
-        for name, d in (("card", dev), ("cpu", "cpu")):
-            path = os.path.join(out, f"f32_{name}.csv")
-            r = run_eval(cfg, os.path.join(out, "ckpt"), "lm_13_test_2obj",
-                         csv_path=path, dtype=torch.float32, device=d)
-            f32[name] = (read_csv(path), r["errors"])
-        (c_id, c_R, c_t), c_err = f32["card"]
-        (p_id, p_R, p_t), p_err = f32["cpu"]
-        check(c_id == p_id, "f32 eval: CSV identity columns differ")
-        dR = float(np.abs(c_R - p_R).max())
-        dt = float((np.abs(c_t - p_t).max(1) / np.abs(p_t).max(1)).max())
-        check(dR <= 1e-3 and dt <= 1e-3, f"f32 eval: card vs CPU poses "
-              f"|dR| {dR:.3e}, |dt|/|t| {dt:.3e}")
-        worst = {"add": 0.0, "adi": 0.0, "re": 0.0}
-        for obj, e in p_err.items():
-            diam = LM.diameter_m(LM.obj2id[obj])     # the tree's cube
-            for k in ("add", "adi"):
-                worst[k] = max(worst[k], float(
-                    np.abs(c_err[obj][k] - e[k]).max() / diam))
-            worst["re"] = max(worst["re"],
-                              float(np.abs(c_err[obj]["re"] - e["re"]).max()))
-        check(worst["add"] <= 1e-3 and worst["adi"] <= 1e-3
-              and worst["re"] <= 0.1, f"f32 eval: card vs CPU errors {worst}")
-        print(f"eval: f32 run_eval over {len(c_id)} ROIs of 2 objects, card "
-              f"vs CPU: identity columns equal, max |dR| {dR:.3e}, max "
-              f"|dt|/|t| {dt:.3e} (tol 1e-3); ADD {worst['add']:.3e} and "
-              f"ADI {worst['adi']:.3e} of the diameter (tol 1e-3), re "
-              f"{worst['re']:.3e} deg (tol 0.1) [{card}]")
-        min_dist2_eval_shape(dev, card, cfg.loss.num_pm_points)
-        return launches
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    first, second = runs
+    lines = [json.loads(ln) for ln in open(os.path.join(out, "metrics.json"))]
+    per_epoch = ITERS_PER_EPOCH
+    total = per_epoch * RESUME_EPOCHS
+    check(len(first["stamps"]) == per_epoch * TRAIN_EPOCHS
+          and first["start_iter"] == 0,
+          f"{len(first['stamps'])} iterations from {first['start_iter']}")
+    check(second["start_iter"] == per_epoch * TRAIN_EPOCHS
+          and len(second["stamps"]) == total - second["start_iter"]
+          and second["state"].step == total,
+          f"the resumed run started at {second['start_iter']}, ran "
+          f"{len(second['stamps'])} iterations to step "
+          f"{second['state'].step}")
+    check([ln["iteration"] for ln in lines] == list(range(1, total + 1)),
+          f"metrics.json iterations {[ln['iteration'] for ln in lines]}")
+    bad = [(ln["iteration"], k) for ln in lines for k, v in ln.items()
+           if (k.startswith("loss") or k in ("total_loss", "grad_norm"))
+           and not np.isfinite(v)]
+    check(not bad, f"non-finite logged losses {bad[:5]}")
+    steps = sorted(int(d) for d in os.listdir(os.path.join(out, "ckpt")))
+    check(steps == [per_epoch * e for e in range(1, RESUME_EPOCHS + 1)],
+          f"checkpoints {steps}")
+    sd = torch.load(pth, weights_only=True)
+    trunk = first["trunk"]
+    check(all(torch.equal(trunk[k], v) for k, v in sd.items()
+              if not k.startswith("fc.")), "the trunk before the first step "
+          "is not the .pth's")
+    trained = first["state"].model.backbone.state_dict()
+    check(all(torch.equal(v, trained[k].cpu())
+              for k, v in second["trunk"].items())
+          and not all(torch.equal(second["trunk"][k], v)
+                      for k, v in sd.items() if not k.startswith("fc.")),
+          "the resumed run's trunk is not the checkpoint's")
+    for r, n in ((first, per_epoch * TRAIN_EPOCHS),
+                 (second, total - per_epoch * TRAIN_EPOCHS)):
+        check(r["launches"].get("gt_labels", 0) == n,
+              f"gt_labels launched {r['launches'].get('gt_labels', 0)} "
+              f"times in {n} iterations")
+        check(r["launches"].get("region_label", 0) == 0,
+              "region_label launched: the xyz crops were not shipped")
+    check(first["launches"].get("min_dist2", 0) == len(objs),
+          f"min_dist2 launched {first['launches'].get('min_dist2', 0)} "
+          f"times for {len(objs)} evaluated objects")
+    ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
+    check(len(ident) == len(objs) * EVAL_FRAMES_PER_OBJ
+          and bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          f"eval during training: {len(ident)} CSV rows")
+    counts = first["counts"]
+    hits2 = counts[-1][0] - counts[per_epoch - 1][0]
+    miss2 = counts[-1][1] - counts[per_epoch - 1][1]
+    # 6 iterations of 24 take 144 of the 156 frames: the second epoch of
+    # iterations meets 12 of them first
+    check(hits2 > 0, f"second epoch: {hits2} cache hits, {miss2} misses")
+
+    step_ms = 1e3 * np.diff([first["t0"]] + first["stamps"])
+    wait_ms = 1e3 * np.asarray(first["waits"])
+    cache = first["cache"]
+    print(f"train from disk: lm13 full width bf16 autocast, {TRAIN_ROIS} "
+          f"ROIs/step, trunk from the .pth: {len(step_ms)} iterations in "
+          f"{first['wall']:.2f} s of main (records, model, "
+          f"{TRAIN_EPOCHS} checkpoints, eval of "
+          f"{len(ident)} ROIs); ms/step median {np.median(step_ms):.2f} "
+          f"over all, epoch 1 {np.median(step_ms[:per_epoch]):.2f}, epoch "
+          f"2 {np.median(step_ms[per_epoch:]):.2f}; loader wait ms/step "
+          f"median {np.median(wait_ms):.2f}, epoch 1 "
+          f"{np.median(wait_ms[:per_epoch]):.2f}, epoch 2 "
+          f"{np.median(wait_ms[per_epoch:]):.2f}; peak memory "
+          f"{first['peak'] / 2**30:.2f} GiB [{card}]")
+    print(f"train from disk: device frame cache {cache.hits} hits, "
+          f"{cache.misses} misses, {len(cache)} frames, "
+          f"{cache.resident_bytes / 2**20:.1f} MB resident; second epoch "
+          f"{hits2} hits, {miss2} misses; launches {first['launches']} "
+          f"[{card}]")
+    print(f"train from disk: --resume from step {second['start_iter']} to "
+          f"{second['state'].step}: {len(second['stamps'])} iterations, "
+          f"wall {second['wall']:.2f} s, ms/step median "
+          f"{np.median(1e3 * np.diff([second['t0']] + second['stamps'])):.2f}"
+          f", launches {second['launches']} [{card}]")
+    splits = list(cfg.data.train_datasets)
+    assets = load_class_assets(LM, cfg.head.num_regions,
+                               cfg.loss.num_pm_points, objs=LM13_OBJECTS)
+    default = default_num_workers()
+    rates = {w: decode_rate(cfg, splits, assets, w) for w in (1, default)}
+    print(f"train from disk: decode pool, cold, {DECODE_BATCHES} batches of "
+          f"{TRAIN_ROIS} frames: {rates[1]:.1f} frames/s at 1 worker, "
+          f"{rates[default]:.1f} at {default} (the default on "
+          f"{os.cpu_count()} cores); a step needs {TRAIN_ROIS} frames "
+          f"[{card}]")
+    if profile:
+        held_ms = held_batches_ms(cfg, splits, assets, dev, work)
+        print(f"train from disk: the same loop on 12 batches held in host "
+              f"memory, decode pool stopped, every frame cached: ms/step "
+              f"median {held_ms:.2f} (epoch 2 with the pool running "
+              f"{np.median(step_ms[per_epoch:]):.2f}) [{card}]")
+    return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one served pass and one train step "
-                         "with torch.profiler "
-                         "and print the device time by kernel")
+                         "with torch.profiler and print the device time by "
+                         "kernel, and time phase 10's loop on held batches")
     args = ap.parse_args(argv)
 
     import torch
@@ -1141,35 +1438,45 @@ def main(argv=None) -> int:
     # through ~40 layers, and a region argmax near-tie may flip a pixel
     check(dR <= 1e-3 and dt_rel <= 1e-3, "card and CPU poses disagree")
 
-    # 6. train --------------------------------------------------------------
-    train_launches = run_train(dev, card, args.profile)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # 6. train -------------------------------------------------------
+        train_launches = run_train(dev, card, args.profile, work)
 
-    # 7. train parity -------------------------------------------------------
-    train_parity(dev)
+        # 7. train parity ------------------------------------------------
+        train_parity(dev, work)
 
-    # 8. labels, card vs CPU --------------------------------------------------
-    label_launches = labels_card_vs_cpu(dev, card)
+        # 8. labels, card vs CPU -----------------------------------------
+        label_launches = labels_card_vs_cpu(dev, card, work)
 
-    # 9. eval -------------------------------------------------------------------
-    eval_launches = run_eval_phase(dev, card)
+        # 9. eval --------------------------------------------------------
+        eval_launches = run_eval_phase(dev, card, work)
+
+        # 10. train from disk --------------------------------------------
+        disk_launches = run_train_from_disk(dev, card, work, args.profile)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/min_dist2.cu",
         "replaces": "rdpn6d_tpu/ops/pallas_kernels.py:57",
-        "launches": launches.get("min_dist2", 0) + eval_launches,
+        "launches": launches.get("min_dist2", 0) + eval_launches
+        + disk_launches.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}, {
         "name": "region_label", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/ops/region.py:21",
-        "launches": label_launches["region_label"],
+        "launches": label_launches["region_label"]
+        + disk_launches.get("region_label", 0),
         "max_abs_err": label_err, **label_times}, {
         "name": "gt_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/data/pipeline.py:197",
-        "launches": train_launches.get("gt_labels", 0),
+        "launches": train_launches.get("gt_labels", 0)
+        + disk_launches.get("gt_labels", 0),
         "max_abs_err": gt_err, **gt_times}], "card": card}
     print(card)
     print(json.dumps(result))

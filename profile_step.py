@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -51,9 +52,6 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, root)
     import rdpn6d_tpu_torch
-    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
-    from rdpn6d_tpu_torch.engine.trainer import Trainer
-    from rdpn6d_tpu_torch.models import RDPN, init_weights
 
     pkg = os.path.dirname(os.path.abspath(rdpn6d_tpu_torch.__file__))
     if os.path.dirname(pkg) != root:
@@ -62,7 +60,20 @@ def main(argv=None) -> int:
         return 2
     card = cs.nvidia_smi("name,power.limit")
     dev = torch.device("cuda")
-    cfg = cs.train_config(amp=True)
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as out:
+        return profile(cs, root, card, dev, out)
+
+
+def profile(cs, root, card, dev, out) -> int:
+    """The untimed warm-up, the timed steps and the traced passes; the
+    trainer writes under ``out``."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
+    from rdpn6d_tpu_torch.engine.trainer import Trainer
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+
+    cfg = cs.train_config(amp=True, out_dir=out)
     frames, rois = cs.train_inputs(cfg, 10, 8, cs.TRAIN_ROIS // 8)
     frames = {k: torch.from_numpy(v).to(dev) for k, v in frames.items()}
     rois = {k: torch.from_numpy(v).to(dev) for k, v in rois.items()}

@@ -3,8 +3,9 @@
 The port's own copy of ``rdpn6d_tpu/data/bop.py``: a split is a ``Split``
 dataclass, built into a list of plain dicts by ``build_split_records``
 (cached as a pickle keyed by the split and the dataset root), registered
-by name in the same default registry. Only the BOP layout is ported: the
-``ycb_style`` (MP6D), ``imgn`` and ``blender`` record builders raise.
+by name in the same default registry. The BOP and ``imgn`` (lm_imgn's
+synthetic renders) layouts are ported; the ``ycb_style`` (MP6D) and
+``blender`` record builders raise.
 """
 
 from __future__ import annotations
@@ -166,11 +167,16 @@ def build_split_records(split: Split, cache_dir: str | None = None,
                 pass
 
     sel_objs = set(split.objs) if split.objs else set(ref.objects)
-    if ref.layout != "bop":
+    if ref.layout == "imgn":
+        records = _build_imgn_records(split, ref, sel_objs)
+        if not flatten:
+            records = _group_per_image(records)
+    elif ref.layout == "bop":
+        records = _build_bop_records(split, ref, sel_objs, flatten)
+    else:
         raise NotImplementedError(
             f"{split.name}: the {ref.layout!r} record layout is not ported "
-            "(ROADMAP queue 1 item 10); only the BOP layout is")
-    records = _build_bop_records(split, ref, sel_objs, flatten)
+            "(ROADMAP queue 1 item 10); the BOP and imgn layouts are")
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         # atomic publish: every process of a multi-host run points at the
@@ -181,6 +187,28 @@ def build_split_records(split: Split, cache_dir: str | None = None,
             pickle.dump(records, f)
         os.replace(tmp, cache_path)
     return records
+
+
+_INSTANCE_KEYS = ("obj_id", "cls_idx", "R", "t", "visib_fract",
+                  "bbox_visib", "bbox_mode", "mask_visib_path",
+                  "label_obj_id", "xyz_path", "inst_idx")
+
+
+def _group_per_image(flat: list[dict]) -> list[dict]:
+    """Flat per-instance records -> per-image records with an
+    ``instances`` list (the flatten=False contract for builders that only
+    produce flat records)."""
+    by_im: dict[tuple[int, int], dict] = {}
+    for rec in flat:
+        key = (rec["scene_id"], rec["im_id"])
+        inst = {k: rec[k] for k in _INSTANCE_KEYS if k in rec}
+        if key not in by_im:
+            image = {k: v for k, v in rec.items()
+                     if k not in _INSTANCE_KEYS}
+            image["instances"] = []
+            by_im[key] = image
+        by_im[key]["instances"].append(inst)
+    return list(by_im.values())
 
 
 def _build_bop_records(split: Split, ref: DatasetRef, sel_objs: set[str],
@@ -259,6 +287,58 @@ def _build_bop_records(split: Split, ref: DatasetRef, sel_objs: set[str],
                     records.append({**image_rec, **rec})
             else:
                 records.append({**image_rec, "instances": inst_recs})
+    return records
+
+
+def _build_imgn_records(split: Split, ref: DatasetRef,
+                        sel_objs: set[str]) -> list[dict]:
+    """ImageNet-composited synthetic LM: per-object index files
+    ``image_set/train_{obj}.txt`` whose last token is ``{obj}/{id}``;
+    images ``imgn/{obj}/{id}-color.png``; the pose from ``-pose.txt``
+    (header row skipped); GT xyz at ``xyz_crop_imgn/{obj}/{id}-xyz.pkl``;
+    LineMOD's camera, depth in mm. One instance an image, its mask and box
+    derived at decode time (from the xyz crop, else depth > 0)."""
+    objs = [o for o in (split.objs or tuple(ref.objects)) if o in sel_objs]
+    obj_ids_sorted = ref.obj_ids
+    K = ref.K()
+    records = []
+    for obj in objs:
+        idx_path = os.path.join(
+            ref.root, split.per_obj_index.format(obj=obj))
+        ids = [ln.split()[-1] for ln in _read_index_lines(idx_path)]
+        if split.n_per_obj > 0 and len(ids) > split.n_per_obj:
+            sel = np.linspace(0, len(ids) - 1, split.n_per_obj,
+                              dtype=np.int64)
+            ids = [ids[int(i)] for i in sel]
+        oid = ref.obj2id[obj]
+        for j, im_id in enumerate(ids):
+            base = os.path.join(ref.root, "imgn", im_id)
+            pose = np.loadtxt(base + "-pose.txt", skiprows=1,
+                              dtype=np.float64)
+            tail = im_id.split("/")[-1]
+            records.append({
+                "dataset_name": split.name,
+                "ref_name": split.ref_name,
+                "scene_id": oid,
+                "im_id": int(tail) if tail.isdigit() else j,
+                "rgb_path": base + "-color.png",
+                "depth_path": base + "-depth.png",
+                "depth_factor": 1000.0,
+                "K": K.astype(np.float32),
+                "height": ref.height,
+                "width": ref.width,
+                "obj_id": oid,
+                # the position among ALL of the ref's ids, as for BOP
+                "cls_idx": obj_ids_sorted.index(oid),
+                "R": pose[:3, :3].astype(np.float32),
+                "t": pose[:3, 3].astype(np.float32),
+                "visib_fract": 1.0,
+                "bbox_visib": None,
+                "mask_visib_path": "",
+                "xyz_path": os.path.join(ref.root, "xyz_crop_imgn",
+                                         im_id + "-xyz.pkl"),
+                "inst_idx": 0,
+            })
     return records
 
 

@@ -9,13 +9,18 @@ point-splat depth / xyz render of a cube, no GL) and
 for ``preprocess_rois_grouped(train=True)``). Every array is numpy, so a
 test can feed the same inputs to both packages. ``write_lm_tree`` writes a
 LineMOD-layout BOP tree of rendered cubes to disk (PNGs through
-``data/png.py``), which either package's eval reads.
+``data/png.py``) with train and test lists and GT xyz crops, and
+``write_lm_imgn_tree`` the lm_imgn synthetic layout beside it; either
+package trains and evaluates on them. ``write_resnet_pth`` writes a seeded
+ResNet ``state_dict`` with torchvision's keys, in place of the ImageNet
+weights.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 
 import numpy as np
 
@@ -233,6 +238,36 @@ def _write_points_ply(path: str, pts_mm: np.ndarray) -> None:
         f.write("\n".join(lines) + "\n")
 
 
+LM_K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
+                 [0.0, 0.0, 1.0]])
+
+
+def _write_xyz_crop(path: str, xyz: np.ndarray) -> None:
+    """The GT coordinate crop of a rendered xyz map, as the JAX package's
+    ``tools/gen_xyz_crop.py`` stores it: float16 over the inclusive box
+    of its nonzero pixels."""
+    ys, xs = np.nonzero(np.any(xyz != 0, -1))
+    x1, y1, x2, y2 = int(xs.min()), int(ys.min()), int(xs.max()), \
+        int(ys.max())
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"xyz_crop": xyz[y1:y2 + 1, x1:x2 + 1].astype(np.float16),
+                     "xyxy": (x1, y1, x2, y2)}, f)
+
+
+def _backdrop(rng: np.random.RandomState, H: int, W: int) -> np.ndarray:
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    phase = rng.uniform(0, 6.28, 3)
+    return np.stack([127 + 90 * np.sin(xx / (37 + 11 * c) + yy / 53
+                                       + phase[c]) for c in range(3)], -1)
+
+
+def _shade(rng, obj, xyz, bg) -> np.ndarray:
+    rgb = np.where(obj[..., None], 128 + 1000.0 * xyz, bg)
+    return np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255).astype(
+        np.uint8)
+
+
 def write_lm_tree(root: str, objs: dict[str, int], frames_per_obj: int,
                   seed: int = 0) -> None:
     """A LineMOD-layout BOP tree under ``root/lm``: for each object
@@ -240,16 +275,16 @@ def write_lm_tree(root: str, objs: dict[str, int], frames_per_obj: int,
     ``models/`` and ``models_eval/`` point meshes (mm) with
     ``models_info.json``, a scene ``test/<obj_id:06d>`` of
     ``frames_per_obj`` 480x640 RGB-D frames rendered with LineMOD's camera
-    (rgb, depth in mm, mask_visib, scene_gt / scene_camera /
-    scene_gt_info) and ``image_set/<obj>_test.txt``. The cube sits 0.7-1.0
-    m from the camera before a background plane at 1.3 m."""
+    (rgb, depth in mm, mask_visib, the GT xyz crop
+    ``xyz_crop/<im>_000000.pkl``, scene_gt / scene_camera /
+    scene_gt_info), and ``image_set/<obj>_test.txt`` and
+    ``<obj>_train.txt``, each listing every frame. The cube sits 0.7-1.0 m
+    from the camera before a background plane at 1.3 m."""
     rng = np.random.RandomState(seed)
     H, W = 480, 640
-    K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
-                  [0.0, 0.0, 1.0]])
+    K = LM_K
     ds = os.path.join(root, "lm")
     info, info_eval = {}, {}
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     for name, oid in objs.items():
         half = float(rng.uniform(0.03, 0.08))
         size = 2000.0 * half
@@ -269,15 +304,10 @@ def write_lm_tree(root: str, objs: dict[str, int], frames_per_obj: int,
                           rng.uniform(0.7, 1.0)])
             depth, xyz = render_cube_depth(R, t, K, H, W, half=half)
             obj = depth > 0
-            phase = rng.uniform(0, 6.28, 3)
-            bg = np.stack([127 + 90 * np.sin(xx / (37 + 11 * c) + yy / 53
-                                             + phase[c]) for c in range(3)],
-                          -1)
-            shade = 128 + 1000.0 * xyz
-            rgb = np.where(obj[..., None], shade, bg)
-            rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255)
             write_png(os.path.join(sdir, "rgb", f"{im_id:06d}.png"),
-                      rgb.astype(np.uint8))
+                      _shade(rng, obj, xyz, _backdrop(rng, H, W)))
+            _write_xyz_crop(os.path.join(sdir, "xyz_crop",
+                                         f"{im_id:06d}_000000.pkl"), xyz)
             write_png(os.path.join(sdir, "depth", f"{im_id:06d}.png"),
                       np.round(np.where(obj, depth, 1.3) * 1000.0)
                       .astype(np.uint16))
@@ -301,9 +331,104 @@ def write_lm_tree(root: str, objs: dict[str, int], frames_per_obj: int,
             with open(os.path.join(sdir, fname), "w") as f:
                 json.dump(data, f)
         os.makedirs(os.path.join(ds, "image_set"), exist_ok=True)
-        with open(os.path.join(ds, "image_set", f"{name}_test.txt"),
-                  "w") as f:
-            f.write("".join(f"{i}\n" for i in range(frames_per_obj)))
+        for part in ("test", "train"):
+            with open(os.path.join(ds, "image_set", f"{name}_{part}.txt"),
+                      "w") as f:
+                f.write("".join(f"{i}\n" for i in range(frames_per_obj)))
     for sub, table in (("models", info), ("models_eval", info_eval)):
         with open(os.path.join(ds, sub, "models_info.json"), "w") as f:
             json.dump(table, f)
+
+
+def write_lm_imgn_tree(root: str, objs: dict[str, int], frames_per_obj: int,
+                       seed: int = 0, first_id: int = 1000) -> None:
+    """The lm_imgn layout under ``root/lm_imgn``, beside a ``write_lm_tree``
+    tree whose meshes it borrows (each cube's size is read back from
+    ``root/lm/models/models_info.json``): for each object,
+    ``imgn/<obj>/<id>-color.png`` (the cube over a synthetic backdrop),
+    ``-depth.png`` (the cube's depth in mm, 0 elsewhere), ``-pose.txt`` (a
+    header row, then [R | t] in metres), the GT xyz crop
+    ``xyz_crop_imgn/<obj>/<id>-xyz.pkl`` and the index
+    ``image_set/train_<obj>.txt`` of ``<obj>/<id>`` lines. Ids count from
+    ``first_id``; the default keeps them apart from the LM tree's image
+    ids, which the JAX package's grouped loader would otherwise take for
+    the same frames (ROADMAP queue 3)."""
+    rng = np.random.RandomState(seed)
+    H, W = 480, 640
+    with open(os.path.join(root, "lm", "models", "models_info.json")) as f:
+        sizes = {int(k): v["size_x"] for k, v in json.load(f).items()}
+    ds = os.path.join(root, "lm_imgn")
+    os.makedirs(os.path.join(ds, "image_set"), exist_ok=True)
+    for name, oid in objs.items():
+        half = sizes[oid] / 2000.0
+        ids = [f"{name}/{first_id + i:06d}" for i in range(frames_per_obj)]
+        for im_id in ids:
+            R = _rodrigues(rng.randn(3) * 0.8)
+            t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.07, 0.07),
+                          rng.uniform(0.7, 1.0)])
+            depth, xyz = render_cube_depth(R, t, LM_K, H, W, half=half)
+            obj = depth > 0
+            base = os.path.join(ds, "imgn", im_id)
+            write_png(base + "-color.png",
+                      _shade(rng, obj, xyz, _backdrop(rng, H, W)))
+            write_png(base + "-depth.png",
+                      np.round(depth * 1000.0).astype(np.uint16))
+            np.savetxt(base + "-pose.txt", np.hstack([R, t[:, None]]),
+                       header=name, comments="")
+            _write_xyz_crop(os.path.join(ds, "xyz_crop_imgn",
+                                         im_id + "-xyz.pkl"), xyz)
+        with open(os.path.join(ds, "image_set", f"train_{name}.txt"),
+                  "w") as f:
+            f.write("".join(f"{i}\n" for i in ids))
+
+
+def write_resnet_pth(path: str, depth: int = 34, seed: int = 0) -> str:
+    """A seeded ResNet ``state_dict`` with torchvision's keys (classifier
+    and BatchNorm counters included), saved with ``torch.save``; returns
+    ``path``. Stands in for the ImageNet weights, which are not on disk."""
+    import torch
+
+    from ..models.resnet import RESNET_SPECS
+
+    rng = np.random.RandomState(seed)
+    kind, layers = RESNET_SPECS[depth]
+    sd: dict[str, np.ndarray] = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = (rng.randn(cout, cin, k, k)
+                                * np.sqrt(2.0 / (cin * k * k)))
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{name}.bias"] = rng.randn(c) * 0.1
+        sd[f"{name}.running_mean"] = rng.randn(c) * 0.1
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{name}.num_batches_tracked"] = np.array(1000, np.int64)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    expansion = 1 if kind == "basic" else 4
+    cin = 64
+    for stage, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):
+        for i in range(n):
+            pre = f"layer{stage + 1}.{i}"
+            stride = 2 if (stage > 0 and i == 0) else 1
+            if kind == "basic":
+                convs = [(planes, cin, 3), (planes, planes, 3)]
+            else:
+                convs = [(planes, cin, 1), (planes, planes, 3),
+                         (planes * 4, planes, 1)]
+            for c, (co, ci, k) in enumerate(convs, start=1):
+                conv(f"{pre}.conv{c}", co, ci, k)
+                bn(f"{pre}.bn{c}", co)
+            if stride != 1 or cin != planes * expansion:
+                conv(f"{pre}.downsample.0", planes * expansion, cin, 1)
+                bn(f"{pre}.downsample.1", planes * expansion)
+            cin = planes * expansion
+    sd["fc.weight"] = rng.randn(1000, cin) * 0.01
+    sd["fc.bias"] = np.zeros(1000)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({k: torch.from_numpy(v if v.dtype == np.int64
+                                    else v.astype(np.float32))
+                for k, v in sd.items()}, path)
+    return path

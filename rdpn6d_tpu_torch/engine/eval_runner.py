@@ -2,7 +2,8 @@
 -> PoseEvaluator -> tables, BOP19 CSV, recall curves, BOP19 AR.
 
 Counterpart of ``rdpn6d_tpu/engine/eval_runner.py`` (``_eval_setup``,
-``run_eval``, ``_bop19_scores``), as ``main --eval-only`` drives it.
+``run_eval``, ``_bop19_scores``), as ``main --eval-only`` drives it on a
+checkpoint and the trainer drives it on its live model.
 Frames are grouped into batches as the JAX package groups them (frames per
 batch from the split's instances per frame) and cross to the device once
 per image; eager PyTorch needs no fixed shape, so batches are not padded
@@ -134,8 +135,13 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
              csv_path: str | None = None,
              allow_random_init: bool = False,
              dtype: torch.dtype = torch.bfloat16,
-             device: str | torch.device | None = None) -> dict[str, Any]:
-    """Evaluate the latest checkpoint in ``ckpt_dir`` on a split. Returns
+             device: str | torch.device | None = None,
+             model: Any = None) -> dict[str, Any]:
+    """Evaluate the latest checkpoint in ``ckpt_dir`` on a split, or with
+    ``model`` (an ``RDPN``, as the trainer holds it) that live model on
+    its own device. The live model is not converted: it runs in eval mode
+    under autocast to ``dtype`` (none for float32) and is handed back in
+    the mode it came in, its weights and statistics untouched. Returns
     {per_obj, mean, errors (per-object error arrays), stats, and bop19
     when the split has targets and test.error_types asks for mssd/mspd}."""
     from ..data.bop import get_split
@@ -158,7 +164,8 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
             torch.distributed.get_world_size() > 1:
         raise NotImplementedError("multi-process eval sharding is not "
                                   "ported (ROADMAP: DDP)")
-    device = resolve_device(device)
+    device = next(model.parameters()).device if model is not None \
+        else resolve_device(device)
     split = get_split(split_name)
     ref = get_ref(split.ref_name)
 
@@ -176,10 +183,14 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     records, targets, n_gts, id2name, assets, eval_assets = cached
     n_gts = dict(n_gts)  # the evaluator may hold it; never share the memo's
 
-    model = _load_model(cfg, ckpt_dir, allow_random_init, device, dtype)
+    live = model is not None
+    if not live:
+        model = _load_model(cfg, ckpt_dir, allow_random_init, device, dtype)
 
     def eval_step(b):
-        with torch.no_grad():
+        with torch.no_grad(), torch.autocast(
+                device.type, dtype=dtype,
+                enabled=live and dtype != torch.float32):
             batch = preprocess_rois_grouped(cfg, b["frames"], b["rois"])
             return model(batch)
 
@@ -277,7 +288,12 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
         if meta:
             yield _flush(frames_l, rois_l, meta)
 
-    stats = inference_on_dataset(eval_step, batches(), evaluator)
+    was_training = model.training
+    model.eval()
+    try:
+        stats = inference_on_dataset(eval_step, batches(), evaluator)
+    finally:
+        model.train(was_training)
 
     csv = csv_path or os.path.join(cfg.train.output_dir,
                                    f"{split_name}_bop19.csv")

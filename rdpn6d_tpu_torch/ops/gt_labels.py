@@ -28,7 +28,6 @@ from .warp import crop_resize_frames
 
 LIBRARY = "region_label"       # csrc/region_label.cu holds the entry point
 KERNEL = "gt_labels"           # the name its launches are counted under
-MAX_K = 64                     # keypoints the kernel holds in shared memory
 
 Labels = dict[str, torch.Tensor]
 
@@ -97,11 +96,8 @@ def _check(mask, trunc, xyz, center, scale, fps, rot, extent,
             "gt_labels: expected mask [B,h,w] (+ trunc [B,h,w]), xyz "
             "[B,h,w,3], center [B,2], scale [B], fps [B,K,3], rot [B,3,3], "
             f"extent [B,3]; got {[tuple(t.shape) for t in ts]}")
-    if not 0 < fps.shape[1] <= MAX_K:
-        # refused on every device, so a config runs on the CPU only if it
-        # runs on the card
-        raise ValueError(f"gt_labels: K={fps.shape[1]} keypoints, not in "
-                         f"1..{MAX_K}")
+    if fps.shape[1] == 0:
+        raise ValueError("gt_labels: no keypoints")
     if xyz.shape[1] == 0 or xyz.shape[2] == 0 or out_res <= 0:
         raise ValueError(f"gt_labels: empty map {tuple(xyz.shape[1:3])} or "
                          f"out_res {out_res}")
@@ -113,7 +109,7 @@ def gt_labels_cuda(mask: torch.Tensor, trunc: torch.Tensor | None,
                    extent: torch.Tensor, out_res: int,
                    residual: bool = True) -> Labels:
     """Launch the kernel on the current stream (arguments as
-    ``gt_labels``; CUDA tensors, K <= the kernel's maximum)."""
+    ``gt_labels``; CUDA tensors, any K >= 1)."""
     _check(mask, trunc, xyz, center, scale, fps, rot, extent, out_res)
     if xyz.device.type != "cuda":
         raise ValueError(f"gt_labels_cuda: CUDA tensors required, got "
@@ -121,8 +117,6 @@ def gt_labels_cuda(mask: torch.Tensor, trunc: torch.Tensor | None,
     lib, _ = cuda_build.load(LIBRARY)
     B, h, w, _ = xyz.shape
     K = fps.shape[1]
-    if K > lib.gt_labels_max_k():
-        raise ValueError(f"gt_labels: K={K} > {lib.gt_labels_max_k()}")
     if B > 65535:
         raise ValueError(f"gt_labels: B={B} exceeds the grid's y limit")
     packed = mask.dtype == torch.uint8

@@ -87,7 +87,7 @@ def region_label_cuda(xyz: torch.Tensor, fps: torch.Tensor,
                       rot: torch.Tensor, extent: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream (shapes as
-    ``region_label_plain``; CUDA tensors, K <= the kernel's maximum)."""
+    ``region_label_plain``; CUDA tensors, any K >= 1)."""
     _check(xyz, fps, rot, extent)
     if xyz.device.type != "cuda":
         raise ValueError(f"region_label_cuda: CUDA tensors required, got "
@@ -95,8 +95,6 @@ def region_label_cuda(xyz: torch.Tensor, fps: torch.Tensor,
     lib, _ = cuda_build.load(KERNEL)
     B, H, W, _ = xyz.shape
     K = fps.shape[1]
-    if K > lib.region_label_max_k():
-        raise ValueError(f"region_label: K={K} > {lib.region_label_max_k()}")
     if B > 65535:
         raise ValueError(f"region_label: B={B} exceeds the grid's y limit")
     xyz, fps, rot, extent = (t.contiguous() for t in (xyz, fps, rot, extent))

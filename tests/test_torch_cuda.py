@@ -167,7 +167,11 @@ def _label_inputs(B, H, W, K, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,K", [(1, 7, 5, 3), (3, 33, 31, 17),
-                                     (2, 64, 64, 64), (24, 64, 64, 32)])
+                                     (2, 64, 64, 64), (24, 64, 64, 32),
+                                     # keypoints in one, two and four tiles
+                                     # of 64; a ragged last block
+                                     (2, 9, 11, 1), (2, 33, 31, 65),
+                                     (3, 64, 64, 96), (2, 17, 19, 200)])
 def test_region_label_kernel_matches_plain(card, B, H, W, K):
     xyz, fps, rot, ext = (t.to(card) for t in _label_inputs(B, H, W, K,
                                                             H + K))
@@ -186,9 +190,35 @@ def test_region_label_kernel_matches_plain(card, B, H, W, K):
 def test_region_label_kernel_refuses_bad_input(card):
     xyz, fps, rot, ext = (t.to(card) for t in _label_inputs(2, 8, 8, 65, 0))
     with pytest.raises(ValueError):
-        region_label(xyz, fps, rot, ext)                # K > 64
+        region_label(xyz, fps[:, :0], rot, ext)         # no keypoints
     with pytest.raises(ValueError):
         region_label(xyz, fps[:, :4].cpu(), rot, ext)   # mixed devices
+
+
+@pytest.mark.cuda
+def test_tie_across_the_keypoint_tile_on_card(card):
+    """Keypoints 63 and 64 (either side of the kernel's 64-keypoint tile)
+    and 5 and 130 equidistant from a pixel: both kernels take the lower
+    index, as the plain version does."""
+    K = 131
+    fps = torch.full((1, K, 3), -1.0)
+    fps[0, :, 2] -= torch.arange(K, dtype=torch.float32) * 0.01
+    fps[0, 63], fps[0, 64] = torch.tensor([0.1, 0.0, 0.0]), \
+        torch.tensor([-0.1, 0.0, 0.0])
+    fps[0, 5], fps[0, 130] = torch.tensor([0.0, 0.05, 0.6]), \
+        torch.tensor([0.0, -0.05, 0.6])
+    xyz = torch.zeros(1, 1, 2, 3)
+    xyz[0, 0, 0] = torch.tensor([0.0, 0.0, -0.3])
+    xyz[0, 0, 1] = torch.tensor([0.0, 0.0, 0.6])
+    rot, ext = torch.eye(3)[None], torch.ones(1, 3)
+    reg, _ = region_label(*(t.to(card) for t in (xyz, fps, rot, ext)))
+    assert reg.cpu()[0, 0].tolist() == [64, 6]
+    args = (torch.ones(1, 1, 2, dtype=torch.uint8), None, xyz,
+            torch.tensor([[0.0, 0.0]]), torch.tensor([1.0]), fps, rot, ext)
+    got = gt_labels(*(None if t is None else t.to(card) for t in args), 1)
+    ref = gt_labels_plain(*args, 1)
+    assert torch.equal(got["roi_region"].cpu(), ref["roi_region"])
+    assert ref["roi_region"].item() == 64
 
 
 def _gt_inputs(B, h, w, K, seed, masks, half):
@@ -224,7 +254,11 @@ def _gt_inputs(B, h, w, K, seed, masks, half):
 @pytest.mark.parametrize("B,h,w,out,K", [(1, 7, 5, 3, 3),
                                          (3, 33, 31, 17, 17),
                                          (2, 100, 90, 33, 64),
-                                         (24, 480, 640, 64, 32)])
+                                         (24, 480, 640, 64, 32),
+                                         (2, 40, 30, 9, 1),
+                                         (3, 50, 60, 17, 65),
+                                         (2, 100, 90, 33, 96),
+                                         (2, 60, 70, 13, 200)])
 def test_gt_labels_kernel_matches_plain(card, B, h, w, out, K, masks, half):
     inp = [None if t is None else t.to(card)
            for t in _gt_inputs(B, h, w, K, h + K, masks, half)]
@@ -273,7 +307,7 @@ def test_gt_labels_kernel_refuses_bad_input(card):
     inp = [None if t is None else t.to(card)
            for t in _gt_inputs(2, 8, 8, 65, 0, "packed", True)]
     with pytest.raises(ValueError):
-        gt_labels(*inp, 8)                              # K > 64
+        gt_labels(*inp[:5], inp[5][:, :0], *inp[6:], 8)  # no keypoints
     inp[5] = inp[5][:, :4]
     with pytest.raises(ValueError):
         gt_labels(*inp[:5], inp[5].cpu(), *inp[6:], 8)  # mixed devices
@@ -284,7 +318,7 @@ def test_gt_labels_kernel_refuses_bad_input(card):
 
 
 @pytest.mark.cuda
-def test_lm13_train_step_on_card(card):
+def test_lm13_train_step_on_card(card, tmp_path):
     import itertools
 
     from rdpn6d_tpu_torch.configs import lm13
@@ -294,7 +328,8 @@ def test_lm13_train_step_on_card(card):
 
     cfg = lm13.get_config().apply_opts(
         ['head.init="fan_in"', 'backbone.pretrained=""',
-         "solver.ims_per_batch=4", "train.log_period=1000"])
+         "solver.ims_per_batch=4", "train.log_period=1000",
+         f'train.output_dir="{tmp_path}"'])
     frames, rois = dummy_grouped_inputs(cfg, n_frames=2, rois_per_frame=2,
                                         im_hw=(480, 640), ship_xyz=True,
                                         focal=572.0)

@@ -178,8 +178,9 @@ def test_eval_refusals(tree, tmp_path, monkeypatch):
         t_run_eval(cfg, ckpt_dir=str(tmp_path / "none"),
                    split_name="two_obj_test", device="cpu")
     base = ["--config-file", "rdpn6d_tpu_torch/configs/lm13.py"]
-    with pytest.raises(NotImplementedError, match="training"):
-        tmain.main(base)
+    with pytest.raises(NotImplementedError, match="flat train path"):
+        tmain.main(base + ["--device", "cpu", "--opts",
+                           "data.grouped_train=false"])
     with pytest.raises(NotImplementedError, match="--debug"):
         tmain.main(base + ["--eval-only", "--debug"])
     if not torch.cuda.is_available():

@@ -28,7 +28,7 @@ from rdpn6d_tpu.ops.region import xyz_to_region as j_xyz_to_region
 from rdpn6d_tpu.ops.warp import crop_resize_mm as j_crop_mm
 from rdpn6d_tpu_torch.data import pipeline
 from rdpn6d_tpu_torch.ops import cuda_build
-from rdpn6d_tpu_torch.ops.gt_labels import MAX_K, gt_labels
+from rdpn6d_tpu_torch.ops.gt_labels import gt_labels
 
 ID_AGREE = 0.999
 COORD_TOL = 1e-5
@@ -157,6 +157,19 @@ def test_packed_half_xyz_with_offset_matches_jax(K):
     assert not np.array_equal(ours["roi_mask_trunc"], ours["roi_mask_visib"])
 
 
+@pytest.mark.parametrize("K", [96, 200])
+def test_many_keypoints_match_jax(K):
+    """Past the kernel's 64-keypoint shared-memory tile, in both
+    coordinate modes: masks equal, region ids equal at every pixel of
+    these inputs, coordinates within COORD_TOL."""
+    inp = gt_inputs(K=K, seed=K)
+    for residual in (True, False):
+        ours = assert_matches_jax(inp, 16, residual=residual)
+        ref = jax_gt_labels(inp, 16, residual)
+        np.testing.assert_array_equal(ours["roi_region"], ref["roi_region"])
+        assert ours["roi_region"].max() > 64, "a pixel past the first tile"
+
+
 @pytest.mark.parametrize("masks", ["trunc", "visib_only"])
 def test_float_masks_match_jax(masks):
     inp = gt_inputs(B=2, masks=masks, xyz_dtype=np.float32, seed=5)
@@ -257,8 +270,6 @@ def test_gt_labels_refuses_bad_input():
         call(xyz=t["xyz"][:, :-1])              # map sizes differ
     with pytest.raises(ValueError):
         call(scale=t["scale"][:1])              # one scale for two ROIs
-    with pytest.raises(ValueError):
-        call(fps=torch.zeros(2, MAX_K + 1, 3))  # K > the kernel's limit
     with pytest.raises(ValueError):
         call(fps=t["fps"][:, :0])
     with pytest.raises(ValueError):

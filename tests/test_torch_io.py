@@ -404,5 +404,7 @@ def test_record_decoder_matches_jax(lm_tree, monkeypatch, tmp_path, cache_mb):
                       {"mask_visib_path": "", "label_path": ""}):
             r = {**rec, **extra}
             _assert_same(t._mask_visib(r), j._mask_visib(r))
-    with pytest.raises(NotImplementedError, match="train"):
-        tloader.RecordDecoder(TConfig(), train=True)
+    # the train decode is in; background replacement is what it refuses
+    with pytest.raises(NotImplementedError, match="background"):
+        tloader.RecordDecoder(TConfig().apply_opts(
+            ["data.change_bg_prob=0.5"]), train=True)

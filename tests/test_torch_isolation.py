@@ -29,7 +29,10 @@ def _port_modules():
 
 def test_import_pulls_no_jax():
     mods = _port_modules()
-    assert "rdpn6d_tpu_torch.ops.min_dist" in mods
+    assert {"rdpn6d_tpu_torch.ops.min_dist", "rdpn6d_tpu_torch.data.sampler",
+            "rdpn6d_tpu_torch.data.device_cache",
+            "rdpn6d_tpu_torch.engine.writers",
+            "rdpn6d_tpu_torch.utils.pretrained"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -52,6 +55,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "profile_step.py")
     yield os.path.join(ROOT, "time_min_dist2.py")
+    yield os.path.join(ROOT, "time_labels.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

@@ -113,6 +113,45 @@ def test_xyz_to_region_matches_jax():
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("K", [96, 200])
+def test_many_keypoints_match_jax(K):
+    """Past the kernel's 64-keypoint shared-memory tile: region ids equal
+    to the JAX package's ``xyz_to_region`` and ``residual_coord_target``
+    at every pixel of these inputs, coordinates within COORD_TOL and raw
+    residuals within 1e-7 (float32 differences of values ~0.1)."""
+    xyz, fps, R, ext = label_inputs(K=K, seed=K)
+    j_reg, j_delta = (np.asarray(a) for a in j_xyz_to_region(
+        jnp.asarray(xyz), jnp.asarray(fps)))
+    j_reg2, j_coord = (np.asarray(a) for a in j_residual(
+        *map(jnp.asarray, (xyz, fps, R, ext))))
+    reg, delta = (a.numpy() for a in xyz_to_region(*_t(xyz, fps)))
+    np.testing.assert_array_equal(reg, j_reg)
+    np.testing.assert_allclose(delta, j_delta, rtol=0, atol=1e-7)
+    reg, coord = (a.numpy() for a in region_label(*_t(xyz, fps, R, ext)))
+    np.testing.assert_array_equal(reg, j_reg2)
+    assert reg.max() > 64, "a pixel lands past the first tile"
+    np.testing.assert_allclose(coord, j_coord, rtol=0, atol=COORD_TOL)
+
+
+def test_tie_across_the_keypoint_tile_goes_to_the_lower_index():
+    """Two keypoints equidistant from a pixel, one each side of the
+    kernel's 64-keypoint tile boundary (63 and 64) and farther apart (5
+    and 130): the lower index wins, as in JAX's argmin."""
+    K = 131
+    fps = np.full((1, K, 3), -1.0, np.float32)
+    fps[0, :, 2] -= np.arange(K, dtype=np.float32) * 0.01   # all far away
+    fps[0, 63], fps[0, 64] = (0.1, 0.0, 0.0), (-0.1, 0.0, 0.0)
+    fps[0, 5], fps[0, 130] = (0.0, 0.05, 0.6), (0.0, -0.05, 0.6)
+    xyz = np.zeros((1, 1, 2, 3), np.float32)
+    xyz[0, 0, 0] = (0.0, 0.0, -0.3)                    # ties 63 and 64
+    xyz[0, 0, 1] = (0.0, 0.0, 0.6)                     # ties 5 and 130
+    R, ext = np.eye(3, dtype=np.float32)[None], np.ones((1, 3), np.float32)
+    reg, _ = region_label(*_t(xyz, fps, R, ext))
+    assert reg[0, 0].tolist() == [64, 6]
+    j_reg, _ = j_xyz_to_region(jnp.asarray(xyz), jnp.asarray(fps))
+    assert np.asarray(j_reg)[0, 0].tolist() == [64, 6]
+
+
 def test_region_label_ties_and_background():
     """Equidistant keypoints go to the lowest index; a background pixel
     takes the keypoint nearest the origin for its coordinate."""

@@ -26,6 +26,8 @@ gradient, and their weights are not compared.
 """
 
 import itertools
+import os
+import shutil
 import logging
 
 import jax
@@ -278,8 +280,12 @@ def test_frozen_backbone_trains_the_rest():
                            before["backbone.bn1.running_mean"])
 
 
-def test_trainer_on_grouped_frames(caplog):
-    cfg, model = _tiny_model(["train.log_period=2"])
+def test_trainer_on_grouped_frames(caplog, tmp_path):
+    # a checkpoint at the last iteration only: each is ~190 MB (ResNet-18
+    # and Ranger's state)
+    cfg, model = _tiny_model(["train.log_period=2",
+                              "train.checkpoint_period_epochs=1e9",
+                              f'train.output_dir="{tmp_path}"'])
     frames, rois = dummy_grouped_inputs(cfg, n_frames=2, rois_per_frame=2,
                                         ship_xyz=True)
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -294,6 +300,8 @@ def test_trainer_on_grouped_frames(caplog):
     assert all(np.isfinite(list(m.values())).all() for m in seen)
     assert all(m["grad_norm"] > 0 for m in seen)
     assert "iter 2/4" in caplog.text and "loss_region" in caplog.text
+    assert os.listdir(tmp_path / "ckpt") == ["4"]
+    shutil.rmtree(tmp_path / "ckpt")
     after = model.state_dict()
     assert not torch.equal(after["pnp_net.fc1.weight"],
                            before["pnp_net.fc1.weight"])
@@ -301,8 +309,10 @@ def test_trainer_on_grouped_frames(caplog):
                            before["backbone.bn1.running_var"])
 
 
-def test_trainer_nan_guard():
-    cfg, model = _tiny_model(["train.log_period=100"])
+def test_trainer_nan_guard(tmp_path):
+    rare = "train.checkpoint_period_epochs=1e9"
+    cfg, model = _tiny_model(["train.log_period=100", rare,
+                              f'train.output_dir="{tmp_path}"'])
     good = dummy_train_batch(cfg, B, seed=0)
     bad = dict(good)
     bad["roi_img"] = np.full_like(good["roi_img"], np.nan)
@@ -311,7 +321,9 @@ def test_trainer_nan_guard():
     with pytest.raises(FloatingPointError, match="iter 1"):
         trainer.train(iter([good, bad, good, good, good]))
     # ... and at once when it lands on the last (checkpoint) iteration
-    cfg2, model2 = _tiny_model(["train.log_period=100"])
+    cfg2, model2 = _tiny_model(["train.log_period=100", rare,
+                                f'train.output_dir="{tmp_path / "b"}"'])
     trainer = Trainer(cfg2, model2, total_iters=2, device="cpu")
     with pytest.raises(FloatingPointError, match="checkpoint"):
         trainer.train(iter([good, bad]))
+    assert not os.path.exists(tmp_path / "b" / "ckpt"), "NaN state saved"
