@@ -72,10 +72,32 @@ Phases, each fatal on failure:
               and at the default number of decode threads, the cache's
               hits, misses and resident MB and peak memory; with
               ``--profile`` also the same loop's ms/step on batches held in
-              memory with the decode pool stopped.
+              memory with the decode pool stopped;
+ 11. train lmo from disk — ``main`` on ``configs/lmo.py`` at lmo full width
+              (ResNet-34, 256² ROIs, 64² maps, 32 regions, 8 classes), 24
+              ROIs a step, bf16 autocast, Ranger, the trunk from phase 10's
+              .pth, on an LM-O tree written here (``lmo_train``: PNG frames
+              of 8 occluding cubes with GT xyz crops; ``lmo_pbr_train``:
+              JPEG frames, depth in 0.1 mm, no xyz crops; ``lmo_bop_test``
+              with BOP19 targets) and a background pool of JPEG and PNG
+              files: the "code" colour aug at 0.8, background replacement
+              at 0.5 with truncated foregrounds, TRAIN2 at 0.5 (cut from
+              0.1 so PBR steps occur within 12 iterations), then eval on
+              ``lmo_bop_test``. Checks every logged loss finite,
+              ``gt_labels`` launched once a real-split iteration and
+              ``region_label`` once a PBR iteration (the depth surface's
+              labels), ``min_dist2`` once an evaluated object, private
+              frames streamed and none resident in the device cache, the
+              share of colour-augmented ROIs within 5 binomial sigmas of
+              0.8, and ``color_augment`` on the card against the CPU under
+              the same draws (<= 1e-3 on the 0..255 scale); prints
+              ms/step, loader-wait ms/step, JPEG and PNG decode ms a
+              480x640 frame, the background resize's ms, the PBR loader's
+              frames/s at 1 and at the default number of decode threads,
+              and peak memory.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
-6, each run of phase 8, phase 9's ``main`` and each of phase 10's) and
-read right after it.
+6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
+11's ``main``) and read right after it.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -123,6 +145,12 @@ ITERS_PER_EPOCH = 13 * (EVAL_FRAMES_PER_OBJ + IMGN_FRAMES_PER_OBJ) \
 TRAIN_EPOCHS = 2
 RESUME_EPOCHS = 3
 DECODE_BATCHES = 4           # 96 frames of the first epoch, decode timing
+LMO_TRAIN_FRAMES = 12        # x 8 occluding cubes: ~96 lmo_train records,
+LMO_EPOCHS = 3               # 4 iterations an epoch, 12 in all
+LMO_PBR_FRAMES = 6           # one train_pbr scene: 48 records, 2 batches
+LMO_TEST_FRAMES = 4          # 32 BOP19 targets, every object 4 times
+LMO_TRAIN2_RATIO = 0.5       # cut from lmo's 0.1: PBR steps within 12
+COLOR_AUG_TOL = 1e-3         # card vs CPU on the 0..255 scale
 
 
 class SmokeFailure(RuntimeError):
@@ -983,11 +1011,12 @@ def run_eval_phase(dev, card, work):
 
 
 def instrument_trainer(rec: dict):
-    """Wraps ``Trainer.train`` for phase 10, with no knob of the trainer's
-    own: records the start iteration, the trunk before the first step and
-    the device frame cache (the object behind ``aux_metrics_fn``), times
-    each ``next()`` on the loader and, through ``step_hook``, each step (to
-    a synchronize) and the cache's counts after it. Returns a function that
+    """Wraps ``Trainer.train`` for phases 10 and 11, with no knob of the
+    trainer's own: records the start iteration, the trunk before the first
+    step and the device frame cache (the object behind
+    ``aux_metrics_fn``), times each ``next()`` on the loaders (TRAIN2's
+    too, in iteration order) and, through ``step_hook``, each step (to a
+    synchronize) and the cache's counts after it. Returns a function that
     undoes the wrapping."""
     import torch
 
@@ -1002,10 +1031,10 @@ def instrument_trainer(rec: dict):
                                      in self.model.backbone.state_dict()
                                      .items()})
 
-        def timed():
+        def timed(source):
             while True:
                 t0 = time.perf_counter()
-                batch = next(loader)
+                batch = next(source)
                 rec["waits"].append(time.perf_counter() - t0)
                 yield batch
 
@@ -1015,10 +1044,12 @@ def instrument_trainer(rec: dict):
             rec["counts"].append((cache.hits, cache.misses) if cache
                                  else (0, 0))
 
+        if kw.get("loader2") is not None:
+            kw["loader2"] = timed(kw["loader2"])
         torch.cuda.synchronize()
         rec["t0"] = time.perf_counter()
-        return orig(self, timed(), start_iter=start_iter, step_hook=hook,
-                    **kw)
+        return orig(self, timed(loader), start_iter=start_iter,
+                    step_hook=hook, **kw)
 
     Trainer.train = train
     return lambda: setattr(Trainer, "train", orig)
@@ -1248,6 +1279,229 @@ def run_train_from_disk(dev, card, work, profile: bool):
     return launches
 
 
+def color_aug_card_vs_cpu(dev, card) -> None:
+    """The "code" pipeline on 24 crops of 256x256 under one set of draws,
+    on the card and on the CPU, within COLOR_AUG_TOL on the 0..255 scale;
+    prints the card's ms by CUDA events."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.augment import (
+        color_augment,
+        draw_aug_params,
+        get_aug_pipeline,
+    )
+
+    ops = get_aug_pipeline("code")
+    gen = torch.Generator().manual_seed(9)
+    img = torch.rand(TRAIN_ROIS, 256, 256, 3, generator=gen) * 255.0
+    params = draw_aug_params(ops, TRAIN_ROIS, gen, (256, 256))
+    cpu = color_augment(img, params, ops)
+    img_d = img.to(dev)
+    params_d = [{k: v.to(dev) for k, v in p.items()} for p in params]
+    err = float((color_augment(img_d, params_d, ops).cpu() - cpu).abs()
+                .max())
+    check(err <= COLOR_AUG_TOL, f"color_augment card vs CPU {err:.3e} "
+          f"(tol {COLOR_AUG_TOL})")
+    ms = cuda_ms(lambda: color_augment(img_d, params_d, ops), iters=20)
+    print(f"train lmo: color_augment ('code', {TRAIN_ROIS} x 256x256) card "
+          f"vs CPU max |diff| {err:.3e} (tol {COLOR_AUG_TOL}), {ms:.3f} ms "
+          f"on the card [{card}]")
+
+
+def lmo_host_times(data, pool, card) -> None:
+    """Host decode ms a 480x640 RGB frame, the PBR split's JPEG beside the
+    real split's PNG, and the background resize's ms (a 375x500 pool image
+    to the frame, and a 960x1280 one through OpenCV's 2x area path)."""
+    import glob
+
+    from rdpn6d_tpu_torch.data.image import imread_rgb, resize_linear
+
+    ms = {}
+    for name, pattern in (("jpeg", "lmo/train_pbr/*/rgb/*.jpg"),
+                          ("png", "lmo/train/*/rgb/*.png")):
+        files = sorted(glob.glob(os.path.join(data, pattern)))
+        t0 = time.perf_counter()
+        for f in files:
+            imread_rgb(f)
+        ms[name] = 1e3 * (time.perf_counter() - t0) / len(files)
+    for name, rel in (("resize", "JPEGImages/2008_000001.jpg"),
+                      ("resize_2x", "JPEGImages/2008_000003.jpg")):
+        bg = imread_rgb(os.path.join(pool, rel))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            resize_linear(bg, (640, 480))
+        ms[name] = 1e3 * (time.perf_counter() - t0) / 5
+    print(f"train lmo: host decode of a 480x640 RGB frame: JPEG (PBR, "
+          f"quality 90, 4:2:0) {ms['jpeg']:.2f} ms, PNG {ms['png']:.2f} ms; "
+          f"background resize to 480x640: {ms['resize']:.2f} ms from "
+          f"375x500, {ms['resize_2x']:.2f} ms from 960x1280 [{card}]")
+
+
+def pbr_decode_rate(cfg, assets, workers: int) -> tuple[float, int]:
+    """Frames a second of the PBR split's decode pool from a cold start (a
+    decoder of its own), background replacement on: distinct JPEG frames
+    over the time to its second 24-ROI batch; and the composites in
+    those batches."""
+    from rdpn6d_tpu_torch.data.loader import (
+        RecordDecoder,
+        train_group_iterator,
+    )
+
+    decoder = RecordDecoder(cfg, assets, train=True)
+    t0 = time.perf_counter()
+    it = train_group_iterator(cfg, ["lmo_pbr_train"], decoder=decoder,
+                              seed=5, num_workers=workers, yield_keys=True)
+    keys, private = set(), 0
+    for _ in range(2):
+        slots = next(it)["frame_slots"]
+        keys |= {k for k, _ in slots if k is not None}
+        private += sum(k is None for k, _ in slots)
+    secs = time.perf_counter() - t0
+    it.close()
+    return len(keys) / secs, private
+
+
+def run_train_lmo(dev, card, work):
+    """Phase 11: ``main`` trains lmo from an LM-O tree written under
+    ``work/data`` with a background pool, then evaluates; returns each
+    kernel's launches."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data import pipeline
+    from rdpn6d_tpu_torch.data.assets import load_class_assets
+    from rdpn6d_tpu_torch.data.loader import (
+        default_num_workers,
+        load_train_records,
+    )
+    from rdpn6d_tpu_torch.data.refs import LMO
+    from rdpn6d_tpu_torch.data.synthetic import write_bg_pool, write_lmo_tree
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    color_aug_card_vs_cpu(dev, card)
+    data = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    write_lmo_tree(data, LMO_TRAIN_FRAMES, 1, LMO_PBR_FRAMES, LMO_TEST_FRAMES,
+                   seed=12)
+    pool = write_bg_pool(os.path.join(work, "VOC"), seed=13)
+    print(f"train lmo: wrote an LM-O tree ({LMO_TRAIN_FRAMES} real, "
+          f"{LMO_PBR_FRAMES} PBR JPEG and {LMO_TEST_FRAMES} test frames of 8 "
+          f"occluding cubes) and a background pool in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    lmo_host_times(data, pool, card)
+    check(bool(os.environ.get("RDPN6D_PRETRAINED_DIR")),
+          "phase 11 needs phase 10's seeded .pth")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lmo.py")
+    out = os.path.join(work, "lmo")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1e9",
+            f"data.train2_ratio={LMO_TRAIN2_RATIO}",
+            f'data.bg_images_dir="{pool}"', f'train.output_dir="{out}"',
+            f"solver.total_epochs={LMO_EPOCHS}"]
+    cfg = load_config(config, opts)
+    d = cfg.data
+    check(cfg.backbone.pretrained == "torchvision://resnet34"
+          and cfg.backbone.depth == 34 and cfg.solver.ims_per_batch == 24
+          and cfg.solver.amp and cfg.head.num_classes == 8
+          and cfg.head.num_regions == 32 and d.color_aug_prob == 0.8
+          and d.color_aug_type == "code" and d.change_bg_prob == 0.5
+          and d.truncate_fg and d.train2_datasets == ("lmo_pbr_train",),
+          "phase 11 does not run lmo's own train settings")
+    n_records = len(load_train_records(cfg, list(d.train_datasets)))
+    iters = n_records // TRAIN_ROIS * LMO_EPOCHS
+    rng = np.random.RandomState(cfg.train.seed)
+    pbr_its = [i for i in range(iters) if rng.rand() < LMO_TRAIN2_RATIO]
+    opts.append(f"train.eval_period={iters}")
+
+    applied = []
+    draw = pipeline.draw_color_aug
+
+    def recording_draw(*a, **kw):
+        out_ = draw(*a, **kw)
+        applied.append(out_["apply"])
+        return out_
+
+    rec: dict = {}
+    undo = instrument_trainer(rec)
+    pipeline.draw_color_aug = recording_draw
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state = port_main.main(["--config-file", config, "--opts", *opts])
+    finally:
+        undo()
+        pipeline.draw_color_aug = draw
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(state.step == iters and len(rec["stamps"]) == iters,
+          f"{len(rec['stamps'])} iterations to step {state.step}, "
+          f"expected {iters}")
+    lines = [json.loads(ln) for ln in open(os.path.join(out, "metrics.json"))]
+    check([ln["iteration"] for ln in lines] == list(range(1, iters + 1)),
+          f"metrics.json iterations {[ln['iteration'] for ln in lines]}")
+    bad = [(ln["iteration"], k) for ln in lines for k, v in ln.items()
+           if (k.startswith("loss") or k in ("total_loss", "grad_norm"))
+           and not np.isfinite(v)]
+    check(not bad, f"non-finite logged losses {bad[:5]}")
+    n_pbr = len(pbr_its)
+    check(0 < n_pbr < iters, f"{n_pbr} PBR iterations of {iters}")
+    check(launches.get("gt_labels", 0) == iters - n_pbr
+          and launches.get("region_label", 0) == n_pbr,
+          f"label launches {launches} for {iters - n_pbr} real-split and "
+          f"{n_pbr} PBR iterations")
+    targets = json.load(open(os.path.join(data, "lmo",
+                                          "test_targets_bop19.json")))
+    n_objs = len({t["obj_id"] for t in targets})
+    check(launches.get("min_dist2", 0) == n_objs,
+          f"min_dist2 launched {launches.get('min_dist2', 0)} times for "
+          f"{n_objs} evaluated objects")
+    ident, R, t = read_csv(os.path.join(out, "lmo_bop_test_bop19.csv"))
+    check(len(ident) == len(targets)
+          and bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          f"eval: {len(ident)} CSV rows for {len(targets)} targets")
+    cache = rec["cache"]
+    check(cache is not None and cache.private > 0 and None not in cache,
+          "no private (background-replaced) frame streamed, or one stayed "
+          "in the device cache")
+    on = torch.cat([a.cpu() for a in applied]).float()
+    share = float(on.mean())
+    sigma = float(np.sqrt(0.8 * 0.2 / on.numel()))
+    check(len(applied) == iters and abs(share - 0.8) <= 5 * sigma,
+          f"colour aug on {share:.3f} of {on.numel()} ROIs (0.8 +- "
+          f"{5 * sigma:.3f})")
+
+    step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+    wait_ms = 1e3 * np.asarray(rec["waits"])
+    pbr = np.isin(np.arange(iters), pbr_its)
+    print(f"train lmo: lmo full width bf16 autocast, {TRAIN_ROIS} ROIs/step, "
+          f"{n_records} lmo_train records, {iters} iterations ({n_pbr} on "
+          f"lmo_pbr_train) in {wall:.2f} s of main (records, model, trunk, "
+          f"1 checkpoint, eval of {len(ident)} targets); ms/step median "
+          f"{np.median(step_ms):.2f}, real split "
+          f"{np.median(step_ms[~pbr]):.2f}, PBR {np.median(step_ms[pbr]):.2f}; loader wait ms/step median "
+          f"{np.median(wait_ms):.2f}, real {np.median(wait_ms[~pbr]):.2f}, "
+          f"PBR {np.median(wait_ms[pbr]):.2f}; peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    print(f"train lmo: colour aug on {share:.3f} of {on.numel()} ROIs (0.8 "
+          f"+- {5 * sigma:.3f}); {cache.private} private frames streamed; "
+          f"device frame cache {cache.hits} hits, {cache.misses} misses, "
+          f"{len(cache)} frames; launches {launches} [{card}]")
+    assets = load_class_assets(LMO, cfg.head.num_regions,
+                               cfg.loss.num_pm_points)
+    default = default_num_workers()
+    rates = {w: pbr_decode_rate(cfg, assets, w) for w in (1, default)}
+    print(f"train lmo: PBR decode pool, cold, background replacement on, 2 "
+          f"batches of {TRAIN_ROIS} ROIs: {rates[1][0]:.2f} frames/s at 1 "
+          f"worker, {rates[default][0]:.2f} at {default} (the default on "
+          f"{os.cpu_count()} cores), {rates[1][1]} composites [{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1454,6 +1708,9 @@ def main(argv=None) -> int:
 
         # 10. train from disk --------------------------------------------
         disk_launches = run_train_from_disk(dev, card, work, args.profile)
+
+        # 11. train lmo from disk ----------------------------------------
+        lmo_launches = run_train_lmo(dev, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1462,7 +1719,8 @@ def main(argv=None) -> int:
         "source": "rdpn6d_tpu_torch/csrc/min_dist2.cu",
         "replaces": "rdpn6d_tpu/ops/pallas_kernels.py:57",
         "launches": launches.get("min_dist2", 0) + eval_launches
-        + disk_launches.get("min_dist2", 0),
+        + disk_launches.get("min_dist2", 0)
+        + lmo_launches.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}, {
@@ -1470,13 +1728,15 @@ def main(argv=None) -> int:
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/ops/region.py:21",
         "launches": label_launches["region_label"]
-        + disk_launches.get("region_label", 0),
+        + disk_launches.get("region_label", 0)
+        + lmo_launches.get("region_label", 0),
         "max_abs_err": label_err, **label_times}, {
         "name": "gt_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/data/pipeline.py:197",
         "launches": train_launches.get("gt_labels", 0)
-        + disk_launches.get("gt_labels", 0),
+        + disk_launches.get("gt_labels", 0)
+        + lmo_launches.get("gt_labels", 0),
         "max_abs_err": gt_err, **gt_times}], "card": card}
     print(card)
     print(json.dumps(result))

@@ -70,6 +70,7 @@ class DeviceFrameCache:
         self._bytes = 0
         self.hits = 0
         self.misses = 0
+        self.private = 0        # private frames streamed (counted as misses)
 
     def _insert(self, key: str, dev: dict) -> None:
         nb = _nbytes(dev)
@@ -87,6 +88,7 @@ class DeviceFrameCache:
             if key is None:
                 # a private frame: its pixels differ per visit
                 self.misses += 1
+                self.private += 1
                 devs.append(upload_frame(frame, self.device))
             elif key in self._cache:
                 self.hits += 1
@@ -117,3 +119,6 @@ class DeviceFrameCache:
 
     def __len__(self) -> int:
         return len(self._cache)
+
+    def __contains__(self, key) -> bool:
+        return key in self._cache

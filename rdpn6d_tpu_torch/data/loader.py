@@ -8,14 +8,21 @@ in train mode also the per-instance compact GT of ``decode_roi_compact``),
 batches are byte for byte the JAX package's for the same records and seed
 wherever the JAX package's frame key, (scene_id, im_id), names one image
 file (the port groups by the file; ROADMAP queue 3).
-Images are read with the port's own PNG codec (``data/png.py``), not
-OpenCV. Not ported, and refused: background replacement
-(``data.change_bg_prob > 0``: a JPEG reader and a resize) and the flat,
-per-instance train path (``train_frame_iterator``), ROADMAP queue 1 item 10.
+In train mode an instance may get background replacement
+(``data.change_bg_prob``: its visible mask, cut in half at a random line
+with ``data.truncate_fg``, kept over a random image of the
+``data.bg_images_dir`` pool resized to the frame) in a frame of its own,
+drawn from the per-(record, visit) stream in the JAX package's order.
+Images are read with the port's own codecs (``data/image.py``: PNG and
+baseline JPEG), not OpenCV, and backgrounds resized as ``cv2.resize``
+does. Not ported, and refused: the flat, per-instance train path
+(``train_frame_iterator``, ``RecordDecoder.__call__``), ROADMAP queue 1
+item 10.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 import queue
@@ -28,7 +35,8 @@ import numpy as np
 
 from ..config import Config
 from .bop import build_split_records, get_split
-from .png import imread_mask, imread_rgb, imread_unchanged
+from .image import imread_rgb, resize_linear
+from .png import imread_mask, imread_unchanged
 from .refs import get_ref
 from .sampler import InfiniteSampler, RepeatFactorSampler, frame_repeat_factors
 
@@ -89,19 +97,17 @@ def _imread_mask(path: str) -> np.ndarray:
 
 class RecordDecoder:
     """Record dict -> the frame tensors of the grouped paths, and in train
-    mode each instance's compact GT (``decode_roi_compact``). ``assets``
-    (a ``ClassAssets``) is needed for the train decode only."""
+    mode each instance's compact GT and background replacement
+    (``decode_roi_compact``). ``assets`` (a ``ClassAssets``) is needed for
+    the train decode only."""
 
     def __init__(self, cfg: Config, assets: Any = None, train: bool = False,
                  seed: int = 0):
-        if train and cfg.data.change_bg_prob > 0:
-            raise NotImplementedError(
-                "data.change_bg_prob > 0: background replacement needs a "
-                "JPEG reader and a resize, which the port does not have "
-                "(ROADMAP queue 1 item 10)")
         self.cfg = cfg
         self.assets = assets
+        self.train = train
         self.seed = seed
+        self._bg_files: list[str] | None = None
         cap_mb = int(cfg.data.frame_cache_mb)
         self._frame_cache = _BytesLRU(cap_mb << 20) if cap_mb > 0 else None
 
@@ -117,16 +123,40 @@ class RecordDecoder:
 
     def _record_rng(self, rec: dict[str, Any],
                     visit: int = 0) -> np.random.RandomState:
-        """The per-(record, visit) stream of the train-time draws: the same
-        whatever the decode threads' interleaving, re-rolled every visit.
-        Background replacement, which is not ported, is what draws from
-        it."""
+        """The per-(record, visit) stream of the train-time draws
+        (background replacement and truncation): the same whatever the
+        decode threads' interleaving, re-rolled every visit."""
         mix = (self.seed * 1_000_003
                + int(rec.get("scene_id", 0)) * 10_007
                + int(rec.get("im_id", 0)) * 101
                + int(rec.get("inst_idx", 0))
                + int(visit) * 97_002_121) & 0x7FFFFFFF
         return np.random.RandomState(mix)
+
+    def _random_bg(self, H: int, W: int,
+                   rng: np.random.RandomState) -> np.ndarray | None:
+        """A random background, uint8 RGB [H, W, 3], from the pool under
+        ``data.bg_images_dir`` (every .jpg and .png below it, sorted),
+        chosen by ``rng.randint`` and resized to the frame; None when the
+        pool is unset or empty, or the file is gone. The decoded file
+        rides the frame LRU (a pool image serves many composites)."""
+        d = self.cfg.data.bg_images_dir
+        if not d:
+            return None
+        if self._bg_files is None:
+            self._bg_files = sorted(
+                glob.glob(os.path.join(d, "**", "*.jpg"), recursive=True)
+                + glob.glob(os.path.join(d, "**", "*.png"), recursive=True))
+        if not self._bg_files:
+            return None
+        path = self._bg_files[rng.randint(len(self._bg_files))]
+        try:
+            bg = imread_rgb(path) if self._frame_cache is None \
+                else self._frame_cache.get(("bg", path),
+                                           lambda: imread_rgb(path))
+        except FileNotFoundError:
+            return None
+        return resize_linear(bg, (W, H))
 
     @staticmethod
     def _depth_fallback_xyz(depth: np.ndarray, rec: dict[str, Any],
@@ -260,9 +290,15 @@ class RecordDecoder:
         are the xyz map's own nonzero box, with its top-left in
         ``xyz_offset``, instead of full frames: bit-exact, since the labels
         multiply every mask by xyz != 0, which is zero outside that box.
-        ``private_frame`` is always None here: only background
-        replacement, which is not ported, gives an instance a frame of its
-        own. ``visit`` numbers the record's visits (its draws' stream)."""
+
+        In train mode, with probability ``data.change_bg_prob``, the
+        instance gets background replacement: a copy of the frame whose
+        RGB keeps the visible mask (cut by ``data.truncate_fg`` at a random
+        line, ``uniform(0.3, 0.7)`` of the frame, on a random side of 4)
+        over a random pool image; the cut mask becomes the trunc bit. That
+        copy is ``private_frame`` (else None). ``visit`` numbers the
+        record's visits (its draws' stream: ``rand``, the pool's
+        ``randint``, then the cut and the side)."""
         H, W = rec["height"], rec["width"]
         mask_visib = self._mask_visib(rec)
         ship_crops = bool(self.cfg.data.ship_crops)
@@ -313,8 +349,28 @@ class RecordDecoder:
             mask_visib = (frame["depth_raw"] > 0).astype(np.float32)
 
         bbox = self._bbox_xyxy(rec, mask_visib)
-        visib8 = (mask_visib > 0).astype(np.uint8)
-        packed = visib8 | (visib8 << 1)     # trunc = visib without bg aug
+        mask_trunc = mask_visib
+        private = None
+        d = self.cfg.data
+        rng = self._record_rng(rec, visit)
+        if self.train and d.change_bg_prob > 0 \
+                and rng.rand() < d.change_bg_prob:
+            bg = self._random_bg(H, W, rng)
+            if bg is not None:
+                keep = mask_visib.copy()
+                if d.truncate_fg:
+                    cut = rng.uniform(0.3, 0.7)
+                    side = rng.randint(4)
+                    uu, vv = np.meshgrid(np.linspace(0, 1, W),
+                                         np.linspace(0, 1, H))
+                    half = [uu < cut, uu > cut, vv < cut, vv > cut][side]
+                    keep = keep * half
+                    mask_trunc = keep.astype(np.float32)
+                private = dict(frame)
+                private["rgb"] = np.where((keep > 0)[..., None],
+                                          frame["rgb"], bg)
+        packed = ((mask_visib > 0).astype(np.uint8)
+                  | ((mask_trunc > 0).astype(np.uint8) << 1))
         if xyz_box is not None and ship_crops:
             x1, y1, x2, y2 = xyz_box
             packed = np.ascontiguousarray(packed[y1:y2 + 1, x1:x2 + 1])
@@ -324,7 +380,13 @@ class RecordDecoder:
             roi["xyz"] = xyz16
             if xyz_box is not None and ship_crops:
                 roi["xyz_offset"] = np.asarray(xyz_box[:2], np.float32)
-        return roi, None
+        return roi, private
+
+    def __call__(self, rec: dict[str, Any], visit: int = 0):
+        raise NotImplementedError(
+            "RecordDecoder(rec): the flat train path's per-instance decode, "
+            "its background replacement included, is not ported (ROADMAP "
+            "queue 1 item 10); the grouped path's decode_roi_compact is")
 
 
 def _stack(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
@@ -381,7 +443,8 @@ def default_num_workers() -> int:
 
 def train_frame_iterator(*args, **kwargs):
     raise NotImplementedError("the flat (per-instance) train path, "
-                              "data.grouped_train=false, is not ported "
+                              "data.grouped_train=false, and its "
+                              "background replacement are not ported "
                               "(ROADMAP queue 1 item 10)")
 
 
@@ -399,11 +462,15 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
 
     Yields ``{"frames": {...}, "rois": {...}}``: frames carry uint8 RGB,
     raw uint16 depth, its factor and K, one slot per distinct frame
-    (padded to a multiple of ``frame_bucket`` by repeating the last);
-    rois carry each instance's compact GT (float16 xyz or none, packed
-    uint8 masks) and its ``frame_idx``. ``yield_keys`` replaces the
-    stacked ``"frames"`` with ``"frame_slots"``, a list of ``(key,
-    frame)`` for ``data/device_cache.DeviceFrameCache``. Sampling is per
+    (padded to a multiple of ``frame_bucket`` by repeating the last), and
+    one more for each instance given background replacement, its private
+    composite (the shared frame gets a slot only if an instance of it
+    reads it); rois carry each instance's compact GT (float16 xyz or
+    none, packed uint8 masks) and its ``frame_idx``. ``yield_keys``
+    replaces the stacked ``"frames"`` with ``"frame_slots"``, a list of
+    ``(key, frame)`` for ``data/device_cache.DeviceFrameCache``, the key
+    None for a private frame (its pixels differ every visit, so it
+    streams). Sampling is per
     frame, shuffled: every instance of a drawn frame enters the batch, and
     a batch is cut at exactly ``batch_size`` ROIs.
 
@@ -467,23 +534,24 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
                 continue
 
     def decode_group(rec_idxs, visit):
-        """One frame and all its instances -> (key, frame, [roi])."""
+        """One frame and all its instances -> (key, frame, [(private
+        frame or None, roi)])."""
         base = records[rec_idxs[0]]
         try:
             frame = decoder.read_frame(base)
         except (FileNotFoundError, OSError):
             return None
-        rois = []
+        inst = []
         for ri in rec_idxs:
             try:
-                roi, _ = decoder.decode_roi_compact(
+                roi, private = decoder.decode_roi_compact(
                     records[ri], frame, visit=visit, ship_xyz=ship_xyz)
             except (FileNotFoundError, OSError, SkipRecord):
                 continue
-            rois.append(roi)
-        if not rois:
+            inst.append((private, roi))
+        if not inst:
             return None
-        return base["rgb_path"], frame, rois
+        return base["rgb_path"], frame, inst
 
     def produce(ex: ThreadPoolExecutor) -> None:
         idx_iter = iter(sampler)
@@ -497,7 +565,7 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
 
         futs: deque = deque(submit() for _ in range(2 * num_workers))
         frames_l: list[dict] = []
-        keys_l: list[str] = []
+        keys_l: list[str | None] = []
         rois_l: list[dict] = []
         while not stop.is_set():
             fut = futs.popleft()
@@ -505,11 +573,19 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
             group = fut.result()
             if group is None:
                 continue
-            key, frame, rois = group
-            fidx = len(frames_l)
-            frames_l.append(frame)
-            keys_l.append(key)
-            for roi in rois[:bs - len(rois_l)]:
+            key, frame, inst = group
+            base_idx = None     # the shared frame's slot, claimed when read
+            for private, roi in inst[:bs - len(rois_l)]:
+                if private is not None:
+                    fidx = len(frames_l)
+                    frames_l.append(private)
+                    keys_l.append(None)
+                else:
+                    if base_idx is None:
+                        base_idx = len(frames_l)
+                        frames_l.append(frame)
+                        keys_l.append(key)
+                    fidx = base_idx
                 rois_l.append({**roi, "frame_idx": np.int32(fidx)})
             if len(rois_l) == bs:
                 F = len(frames_l)

@@ -4,6 +4,8 @@ mode the GT labels.
 Counterpart of ``rdpn6d_tpu/data/pipeline.py``:
 
     DZI box (jittered in train mode) -> bilinear RGB crop to input_res²
+    -> in train mode, colour augmentation of the ROIs whose
+    Bernoulli(``data.color_aug_prob``) came up (``data/augment.py``)
     -> pixel normalize -> bilinear depth crop -> depth / resize_ratio
     back-projected through the crop-composed intrinsics -> the 5-channel
     coord map at out_res² (depth xyz strided + the cropped 2-D coordinate
@@ -18,10 +20,10 @@ the device once whatever the number of ROIs; per-instance GT maps ride the
 ROI axis. The crops are gathers (``ops/warp.py``); the TPU path writes them
 as matmuls for the MXU. Depth stays float32 end to end.
 
-The DZI draws cannot match JAX's threefry, so they are an input: pass
-``center_scale`` to use given boxes, or a ``torch.Generator`` (on the
-tensors' device) for the uniform / roi10d draws. Colour augmentation is
-not ported and raises.
+The DZI and colour-aug draws cannot match JAX's threefry, so they are
+inputs: pass ``center_scale`` to use given boxes and ``aug_params`` given
+colour-aug draws, or a ``torch.Generator`` (on the tensors' device) for
+whichever is not given (the DZI draws first).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..ops.binning import quantize_coords
 from ..ops.gt_labels import gt_labels
 from ..ops.region import residual_coord_target, xyz_to_region
 from ..ops.warp import crop_affine, crop_resize_frames
+from .augment import color_augment, config_ops, draw_color_aug
 
 
 def dzi_jitter(bbox_xyxy: torch.Tensor, im_hw: tuple[int, int],
@@ -112,6 +115,7 @@ def preprocess_rois_grouped(
         rois: dict[str, torch.Tensor], train: bool = False,
         generator: torch.Generator | None = None,
         center_scale: tuple[torch.Tensor, torch.Tensor] | None = None,
+        aug_params: dict | None = None,
 ) -> dict[str, torch.Tensor]:
     """Preprocessing of B ROIs cut from F frames (frame-deduplicated:
     many ROIs share few frames).
@@ -126,7 +130,11 @@ def preprocess_rois_grouped(
     (float16 welcome) with xyz_offset [B,2] when the maps are crops whose
     top-left sits at that frame pixel. Without xyz, model-frame coords
     come from the depth surface. ``center_scale`` replaces the DZI box;
-    ``generator`` drives its draws.
+    ``aug_params`` replaces the colour-aug draws in train mode when
+    ``data.color_aug_prob > 0``: ``{"apply": [B] bool (the per-ROI
+    Bernoulli), "ops": augment.draw_aug_params(...)}``, as
+    ``augment.draw_color_aug`` draws them; ``generator`` drives the draws
+    not given.
     """
     d = cfg.data
     if train and any(k in frames for k in _GT_FRAME_KEYS):
@@ -135,9 +143,6 @@ def preprocess_rois_grouped(
         raise ValueError(
             "preprocess_rois_grouped(train=True) with per-instance GT "
             "maps on the frame axis; pass GT maps per ROI instead")
-    if train and d.color_aug_prob > 0:
-        raise NotImplementedError("data.color_aug_prob > 0: colour "
-                                  "augmentation is not ported")
     input_res, out_res = d.input_res, d.out_res
     rgb_full = frames["rgb"]
     H, W = rgb_full.shape[1], rgb_full.shape[2]
@@ -162,6 +167,16 @@ def preprocess_rois_grouped(
     resize_ratio = out_res / scale
 
     rgb = crop_resize_frames(rgb_full, fidx, center, scale, input_res)
+    ops = config_ops(d.color_aug_ops, d.color_aug_type) \
+        if train and d.color_aug_prob > 0 else ()
+    if ops:
+        if aug_params is None:
+            aug_params = draw_color_aug(ops, fidx.shape[0], d.color_aug_prob,
+                                        generator, (input_res, input_res),
+                                        dev)
+        aug = color_augment(rgb, aug_params["ops"], ops)
+        rgb = torch.where(aug_params["apply"].to(dev)[:, None, None, None],
+                          aug, rgb)
     mean = torch.tensor(d.pixel_mean, dtype=torch.float32, device=dev)
     std = torch.tensor(d.pixel_std, dtype=torch.float32, device=dev)
     rgb = (rgb - mean) / std

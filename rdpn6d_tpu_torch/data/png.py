@@ -25,7 +25,7 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}          # colour type -> channels
 _COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}        # channels -> colour type
 
@@ -36,7 +36,7 @@ def read_png(path: str) -> np.ndarray:
     does not read raises ValueError."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] != _SIGNATURE:
+    if data[:8] != SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
     header, idat, pos = None, [], 8
     while pos + 8 <= len(data):
@@ -171,7 +171,7 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 0) -> None:
                          _COLOUR_TYPE[channels], 0, 0, 0)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", header)
+        f.write(SIGNATURE + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + chunk(b"IEND", b""))
 

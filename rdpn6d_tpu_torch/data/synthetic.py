@@ -11,9 +11,14 @@ test can feed the same inputs to both packages. ``write_lm_tree`` writes a
 LineMOD-layout BOP tree of rendered cubes to disk (PNGs through
 ``data/png.py``) with train and test lists and GT xyz crops, and
 ``write_lm_imgn_tree`` the lm_imgn synthetic layout beside it; either
-package trains and evaluates on them. ``write_resnet_pth`` writes a seeded
-ResNet ``state_dict`` with torchvision's keys, in place of the ImageNet
-weights.
+package trains and evaluates on them. ``write_lmo_tree`` writes a
+LineMOD-Occluded tree (real frames of occluding cubes with GT xyz crops,
+BOP-PBR frames as JPEG without crops, a test scene with BOP19 targets) and
+``write_bg_pool`` a VOC-like background pool of JPEG and PNG files.
+``encode_jpeg`` / ``write_jpeg`` are a baseline JPEG encoder with the
+standard tables, for these fixtures: the card's machine has no other JPEG
+writer. ``write_resnet_pth`` writes a seeded ResNet ``state_dict`` with
+torchvision's keys, in place of the ImageNet weights.
 """
 
 from __future__ import annotations
@@ -115,7 +120,8 @@ def render_cube_depth(R: np.ndarray, t: np.ndarray, K: np.ndarray,
                       n_samples: int = 120) -> tuple[np.ndarray, np.ndarray]:
     """Point-splat render of a cube of side 2*half: (depth [H,W],
     model-frame xyz [H,W,3]), dense surface samples projected with a
-    z-buffer (the nearest sample wins a pixel)."""
+    z-buffer (the nearest sample wins a pixel; of samples at one depth,
+    the first), as one sort."""
     g = np.linspace(-half, half, n_samples)
     a, bb = np.meshgrid(g, g)
     faces = []
@@ -132,18 +138,15 @@ def render_cube_depth(R: np.ndarray, t: np.ndarray, K: np.ndarray,
     u = np.round(uv[:, 0] / uv[:, 2]).astype(int)
     v = np.round(uv[:, 1] / uv[:, 2]).astype(int)
     ok = (u >= 0) & (u < im_w) & (v >= 0) & (v < im_h) & (z > 0)
-
-    depth = np.zeros((im_h, im_w), np.float32)
-    xyz = np.zeros((im_h, im_w, 3), np.float32)
-    zbuf = np.full((im_h, im_w), np.inf, np.float32)
-    uu, vv, zz, mm = u[ok], v[ok], z[ok], mpts[ok]
-    order = np.argsort(-zz)  # far first; near overwrites
-    for i in order:
-        if zz[i] < zbuf[vv[i], uu[i]]:
-            zbuf[vv[i], uu[i]] = zz[i]
-            depth[vv[i], uu[i]] = zz[i]
-            xyz[vv[i], uu[i]] = mm[i]
-    return depth, xyz
+    pix, zz, mm = v[ok] * im_w + u[ok], z[ok], mpts[ok]
+    order = np.lexsort((zz, pix))               # by pixel, then nearest
+    pix, zz, mm = pix[order], zz[order], mm[order]
+    first = np.r_[True, pix[1:] != pix[:-1]]
+    depth = np.zeros(im_h * im_w, np.float32)
+    xyz = np.zeros((im_h * im_w, 3), np.float32)
+    depth[pix[first]] = zz[first]
+    xyz[pix[first]] = mm[first]
+    return depth.reshape(im_h, im_w), xyz.reshape(im_h, im_w, 3)
 
 
 def dummy_grouped_inputs(cfg: Config, n_frames: int = 2,
@@ -380,6 +383,374 @@ def write_lm_imgn_tree(root: str, objs: dict[str, int], frames_per_obj: int,
         with open(os.path.join(ds, "image_set", f"train_{name}.txt"),
                   "w") as f:
             f.write("".join(f"{i}\n" for i in ids))
+
+
+LMO_OBJS = {"ape": 1, "can": 5, "cat": 6, "driller": 8, "duck": 9,
+            "eggbox": 10, "glue": 11, "holepuncher": 12}
+
+
+def _write_models(ds: str, objs: dict[str, int], rng: np.random.RandomState,
+                  fps_counts: tuple[int, ...] = ()) -> dict[int, float]:
+    """Each object a cube of seeded half side: ``models/`` and
+    ``models_eval/`` point meshes (mm) with ``models_info.json``, and with
+    ``fps_counts`` a ``models/fps_points.pkl`` (metres, the BOP tools'
+    ``fps{n}_and_center`` entries). Returns {obj_id: half side in m}."""
+    from .assets import get_fps_and_center
+
+    halves: dict[int, float] = {}
+    info, info_eval = {}, {}
+    for name, oid in objs.items():
+        half = float(rng.uniform(0.03, 0.06))
+        halves[oid] = half
+        size = 2000.0 * half
+        for sub, n_edge, table in (("models", 25, info),
+                                   ("models_eval", 15, info_eval)):
+            _write_points_ply(os.path.join(ds, sub, f"obj_{oid:06d}.ply"),
+                              cube_points(n_edge, half) * 1000.0)
+            table[str(oid)] = {
+                "diameter": size * np.sqrt(3), "min_x": -size / 2,
+                "min_y": -size / 2, "min_z": -size / 2, "size_x": size,
+                "size_y": size, "size_z": size}
+    for sub, table in (("models", info), ("models_eval", info_eval)):
+        with open(os.path.join(ds, sub, "models_info.json"), "w") as f:
+            json.dump(table, f)
+    if fps_counts:
+        fps = {str(oid): {f"fps{n}_and_center": get_fps_and_center(
+            cube_points(25, halves[oid]).astype(np.float32), n)
+            for n in fps_counts} for oid in halves}
+        with open(os.path.join(ds, "models", "fps_points.pkl"), "wb") as f:
+            pickle.dump(fps, f)
+    return halves
+
+
+def _render_scene(rng: np.random.RandomState, K: np.ndarray, H: int, W: int,
+                  insts: list[tuple[int, float]]) -> list[dict]:
+    """Cubes on a 4 x 2 grid of the view, 12-14 cm apart and 0.85-1.15 m
+    away, so that neighbours overlap: for each (obj_id, half) its pose,
+    amodal depth and xyz render, and its visible mask after the z-buffer
+    of all of them."""
+    out = []
+    for i, (oid, half) in enumerate(insts):
+        R = _rodrigues(rng.randn(3) * 0.8)
+        t = np.array([-0.18 + 0.12 * (i % 4) + rng.uniform(-0.02, 0.02),
+                      -0.07 + 0.14 * (i // 4 % 2) + rng.uniform(-0.02, 0.02),
+                      rng.uniform(0.85, 1.15)])
+        depth, xyz = render_cube_depth(R, t, K, H, W, half=half,
+                                       n_samples=90)
+        out.append({"obj_id": oid, "R": R, "t": t, "depth": depth,
+                    "xyz": xyz})
+    stack = np.stack([np.where(o["depth"] > 0, o["depth"], np.inf)
+                      for o in out])
+    winner = np.where(np.isfinite(stack.min(0)), stack.argmin(0), -1)
+    for i, o in enumerate(out):
+        o["visib"] = winner == i
+    return out
+
+
+def _write_bop_scene(sdir: str, frames: list[list[dict]], K: np.ndarray,
+                     rng: np.random.RandomState, jpeg: bool,
+                     depth_scale: float, xyz_crops: bool) -> None:
+    """One BOP scene directory: per frame the RGB (PNG, or JPEG as BOP-PBR
+    stores it), 16-bit depth in units of ``depth_scale`` mm over a plane at
+    1.3 m, each instance's visible mask (and GT xyz crop), and
+    scene_gt / scene_camera / scene_gt_info."""
+    H, W = frames[0][0]["depth"].shape
+    scene_gt, scene_cam, scene_info = {}, {}, {}
+    for im_id, objs in enumerate(frames):
+        rgb = _backdrop(rng, H, W)
+        depth = np.full((H, W), 1.3)
+        for o in objs:
+            rgb = np.where(o["visib"][..., None], 128 + 1000.0 * o["xyz"],
+                           rgb)
+            depth = np.where(o["visib"], o["depth"], depth)
+        rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255).astype(
+            np.uint8)
+        if jpeg:
+            write_jpeg(os.path.join(sdir, "rgb", f"{im_id:06d}.jpg"), rgb,
+                       quality=90)
+        else:
+            write_png(os.path.join(sdir, "rgb", f"{im_id:06d}.png"), rgb)
+        write_png(os.path.join(sdir, "depth", f"{im_id:06d}.png"),
+                  np.round(depth * 1000.0 / depth_scale).astype(np.uint16))
+        gts, infos = [], []
+        for inst, o in enumerate(objs):
+            stem = f"{im_id:06d}_{inst:06d}"
+            write_png(os.path.join(sdir, "mask_visib", f"{stem}.png"),
+                      o["visib"].astype(np.uint8) * 255)
+            if xyz_crops:
+                _write_xyz_crop(os.path.join(sdir, "xyz_crop", f"{stem}.pkl"),
+                                o["xyz"])
+            full = o["depth"] > 0
+
+            def box(m):
+                ys, xs = np.nonzero(m)
+                if not xs.size:
+                    return [-1, -1, -1, -1]
+                return [int(xs.min()), int(ys.min()),
+                        int(xs.max() - xs.min()), int(ys.max() - ys.min())]
+
+            gts.append({"cam_R_m2c": o["R"].reshape(-1).tolist(),
+                        "cam_t_m2c": (o["t"] * 1000.0).tolist(),
+                        "obj_id": o["obj_id"]})
+            infos.append({"bbox_obj": box(full), "bbox_visib": box(o["visib"]),
+                          "px_count_all": int(full.sum()),
+                          "px_count_visib": int(o["visib"].sum()),
+                          "visib_fract": float(o["visib"].sum()
+                                               / max(full.sum(), 1))})
+        scene_gt[str(im_id)] = gts
+        scene_cam[str(im_id)] = {"cam_K": K.reshape(-1).tolist(),
+                                 "depth_scale": depth_scale}
+        scene_info[str(im_id)] = infos
+    for fname, table in (("scene_gt.json", scene_gt),
+                         ("scene_camera.json", scene_cam),
+                         ("scene_gt_info.json", scene_info)):
+        with open(os.path.join(sdir, fname), "w") as f:
+            json.dump(table, f)
+
+
+def write_lmo_tree(root: str, train_frames: int, pbr_scenes: int,
+                   pbr_frames: int, test_frames: int,
+                   insts_per_frame: int = 8, seed: int = 0) -> None:
+    """A LineMOD-Occluded BOP tree under ``root/lmo``, every frame 480x640
+    with LineMOD's camera and ``insts_per_frame`` occluding cubes of the 8
+    lmo objects (taken in turn; their own seeded sizes):
+
+    - ``models/`` and ``models_eval/`` with ``models_info.json``, and
+      ``models/fps_points.pkl`` (4, 8, 16 and 32 keypoints);
+    - ``train/000002`` (``lmo_train``): PNG RGB, depth in mm, visible
+      masks and GT xyz crops;
+    - ``train_pbr/<scene>`` for scenes 0..``pbr_scenes``-1
+      (``lmo_pbr_train``): JPEG RGB (quality 90, 4:2:0), depth in 0.1 mm
+      (``depth_scale`` 0.1), visible masks, no xyz crops;
+    - ``test/000002`` (``lmo_bop_test``) as the train scene, and
+      ``test_targets_bop19.json`` listing every visible instance."""
+    rng = np.random.RandomState(seed)
+    H, W = 480, 640
+    ds = os.path.join(root, "lmo")
+    halves = _write_models(ds, LMO_OBJS, rng, fps_counts=(4, 8, 16, 32))
+    ids = list(LMO_OBJS.values())
+
+    def scene(n_frames, offset):
+        return [_render_scene(rng, LM_K, H, W, [
+            (ids[(offset + f + i) % len(ids)],
+             halves[ids[(offset + f + i) % len(ids)]])
+            for i in range(insts_per_frame)]) for f in range(n_frames)]
+
+    _write_bop_scene(os.path.join(ds, "train", "000002"),
+                     scene(train_frames, 0), LM_K, rng, jpeg=False,
+                     depth_scale=1.0, xyz_crops=True)
+    for s in range(pbr_scenes):
+        _write_bop_scene(os.path.join(ds, "train_pbr", f"{s:06d}"),
+                         scene(pbr_frames, 3 * s + 1), LM_K, rng, jpeg=True,
+                         depth_scale=0.1, xyz_crops=False)
+    test = scene(test_frames, 5)
+    _write_bop_scene(os.path.join(ds, "test", "000002"), test, LM_K, rng,
+                     jpeg=False, depth_scale=1.0, xyz_crops=False)
+    targets = [{"scene_id": 2, "im_id": im_id, "obj_id": o["obj_id"],
+                "inst_count": 1}
+               for im_id, objs in enumerate(test) for o in objs
+               if o["visib"].any()]
+    with open(os.path.join(ds, "test_targets_bop19.json"), "w") as f:
+        json.dump(targets, f)
+
+
+def write_bg_pool(root: str, seed: int = 0) -> str:
+    """A background pool in the VOC layout under ``root``
+    (``JPEGImages/*.jpg`` and ``extra/*.png``): JPEG files of the port's
+    encoder (4:2:0 and 4:4:4, one gray) and PNG files, of sizes that take
+    each path of ``cv2.resize`` to a 480x640 frame (up, down, a non-integer
+    factor, an exact 2x down). Returns the pool's directory."""
+    rng = np.random.RandomState(seed)
+    files = (("JPEGImages/2008_000001.jpg", (375, 500), "420"),
+             ("JPEGImages/2008_000002.jpg", (500, 333), "444"),
+             ("JPEGImages/2008_000003.jpg", (960, 1280), "420"),
+             ("JPEGImages/2008_000004.jpg", (240, 320), "gray"),
+             ("extra/wall.png", (50, 70), None),
+             ("extra/floor.png", (480, 640), None))
+    for rel, (h, w), kind in files:
+        img = np.clip(_backdrop(rng, h, w) + rng.normal(0, 12, (h, w, 3)),
+                      0, 255).astype(np.uint8)
+        path = os.path.join(root, rel)
+        if kind is None:
+            write_png(path, img)
+        else:
+            write_jpeg(path, img[..., 1] if kind == "gray" else img,
+                       quality=85, subsample=kind == "420")
+    return root
+
+
+# JPEG's Annex K tables as a baseline file stores them: the quantization
+# tables (luma, chroma) in zig-zag order at quality 50, and the Huffman
+# tables as (counts of the codes of length 1..16, symbols), keyed by
+# (class: 0 DC / 1 AC, id: 0 luma / 1 chroma)
+_JPEG_QUANT = tuple(bytes.fromhex(h) for h in (
+    "100b0c0e0c0a100e0d0e1211101318281a181616183123251d283a333d3c3933383740"
+    "485c4e404457453738506d51575f626768673e4d71797064785c656763",
+    "1112121815182f1a1a2f634238426363636363636363636363636363636363636363"
+    "636363636363636363636363636363636363636363636363636363636363"))
+_JPEG_HUFF = {
+    (0, 0): ("00010501010101010100000000000000", "000102030405060708090a0b"),
+    (0, 1): ("00030101010101010101010000000000", "000102030405060708090a0b"),
+    (1, 0): ("0002010303020403050504040000017d",
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+             "2433627282090a161718191a25262728292a3435363738393a434445464748"
+             "494a535455565758595a636465666768696a737475767778797a8384858687"
+             "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2"
+             "c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4"
+             "f5f6f7f8f9fa"),
+    (1, 1): ("00020102040403040705040400010277",
+             "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+             "156272d10a162434e125f11718191a262728292a35363738393a4344454647"
+             "48494a535455565758595a636465666768696a737475767778797a82838485"
+             "868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9"
+             "bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4"
+             "f5f6f7f8f9fa"),
+}
+_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26,
+           33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56,
+           57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38,
+           31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def _huffman_codes(counts: bytes, symbols: bytes) -> dict[int, tuple[int,
+                                                                     int]]:
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95,
+                subsample: bool = True) -> bytes:
+    """A baseline JFIF JPEG of uint8 [H, W] (gray) or [H, W, 3] RGB: the
+    standard tables scaled to ``quality`` as libjpeg scales them, float
+    DCT, 4:2:0 chroma (2x2 means) with ``subsample`` else 4:4:4, one
+    interleaved scan, no restart markers. For fixtures: the card's machine
+    has no other JPEG writer."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8 or a.ndim not in (2, 3) \
+            or (a.ndim == 3 and a.shape[2] != 3):
+        raise ValueError(f"encode_jpeg: uint8 [H,W] or [H,W,3], got "
+                         f"{a.dtype} {a.shape}")
+    H, W = a.shape[:2]
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    qz = [np.clip((np.frombuffer(t, np.uint8).astype(np.int64) * scale + 50)
+                  // 100, 1, 255) for t in _JPEG_QUANT]   # zig-zag order
+    qnat = []
+    for t in qz:
+        nat = np.zeros(64, np.int64)
+        nat[list(_ZIGZAG)] = t
+        qnat.append(nat.reshape(8, 8))
+    x = a.astype(np.float64)
+    if a.ndim == 2:
+        planes, samp = [x], [(1, 1)]
+    else:
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+        f = 2 if subsample else 1
+        samp = [(f, f), (1, 1), (1, 1)]
+    fmax = samp[0][0]
+    mcux, mcuy = -(-W // (8 * fmax)), -(-H // (8 * fmax))
+    ph, pw = 8 * fmax * mcuy, 8 * fmax * mcux
+    k = np.arange(8)
+    dct = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    dct[0] /= np.sqrt(2.0)
+    per_comp = []
+    for ci, (p, (f, _)) in enumerate(zip(planes, samp)):
+        p = np.pad(p, ((0, ph - H), (0, pw - W)), mode="edge")
+        if f != fmax:
+            p = p.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        blocks = (p - 128.0).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = np.einsum("ux,abxy,vy->abuv", dct, blocks, dct)
+        qt = qnat[min(ci, 1)]
+        qc = np.round(coef / qt).astype(np.int64).reshape(bh, bw, 64)
+        qc = qc[..., list(_ZIGZAG)]                     # zig-zag order
+        # MCU order: [mcuy, mcux, f*f blocks]
+        qc = qc.reshape(mcuy, f, mcux, f, 64).transpose(0, 2, 1, 3, 4)
+        per_comp.append(qc.reshape(mcuy * mcux, f * f, 64))
+    order = np.concatenate(per_comp, axis=1)            # [mcus, blocks, 64]
+    owner = [ci for ci, (f, _) in enumerate(samp) for _ in range(f * f)]
+    tables = {key: _huffman_codes(bytes.fromhex(c), bytes.fromhex(s))
+              for key, (c, s) in _JPEG_HUFF.items()}
+    codes: list[int] = []
+    lens: list[int] = []
+    pred = [0] * len(planes)
+    for mcu in order.tolist():
+        for ci, blk in zip(owner, mcu):
+            dc_t, ac_t = tables[(0, min(ci, 1))], tables[(1, min(ci, 1))]
+            diff = blk[0] - pred[ci]
+            pred[ci] = blk[0]
+            s = abs(diff).bit_length()
+            codes.append(dc_t[s][0])
+            lens.append(dc_t[s][1])
+            if s:
+                codes.append(diff if diff > 0 else diff + (1 << s) - 1)
+                lens.append(s)
+            run = 0
+            for v in blk[1:]:
+                if not v:
+                    run += 1
+                    continue
+                while run > 15:
+                    codes.append(ac_t[0xF0][0])
+                    lens.append(ac_t[0xF0][1])
+                    run -= 16
+                s = abs(v).bit_length()
+                code, n = ac_t[(run << 4) | s]
+                codes.extend((code, v if v > 0 else v + (1 << s) - 1))
+                lens.extend((n, s))
+                run = 0
+            if run:
+                codes.append(ac_t[0x00][0])
+                lens.append(ac_t[0x00][1])
+    c = np.asarray(codes, np.int64)
+    n = np.asarray(lens, np.int64)
+    owner_bit = np.repeat(np.arange(c.size), n)
+    within = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    bits = ((c[owner_bit] >> (n[owner_bit] - 1 - within)) & 1).astype(
+        np.uint8)
+    bits = np.concatenate([bits, np.ones(-bits.size % 8, np.uint8)])
+    scan = np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+    def segment(marker: int, body: bytes) -> bytes:
+        return bytes((0xFF, marker)) + (len(body) + 2).to_bytes(2, "big") \
+            + body
+
+    nq = 1 if len(planes) == 1 else 2
+    dqt = b"".join(bytes((i,)) + qz[i].astype(np.uint8).tobytes()
+                   for i in range(nq))
+    sof = bytes((8,)) + H.to_bytes(2, "big") + W.to_bytes(2, "big") \
+        + bytes((len(planes),)) + b"".join(
+            bytes((ci + 1, (f << 4) | f, min(ci, 1)))
+            for ci, (f, _) in enumerate(samp))
+    dht = b"".join(bytes(((cls << 4) | tid,)) + bytes.fromhex(cnt)
+                   + bytes.fromhex(sym)
+                   for (cls, tid), (cnt, sym) in _JPEG_HUFF.items()
+                   if tid < nq)
+    sos = bytes((len(planes),)) + b"".join(
+        bytes((ci + 1, (min(ci, 1) << 4) | min(ci, 1)))
+        for ci in range(len(planes))) + bytes((0, 63, 0))
+    return (b"\xff\xd8"
+            + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
+            + segment(0xDA, sos) + scan + b"\xff\xd9")
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95,
+               subsample: bool = True) -> None:
+    """``encode_jpeg`` into a file (its directory made as needed)."""
+    data = encode_jpeg(img, quality, subsample)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def write_resnet_pth(path: str, depth: int = 34, seed: int = 0) -> str:

@@ -12,7 +12,12 @@ the pretrained trunk is the .pth's before the first step and is skipped
 on resume; a missing .pth raises; evaluating the live model leaves its
 float32 weights bit-unchanged and its train mode on, and runs under bf16
 autocast only with ``solver.amp``; ``python -m`` runs the module as a
-program; and the refusals. Tolerance: none, everything compared is equal.
+program; and the refusals. And the lmo config (``configs/lmo.py``) on a
+``write_lmo_tree`` tree with a ``write_bg_pool`` pool: colour aug,
+background replacement with truncated foregrounds and TRAIN2 on the
+BOP-PBR split (JPEG frames, no xyz crops, so its labels come from the
+depth surface) run, then eval on ``lmo_bop_test``. Tolerance: none,
+everything compared is equal.
 """
 
 import json
@@ -29,8 +34,10 @@ from rdpn6d_tpu_torch import main as tmain
 from rdpn6d_tpu_torch.config import Config
 from rdpn6d_tpu_torch.data import bop as tbop
 from rdpn6d_tpu_torch.data.synthetic import (
+    write_bg_pool,
     write_lm_imgn_tree,
     write_lm_tree,
+    write_lmo_tree,
     write_resnet_pth,
 )
 from rdpn6d_tpu_torch.engine.checkpoint import STATE_FILE, CheckpointManager
@@ -339,7 +346,82 @@ def test_cli_train_refusals(data_root, tmp_path):
     cpu = ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         tmain.main(base + ["data.grouped_train=false"] + cpu)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tmain.main(base + ["data.change_bg_prob=0.5"] + cpu)
+    # colour aug and background replacement, once refused, now run
+    # (test_cli_trains_lmo trains with them)
+    state = tmain.main(base + ["data.change_bg_prob=0.5",
+                               "data.color_aug_prob=0.8",
+                               "solver.total_epochs=0"] + cpu)
+    assert state.step == 0
     with pytest.raises(NotImplementedError, match="--multihost"):
         tmain.main(base[:2] + ["--multihost"] + cpu)
+
+
+LMO_CONFIG = "rdpn6d_tpu_torch/configs/lmo.py"
+
+
+@pytest.fixture(scope="module")
+def lmo_tree(tmp_path_factory):
+    """lmo: 2 real frames and 2 PBR frames (one scene) of 4 occluding
+    cubes each, 1 test frame; a background pool beside it."""
+    root = str(tmp_path_factory.mktemp("lmo_cli"))
+    write_lmo_tree(root, train_frames=2, pbr_scenes=1, pbr_frames=2,
+                   test_frames=1, insts_per_frame=4, seed=3)
+    return root, write_bg_pool(os.path.join(root, "VOC"), seed=4)
+
+
+def test_cli_trains_lmo(lmo_tree, tmp_path, monkeypatch):
+    """``main`` on configs/lmo.py at tiny widths, one epoch of 2
+    iterations (8 real records at 4 ROIs a step) with TRAIN2 at 0.6, so
+    that RandomState(0) sends the first iteration to ``lmo_pbr_train``:
+    that batch's labels come from the depth surface, the other's through
+    ``gt_labels``; colour aug runs on every batch; instances given
+    background replacement stream as private frames; every logged loss is
+    finite; eval on ``lmo_bop_test`` writes a CSV row a target."""
+    from rdpn6d_tpu_torch.data import device_cache, pipeline
+
+    root, pool = lmo_tree
+    monkeypatch.setattr(trefs, "DATA_ROOT", root)
+    calls = {"depth": 0, "gt": 0, "aug": 0, "private": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(pipeline, "residual_coord_target",
+                        spy("depth", pipeline.residual_coord_target))
+    monkeypatch.setattr(pipeline, "gt_labels", spy("gt", pipeline.gt_labels))
+    monkeypatch.setattr(pipeline, "color_augment",
+                        spy("aug", pipeline.color_augment))
+    stack = device_cache.DeviceFrameCache.stack
+
+    def counting_stack(self, slots):
+        calls["private"] += sum(k is None for k, _ in slots)
+        return stack(self, slots)
+
+    monkeypatch.setattr(device_cache.DeviceFrameCache, "stack",
+                        counting_stack)
+    out = str(tmp_path / "lmo")
+    state = tmain.main(
+        ["--config-file", LMO_CONFIG, "--device", "cpu", "--opts",
+         *OPTS[:-4], "train.log_period=1", 'backbone.pretrained=""',
+         f'data.bg_images_dir="{pool}"', "data.train2_ratio=0.6",
+         "solver.total_epochs=1", "train.eval_period=2",
+         f'train.output_dir="{out}"'])
+    assert state.step == 2
+    assert calls["depth"] == 1 and calls["gt"] == 1 and calls["aug"] == 2
+    assert calls["private"] > 0
+    lines = metrics(out)
+    assert [ln["iteration"] for ln in lines] == [1, 2]
+    assert all(torch.isfinite(torch.tensor(v)) for ln in lines
+               for k, v in ln.items() if k.startswith("loss")
+               or k in ("total_loss", "grad_norm"))
+    cfg = json.loads(open(os.path.join(out, "config.json")).read())
+    assert cfg["data"]["train2_datasets"] == ["lmo_pbr_train"]
+    assert (cfg["data"]["color_aug_type"], cfg["head"]["num_classes"]) == \
+        ("code", 8)
+    targets = json.load(open(os.path.join(root, "lmo",
+                                          "test_targets_bop19.json")))
+    csv = open(os.path.join(out, "lmo_bop_test_bop19.csv")).read()
+    assert len(csv.strip().splitlines()) == 1 + len(targets) > 1

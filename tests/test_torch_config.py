@@ -103,3 +103,18 @@ def test_load_config_python_module():
     cfg = tcfg.load_config(path, ["head.num_regions=8"])
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         _jax_lm13().apply_opts(["head.num_regions=8"]))
+
+
+def test_lmo_matches():
+    """The port's lmo config equals the JAX package's field for field."""
+    from rdpn6d_tpu_torch.configs import lmo as t_lmo
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_lmo", os.path.join(ROOT, "configs", "lmo.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert dataclasses.asdict(mod.get_config()) == \
+        dataclasses.asdict(t_lmo.get_config())
+    d = t_lmo.get_config().data
+    assert (d.color_aug_prob, d.color_aug_type, d.change_bg_prob,
+            d.truncate_fg) == (0.8, "code", 0.5, True)

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against
-their plain versions on the card, one lm13 train step on the card, and the
-entry points' default device.
+their plain versions on the card, one lm13 train step on the card, the
+entry points' default device, colour aug and lmo's two label paths card
+against CPU, and the image codecs on the card's machine.
 
 They skip where there is no card. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
@@ -407,3 +408,131 @@ def test_png_round_trip_on_card_machine(card, tmp_path, filter_type):
         np.testing.assert_array_equal(png.read_png(path), img)
     np.testing.assert_array_equal(png.imread_rgb(str(tmp_path / "rgb.png")),
                                   rgb)
+
+
+AUG_NAMES = ["code", "aae", "aae_weak", "lm", "roi10d"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", AUG_NAMES)
+def test_color_augment_card_matches_cpu(card, name):
+    """Each named pipeline on 24 crops of 64x64 under the same draws, on
+    the card and on the CPU, within 1e-3 on the 0..255 scale (float32 in
+    other orders; ``lighting``'s eigenvector signs follow the port's
+    convention on both)."""
+    from rdpn6d_tpu_torch.data.augment import (
+        color_augment,
+        draw_aug_params,
+        get_aug_pipeline,
+    )
+
+    ops = get_aug_pipeline(name)
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand(24, 64, 64, 3, generator=gen) * 255.0
+    params = draw_aug_params(ops, 24, gen, size=(64, 64))
+    cpu = color_augment(img, params, ops)
+    on_card = color_augment(img.to(card), [{k: v.to(card) for k, v in
+                                           p.items()} for p in params], ops)
+    assert float((on_card.cpu() - cpu).abs().max()) <= 1e-3
+    assert not torch.equal(cpu, img)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ship_xyz", [True, False])
+def test_lmo_train_labels_card_matches_cpu(card, ship_xyz):
+    """``preprocess_rois_grouped(train=True)`` with lmo's data settings
+    (the "code" colour aug at 0.8, draws injected) on the card and on the
+    CPU: with GT xyz (the real split, ``gt_labels``) and without (the PBR
+    split, the depth surface through ``region_label``); the kernel's count
+    rises; masks equal, region ids on >= 0.999 of the pixels, coordinates
+    within 1e-5, the RGB within 1e-3 / 255."""
+    from rdpn6d_tpu_torch.config import Config
+    from rdpn6d_tpu_torch.data.augment import draw_aug_params, get_aug_pipeline
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
+    from rdpn6d_tpu_torch.data.synthetic import dummy_grouped_inputs
+
+    cfg = Config().apply_opts(["data.color_aug_prob=0.8",
+                               'data.color_aug_type="code"'])
+    frames, rois = dummy_grouped_inputs(cfg, n_frames=2, rois_per_frame=3,
+                                        seed=4, im_hw=(480, 640), focal=572.0,
+                                        ship_xyz=ship_xyz)
+    gen = torch.Generator().manual_seed(2)
+    B, S = len(rois["frame_idx"]), cfg.data.input_res
+    aug = {"apply": torch.rand(B, generator=gen) < 0.8,
+           "ops": draw_aug_params(get_aug_pipeline("code"), B, gen, (S, S))}
+    bbox = torch.from_numpy(rois["bbox"])
+    cs = (0.5 * (bbox[:, :2] + bbox[:, 2:]),
+          1.5 * (bbox[:, 2:] - bbox[:, :2]).amax(-1))
+    outs = []
+    for dev in ("cpu", card):
+        cuda_build.reset_launches()
+        out = preprocess_rois_grouped(
+            cfg, {k: torch.from_numpy(v).to(dev) for k, v in frames.items()},
+            {k: torch.from_numpy(v).to(dev) for k, v in rois.items()},
+            train=True, center_scale=tuple(t.to(dev) for t in cs),
+            aug_params={"apply": aug["apply"].to(dev),
+                        "ops": [{k: v.to(dev) for k, v in p.items()}
+                                for p in aug["ops"]]})
+        outs.append({k: v.cpu() for k, v in out.items()})
+    kernel = "gt_labels" if ship_xyz else "region_label"
+    assert cuda_build.LAUNCHES.get(kernel, 0) == 1
+    cpu, gpu = outs
+    for k in ("roi_mask_visib", "roi_mask_trunc", "roi_mask_obj"):
+        assert torch.equal(cpu[k], gpu[k]), k
+    same = cpu["roi_region"] == gpu["roi_region"]
+    assert same.float().mean() >= 0.999
+    assert float((cpu["roi_xyz"] - gpu["roi_xyz"])[same].abs().max()) <= 1e-5
+    assert float((cpu["roi_img"][..., :3] - gpu["roi_img"][..., :3])
+                 .abs().max()) <= 1e-3 / 255.0
+
+
+# a 20x28 4:2:0 JPEG with a restart marker every 2 MCUs, written by
+# libjpeg-turbo (OpenCV, quality 70), and the MD5 of the pixels OpenCV
+# decodes from it: the reader is integer arithmetic, so every machine
+# must give these bytes
+_LIBJPEG_FILE = bytes.fromhex(
+    "ffd8ffe000104a46494600010100000100010000ffdb0043000a07070807060a0808080b"
+    "0a0a0b0e18100e0d0d0e1d15161118231f2524221f2221262b372f262934292122304131"
+    "34393b3e3e3e252e4449433c48373d3e3bffdb0043010a0b0b0e0d0e1c10101c3b282228"
+    "3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b3b"
+    "3b3b3b3b3b3b3b3b3b3b3b3b3b3bffc00011080014001c03012200021101031101ffc400"
+    "1f0000010501010101010100000000000000000102030405060708090a0bffc400b51000"
+    "02010303020403050504040000017d010203000411051221314106135161072271143281"
+    "91a1082342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a"
+    "434445464748494a535455565758595a636465666768696a737475767778797a83848586"
+    "8788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9faffc400"
+    "1f0100030101010101010101010000000000000102030405060708090a0bffc400b51100"
+    "020102040403040705040400010277000102031104052131061241510761711322328108"
+    "144291a1b1c109233352f0156272d10a162434e125f11718191a262728292a3536373839"
+    "3a434445464748494a535455565758595a636465666768696a737475767778797a828384"
+    "85868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4"
+    "c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9faffdd00"
+    "040002ffda000c03010002110311003f00eb6f2fd64b73f3000f4f7ae03c44a6676c0c9c"
+    "1e95746b0256dbbce31c0cd4c96cb7801ea09eb5be1b12b0b1e491cb3c1b9cfda238fb2b"
+    "3649c363033d31d2bb5b028b6880c817f0ff00ebd30e8c23e42818e47e75109bc9f90638"
+    "f5cf35c188c33c54b9d1ea431d1a51e53fffd0e3ad2e24372885b23762bd03c3c03c6a5b"
+    "92d8a28ae0ccf4aba1eb515fb837afe24581c01d8571b7080ccddb9e80d1457d0658bf74"
+    "7c8625b55343ffd9")
+_LIBJPEG_PIXELS_MD5 = "c006a6e87358595eb3bb17fe753b1c41"
+
+
+@pytest.mark.cuda
+def test_jpeg_reader_on_card_machine(card, tmp_path):
+    """On the machine without OpenCV: libjpeg's file decodes to OpenCV's
+    pixels, and the encoder's files decode close to their source."""
+    import hashlib
+
+    from rdpn6d_tpu_torch.data.image import imread_rgb
+    from rdpn6d_tpu_torch.data.jpeg import decode_jpeg
+    from rdpn6d_tpu_torch.data.synthetic import write_jpeg
+
+    got = decode_jpeg(_LIBJPEG_FILE)
+    assert got.shape == (20, 28, 3)
+    assert hashlib.md5(got.tobytes()).hexdigest() == _LIBJPEG_PIXELS_MD5
+    yy, xx = np.mgrid[0:48, 0:64]
+    img = np.stack([128 + 60 * np.sin(xx / 9.0 + c) for c in range(3)],
+                   -1).astype(np.uint8)
+    write_jpeg(str(tmp_path / "e.jpg"), img, quality=95)
+    back = imread_rgb(str(tmp_path / "e.jpg"))
+    assert np.abs(back.astype(int) - img).mean() < 2.0

@@ -404,7 +404,10 @@ def test_record_decoder_matches_jax(lm_tree, monkeypatch, tmp_path, cache_mb):
                       {"mask_visib_path": "", "label_path": ""}):
             r = {**rec, **extra}
             _assert_same(t._mask_visib(r), j._mask_visib(r))
-    # the train decode is in; background replacement is what it refuses
+    # the train decode is in, background replacement too (held to the JAX
+    # package in test_torch_train_data.py); the flat path's decode, its bg
+    # branch included, is what it refuses
+    bg = tloader.RecordDecoder(TConfig().apply_opts(
+        ["data.change_bg_prob=0.5"]), train=True)
     with pytest.raises(NotImplementedError, match="background"):
-        tloader.RecordDecoder(TConfig().apply_opts(
-            ["data.change_bg_prob=0.5"]), train=True)
+        bg(recs[0])

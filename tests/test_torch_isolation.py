@@ -32,7 +32,10 @@ def test_import_pulls_no_jax():
     assert {"rdpn6d_tpu_torch.ops.min_dist", "rdpn6d_tpu_torch.data.sampler",
             "rdpn6d_tpu_torch.data.device_cache",
             "rdpn6d_tpu_torch.engine.writers",
-            "rdpn6d_tpu_torch.utils.pretrained"} <= set(mods)
+            "rdpn6d_tpu_torch.utils.pretrained",
+            "rdpn6d_tpu_torch.data.augment", "rdpn6d_tpu_torch.data.jpeg",
+            "rdpn6d_tpu_torch.data.image",
+            "rdpn6d_tpu_torch.configs.lmo"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -3,12 +3,18 @@ synthetic tree on disk: records (BOP-layout ``lm`` train lists and the
 ``imgn`` layout), ``load_train_records`` and the iteration count, the
 samplers' index streams, the per-ROI compact decode, the frame-grouped
 decode pool's batches, the device frame cache, the pretrained trunk and
-the metric writers' lines.
+the metric writers' lines; background replacement (``data/image.py``'s
+``cv2.resize`` counterpart, ``_random_bg`` on a pool of PNG and JPEG files,
+the composited private frames of ``decode_roi_compact`` with and without
+``truncate_fg``, and the grouped batches with private slots) and the
+JPEG frames of a BOP-PBR split.
 
 The tree is ``data/synthetic.write_lm_tree`` + ``write_lm_imgn_tree`` (two
 cube objects, 3 frames each in each layout; PNGs through the port's codec,
-which OpenCV reads back bit for bit). Both packages read the same files;
-the JAX side decodes with OpenCV. Tolerance: none. Records, index streams,
+which OpenCV reads back bit for bit), the background pool is
+``write_bg_pool`` plus two files OpenCV writes, and the PBR split is a
+``write_lmo_tree``'s. Both packages read the same files; the JAX side
+decodes and resizes with OpenCV. Tolerance: none. Records, index streams,
 decodes and batches are equal (arrays byte for byte, with their dtypes and
 shapes); the trunk's tensors equal the JAX package's through
 ``utils/flax_params``.
@@ -35,9 +41,12 @@ from rdpn6d_tpu_torch.data import loader as tloader
 from rdpn6d_tpu_torch.data import sampler as tsampler
 from rdpn6d_tpu_torch.data.assets import load_class_assets as t_assets
 from rdpn6d_tpu_torch.data.device_cache import DeviceFrameCache
+from rdpn6d_tpu_torch.data.image import resize_linear
 from rdpn6d_tpu_torch.data.synthetic import (
+    write_bg_pool,
     write_lm_imgn_tree,
     write_lm_tree,
+    write_lmo_tree,
     write_resnet_pth,
 )
 from rdpn6d_tpu_torch.engine.writers import JsonWriter as TJsonWriter
@@ -289,9 +298,14 @@ def test_train_group_iterator_surfaces_producer_errors(data_root):
 
 
 def test_train_refusals(data_root):
+    # background replacement, once refused, now builds (held to the JAX
+    # package below); the flat path's decode, its bg branch included, is
+    # still refused
+    dec = tloader.RecordDecoder(TConfig().apply_opts(
+        ["data.change_bg_prob=0.5"]), train=True)
+    assert dec.train
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tloader.RecordDecoder(TConfig().apply_opts(
-            ["data.change_bg_prob=0.5"]), train=True)
+        dec({})
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         tloader.train_frame_iterator(TConfig(), SPLITS)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
@@ -325,6 +339,7 @@ def test_device_frame_cache_on_cpu():
                                 else torch.from_numpy(want).dtype)
         np.testing.assert_array_equal(out[k].numpy(), want)
     assert (cache.hits, cache.misses, len(cache)) == (1, 3, 2)
+    assert cache.private == 1 and None not in cache and "a" in cache
     assert cache.resident_bytes == 2 * per
     cache.stack([("a", fr[0])])                 # a is now the newest
     cache.stack([("c", fr[3])])                 # evicts b, the oldest
@@ -431,3 +446,154 @@ def test_resolve_pretrained_search_and_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="not a ResNet-18 trunk"):
         load_pretrained_backbone(RDPN(TConfig().apply_opts(OPTS)), partial,
                                  depth=18)
+
+
+# ---------------------------------------------------------------------------
+# background replacement and JPEG frames
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("src,dst", [
+    ((50, 70), (480, 640)), ((375, 500), (480, 640)), ((240, 320), (480, 640)),
+    ((960, 1280), (480, 640)), ((480, 640), (120, 160)),
+    ((100, 100), (37, 53)),
+    ((480, 640), (479, 641)), ((33, 47), (64, 80)), ((64, 80), (64, 41)),
+    ((1, 1), (5, 7)), ((64, 80), (64, 80))],
+    ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_resize_matches_cv2(src, dst):
+    """Upscales, downscales, non-integer factors, an exact 2x downscale
+    (OpenCV's INTER_AREA there) and the same size, colour and gray."""
+    import cv2
+
+    rng = np.random.RandomState(src[0] * 7 + dst[1])
+    img = rng.randint(0, 256, src + (3,)).astype(np.uint8)
+    for im in (img, np.ascontiguousarray(img[..., 0])):
+        want = cv2.resize(im, (dst[1], dst[0]))
+        got = resize_linear(im, (dst[1], dst[0]))
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        assert got.tobytes() == want.tobytes(), np.argwhere(got != want)[:5]
+
+
+@pytest.fixture(scope="module")
+def bg_pool(tmp_path_factory):
+    """``write_bg_pool`` and two JPEG files of OpenCV's (libjpeg's 4:2:0
+    and 4:2:2, another quality)."""
+    import cv2
+
+    root = write_bg_pool(str(tmp_path_factory.mktemp("bg")), seed=6)
+    rng = np.random.RandomState(7)
+    for name, samp in (("cv_420.jpg", cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
+                       ("cv_422.jpg", cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422)):
+        img = rng.randint(0, 256, (300, 400, 3)).astype(np.uint8)
+        cv2.imwrite(os.path.join(root, "JPEGImages", name), img,
+                    [cv2.IMWRITE_JPEG_QUALITY, 75,
+                     cv2.IMWRITE_JPEG_SAMPLING_FACTOR, samp])
+    return root
+
+
+def test_random_bg_matches_jax(data_root, bg_pool):
+    """Every file of the pool (PNG, the port's JPEG, OpenCV's JPEG), drawn
+    by the same stream: the pool's order, the pick and the resized pixels
+    equal the JAX package's; no pool, no background."""
+    opts = OPTS + [f'data.bg_images_dir="{bg_pool}"',
+                   "data.change_bg_prob=0.5"]
+    tdec, jdec = _decoders(data_root, opts)
+    for dec in (tdec, jdec):                # lists the pool
+        assert dec._random_bg(480, 640, np.random.RandomState(0)) is not None
+    n = len(tdec._bg_files)
+    assert tdec._bg_files == jdec._bg_files and n == 8
+    seeds = {}
+    for s in range(500):
+        seeds.setdefault(np.random.RandomState(s).randint(n), s)
+    assert len(seeds) == n
+    for k, s in sorted(seeds.items()):
+        t = tdec._random_bg(480, 640, np.random.RandomState(s))
+        j = jdec._random_bg(480, 640, np.random.RandomState(s))
+        assert_same(t, j, tdec._bg_files[k])
+    for d in ('""', f'"{data_root}/none"'):
+        t0, _ = _decoders(data_root, OPTS + [f"data.bg_images_dir={d}"])
+        assert t0._random_bg(48, 64, np.random.RandomState(0)) is None
+
+
+@pytest.mark.parametrize("truncate", [True, False])
+def test_decode_roi_compact_with_bg_matches_jax(data_root, bg_pool, truncate):
+    """With ``change_bg_prob=1`` every instance gets a private frame: the
+    roi dict (the trunc bit the cut mask) and the composite equal the JAX
+    package's, byte for byte, for every record and a second visit."""
+    opts = OPTS + [f'data.bg_images_dir="{bg_pool}"',
+                   "data.change_bg_prob=1.0",
+                   f"data.truncate_fg={str(truncate).lower()}"]
+    tdec, jdec = _decoders(data_root, opts, seed=2)
+    recs = tloader.load_train_records(TConfig().apply_opts(opts), SPLITS)
+    cut = 0
+    for i, rec in enumerate(recs):
+        frame = tdec.read_frame(rec)
+        for visit in (0, 1) if i == 0 else (i,):
+            t_roi, t_priv = tdec.decode_roi_compact(rec, frame, visit=visit)
+            j_roi, j_priv = jdec.decode_roi_compact(rec, frame, visit=visit)
+            assert t_priv is not None
+            assert_same(t_roi, j_roi, rec["rgb_path"])
+            assert_same(t_priv, j_priv, rec["rgb_path"])
+            assert not np.array_equal(t_priv["rgb"], frame["rgb"])
+            m = t_roi["mask_packed"]
+            cut += int(((m & 1) != (m >> 1)).any())
+    assert (cut > 0) == truncate
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_train_group_iterator_with_bg_matches_jax(data_root, bg_pool,
+                                                  workers):
+    """The first 3 batches with background replacement at 0.5 and
+    truncated foregrounds, at 1 and 3 decode threads, byte for byte;
+    composited instances sit in private slots keyed None."""
+    opts = OPTS + [f'data.bg_images_dir="{bg_pool}"',
+                   "data.change_bg_prob=0.5", "data.truncate_fg=true"]
+    tcfg, jcfg = TConfig().apply_opts(opts), JConfig().apply_opts(opts)
+    private = 0
+    for keys in (True, False):
+        t_it = tloader.train_group_iterator(
+            tcfg, SPLITS, seed=3, num_workers=workers, frame_bucket=3,
+            yield_keys=keys)
+        j_it = jloader.train_group_iterator(
+            jcfg, SPLITS, seed=3, num_workers=workers, frame_bucket=3,
+            yield_keys=keys)
+        for i in range(3):
+            tb, jb = next(t_it), next(j_it)
+            assert_same(tb, jb, f"batch {i}")
+            if keys:
+                private += sum(k is None for k, _ in tb["frame_slots"])
+        t_it.close()
+    assert private > 0
+
+
+@pytest.fixture(scope="module")
+def lmo_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("lmo_tree"))
+    write_lmo_tree(root, train_frames=1, pbr_scenes=1, pbr_frames=2,
+                   test_frames=1, insts_per_frame=3, seed=8)
+    return root
+
+
+def test_pbr_jpeg_frames_decode_matches_jax(lmo_root, monkeypatch):
+    """``lmo_pbr_train``'s records (JPEG RGB, depth in 0.1 mm, no xyz
+    crops): the records, the frames read through the port's JPEG reader
+    and the instances' compact GT (the depth surface's path) equal the JAX
+    package's through OpenCV."""
+    monkeypatch.setattr(jrefs, "DATA_ROOT", lmo_root)
+    monkeypatch.setattr(trefs, "DATA_ROOT", lmo_root)
+    t = tbop.build_split_records(tbop.get_split("lmo_pbr_train"))
+    j = jbop.build_split_records(jbop.get_split("lmo_pbr_train"))
+    assert_same(t, j)
+    assert len(t) == 6 and all(r["rgb_path"].endswith(".jpg") for r in t)
+    assert t[0]["depth_factor"] == 10000.0
+    ref = trefs.get_ref("lmo")
+    tdec = tloader.RecordDecoder(TConfig().apply_opts(OPTS),
+                                 t_assets(ref, 4, 500), train=True)
+    jdec = jloader.RecordDecoder(JConfig().apply_opts(OPTS),
+                                 j_assets(jrefs.get_ref("lmo"), 4, 500),
+                                 train=True)
+    for rec in t:
+        frame = tdec.read_frame(rec)
+        assert_same(frame, jdec.read_frame(rec), rec["rgb_path"])
+        t_roi, _ = tdec.decode_roi_compact(rec, frame, ship_xyz=False)
+        j_roi, _ = jdec.decode_roi_compact(rec, frame, ship_xyz=False)
+        assert_same(t_roi, j_roi, rec["rgb_path"])

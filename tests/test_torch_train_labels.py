@@ -341,9 +341,16 @@ def test_train_preprocessing_refusals():
     with pytest.raises(ValueError, match="frame axis"):
         t_grouped(cfg, {**frames, "mask_visib": frames["depth"]}, rois,
                   train=True)
-    with pytest.raises(NotImplementedError):
-        t_grouped(cfg.apply_opts(["data.color_aug_prob=0.5"]), frames, rois,
-                  train=True)
+    # colour aug, once refused, now runs (held to JAX in
+    # test_torch_augment.py): the RGB changes, the labels do not
+    cs = (torch.tensor([[60.0, 60.0], [100.0, 60.0]]),
+          torch.tensor([60.0, 60.0]))
+    plain, aug = (t_grouped(cfg.apply_opts([f"data.color_aug_prob={p}"]),
+                            frames, rois, train=True, center_scale=cs,
+                            generator=torch.Generator().manual_seed(1))
+                  for p in (0.0, 1.0))
+    assert not torch.equal(aug["roi_img"][..., :3], plain["roi_img"][..., :3])
+    assert torch.equal(aug["roi_region"], plain["roi_region"])
     with pytest.raises(NotImplementedError):
         t_grouped(cfg.apply_opts(['data.dzi_type="truncnorm"']), frames,
                   rois, train=True)
