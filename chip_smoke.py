@@ -11,10 +11,15 @@ Phases, each fatal on failure:
   2. kernel — each kernel against its plain PyTorch version on the card, at
               ragged shapes and at the shape its path gives it (scoring for
               ``min_dist2``, the train step for ``gt_labels`` and
-              ``region_label``), with kernel, plain, library-call and bound
-              times; ``min_dist2`` also with b split over blocks and with a
-              NaN row, whose NaN pattern must equal the plain version's;
-              the label kernels also past 64 keypoints (65 and 200);
+              ``region_label``, lmo's PBR step for ``surface_labels``: 24
+              ROIs of 8 480x640 frames, packed masks, K = 32), with kernel,
+              plain, library-call and bound times; ``min_dist2`` also with
+              b split over blocks and with a NaN row, whose NaN pattern
+              must equal the plain version's; the label kernels also past
+              64 keypoints (65 and 200); ``surface_labels`` with every mask
+              kind, both coordinate modes, crops off the frame and taps on
+              exact half pixels, masks and ids equal to the plain
+              version's;
   3. serve  — the lm13 configuration at full width (ResNet-34, 256² ROIs,
               64² head maps, 32 regions, rot_concat), seeded random
               weights, through ``Predictor.predict``: 3 distinct 480x640
@@ -42,9 +47,10 @@ Phases, each fatal on failure:
               loss and ``grad_norm`` within 1e-3 relative;
   8. labels — ``preprocess_rois_grouped(train=True)`` of 6 ROIs on the card
               and on the CPU, with GT xyz maps (``gt_labels``) and without
-              (the depth surface's coordinates, ``region_label``); each
-              kernel's launch count must rise, masks equal, region ids on
-              >= 0.999 of the pixels, coordinates within 1e-5;
+              (the depth surface's coordinates, ``surface_labels``); each
+              kernel's launch count must rise and ``region_label``'s stay
+              0, masks equal, region ids on >= 0.999 of the pixels,
+              coordinates within 1e-5;
   9. eval   — ``main --eval-only`` at lm13 full width on an LM tree of 13
               objects x 8 frames written here (one ``min_dist2`` launch an
               object), f32 ``run_eval`` card vs CPU on 2 objects, host PNG
@@ -84,9 +90,10 @@ Phases, each fatal on failure:
               at 0.5 with truncated foregrounds, TRAIN2 at 0.5 (cut from
               0.1 so PBR steps occur within 12 iterations), then eval on
               ``lmo_bop_test``. Checks every logged loss finite,
-              ``gt_labels`` launched once a real-split iteration and
-              ``region_label`` once a PBR iteration (the depth surface's
-              labels), ``min_dist2`` once an evaluated object, private
+              ``gt_labels`` launched once a real-split iteration,
+              ``surface_labels`` once a PBR iteration (the depth surface's
+              labels) and ``region_label`` never, ``min_dist2`` once an
+              evaluated object, private
               frames streamed and none resident in the device cache, the
               share of colour-augmented ROIs within 5 binomial sigmas of
               0.8, and ``color_augment`` on the card against the CPU under
@@ -134,6 +141,9 @@ MIN_DIST2_INSTR_PER_PAIR = 7
 # pair up); per pixel 12 B of xyz in, 4 B of region and 12 B of coord out
 REGION_LABEL_INSTR_PER_PAIR = 7
 REGION_LABEL_BYTES_PER_PIXEL = 28
+# surface_labels: per output pixel 4 B of depth and 1 B of packed masks in,
+# 4 B of m, 4 of trunc, 4 of region and 12 of coord out
+SURFACE_LABELS_BYTES_PER_PIXEL = 29
 GT_LABELS_OUT_RES = 64       # lm13's label maps
 TRAIN_STEPS = 12
 TRAIN_ROIS = 24
@@ -186,16 +196,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def queued_ms(fn, iters: int) -> float:
+def queued_ms(fn, iters: int, filler: int = 2048) -> float:
     """Device time of one call of ``fn`` in ms, the host's cost hidden: each
-    call is queued behind a float32 2048² matrix product (17 GFLOP of
-    filler, longer on the card than the host takes to launch a call), so
-    its kernels run back to back between two CUDA events. The median over
-    ``iters`` calls. For calls whose device work is shorter than their host
-    cost, where ``cuda_ms`` would time the host."""
+    call is queued behind a float32 ``filler``² matrix product (17 GFLOP at
+    2048, longer on the card than the host takes to launch a call of one
+    kernel; a call of many kernels needs a larger one), so its kernels run
+    back to back between two CUDA events. The median over ``iters``
+    calls. For calls whose device work is shorter than their host cost,
+    where ``cuda_ms`` would time the host."""
     import torch
 
-    x = torch.randn(2048, 2048, device="cuda")
+    x = torch.randn(filler, filler, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
@@ -599,6 +610,152 @@ def check_gt_labels(dev, card):
                        bound_ms=bound_ms, bound_by=bound_by)
 
 
+def surface_label_inputs(B, F, h, w, K, seed, dev, masks):
+    """The depth-surface branch's inputs as the PBR split ships them: F
+    depth frames (a ~0.7 m surface with 5% holes), each ROI's frame and
+    full-frame masks (``masks`` as ``gt_label_inputs``), its K (LineMOD's
+    focal scaled to the frame), a crop anywhere on the frame with a side
+    0.3-1.3x its size, a GT pose whose origin sits on the surface at the
+    crop's centre, keypoints, R and extents. Returns ``surface_labels``'
+    arguments before out_res, on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    depth = 0.6 + 0.2 * torch.rand(F, 1, 1, generator=g) \
+        + 0.05 * torch.sin(xx / 7 + yy / 11)
+    depth = depth * (torch.rand(F, h, w, generator=g) > 0.05)
+    frame_idx = torch.randint(0, F, (B,), generator=g)
+    visib = torch.rand(B, h, w, generator=g) < 0.7
+    trunc = visib & (torch.rand(B, h, w, generator=g) < 0.7)
+    if masks == "packed":
+        mask = visib.to(torch.uint8) | (trunc.to(torch.uint8) << 1)
+        trunc = None
+    else:
+        mask = visib.float()
+        trunc = trunc.float() if masks == "trunc" else None
+    f = float(K_LM[0, 0]) * max(h, w) / 640
+    cam = torch.tensor([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]]) \
+        .repeat(B, 1, 1)
+    cam[:, :2, 2] += torch.rand(B, 2, generator=g) - 0.5
+    center = torch.rand(B, 2, generator=g) * torch.tensor([w, h])
+    scale = (torch.rand(B, generator=g) + 0.3) * max(h, w)
+    trans = torch.stack([(center[:, 0] - cam[:, 0, 2]) * 0.7 / f,
+                         (center[:, 1] - cam[:, 1, 2]) * 0.7 / f,
+                         torch.full((B,), 0.7)], -1)
+    _, fps, rot, ext = label_inputs(B, 1, 1, K, seed, "cpu")
+    return [None if t is None else t.contiguous().to(dev) for t in
+            (depth, frame_idx, mask, trunc, cam, center, scale, fps, rot,
+             trans, ext)]
+
+
+def library_surface_labels(depth, frame_idx, mask, trunc, cam, center,
+                           scale, fps, rot, trans, ext, o):
+    """The yardstick for packed masks: an advanced-index gather of the
+    depth and the masks at the rounded taps, the back-projection and the
+    rotation (an einsum), then one library distance call
+    (``torch.cdist``), its argmin, the gather and the rotation. Timed
+    only; the port never calls it."""
+    import torch
+
+    B, h, w = mask.shape
+    grid = torch.arange(o, dtype=torch.float32, device=mask.device) - o / 2
+    r = scale[:, None] / o
+    ix = torch.round(center[:, 0:1] + grid * r).long()
+    iy = torch.round(center[:, 1:2] + grid * r).long()
+    valid = ((ix >= 0) & (ix < w))[:, None, :] \
+        & ((iy >= 0) & (iy < h))[:, :, None]
+    b = torch.arange(B, device=mask.device)[:, None, None]
+    yi, xi = iy.clamp(0, h - 1)[:, :, None], ix.clamp(0, w - 1)[:, None, :]
+    d = depth[frame_idx[:, None, None], yi, xi] * valid
+    bits = mask[b, yi, xi]
+    m = ((bits & 1) > 0) & (d > 1e-6)
+    c = cam[:, None, None]
+    p = torch.stack([(xi - c[..., 0, 2]) * d / c[..., 0, 0],
+                     (yi - c[..., 1, 2]) * d / c[..., 1, 1], d], -1)
+    xyz = torch.einsum("bhwj,bjk->bhwk", p - trans[:, None, None], rot) \
+        * m[..., None]
+    flat = xyz.reshape(B, o * o, 3)
+    nearest = torch.cdist(flat, fps).argmin(-1)
+    f = torch.gather(fps, 1, nearest[..., None].expand(B, o * o, 3))
+    coord = torch.einsum("bij,bnj->bni", rot, flat - f) / ext[:, None] + 0.5
+    region = torch.where((flat != 0).any(-1), nearest + 1, 0)
+    return m.float(), (((bits & 2) > 0) & m).float(), \
+        region.reshape(B, o, o), coord.reshape(B, o, o, 3)
+
+
+def check_surface_labels(dev, card):
+    """Phase 2 for ``surface_labels``: the kernel against its plain version
+    at ragged shapes and lmo's PBR step (24 ROIs of 8 480x640 frames ->
+    64², K = 32), for every mask kind and both coordinate modes; masks and
+    ids must equal the plain version's, coordinates within 1e-6 (the
+    kernel rounds every op as the plain version does, so 0 is expected).
+    Returns (max coord error, times at lmo's shape with packed masks)."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.surface_labels import (
+        surface_labels,
+        surface_labels_plain,
+    )
+
+    worst = 0.0
+    for (B, F, h, w, o, K) in [(1, 1, 7, 5, 3, 1), (3, 2, 33, 31, 17, 32),
+                               (2, 1, 100, 90, 33, 65),
+                               (2, 2, 60, 70, 13, 200),
+                               (TRAIN_ROIS, 8, 480, 640, GT_LABELS_OUT_RES,
+                                32)]:
+        for masks in ("packed", "trunc", "visib_only"):
+            inp = surface_label_inputs(B, F, h, w, K, h + K, dev, masks)
+            if B == 2:    # every other source coordinate exactly on .5
+                inp[5] = inp[5].round()
+                inp[6] = torch.full_like(inp[6], o / 2)
+            case_err, fg = 0.0, 0.0
+            for residual in (True, False):
+                got = surface_labels(*inp, o, residual=residual)
+                ref = surface_labels_plain(*inp, o, residual=residual)
+                torch.cuda.synchronize()
+                for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+                    check(torch.equal(got[k], ref[k]), f"surface_labels {k} "
+                          f"differs at {B}x{h}x{w}->{o} K={K} {masks}")
+                check(torch.equal(got["roi_region"], ref["roi_region"]),
+                      f"surface_labels ids differ at {B}x{h}x{w}->{o} K={K} "
+                      f"{masks}")
+                err = float((got["roi_xyz"] - ref["roi_xyz"]).abs().max())
+                check(err <= 1e-6, f"surface_labels coords differ by "
+                      f"{err:.3e} at {B}x{h}x{w}->{o} K={K} {masks}")
+                case_err = max(case_err, err)
+                fg = float(ref["roi_mask_obj"].mean())
+            worst = max(worst, case_err)
+            print(f"kernel: surface_labels B={B} F={F} {h}x{w}->{o} K={K} "
+                  f"{masks}: masks and ids equal in both modes, coord "
+                  f"max_abs_err {case_err:.3e} (tol 1e-6), object share "
+                  f"{fg:.3f}")
+    B, F, o, K = TRAIN_ROIS, 8, GT_LABELS_OUT_RES, 32
+    inp = surface_label_inputs(B, F, 480, 640, K, 0, dev, "packed")
+    ms = device_ms(lambda: surface_labels(*inp, o), iters=200)
+    q_ms = queued_ms(lambda: surface_labels(*inp, o), iters=200)
+    plain_ms = device_ms(lambda: surface_labels_plain(*inp, o), iters=20)
+    lib_ms = device_ms(lambda: library_surface_labels(*inp, o), iters=20)
+    pixels = B * o * o
+    # the distance work of region_label; per output pixel the taps of the
+    # depth and the packed masks in, m, trunc, region and coord out; per ROI
+    # its scalars and keypoints
+    ops_s = pixels * K * REGION_LABEL_INSTR_PER_PAIR / FP32_INSTR_PER_S
+    bytes_s = (pixels * SURFACE_LABELS_BYTES_PER_PIXEL
+               + B * ((K * 3 + 9 + 9 + 3 + 3 + 2 + 1) * 4 + 8)) \
+        / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    bound_by = "operations" if ops_s >= bytes_s else "bytes"
+    print(f"kernel: surface_labels {B} ROIs of {F} 480x640 frames ->{o} "
+          f"K={K} packed masks, device time: kernel {ms:.5f} ms (queued "
+          f"{q_ms:.5f} ms), plain {plain_ms:.4f} ms, gather+cdist "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    return worst, dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+
+
 def train_config(amp: bool, out_dir: str):
     """lm13 at full width, seeded fan-in init, no pretrained trunk (the
     torchvision weights are not on disk), 24 ROIs a step; the trainer's
@@ -771,8 +928,9 @@ def labels_card_vs_cpu(dev, card, work):
     """Phase 8: the train labels of 6 ROIs (2 frames of 3 cubes, lm13's
     64² labels, K = 32) on the card and on the CPU, from the same boxes:
     with GT xyz maps through ``gt_labels``, without them through the
-    depth surface and ``region_label``. Returns each kernel's launches in
-    its own run."""
+    depth surface and ``surface_labels``; ``region_label`` in neither.
+    Returns each kernel's launches in its own run (``region_label``'s over
+    both)."""
     import torch
 
     from rdpn6d_tpu_torch.data.pipeline import (
@@ -782,8 +940,8 @@ def labels_card_vs_cpu(dev, card, work):
     from rdpn6d_tpu_torch.ops import cuda_build
 
     cfg = train_config(amp=False, out_dir=os.path.join(work, "phase8"))
-    launches = {}
-    for kernel, ship_xyz in (("gt_labels", True), ("region_label", False)):
+    launches = {"region_label": 0}
+    for kernel, ship_xyz in (("gt_labels", True), ("surface_labels", False)):
         frames, rois = train_inputs(cfg, 40, 2, 3, ship_xyz=ship_xyz)
         frames = {k: torch.from_numpy(v) for k, v in frames.items()}
         rois = {k: torch.from_numpy(v) for k, v in rois.items()}
@@ -797,8 +955,11 @@ def labels_card_vs_cpu(dev, card, work):
                                            center_scale=box_dev)
         torch.cuda.synchronize()
         launches[kernel] = cuda_build.LAUNCHES.get(kernel, 0)
+        launches["region_label"] += cuda_build.LAUNCHES.get("region_label", 0)
         check(launches[kernel] >= 1, f"{kernel} was not launched on the "
               "train labels' path")
+        check(launches["region_label"] == 0, "region_label was launched on "
+              "the train labels' path")
         cpu_out = preprocess_rois_grouped(cfg, frames, rois, train=True,
                                           center_scale=box)
         card_out = {k: v.cpu() for k, v in card_out.items()}
@@ -807,9 +968,9 @@ def labels_card_vs_cpu(dev, card, work):
                   f"labels {kernel}: {k} card vs CPU differ")
         same = card_out["roi_region"] == cpu_out["roi_region"]
         agree = float(same.float().mean())
-        # with xyz maps both sides take the same taps and the direct
-        # distance form; from the depth surface the back-projection's
-        # einsum sums in another order, and a near-tie may flip
+        # both kernels take the plain versions' taps and distance form
+        # (surface_labels every op of its back-projection too); the bound
+        # leaves room for a near-tie that a CPU library op rounds apart
         check(agree >= 0.999, f"labels {kernel}: ids agree on {agree:.5f}")
         err = float((card_out["roi_xyz"] - cpu_out["roi_xyz"]).abs()[same]
                     .max())
@@ -1220,8 +1381,10 @@ def run_train_from_disk(dev, card, work, profile: bool):
         check(r["launches"].get("gt_labels", 0) == n,
               f"gt_labels launched {r['launches'].get('gt_labels', 0)} "
               f"times in {n} iterations")
-        check(r["launches"].get("region_label", 0) == 0,
-              "region_label launched: the xyz crops were not shipped")
+        check(r["launches"].get("surface_labels", 0) == 0
+              and r["launches"].get("region_label", 0) == 0,
+              "surface_labels or region_label launched: the xyz crops were "
+              "not shipped")
     check(first["launches"].get("min_dist2", 0) == len(objs),
           f"min_dist2 launched {first['launches'].get('min_dist2', 0)} "
           f"times for {len(objs)} evaluated objects")
@@ -1451,7 +1614,8 @@ def run_train_lmo(dev, card, work):
     n_pbr = len(pbr_its)
     check(0 < n_pbr < iters, f"{n_pbr} PBR iterations of {iters}")
     check(launches.get("gt_labels", 0) == iters - n_pbr
-          and launches.get("region_label", 0) == n_pbr,
+          and launches.get("surface_labels", 0) == n_pbr
+          and launches.get("region_label", 0) == 0,
           f"label launches {launches} for {iters - n_pbr} real-split and "
           f"{n_pbr} PBR iterations")
     targets = json.load(open(os.path.join(data, "lmo",
@@ -1603,6 +1767,7 @@ def main(argv=None) -> int:
           f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     label_err, label_times = check_region_label(dev, card)
     gt_err, gt_times = check_gt_labels(dev, card)
+    surface_err, surface_times = check_surface_labels(dev, card)
 
     # 3. serve ----------------------------------------------------------------
     cfg = lm13.get_config().apply_opts(['head.init="fan_in"'])
@@ -1737,7 +1902,14 @@ def main(argv=None) -> int:
         "launches": train_launches.get("gt_labels", 0)
         + disk_launches.get("gt_labels", 0)
         + lmo_launches.get("gt_labels", 0),
-        "max_abs_err": gt_err, **gt_times}], "card": card}
+        "max_abs_err": gt_err, **gt_times}, {
+        "name": "surface_labels", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
+        "replaces": "rdpn6d_tpu/data/pipeline.py:222",
+        "launches": label_launches["surface_labels"]
+        + disk_launches.get("surface_labels", 0)
+        + lmo_launches.get("surface_labels", 0),
+        "max_abs_err": surface_err, **surface_times}], "card": card}
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

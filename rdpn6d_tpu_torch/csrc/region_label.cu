@@ -1,4 +1,4 @@
-// RDPN's train labels, two entry points.
+// RDPN's train labels, three entry points.
 //
 // region_label: for each pixel of a cropped object-frame xyz map, the
 // nearest FPS keypoint (region 1..K, 0 at the background, where xyz = 0)
@@ -6,8 +6,7 @@
 //     coord = R (xyz - fps[nearest]) / extent + 0.5,
 // batched over ROIs. xyz [B,N,3] (N = H*W), fps [B,K,3], R [B,3,3],
 // extent [B,3], all float32 -> region [B,N] int32, coord [B,N,3] float32.
-// The train pipeline's depth-surface branch (no GT xyz map shipped) and
-// ops/region.xyz_to_region call it.
+// ops/region.residual_coord_target and xyz_to_region call it.
 //
 // gt_labels: the whole xyz-shipped branch of the train labels in one pass.
 // For each of B ROIs and each pixel of its out x out label crop, the
@@ -19,13 +18,26 @@
 // [B,o,o] float32 (trunc only with a trunc plane), region [B,o,o] int32,
 // coord [B,o,o,3] float32.
 //
+// surface_labels: the same labels for a split that ships no GT xyz map
+// (BOP-PBR), from the depth surface. For each ROI's out x out label crop,
+// the nearest taps of its frame's depth (float32 [F,h,w], frame_idx [B]
+// int64) and of its full-frame masks (as gt_labels'), then
+//     m = (depth > 1e-6) * visib,  p = ((u - cx) d / fx, (v - cy) d / fy, d)
+// with (u, v) the tap's own pixel (0 off the frame) and K the ROI's
+// [B,3,3] intrinsics, xyz = R^T (p - t) * m, and the region id and coord
+// of xyz as above. -> m [B,o,o] (the visib and obj mask both), trunc * m
+// (with a trunc plane), region, coord.
+//
 // Replaces the TPU path's MXU rewrites (no Pallas kernel):
 // rdpn6d_tpu/ops/region.py:21-74 (xyz_to_region + residual_coord_target:
 // distances as |x|^2 - 2 x.f + |f|^2 with the cross term an einsum at
 // precision="highest", an argmin, a gather and a second einsum) and, for
 // gt_labels, also rdpn6d_tpu/data/pipeline.py:197-221, the nearest crop
 // of the stacked mask and xyz planes as 0/1 selection-matrix matmuls
-// (rdpn6d_tpu/ops/warp.py:115 _select_matrix, :130 crop_resize_mm).
+// (rdpn6d_tpu/ops/warp.py:115 _select_matrix, :130 crop_resize_mm);
+// surface_labels replaces rdpn6d_tpu/data/pipeline.py:222-251, the nearest
+// crop of the stacked [visib, depth, u, v(, trunc)] planes, the
+// back-projection and the rotation (an einsum), before the labels.
 //
 // Design for Hopper:
 //  * One thread an output pixel; R, extent (and, for gt_labels, centre
@@ -63,12 +75,27 @@
 //    out-of-map tap reads the clamped pixel times 0, as the plain gather
 //    does. TMA is not used: the taps are a gather at a fractional stride,
 //    which no TMA tile describes.
+//  * surface_labels takes the same taps (the mask at the ROI's own plane,
+//    the depth at its frame's, both cropped with the ROI's centre: the
+//    masks are full frames here, so no offset applies) and never builds
+//    the plain version's float32 mask planes, their stacked copy or the
+//    full-frame (u, v) grid. The ROI's K, t, R, extent, centre and r are
+//    staged once per block. Every op of the back-projection and of the
+//    rotation R^T (p - t), ((a0 R0k + a1 R1k) + a2 R2k), is a _rn
+//    intrinsic in the plain version's order, and so is the residual's
+//    rotation R (xyz - f): xyz, hence every region id and coordinate, is
+//    the plain version's bit for bit, where one contracted FMA could flip
+//    a near-tie. Background pixels keep the keypoint search: their xyz is
+//    +-0 and their coordinate comes from the keypoint nearest the origin.
 //  * Bound: bytes. region_label moves 28 B a pixel (12 in, 16 out);
 //    gt_labels 35 B with packed masks and float16 xyz (1 + 6 in, 3 x 4 of
 //    masks + 4 of region + 12 of coord out), 3.44 MB at the train shape
 //    (24 ROIs of 64x64, K = 32), ~1.03 us at 3.35 TB/s, against ~22e6
-//    FP32 instructions, ~0.66 us at 33.5e12/s. A launch this small is
-//    dominated by its fixed cost; taking the crop's dozen launches into it
+//    FP32 instructions, ~0.66 us at 33.5e12/s; surface_labels 29 B with
+//    packed masks (4 of depth + 1 in, 2 x 4 of masks + 4 + 12 out), 2.85
+//    MB, ~0.85 us, against the same ~22e6 instructions. A launch this
+//    small is dominated by its fixed cost; taking the crop's launches
+//    into it (a dozen for gt_labels, ~90 for the depth surface's chain)
 //    is the gain this design goes for.
 
 #include <cuda_fp16.h>
@@ -151,8 +178,9 @@ __device__ __forceinline__ int nearest_keypoint(const float* __restrict__ fps,
 
 // region (0 at the background) and coord = R (xyz - f) / extent + 0.5, f
 // the nearest keypoint `arg`: in `sf` when all K are one tile, else read
-// from global memory.
-template <bool kTiled>
+// from global memory. kExact: every op rounded on its own, R's row summed
+// left to right, as surface_labels' plain version does.
+template <bool kTiled, bool kExact = false>
 __device__ __forceinline__ void label_pixel(const float* __restrict__ fps,
                                             const float4* sf, const float* sr,
                                             const float* se, int b, int K,
@@ -171,8 +199,16 @@ __device__ __forceinline__ void label_pixel(const float* __restrict__ fps,
   const float dx = x - f.x, dy = y - f.y, dz = z - f.z;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const float r = sr[3 * i] * dx + sr[3 * i + 1] * dy + sr[3 * i + 2] * dz;
-    coord[i] = r / se[i] + 0.5f;
+    if (kExact) {
+      const float r = __fadd_rn(__fadd_rn(__fmul_rn(sr[3 * i], dx),
+                                          __fmul_rn(sr[3 * i + 1], dy)),
+                                __fmul_rn(sr[3 * i + 2], dz));
+      coord[i] = __fadd_rn(__fdiv_rn(r, se[i]), 0.5f);
+    } else {
+      const float r = sr[3 * i] * dx + sr[3 * i + 1] * dy
+          + sr[3 * i + 2] * dz;
+      coord[i] = r / se[i] + 0.5f;
+    }
   }
 }
 
@@ -327,6 +363,133 @@ void launch_gt_labels(dim3 grid, cudaStream_t stream, const void* mask,
         residual);
 }
 
+// kPacked: mask is uint8 [B,h,w], visib = bit 0, trunc = bit 1. Otherwise
+// float32 visib [B,h,w] and trunc_in a float32 plane or null (then trunc
+// is not written). depth [F,h,w], cam [B,3,3] (the ROI's K), trans [B,3].
+template <bool kPacked, bool kTiled>
+__global__ void __launch_bounds__(kLabelThreads)
+surface_labels_kernel(const float* __restrict__ depth,
+                      const long long* __restrict__ frame_idx,
+                      const void* __restrict__ mask,
+                      const float* __restrict__ trunc_in,
+                      const float* __restrict__ cam,
+                      const float* __restrict__ center,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ fps,
+                      const float* __restrict__ rot,
+                      const float* __restrict__ trans,
+                      const float* __restrict__ extent,
+                      float* __restrict__ m_out, float* __restrict__ trunc,
+                      int* __restrict__ region, float* __restrict__ coord,
+                      int F, int h, int w, int out, int K, int residual) {
+  __shared__ float4 sf[kTileK];
+  __shared__ float sr[9];
+  __shared__ float se[3];
+  __shared__ float sc[3];                  // centre x, centre y, r
+  __shared__ float sk[4];                  // fx, fy, cx, cy
+  __shared__ float st[3];                  // t
+  __shared__ long long sfr;                // the ROI's frame
+  const int b = blockIdx.y;
+  const int p = blockIdx.x * kLabelThreads + threadIdx.x;
+  stage_tile(fps, b, K, 0, sf);
+  stage_roi(rot, extent, b, sr, se);
+  const int s = (int)threadIdx.x - 32;     // the second warp: the scalars
+  if (s >= 0 && s < 2) sc[s] = center[(size_t)b * 2 + s];
+  if (s == 2) sc[2] = __fdiv_rn(scale[b], (float)out);
+  if (s >= 3 && s < 7)    // K[0][0], K[1][1], K[0][2], K[1][2]
+    sk[s - 3] = cam[(size_t)b * 9 + (s < 5 ? 4 * (s - 3) : 3 * s - 13)];
+  if (s >= 7 && s < 10) st[s - 7] = trans[(size_t)b * 3 + s - 7];
+  // staged with the rest, so that the depth tap's load does not wait on
+  // a load of its own frame index after the barrier
+  if (s == 10) sfr = frame_idx[b];
+  __syncthreads();
+  const bool active = p < out * out;
+  if (!kTiled && !active) return;          // no barrier follows
+  const long long f = sfr;
+  if (f < 0 || f >= F) __trap();           // as an index assert would
+
+  // the tap, as ops/warp._src_coords and gt_labels take it
+  const int i = p / out, j = p - i * out;
+  const float half_out = 0.5f * (float)out;
+  const float sx = __fadd_rn(sc[0], __fmul_rn(__fsub_rn((float)j, half_out),
+                                              sc[2]));
+  const float sy = __fadd_rn(sc[1], __fmul_rn(__fsub_rn((float)i, half_out),
+                                              sc[2]));
+  const float fx = rintf(sx), fy = rintf(sy);   // half to even
+  const float valid = (fx >= 0.f && fx < (float)w && fy >= 0.f &&
+                       fy < (float)h) ? 1.f : 0.f;
+  const int ix = (int)fminf(fmaxf(fx, 0.f), (float)(w - 1));
+  const int iy = (int)fminf(fmaxf(fy, 0.f), (float)(h - 1));
+  const size_t tap = (size_t)iy * w + ix;
+  const size_t src = (size_t)b * h * w + tap;   // in the ROI's mask plane
+
+  // the plain version gathers each plane and multiplies it by validity
+  const float d = __fmul_rn(__ldg(depth + (size_t)f * h * w + tap), valid);
+  float v, t = 0.f;
+  if (kPacked) {
+    const unsigned char mb = __ldg(static_cast<const unsigned char*>(mask)
+                                   + src);
+    v = (float)(mb & 1);
+    t = (float)((mb >> 1) & 1);
+  } else {
+    v = __ldg(static_cast<const float*>(mask) + src);
+    if (trunc_in != nullptr) t = __ldg(trunc_in + src);
+  }
+  const float m = __fmul_rn(d > 1e-6f ? 1.f : 0.f, __fmul_rn(v, valid));
+  const float u = __fmul_rn((float)ix, valid);
+  const float vv = __fmul_rn((float)iy, valid);
+  // a = p - t; xyz_k = ((a0 R0k + a1 R1k) + a2 R2k) * m, each op rounded
+  const float a0 = __fsub_rn(__fdiv_rn(__fmul_rn(__fsub_rn(u, sk[2]), d),
+                                       sk[0]), st[0]);
+  const float a1 = __fsub_rn(__fdiv_rn(__fmul_rn(__fsub_rn(vv, sk[3]), d),
+                                       sk[1]), st[1]);
+  const float a2 = __fsub_rn(d, st[2]);
+  float q[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    q[k] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(a0, sr[k]),
+                                         __fmul_rn(a1, sr[3 + k])),
+                               __fmul_rn(a2, sr[6 + k])), m);
+
+  const size_t pix = (size_t)b * out * out + p;
+  if (active) {
+    m_out[pix] = m;
+    if (trunc != nullptr) trunc[pix] = __fmul_rn(__fmul_rn(t, valid), m);
+  }
+  const int arg = nearest_keypoint<kTiled>(fps, b, K, sf, active, q[0], q[1],
+                                           q[2]);
+  if (!active) return;
+  if (residual) {
+    label_pixel<kTiled, true>(fps, sf, sr, se, b, K, arg, q[0], q[1], q[2],
+                              region + pix, coord + pix * 3);
+  } else {
+    region[pix] = (q[0] != 0.f || q[1] != 0.f || q[2] != 0.f) ? arg + 1 : 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      coord[pix * 3 + k] = __fadd_rn(__fdiv_rn(q[k], se[k]), 0.5f);
+  }
+}
+
+template <bool kPacked>
+void launch_surface_labels(dim3 grid, cudaStream_t stream, const float* depth,
+                           const long long* frame_idx, const void* mask,
+                           const float* trunc_in, const float* cam,
+                           const float* center, const float* scale,
+                           const float* fps, const float* rot,
+                           const float* trans, const float* extent,
+                           float* m, float* trunc, int* region, float* coord,
+                           int F, int h, int w, int out, int K,
+                           int residual) {
+  if (K <= kTileK)
+    surface_labels_kernel<kPacked, false><<<grid, kLabelThreads, 0, stream>>>(
+        depth, frame_idx, mask, trunc_in, cam, center, scale, fps, rot,
+        trans, extent, m, trunc, region, coord, F, h, w, out, K, residual);
+  else
+    surface_labels_kernel<kPacked, true><<<grid, kLabelThreads, 0, stream>>>(
+        depth, frame_idx, mask, trunc_in, cam, center, scale, fps, rot,
+        trans, extent, m, trunc, region, coord, F, h, w, out, K, residual);
+}
+
 }  // namespace
 
 extern "C" {
@@ -379,6 +542,36 @@ int gt_labels_launch(const void* mask, const float* trunc_in, int packed,
     launch_gt_labels<false, float>(grid, s, mask, trunc_in, xyz, center,
                                    scale, fps, rot, extent, visib, obj, trunc,
                                    region, coord, h, w, out, K, residual);
+  return (int)cudaGetLastError();
+}
+
+// packed != 0: mask is uint8 packed bits (trunc_in ignored, trunc written);
+// else float32 visib, trunc_in and trunc both null or both given.
+// frame_idx int64 [B], each in [0, F). Returns cudaGetLastError().
+int surface_labels_launch(const float* depth, const long long* frame_idx,
+                          const void* mask, const float* trunc_in,
+                          int packed, const float* cam, const float* center,
+                          const float* scale, const float* fps,
+                          const float* rot, const float* trans,
+                          const float* extent, float* m, float* trunc,
+                          int* region, float* coord, int B, int F, int h,
+                          int w, int out, int K, int residual,
+                          void* stream) {
+  if (B <= 0 || out <= 0) return 0;
+  if (K <= 0 || F <= 0 || h <= 0 || w <= 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((out * out + kLabelThreads - 1) / kLabelThreads, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (packed)
+    launch_surface_labels<true>(grid, s, depth, frame_idx, mask, trunc_in,
+                                cam, center, scale, fps, rot, trans, extent,
+                                m, trunc, region, coord, F, h, w, out, K,
+                                residual);
+  else
+    launch_surface_labels<false>(grid, s, depth, frame_idx, mask, trunc_in,
+                                 cam, center, scale, fps, rot, trans, extent,
+                                 m, trunc, region, coord, F, h, w, out, K,
+                                 residual);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,11 @@ Counterpart of ``rdpn6d_tpu/data/pipeline.py``:
     coord map at out_res² (depth xyz strided + the cropped 2-D coordinate
     map); in train mode also the nearest crop of the GT masks and xyz map
     -> region ids + rotated FPS residuals (``ops/gt_labels.gt_labels``,
-    one CUDA kernel on the card; without a GT xyz map, the depth surface's
-    crop -> ``ops/region.region_label``) -> pose targets (trans_ratio,
-    allocentric rot6d) and, for CE_coor, coordinate bins.
+    one CUDA kernel on the card; without a GT xyz map, the nearest crop
+    of the frame's depth and the masks, back-projected and rotated into
+    the model frame, ``ops/surface_labels.surface_labels``, one kernel
+    too) -> pose targets (trans_ratio, allocentric rot6d) and, for
+    CE_coor, coordinate bins.
 
 Batched over ROIs, each reading its frame by index, so frames are moved to
 the device once whatever the number of ROIs; per-instance GT maps ride the
@@ -36,7 +38,7 @@ from ..geometry.camera import backproject_depth, crop_K
 from ..geometry.rotations import mat_to_ortho6d
 from ..ops.binning import quantize_coords
 from ..ops.gt_labels import gt_labels
-from ..ops.region import residual_coord_target, xyz_to_region
+from ..ops.surface_labels import surface_labels
 from ..ops.warp import crop_affine, crop_resize_frames
 from .augment import color_augment, config_ops, draw_color_aug
 
@@ -230,14 +232,11 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
             else None
     fps, extent = rois["fps"].float(), rois["extent"].float()
     R_gt, t_gt = rois["gt_rot"].float(), rois["gt_trans"].float()
+    residual = cfg.head.coord_residual
 
-    def nearest(planes, idx, c):
-        return crop_resize_frames(planes, idx, c, scale, out_res,
-                                  interp="nearest")
-
+    # the nearest crop of the masks and the model-frame coords, and the
+    # labels: one kernel on the card either way
     if "xyz" in rois:
-        # the nearest crop of the masks and the xyz map, and the labels:
-        # one kernel on the card
         xyz = rois["xyz"]
         if xyz.dtype != torch.float16:
             xyz = xyz.float()
@@ -245,49 +244,16 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
         gt_center = center if "xyz_offset" not in rois \
             else center - rois["xyz_offset"].float()
         labels = gt_labels(visib_in, trunc_in, xyz, gt_center, scale, fps,
-                           R_gt, extent, out_res,
-                           residual=cfg.head.coord_residual)
-        roi_mask_visib = labels["roi_mask_visib"]
-        roi_mask_obj = labels["roi_mask_obj"]
-        roi_mask_trunc = labels["roi_mask_trunc"]
-        region, coord = labels["roi_region"], labels["roi_xyz"]
+                           R_gt, extent, out_res, residual=residual)
     else:
-        # no xyz map: model-frame coords from the depth surface, after the
-        # nearest crop, which picks one source pixel (u, v) per output
-        # pixel; xyz = R^T (p_cam - t) of its back-projection
-        if packed is not None:
-            visib_in = (packed & 1).float()
-            trunc_in = ((packed >> 1) & 1).float()
-        has_trunc = trunc_in is not None
-        own = torch.arange(fidx.shape[0], device=fidx.device)  # ROI's maps
-        H, W = depth_full.shape[1], depth_full.shape[2]
-        v, u = torch.meshgrid(
-            torch.arange(H, dtype=torch.float32, device=fidx.device),
-            torch.arange(W, dtype=torch.float32, device=fidx.device),
-            indexing="ij")
-        uv = nearest(torch.stack([u, v], dim=-1)[None],
-                     torch.zeros_like(fidx), center)
-        depth_c = nearest(depth_full, fidx, center)
-        masks = [visib_in] + ([trunc_in] if has_trunc else [])
-        mask_c = nearest(torch.stack(masks, dim=-1), own, center)
-        m = (depth_c > 1e-6).float() * mask_c[..., 0]
-        fx, fy = K[:, 0, 0, None, None], K[:, 1, 1, None, None]
-        px, py = K[:, 0, 2, None, None], K[:, 1, 2, None, None]
-        pc = torch.stack([(uv[..., 0] - px) * depth_c / fx,
-                          (uv[..., 1] - py) * depth_c / fy, depth_c], dim=-1)
-        roi_xyz_raw = torch.einsum("bhwj,bjk->bhwk",
-                                   pc - t_gt[:, None, None, :],
-                                   R_gt) * m[..., None]
-        roi_mask_obj = roi_mask_visib = m
-        roi_mask_trunc = mask_c[..., 1] * m if has_trunc else m
-        roi_xyz_raw = roi_xyz_raw.contiguous()
-        if cfg.head.coord_residual:
-            region, coord = residual_coord_target(roi_xyz_raw, fps, R_gt,
-                                                  extent)
-        else:
-            # GDR-Net absolute mode: extent-normalized model coordinates
-            region, _ = xyz_to_region(roi_xyz_raw, fps)
-            coord = roi_xyz_raw / extent[:, None, None, :] + 0.5
+        # no xyz map: xyz = R^T (p_cam - t) of each tap's back-projection
+        labels = surface_labels(depth_full, fidx, visib_in, trunc_in, K,
+                                center, scale, fps, R_gt, t_gt, extent,
+                                out_res, residual=residual)
+    roi_mask_visib = labels["roi_mask_visib"]
+    roi_mask_obj = labels["roi_mask_obj"]
+    roi_mask_trunc = labels["roi_mask_trunc"]
+    region, coord = labels["roi_region"], labels["roi_xyz"]
 
     delta_c = rois["centroid_2d"].float() - center
     trans_ratio = torch.stack([delta_c[:, 0] / bw, delta_c[:, 1] / bh,

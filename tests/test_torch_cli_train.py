@@ -373,10 +373,11 @@ def test_cli_trains_lmo(lmo_tree, tmp_path, monkeypatch):
     """``main`` on configs/lmo.py at tiny widths, one epoch of 2
     iterations (8 real records at 4 ROIs a step) with TRAIN2 at 0.6, so
     that RandomState(0) sends the first iteration to ``lmo_pbr_train``:
-    that batch's labels come from the depth surface, the other's through
-    ``gt_labels``; colour aug runs on every batch; instances given
-    background replacement stream as private frames; every logged loss is
-    finite; eval on ``lmo_bop_test`` writes a CSV row a target."""
+    that batch's labels come from the depth surface through
+    ``surface_labels``, the other's through ``gt_labels``; colour aug runs
+    on every batch; instances given background replacement stream as
+    private frames; every logged loss is finite; eval on ``lmo_bop_test``
+    writes a CSV row a target."""
     from rdpn6d_tpu_torch.data import device_cache, pipeline
 
     root, pool = lmo_tree
@@ -389,8 +390,8 @@ def test_cli_trains_lmo(lmo_tree, tmp_path, monkeypatch):
             return fn(*a, **kw)
         return wrapped
 
-    monkeypatch.setattr(pipeline, "residual_coord_target",
-                        spy("depth", pipeline.residual_coord_target))
+    monkeypatch.setattr(pipeline, "surface_labels",
+                        spy("depth", pipeline.surface_labels))
     monkeypatch.setattr(pipeline, "gt_labels", spy("gt", pipeline.gt_labels))
     monkeypatch.setattr(pipeline, "color_augment",
                         spy("aug", pipeline.color_augment))

@@ -17,6 +17,10 @@ from rdpn6d_tpu_torch.ops import cuda_build
 from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
 from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
 from rdpn6d_tpu_torch.ops.region import region_label, region_label_plain
+from rdpn6d_tpu_torch.ops.surface_labels import (
+    surface_labels,
+    surface_labels_plain,
+)
 from rdpn6d_tpu_torch.ops.warp import crop_resize_frames
 
 
@@ -199,8 +203,8 @@ def test_region_label_kernel_refuses_bad_input(card):
 @pytest.mark.cuda
 def test_tie_across_the_keypoint_tile_on_card(card):
     """Keypoints 63 and 64 (either side of the kernel's 64-keypoint tile)
-    and 5 and 130 equidistant from a pixel: both kernels take the lower
-    index, as the plain version does."""
+    and 5 and 130 equidistant from a pixel: the three label kernels take
+    the lower index, as the plain versions do."""
     K = 131
     fps = torch.full((1, K, 3), -1.0)
     fps[0, :, 2] -= torch.arange(K, dtype=torch.float32) * 0.01
@@ -218,6 +222,19 @@ def test_tie_across_the_keypoint_tile_on_card(card):
             torch.tensor([[0.0, 0.0]]), torch.tensor([1.0]), fps, rot, ext)
     got = gt_labels(*(None if t is None else t.to(card) for t in args), 1)
     ref = gt_labels_plain(*args, 1)
+    assert torch.equal(got["roi_region"].cpu(), ref["roi_region"])
+    assert ref["roi_region"].item() == 64
+    # the depth surface: a 1 m tap on the principal point, R = I, t = (0,
+    # 0, 1.3), so xyz = (0, 0, -0.3), equidistant from keypoints 63 and 64
+    cam = torch.tensor([[[100.0, 0.0, 0.0], [0.0, 100.0, 0.0],
+                         [0.0, 0.0, 1.0]]])
+    args = (torch.ones(1, 1, 1), torch.zeros(1, dtype=torch.long),
+            torch.ones(1, 1, 1, dtype=torch.uint8), None, cam,
+            torch.tensor([[0.0, 0.0]]), torch.tensor([1.0]), fps, rot,
+            torch.tensor([[0.0, 0.0, 1.3]]), ext)
+    got = surface_labels(*(None if t is None else t.to(card) for t in args),
+                         1)
+    ref = surface_labels_plain(*args, 1)
     assert torch.equal(got["roi_region"].cpu(), ref["roi_region"])
     assert ref["roi_region"].item() == 64
 
@@ -316,6 +333,93 @@ def test_gt_labels_kernel_refuses_bad_input(card):
         gt_labels(inp[0], inp[0].float(), *inp[2:], 8)
     with pytest.raises(TypeError):
         gt_labels(inp[0], None, inp[2].bfloat16(), *inp[3:], 8)
+
+
+def _surface_inputs(B, F, h, w, K, seed, masks):
+    """Depth frames (a ~0.7 m surface with 5% holes), each ROI's frame and
+    full-frame masks (visib, a trunc that differs), its K, a crop that may
+    run off the frame, a GT pose whose origin sits on the surface at the
+    crop's centre, keypoints, R and extents: ``surface_labels``' arguments
+    before out_res."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    depth = 0.6 + 0.2 * torch.rand(F, 1, 1, generator=g) \
+        + 0.05 * torch.sin(xx / 7 + yy / 11)
+    depth = depth * (torch.rand(F, h, w, generator=g) > 0.05)
+    frame_idx = torch.randint(0, F, (B,), generator=g)
+    visib = torch.rand(B, h, w, generator=g) < 0.7
+    trunc = visib & (torch.rand(B, h, w, generator=g) < 0.7)
+    if masks == "packed":
+        mask, trunc = visib.to(torch.uint8) | (trunc.to(torch.uint8) << 1), \
+            None
+    else:
+        mask = visib.float()
+        trunc = trunc.float() if masks == "trunc" else None
+    f = 1.2 * max(h, w)
+    cam = torch.tensor([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]]) \
+        .repeat(B, 1, 1)
+    cam[:, :2, 2] += torch.rand(B, 2, generator=g) - 0.5
+    center = torch.rand(B, 2, generator=g) * torch.tensor([w, h])
+    scale = (torch.rand(B, generator=g) + 0.3) * max(h, w)
+    z = 0.7
+    trans = torch.stack([(center[:, 0] - cam[:, 0, 2]) * z / f,
+                         (center[:, 1] - cam[:, 1, 2]) * z / f,
+                         torch.full((B,), z)], -1)
+    _, fps, rot, ext = _label_inputs(B, 1, 1, K, seed)
+    return (depth, frame_idx, mask, trunc, cam, center, scale, fps, rot,
+            trans, ext)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masks", ["packed", "trunc", "visib_only"])
+@pytest.mark.parametrize("B,F,h,w,out,K", [(1, 1, 7, 5, 3, 3),
+                                           (3, 2, 33, 31, 17, 17),
+                                           (2, 1, 100, 90, 33, 64),
+                                           (24, 8, 480, 640, 64, 32),
+                                           (2, 2, 40, 30, 9, 1),
+                                           (3, 2, 50, 60, 17, 65),
+                                           (2, 1, 100, 90, 33, 96),
+                                           (2, 2, 60, 70, 13, 200)])
+def test_surface_labels_kernel_matches_plain(card, B, F, h, w, out, K,
+                                             masks):
+    """The kernel rounds every op of the taps, the back-projection, the
+    rotations and the distances as the plain version does: masks and ids
+    equal, coordinates within 1e-6 (the design gives them bit for bit)."""
+    inp = [None if t is None else t.to(card)
+           for t in _surface_inputs(B, F, h, w, K, h + K, masks)]
+    if B == 2:      # every other source coordinate exactly on .5
+        inp[5] = inp[5].round()
+        inp[6] = torch.full_like(inp[6], out / 2)
+    for residual in (True, False):
+        before = cuda_build.LAUNCHES.get("surface_labels", 0)
+        got = surface_labels(*inp, out, residual=residual)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["surface_labels"] == before + 1
+        ref = surface_labels_plain(*inp, out, residual=residual)
+        for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+            assert torch.equal(got[k], ref[k]), k
+        assert got["roi_mask_obj"] is got["roi_mask_visib"]
+        assert torch.equal(got["roi_region"], ref["roi_region"])
+        assert float((got["roi_xyz"] - ref["roi_xyz"]).abs().max()) <= 1e-6
+        assert bool((ref["roi_mask_obj"] > 0).any())
+
+
+@pytest.mark.cuda
+def test_surface_labels_kernel_refuses_bad_input(card):
+    inp = [None if t is None else t.to(card)
+           for t in _surface_inputs(2, 1, 8, 8, 65, 0, "packed")]
+    with pytest.raises(ValueError):                     # no keypoints
+        surface_labels(*inp[:7], inp[7][:, :0], *inp[8:], 8)
+    with pytest.raises(ValueError):                     # mixed devices
+        surface_labels(*inp[:7], inp[7].cpu(), *inp[8:], 8)
+    with pytest.raises(ValueError):                     # packed + trunc
+        surface_labels(*inp[:3], inp[2].float(), *inp[4:], 8)
+    with pytest.raises(TypeError):
+        surface_labels(inp[0].half(), *inp[1:], 8)
+    with pytest.raises(TypeError):
+        surface_labels(inp[0], inp[1].int(), *inp[2:], 8)
 
 
 @pytest.mark.cuda
@@ -443,9 +547,10 @@ def test_lmo_train_labels_card_matches_cpu(card, ship_xyz):
     """``preprocess_rois_grouped(train=True)`` with lmo's data settings
     (the "code" colour aug at 0.8, draws injected) on the card and on the
     CPU: with GT xyz (the real split, ``gt_labels``) and without (the PBR
-    split, the depth surface through ``region_label``); the kernel's count
-    rises; masks equal, region ids on >= 0.999 of the pixels, coordinates
-    within 1e-5, the RGB within 1e-3 / 255."""
+    split, the depth surface through ``surface_labels``); the kernel is
+    launched once and ``region_label`` never; masks equal, region ids on
+    >= 0.999 of the pixels, coordinates within 1e-5, the RGB within
+    1e-3 / 255."""
     from rdpn6d_tpu_torch.config import Config
     from rdpn6d_tpu_torch.data.augment import draw_aug_params, get_aug_pipeline
     from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
@@ -474,8 +579,9 @@ def test_lmo_train_labels_card_matches_cpu(card, ship_xyz):
                         "ops": [{k: v.to(dev) for k, v in p.items()}
                                 for p in aug["ops"]]})
         outs.append({k: v.cpu() for k, v in out.items()})
-    kernel = "gt_labels" if ship_xyz else "region_label"
+    kernel = "gt_labels" if ship_xyz else "surface_labels"
     assert cuda_build.LAUNCHES.get(kernel, 0) == 1
+    assert cuda_build.LAUNCHES.get("region_label", 0) == 0
     cpu, gpu = outs
     for k in ("roi_mask_visib", "roi_mask_trunc", "roi_mask_obj"):
         assert torch.equal(cpu[k], gpu[k]), k

@@ -1,13 +1,21 @@
 #!/usr/bin/env python3
 """Device time of the port's train-label kernels (``rdpn6d_tpu_torch``,
-``csrc/region_label.cu``) at lm13's train shapes, K = 32 keypoints, on one
-NVIDIA GPU:
+``csrc/region_label.cu``) at lm13's and lmo's train shapes, K = 32
+keypoints, on one NVIDIA GPU:
 
-    gt_labels     24 ROIs of 480x640 packed masks + float16 xyz -> 64x64
-    region_label  24 ROIs of 64x64 xyz maps
+    gt_labels       24 ROIs of 480x640 packed masks + float16 xyz -> 64x64
+    region_label    24 ROIs of 64x64 xyz maps
+    surface_labels  24 ROIs of 8 480x640 depth frames + packed masks
+                    -> 64x64
 
 and, past one 64-keypoint tile, at K = 96 and 200 where the tree takes
-them (a tree whose kernels refuse K > 64 prints "refused").
+them (a tree whose kernels refuse K > 64 prints "refused", one without
+``surface_labels`` "absent"). Then the whole depth-surface branch of the
+train labels as a user calls it: ``preprocess_rois_grouped(train=True)``
+of lm13 at full width on 24 ROIs of 8 480x640 frames without GT xyz maps
+(chip_smoke's phase-6 scenes, boxes fixed, no colour aug), with its
+device time, its queued time and the number of device operations
+(kernels, copies, fills) the profiler sees in one call.
 
     python3 time_labels.py [--root DIR]
 
@@ -33,6 +41,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROIS = 24
+FRAMES = 8
 CALLS = 200
 
 
@@ -58,6 +67,10 @@ def main(argv=None) -> int:
     import rdpn6d_tpu_torch
     from rdpn6d_tpu_torch.ops.gt_labels import gt_labels
     from rdpn6d_tpu_torch.ops.region import region_label
+    try:
+        from rdpn6d_tpu_torch.ops.surface_labels import surface_labels
+    except ImportError:
+        surface_labels = None
 
     pkg = os.path.dirname(os.path.abspath(rdpn6d_tpu_torch.__file__))
     if os.path.dirname(pkg) != root:
@@ -78,8 +91,15 @@ def main(argv=None) -> int:
     for K in (32, 96, 200):
         inp = cs.gt_label_inputs(ROIS, 480, 640, K, 0, dev, "packed", True)
         lab = cs.label_inputs(ROIS, out, out, K, 1, dev)
+        surf = cs.surface_label_inputs(ROIS, FRAMES, 480, 640, K, 0, dev,
+                                       "packed")
         for name, fn in (("gt_labels", lambda: gt_labels(*inp, out)),
-                         ("region_label", lambda: region_label(*lab))):
+                         ("region_label", lambda: region_label(*lab)),
+                         ("surface_labels",
+                          lambda: surface_labels(*surf, out))):
+            if name == "surface_labels" and surface_labels is None:
+                print(f"time_labels: {tree} {name} K={K}: absent [{card}]")
+                continue
             try:
                 fn()
             except ValueError:
@@ -92,8 +112,59 @@ def main(argv=None) -> int:
             result["kernels"].append({"name": name, "K": K,
                                       "device_ms": dev_ms,
                                       "queued_ms": q_ms})
+    result["depth_branch"] = depth_branch(cs, tree, card, dev)
     print(json.dumps(result))
     return 0
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) the profiler sees in
+    one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False))
+
+
+def depth_branch(cs, tree, card, dev) -> dict:
+    """``preprocess_rois_grouped(train=True)`` of lm13 on 24 ROIs without
+    GT xyz maps: device time, queued time and device operations a call."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.pipeline import (
+        dzi_jitter,
+        preprocess_rois_grouped,
+    )
+
+    cfg = cs.train_config(amp=True, out_dir="")       # nothing is written
+    frames, rois = cs.train_inputs(cfg, 10, FRAMES, ROIS // FRAMES,
+                                   ship_xyz=False)
+    frames = {k: torch.from_numpy(v).to(dev) for k, v in frames.items()}
+    rois = {k: torch.from_numpy(v).to(dev) for k, v in rois.items()}
+    box = dzi_jitter(rois["bbox"], (480, 640),
+                     pad_scale=cfg.data.dzi_pad_scale)
+
+    def fn():
+        return preprocess_rois_grouped(cfg, frames, rois, train=True,
+                                       center_scale=box)
+
+    dev_ms = cs.device_ms(fn, iters=20)
+    # ~1.1 TFLOP of filler: longer than the host takes to launch the
+    # branch's operations, so they run back to back
+    q_ms = cs.queued_ms(fn, iters=20, filler=8192)
+    ops = device_ops(fn)
+    print(f"time_labels: {tree} preprocess_rois_grouped(train=True) without "
+          f"xyz, lm13, {ROIS} ROIs of {FRAMES} 480x640 frames: device time "
+          f"{dev_ms:.4f} ms, queued {q_ms:.4f} ms, {ops} device operations "
+          f"a call [{card}]")
+    return {"device_ms": dev_ms, "queued_ms": q_ms, "device_ops": ops}
 
 
 if __name__ == "__main__":
