@@ -101,10 +101,42 @@ Phases, each fatal on failure:
               ms/step, loader-wait ms/step, JPEG and PNG decode ms a
               480x640 frame, the background resize's ms, the PBR loader's
               frames/s at 1 and at the default number of decode threads,
-              and peak memory.
+              and peak memory;
+ 12. int8 serving — (a) ``int8_conv`` and ``quantize_act``
+              (``csrc/int8_conv.cu``) against their plain versions on the
+              card at lm13's head shapes at B = 16 (320->256 and 256->256,
+              3x3 at 64²), one conv per trunk stage (3x3 at stride 1 and 2,
+              a 1x1 stride-2 downsample), a ragged M and C_in of 40 and 8,
+              in the dynamic, static and per-channel modes: xq, scales and
+              outputs bit-equal, a NaN as the plain version has it; (b)
+              lm13 at full width through ``Predictor`` in
+              int8-head-static and int8-head (dynamic) beside bf16, on 16
+              frames of 16 detections (256 poses, one batch of 16 a
+              frame), each mode in turns, 4 passes each: poses/s, 6
+              ``int8_conv`` and 6 ``quantize_act`` launches a served batch;
+              one pass in int8-all with per-channel scales (every trunk
+              block's convs too: 41 int8 convs a batch), each of its int8
+              convs bit-equal to a CPU copy of the module on the card's
+              input; float32 int8-head-static and int8-all per-channel card
+              vs CPU with the card's calibrated scales carried to the CPU
+              (through the flax quant tree) and each int8 conv's input too:
+              every int8 conv's output bit-equal, poses within 1e-3; the
+              free-running difference of int8-head-static and the
+              activations quantized differently conv by conv printed;
+              (c) ``main --eval-only`` with ``test.int8="head"
+              test.int8_static=true`` on phase 9's tree and checkpoint:
+              launches (6 ``int8_conv`` a batch, ``min_dist2`` one an
+              object), calibration on the first batch, the MEAN table
+              beside phase 9's bf16 one (reported: seeded weights), split
+              wall time; (d) ``int8_conv``'s time at the head shapes by CUDA
+              events, ``queued_ms`` and the profiler, beside its bound, the
+              plain version, cuDNN's bf16 ``F.conv2d`` and
+              ``torch._int_mm`` over ``F.unfold`` (checked equal to the
+              kernel's output), and ``quantize_act``'s beside its bound.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
-11's ``main``) and read right after it.
+11's ``main``, each int8 served pass and the int8 ``main`` of phase 12)
+and read right after it.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -1065,7 +1097,8 @@ def read_csv(path):
 
 def run_eval_phase(dev, card, work):
     """Phase 9: the eval entry point on an LM tree written under
-    ``work/data``; returns ``min_dist2``'s launches in ``main``'s run."""
+    ``work/data``; returns ``min_dist2``'s launches in ``main``'s run and
+    its MEAN table."""
     import torch
 
     from rdpn6d_tpu_torch import main as port_main
@@ -1168,7 +1201,7 @@ def run_eval_phase(dev, card, work):
           f"ADI {worst['adi']:.3e} of the diameter (tol 1e-3), re "
           f"{worst['re']:.3e} deg (tol 0.1) [{card}]")
     min_dist2_eval_shape(dev, card, cfg.loss.num_pm_points)
-    return launches
+    return launches, res["mean"]
 
 
 def instrument_trainer(rec: dict):
@@ -1666,6 +1699,488 @@ def run_train_lmo(dev, card, work):
     return launches
 
 
+INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core ops/s
+BF16_FLOPS_PER_S = 989e12    # ... and dense bf16, cuDNN's yardstick
+# (label, B, H, W, C_in, C_out, k, stride, pad): lm13's head at the serving
+# batch of 16 (320 input channels after rot_concat's skip, then 256), one
+# conv per trunk stage at 256² ROIs (3x3 at stride 1 and 2, a 1x1 stride-2
+# downsample), and ragged M and C_in not a multiple of 32
+INT8_HEAD = [("head 320->256 3x3", 16, 64, 64, 320, 256, 3, 1, 1),
+             ("head 256->256 3x3", 16, 64, 64, 256, 256, 3, 1, 1)]
+INT8_SHAPES = INT8_HEAD + [
+    ("stage1 64->64 3x3", 16, 64, 64, 64, 64, 3, 1, 1),
+    ("stage2 64->128 3x3/2", 16, 64, 64, 64, 128, 3, 2, 1),
+    ("stage2 64->128 1x1/2", 16, 64, 64, 64, 128, 1, 2, 0),
+    ("stage3 128->256 3x3/2", 16, 32, 32, 128, 256, 3, 2, 1),
+    ("stage4 256->512 3x3/2", 16, 16, 16, 256, 512, 3, 2, 1),
+    ("ragged 40->24 3x3", 3, 7, 9, 40, 24, 3, 1, 1),
+    ("ragged 8->130 3x3/2", 1, 5, 5, 8, 130, 3, 2, 1)]
+INT8_MODES = {"dynamic": False, "static": True,
+              "per_channel": "per_channel"}
+
+
+def int8_conv_bound(B, H, W, C, N, k, stride, pad) -> tuple[float, str]:
+    """Least ms for ``int8_conv`` at this shape with bfloat16 output: its
+    2 M N K int8 operations (K = k² C) over the card's int8 rate, or xq and
+    wq (channels padded to 32) and sx, sw read once and the output written
+    once over its memory rate, the larger."""
+    from rdpn6d_tpu_torch.ops.int8_conv import conv_out_size, padded_channels
+
+    Ho, Wo = (conv_out_size(H, k, stride, pad),
+              conv_out_size(W, k, stride, pad))
+    cp = padded_channels(C)
+    ops_s = 2.0 * B * Ho * Wo * N * k * k * C / INT8_OPS_PER_S
+    bytes_s = (B * H * W * cp + N * k * k * cp + 4 * (B + N)
+               + 2 * B * N * Ho * Wo) / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), \
+        "operations" if ops_s >= bytes_s else "bytes"
+
+
+def quantize_act_bound(B, C, H, W) -> tuple[float, str]:
+    """Least ms for ``quantize_act`` of bfloat16 x: x read once, xq (padded
+    to 32 channels) and sx written once (a divide and a round an element
+    are far below the card's rate)."""
+    from rdpn6d_tpu_torch.ops.int8_conv import padded_channels
+
+    return 1e3 * (2 * B * C * H * W + B * H * W * padded_channels(C)
+                  + 4 * B) / HBM_BYTES_PER_S, "bytes"
+
+
+def int8_activations(B, C, H, W, seed, dev):
+    """Post-BN/ReLU-like bfloat16 activations, channels of unlike ranges."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, C, H, W, generator=g) \
+        * (torch.rand(C, generator=g) * 3)[None, :, None, None]
+    return x.clamp_min(-0.3).to(dev, torch.bfloat16)
+
+
+def int8_case(dev, shape, static, seed):
+    """An ``Int8Conv`` of ``shape`` on the card, calibrated on its seeded
+    input in the given mode: (x, conv, (wq, sw, amax, t))."""
+    import torch
+
+    from rdpn6d_tpu_torch.models.quant import Int8Conv, calibrate_quant
+
+    _, B, H, W, C, N, k, stride, pad = shape
+    x = int8_activations(B, C, H, W, seed, dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    conv = Int8Conv(C, N, k, stride, pad, static)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(N, C, k, k, generator=g)
+                          * (2.0 / (C * k * k)) ** 0.5)
+    conv = conv.to(dev, torch.bfloat16)
+    if static:
+        calibrate_quant(conv, [x])
+    return x, conv, conv.quantized()
+
+
+def check_int8(dev, card):
+    """Phase 12 (a) and (d): each kernel against its plain version on the
+    card, in every mode at every shape of ``INT8_SHAPES`` (xq, scales and
+    the output bit-equal), and the two kernels' times at the head shapes
+    beside their bounds, the plain versions, cuDNN's bf16 convolution and
+    ``torch._int_mm`` over ``F.unfold``. Returns (conv max_abs_err,
+    quantize max_abs_err, conv times, quantize times) for the kernels
+    line (times of the first head shape, static mode, bf16 out)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdpn6d_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_plain,
+        quantize_act,
+        quantize_act_plain,
+    )
+
+    conv_err = quant_err = 0.0
+    for i, shape in enumerate(INT8_SHAPES):
+        for mode, static in INT8_MODES.items():
+            x, conv, (wq, sw, amax, t) = int8_case(dev, shape, static,
+                                                    100 + i)
+            xq, sx = quantize_act(x, mode, amax, t)
+            rq, rs = quantize_act_plain(x, mode, amax, t)
+            _, _, _, _, _, _, _, stride, pad = shape
+            out = int8_conv(xq, sx, wq, sw, stride, pad, torch.bfloat16)
+            ref = int8_conv_plain(rq, rs, wq, sw, stride, pad,
+                                  torch.bfloat16)
+            torch.cuda.synchronize()
+            q_err = float((xq.int() - rq.int()).abs().max()) \
+                + float((sx - rs).abs().max())
+            c_err = float((out.float() - ref.float()).abs().max())
+            check(torch.equal(xq, rq) and torch.equal(sx, rs),
+                  f"quantize_act {mode} at {shape[0]}: xq or sx differ "
+                  f"from the plain version's")
+            check(torch.equal(out, ref), f"int8_conv {mode} at {shape[0]}: "
+                  f"max_abs_err {c_err:.3e} against the plain version")
+            conv_err, quant_err = max(conv_err, c_err), max(quant_err, q_err)
+        print(f"kernel: int8_conv + quantize_act {shape[0]} B={shape[1]} "
+              f"{shape[2]}x{shape[3]}, dynamic / static / per_channel: xq, "
+              "sx and outputs bit-equal to the plain versions")
+    # a NaN in sample 0 after calibration: the dynamic scale and that
+    # sample's output NaN, the NaN quantized to 0, as the plain version
+    # (and XLA) has it
+    shape = INT8_SHAPES[-2]
+    for mode, static in INT8_MODES.items():
+        x, conv, (wq, sw, amax, t) = int8_case(dev, shape, static, 7)
+        x[0, 3, 2, 4] = float("nan")
+        xq, sx = quantize_act(x, mode, amax, t)
+        rq, rs = quantize_act_plain(x, mode, amax, t)
+        out = int8_conv(xq, sx, wq, sw, 1, 1, torch.bfloat16)
+        ref = int8_conv_plain(rq, rs, wq, sw, 1, 1, torch.bfloat16)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.isnan(), b.isnan())
+                   and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+                   for a, b in ((sx, rs), (out, ref)))
+        check(torch.equal(xq, rq) and same and int(xq[0, 2, 4, 3]) == 0
+              and bool(out[0].isnan().all()) == (mode == "dynamic")
+              and bool(out[1:].isfinite().all()),
+              f"int8 kernels with a NaN input, {mode}: not as the plain "
+              "version")
+    print(f"kernel: int8_conv + quantize_act {shape[0]} with a NaN in "
+          "sample 0, dynamic / static / per_channel: as the plain versions "
+          "(dynamic: the sample's output NaN; static: the NaN quantized "
+          "to 0)")
+
+    times = {}
+    for i, shape in enumerate(INT8_HEAD):
+        label, B, H, W, C, N, k, stride, pad = shape
+        x, conv, (wq, sw, amax, t) = int8_case(dev, shape, True, 100 + i)
+        xq, sx = quantize_act(x, "static", amax, t)
+
+        def run():
+            return int8_conv(xq, sx, wq, sw, stride, pad, torch.bfloat16)
+
+        ms = cuda_ms(run, iters=50)
+        q_ms = queued_ms(run, iters=30)
+        p_ms = device_ms(run, iters=20)
+        plain_ms = cuda_ms(lambda: int8_conv_plain(
+            xq, sx, wq, sw, stride, pad, torch.bfloat16), iters=3, warmup=1)
+        xb, wb = x, conv.weight.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, pad),
+                         iters=50)
+        # torch._int_mm over F.unfold: im2col written out (k² C per output
+        # pixel), cuBLASLt's int8 GEMM; checked against the kernel
+        xqf = xq[..., :C].permute(0, 3, 1, 2).to(torch.bfloat16)
+        wmat = wq[..., :C].permute(0, 3, 1, 2).reshape(N, -1).contiguous()
+
+        def int_mm():
+            cols = F.unfold(xqf, k, padding=pad, stride=stride)
+            return torch._int_mm(cols.transpose(1, 2).reshape(
+                -1, cols.shape[1]).to(torch.int8), wmat.t())
+
+        acc = int_mm()
+        Ho = Wo = H // stride
+        y = (acc.float() * (sx.repeat_interleave(Ho * Wo)[:, None]
+                            * sw[None, :])).to(torch.bfloat16)
+        check(torch.equal(y.reshape(B, Ho * Wo, N).transpose(1, 2)
+                          .reshape(B, N, Ho, Wo), run()),
+              f"_int_mm over unfold disagrees with int8_conv at {label}")
+        mm_ms = cuda_ms(int_mm, iters=20)
+        cols = F.unfold(xqf, k, padding=pad, stride=stride).transpose(
+            1, 2).reshape(-1, k * k * C).to(torch.int8)
+        mm_only_ms = cuda_ms(lambda: torch._int_mm(cols, wmat.t()), iters=20)
+        bound_ms, bound_by = int8_conv_bound(B, H, W, C, N, k, stride, pad)
+        bf16_bound = 2e3 * B * Ho * Wo * N * k * k * C / BF16_FLOPS_PER_S
+        q = quantize_act_bound(B, C, H, W)
+        qk = cuda_ms(lambda: quantize_act(x, "static", amax, t), iters=50)
+        qd = cuda_ms(lambda: quantize_act(x, "dynamic"), iters=50)
+        qq = queued_ms(lambda: quantize_act(x, "static", amax, t), iters=30)
+        qp = cuda_ms(lambda: quantize_act_plain(x, "static", amax, t),
+                     iters=5, warmup=1)
+        print(f"kernel: int8_conv {label} B={B} {H}x{W} bf16 out: "
+              f"{ms:.4f} ms by CUDA events ({100 * bound_ms / ms:.1f}% of "
+              f"bound), device time {q_ms:.4f} (queued) / {p_ms:.4f} "
+              f"(profiler); bound {bound_ms:.4f} ms ({bound_by}); plain "
+              f"{plain_ms:.4f}; cuDNN bf16 F.conv2d {lib_ms:.4f} (its bound "
+              f"{bf16_bound:.4f}); F.unfold + torch._int_mm {mm_ms:.4f} "
+              f"(_int_mm alone {mm_only_ms:.4f}) [{card}]")
+        print(f"kernel: quantize_act {C}x{H}x{W} B={B} bf16 in: static "
+              f"{qk:.4f} ms by CUDA events (device time {qq:.4f} queued), "
+              f"dynamic {qd:.4f}; bound {q[0]:.4f} ms ({q[1]}); plain "
+              f"{qp:.4f} [{card}]")
+        times[label] = ({"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms},
+                        {"ms": qk, "plain_ms": qp, "bound_ms": q[0],
+                         "bound_by": q[1], "library_ms": None})
+    first = times[INT8_HEAD[0][0]]
+    return conv_err, quant_err, first[0], first[1]
+
+
+def int8_hooks(model, feed=None):
+    """Hooks on ``model``'s serving Int8Convs (not calibration passes):
+    record each conv's input and output, in call order; with ``feed`` (a
+    list of inputs in call order) each conv takes the fed input in place
+    of its own. Returns (inputs, outputs, handles)."""
+    from rdpn6d_tpu_torch.models.quant import Int8Conv
+
+    inputs, outputs = [], []
+
+    def pre(mod, args):
+        if mod.calibrating:
+            return None
+        x = args[0] if feed is None else feed[len(inputs)].to(
+            args[0].device)
+        inputs.append(x.detach().clone())
+        return None if feed is None else (x,)
+
+    def post(mod, args, out):
+        if not mod.calibrating:
+            outputs.append(out.detach().clone())
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, Int8Conv):
+            handles += [m.register_forward_pre_hook(pre),
+                        m.register_forward_hook(post)]
+    return inputs, outputs, handles
+
+
+# phase 12(b)'s served traffic: frames that each fill the Predictor's
+# batch of 16, every mode in turns, twice round
+INT8_SERVE_FRAMES = 16
+INT8_SERVE_TURNS = ("bf16", "int8-head-static", "int8-head", "int8-head",
+                    "int8-head-static", "bf16") * 2
+
+
+def serve_counted(pred, frames, name, n_int8):
+    """One served pass with the launches counted from zero: checks every
+    pose finite and ``n_int8`` launches of each int8 kernel a frame (one
+    batch a frame; none for a float model). Returns (poses/s, launches)."""
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    n_det = sum(len(f[2]) for f in frames)
+    cuda_build.reset_launches()
+    outs, secs = serve(pred, frames)
+    got = dict(cuda_build.LAUNCHES)
+    flat = [r for o in outs for r in o]
+    check(len(flat) == n_det and all(
+        np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
+        for r in flat), f"{name}: non-finite or missing poses")
+    want = n_int8 * len(frames)
+    check(got.get("int8_conv", 0) == want
+          and got.get("quantize_act", 0) == want,
+          f"{name}: int8 launches {got}, want {want} of each")
+    return n_det / secs, got
+
+
+def int8_card_vs_cpu(cfg, assets, frame, card, opts, free_running):
+    """Float32 (TF32 off) int8 serving card against CPU on one frame: the
+    card's calibrated scales go to the CPU through the flax quant tree and
+    each CPU int8 conv takes the card's input to that conv (carried), so
+    every int8 conv's output is bit-equal and the poses agree within 1e-3
+    as phase 5's; with ``free_running``, the CPU on its own activations
+    too (reported). ``opts``: the ``test.int8`` and ``test.int8_static``
+    settings."""
+    import torch
+
+    from rdpn6d_tpu_torch.engine.predictor import Predictor
+    from rdpn6d_tpu_torch.models.quant import Int8Conv
+    from rdpn6d_tpu_torch.ops.int8_conv import quantize_act_plain
+    from rdpn6d_tpu_torch.utils.flax_params import load_quant, quant_tree
+
+    c = cfg.apply_opts(opts)
+    gp, cp = (physical_z(Predictor(c, assets, batch_size=16,
+                                   dtype=torch.float32, device=d,
+                                   allow_random_init=True))
+              for d in ("cuda", "cpu"))
+    n8 = sum(isinstance(m, Int8Conv) for m in gp.model.modules())
+    rgb, depth, dets = frame
+    g_in, g_out, hs = int8_hooks(gp.model)
+    gpu_res = gp.predict(rgb, depth, K_LM, dets)
+    for h in hs:
+        h.remove()
+    load_quant(cp.model, quant_tree(gp.model))
+    cp._needs_calibration = False
+
+    def pose_diff(res):
+        dR = max(float(np.abs(a["R"] - b["R"]).max())
+                 for a, b in zip(gpu_res, res))
+        dt = max(float(np.abs(a["t"] - b["t"]).max() / np.abs(b["t"]).max())
+                 for a, b in zip(gpu_res, res))
+        return dR, dt
+
+    label = f"{' '.join(opts)} f32 card vs CPU"
+    c_in, c_out, hs = int8_hooks(cp.model, feed=[x.cpu() for x in g_in])
+    carried = cp.predict(rgb, depth, K_LM, dets)
+    for h in hs:
+        h.remove()
+    check(len(c_out) == len(g_out) == n8, f"{label}: {len(c_out)} CPU and "
+          f"{len(g_out)} card int8 conv calls, want {n8}")
+    for i, (a, b) in enumerate(zip(g_out, c_out)):
+        check(torch.equal(a.cpu(), b), f"{label}: int8 conv {i}: card and "
+              "CPU outputs differ on the same input")
+    dR, dt = pose_diff(carried)
+    print(f"parity: {label} over {len(dets)} ROIs, the card's scales and "
+          f"each int8 conv's input carried to the CPU: all {n8} int8 conv "
+          f"outputs bit-equal; max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e} "
+          f"(tol 1e-3) [{card}]")
+    check(dR <= 1e-3 and dt <= 1e-3, f"{label}: poses disagree")
+    if not free_running:
+        return
+    f_in, _, hs = int8_hooks(cp.model)
+    free = cp.predict(rgb, depth, K_LM, dets)
+    for h in hs:
+        h.remove()
+    flips = []
+    for m, a, b in zip(
+            [m for m in cp.model.modules() if isinstance(m, Int8Conv)],
+            g_in, f_in):
+        _, _, amax, t = m.quantized()
+        mode = "per_channel" if m.per_channel else "static"
+        qa, _ = quantize_act_plain(a.cpu(), mode, amax, t)
+        qb, _ = quantize_act_plain(b, mode, amax, t)
+        flips.append(int((qa != qb).sum()))
+    dR, dt = pose_diff(free)
+    print(f"parity: {label}, free-running (each on its own activations): "
+          f"max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e}; activations quantized "
+          f"differently conv by conv {flips} of {g_in[0].numel()} / "
+          f"{g_in[1].numel()} (reported, not gated)")
+
+
+def run_int8_serving(dev, card, cfg, assets, frames, bf16_pred, profile):
+    """Phase 12 (b): lm13 at full width through ``Predictor`` in
+    int8-head-static and int8-head (dynamic) beside bf16, in turns, on
+    frames that fill the batch of 16, with the launches counted; one pass
+    in int8-all per-channel, each of its int8 convs held to the CPU's on
+    the card's input; then float32 card against CPU in int8-head-static
+    and int8-all per-channel with the card's calibrated scales carried to
+    the CPU. Returns the int8 launches of the counted passes."""
+    import copy
+
+    import torch
+
+    from rdpn6d_tpu_torch.engine.predictor import Predictor
+    from rdpn6d_tpu_torch.models.quant import Int8Conv
+
+    full = make_frames(seed=5, counts=(16,) * INT8_SERVE_FRAMES)
+    n_det = sum(len(f[2]) for f in full)
+    preds = {"bf16": bf16_pred}
+    for name, static in (("int8-head-static", "true"),
+                         ("int8-head", "false")):
+        c = cfg.apply_opts(['test.int8="head"', f"test.int8_static={static}"])
+        preds[name] = physical_z(Predictor(
+            c, assets, batch_size=16, dtype=torch.bfloat16, device="cuda",
+            allow_random_init=True))
+    for pred in preds.values():
+        serve(pred, full[:2])   # warm-up at B = 16; static calibrates here
+    n8 = 2 * cfg.head.num_layers
+    launches = {"int8_conv": 0, "quantize_act": 0}
+    rates = {k: [] for k in preds}
+    for name in INT8_SERVE_TURNS:
+        rate, got = serve_counted(preds[name], full, name,
+                                  0 if name == "bf16" else n8)
+        if name != "bf16":
+            for k in launches:
+                launches[k] += got.get(k, 0)
+        rates[name].append(rate)
+    for name, r in rates.items():
+        print(f"serve: lm13 full width {name}: {n_det} poses from "
+              f"{len(full)} frames of 16 detections (one batch of 16 a "
+              f"frame) a pass, poses/s {' '.join(f'{v:.1f}' for v in r)} "
+              f"(median {float(np.median(r)):.1f}; in turns: "
+              f"{', '.join(INT8_SERVE_TURNS[:6])}, twice)"
+              f"{'' if name == 'bf16' else f'; {n8} int8_conv and {n8} quantize_act launches a batch'}"
+              f" [{card}]")
+    if profile:
+        for name in ("bf16", "int8-head-static"):
+            profile_pass(f"served pass at B = 16, {name}",
+                         lambda: serve(preds[name], full[:4]))
+
+    # every trunk block's convs too, per-channel scales: the trunk's
+    # shapes (stride 2, 1x1 downsample, 64-512 channels) on the path
+    c = cfg.apply_opts(['test.int8="all"', 'test.int8_static="per_channel"'])
+    p_all = physical_z(Predictor(c, assets, batch_size=16,
+                                 dtype=torch.bfloat16, device="cuda",
+                                 allow_random_init=True))
+    serve(p_all, full[:1])           # calibrates on the first batch
+    n_all = sum(isinstance(m, Int8Conv) for m in p_all.model.modules())
+    rate, got = serve_counted(p_all, full, "int8-all", n_all)
+    for k in launches:
+        launches[k] += got.get(k, 0)
+    print(f"serve: lm13 full width int8-all per-channel: {n_det} poses, "
+          f"{rate:.1f} poses/s; {n_all} int8 convs a batch (trunk and "
+          f"head), launches {got} [{card}]")
+    # that model's int8 convs on phase 3's first frame, each against a CPU
+    # copy of the module (plain versions) on the card's input to it
+    g_in, g_out, hs = int8_hooks(p_all.model)
+    rgb, depth, dets = frames[0]
+    p_all.predict(rgb, depth, K_LM, dets)
+    for h in hs:
+        h.remove()
+    convs = [m for m in p_all.model.modules() if isinstance(m, Int8Conv)]
+    check(len(g_in) == len(g_out) == n_all,
+          f"int8-all: {len(g_in)} int8 conv calls, want {n_all}")
+    with torch.no_grad():
+        for i, (m, x, y) in enumerate(zip(convs, g_in, g_out)):
+            ref = copy.deepcopy(m).cpu()(x.cpu())
+            check(torch.equal(y.cpu(), ref), f"int8-all bf16 pass: int8 "
+                  f"conv {i} differs from its CPU copy on the card's input")
+    print(f"parity: int8-all per-channel bf16 served batch of {len(dets)}: "
+          f"all {n_all} int8 conv outputs bit-equal to the CPU's (plain "
+          f"versions) on the card's inputs [{card}]")
+
+    int8_card_vs_cpu(cfg, assets, frames[0], card,
+                     ['test.int8="head"', "test.int8_static=true"], True)
+    int8_card_vs_cpu(cfg, assets, frames[0], card,
+                     ['test.int8="all"', 'test.int8_static="per_channel"'],
+                     False)
+    return launches
+
+
+def run_int8_eval(dev, card, work, bf16_mean):
+    """Phase 12 (c): ``main --eval-only`` on phase 9's tree and checkpoint
+    with ``test.int8="head" test.int8_static=true``; returns its int8
+    launches."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    out = os.path.join(work, "out_int8")
+    os.makedirs(out)
+    os.symlink(os.path.join(work, "out", "ckpt"), os.path.join(out, "ckpt"))
+    n_rois = 13 * EVAL_FRAMES_PER_OBJ
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    res = port_main.main([
+        "--config-file",
+        os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
+        "--eval-only", "--opts", f'train.output_dir="{out}"',
+        'test.int8="head"', "test.int8_static=true"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(cuda_build.LAUNCHES)
+    res = res["lm_13_test"]
+    want = 6 * -(-n_rois // 32)      # 6 head convs a batch of 32
+    check(got.get("int8_conv", 0) == want
+          and got.get("quantize_act", 0) == want
+          and got.get("min_dist2", 0) == 13,
+          f"int8 eval launches {got}, want int8_conv and quantize_act "
+          f"{want}, min_dist2 13")
+    ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
+    check(len(ident) == n_rois and bool(np.isfinite(R).all()
+                                        and np.isfinite(t).all()),
+          "int8 eval: missing or non-finite poses in the CSV")
+    log = open(os.path.join(out, "log.txt")).read()
+    check("int8 static scales calibrated" in log,
+          "int8 eval: no calibration on the first batch")
+    st = res["stats"]
+    keys = [k for k in ("ad_2", "ad_5", "ad_10", "adi_10", "re_5", "te_5",
+                        "proj_5") if k in res["mean"]]
+    table = ", ".join(f"{k} {res['mean'][k]:.2f} (bf16 {bf16_mean[k]:.2f})"
+                      for k in keys)
+    print(f"eval: lm13 full width int8-head-static main --eval-only on "
+          f"lm_13_test: {st['n_rois']} ROIs, "
+          f"{st['n_timed'] / st['wall_s']:.1f} poses/s past warm-up, split "
+          f"wall time {wall:.2f} s; MEAN {table} (seeded weights: "
+          f"reported, not gated); launches {got} [{card}]")
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1696,7 +2211,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     # 1. build --------------------------------------------------------------
-    kernels = ["min_dist2", "region_label"]
+    kernels = ["min_dist2", "region_label", "int8_conv"]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import sys; from rdpn6d_tpu_torch.ops "
@@ -1869,13 +2384,19 @@ def main(argv=None) -> int:
         label_launches = labels_card_vs_cpu(dev, card, work)
 
         # 9. eval --------------------------------------------------------
-        eval_launches = run_eval_phase(dev, card, work)
+        eval_launches, bf16_mean = run_eval_phase(dev, card, work)
 
         # 10. train from disk --------------------------------------------
         disk_launches = run_train_from_disk(dev, card, work, args.profile)
 
         # 11. train lmo from disk ----------------------------------------
         lmo_launches = run_train_lmo(dev, card, work)
+
+        # 12. int8 serving -----------------------------------------------
+        int8_err, quant_err, int8_times, quant_times = check_int8(dev, card)
+        serve8 = run_int8_serving(dev, card, cfg, assets, frames,
+                                  preds["bf16"], args.profile)
+        eval8 = run_int8_eval(dev, card, work, bf16_mean)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1909,7 +2430,17 @@ def main(argv=None) -> int:
         "launches": label_launches["surface_labels"]
         + disk_launches.get("surface_labels", 0)
         + lmo_launches.get("surface_labels", 0),
-        "max_abs_err": surface_err, **surface_times}], "card": card}
+        "max_abs_err": surface_err, **surface_times}, {
+        "name": "int8_conv", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "rdpn6d_tpu/models/quant.py:42",
+        "launches": serve8["int8_conv"] + eval8.get("int8_conv", 0),
+        "max_abs_err": int8_err, **int8_times}, {
+        "name": "quantize_act", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "rdpn6d_tpu/models/quant.py:32",
+        "launches": serve8["quantize_act"] + eval8.get("quantize_act", 0),
+        "max_abs_err": quant_err, **quant_times}], "card": card}
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,12 @@ Frames are grouped into batches as the JAX package groups them (frames per
 batch from the split's instances per frame) and cross to the device once
 per image; eager PyTorch needs no fixed shape, so batches are not padded
 (only the BOP CSV's ``time`` column can differ from the JAX package's).
-Not ported, and refused: int8 serving (``test.int8``), the RANSAC-Kabsch
-refinement (``test.use_pnp``), multi-process sharding, VSD.
+``test.int8`` evaluates the W8A8 model (``models/quant.py``); with
+``test.int8_static`` its scales are calibrated on the first eval batch. A
+live trainer model is evaluated in int8 through a serving copy built at
+every call with its current weights.
+Not ported, and refused: the RANSAC-Kabsch refinement (``test.use_pnp``),
+multi-process sharding, VSD.
 """
 
 from __future__ import annotations
@@ -111,9 +115,11 @@ def _eval_setup(cfg: Config, split_name: str, split: Any, ref: Any,
 def _load_model(cfg: Config, ckpt_dir: str, allow_random_init: bool,
                 device: torch.device, dtype: torch.dtype):
     from ..models import RDPN, init_weights
+    from ..models.quant import serving_mode
     from .checkpoint import CheckpointManager
 
-    model = RDPN(cfg)
+    int8, static = serving_mode(cfg)
+    model = RDPN(cfg, int8=int8, int8_static=static)
     mgr = CheckpointManager(ckpt_dir)
     if mgr.latest_step() is not None:
         from ..parallel import TrainState
@@ -127,7 +133,22 @@ def _load_model(cfg: Config, ckpt_dir: str, allow_random_init: bool,
             f"no checkpoint in {ckpt_dir!r} — refusing to evaluate "
             "random-init weights (pass allow_random_init=True for smoke "
             "runs)")
+    # Int8Conv keeps its weight in float32 under the cast
     return model.to(device=device, dtype=dtype).eval()
+
+
+def _int8_serving_copy(cfg: Config, live: Any, dtype: torch.dtype):
+    """The int8 model that evaluates the trainer's live ``live`` model,
+    built at each call with the live weights, in ``dtype``, on the live
+    model's device. The live model is not touched."""
+    from ..models import RDPN
+    from ..models.quant import serving_mode
+
+    int8, static = serving_mode(cfg)
+    copy = RDPN(cfg, int8=int8, int8_static=static).to(
+        device=next(live.parameters()).device, dtype=dtype)
+    copy.load_state_dict(live.state_dict())   # copy_ casts as .to does
+    return copy.eval()
 
 
 def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
@@ -151,10 +172,6 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     from ..evaluation.evaluator import PoseEvaluator
     from .inference import evaluate_and_report, inference_on_dataset
 
-    if cfg.test.int8:
-        raise NotImplementedError(f"test.int8={cfg.test.int8!r}: int8 "
-                                  "serving is not ported (ROADMAP queue 1 "
-                                  "item 12)")
     if cfg.test.use_pnp:
         raise NotImplementedError("test.use_pnp: the RANSAC-Kabsch "
                                   "refinement is not ported (ROADMAP queue "
@@ -183,16 +200,23 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     records, targets, n_gts, id2name, assets, eval_assets = cached
     n_gts = dict(n_gts)  # the evaluator may hold it; never share the memo's
 
+    from ..models.quant import serving_mode
+
+    int8, static = serving_mode(cfg)
     live = model is not None
     if not live:
         model = _load_model(cfg, ckpt_dir, allow_random_init, device, dtype)
+    elif int8:
+        model = _int8_serving_copy(cfg, model, dtype)
+    autocast = live and not int8 and dtype != torch.float32
+
+    def preprocess(b):
+        return preprocess_rois_grouped(cfg, b["frames"], b["rois"])
 
     def eval_step(b):
-        with torch.no_grad(), torch.autocast(
-                device.type, dtype=dtype,
-                enabled=live and dtype != torch.float32):
-            batch = preprocess_rois_grouped(cfg, b["frames"], b["rois"])
-            return model(batch)
+        with torch.no_grad(), torch.autocast(device.type, dtype=dtype,
+                                             enabled=autocast):
+            return model(preprocess(b))
 
     def asset(oid, key):
         return eval_assets.for_obj(oid)[key]
@@ -288,10 +312,26 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
         if meta:
             yield _flush(frames_l, rois_l, meta)
 
+    batch_iter = batches()
+    if int8 and static:
+        # static int8: the scales come from the first eval batch, then
+        # every batch serves with them
+        from itertools import chain
+
+        from ..models.quant import calibrate_quant
+
+        first = next(batch_iter, None)
+        if first is not None:
+            with torch.no_grad():
+                calibrate_quant(model, [preprocess(first[0])])
+            batch_iter = chain([first], batch_iter)
+            logger.info("int8 static scales calibrated on the first eval "
+                        "batch")
+
     was_training = model.training
     model.eval()
     try:
-        stats = inference_on_dataset(eval_step, batches(), evaluator)
+        stats = inference_on_dataset(eval_step, batch_iter, evaluator)
     finally:
         model.train(was_training)
 

@@ -8,8 +8,13 @@ JAX package's ``make_eval_step`` inlined. Weights come from the same
 the model is refused. Eager PyTorch needs no fixed batch shape, so a
 frame's detections go through in chunks of ``batch_size`` without padding.
 
-Not ported yet, and refused: orbax checkpoints (``ckpt_dir``), int8 serving
-(``test.int8``) and the RANSAC-Kabsch refinement (``test.use_pnp``).
+``test.int8`` serves the W8A8 model (``models/quant.py``); with
+``test.int8_static`` its activation scales are calibrated on the first
+served batch and then locked, as the JAX ``Predictor`` does (which keeps
+"per_channel" only as a truthy flag; the port keeps the mode).
+
+Not ported yet, and refused: orbax checkpoints (``ckpt_dir``) and the
+RANSAC-Kabsch refinement (``test.use_pnp``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..config import Config
 from ..data.assets import ClassAssets
 from ..data.pipeline import preprocess_rois_grouped
 from ..models import RDPN, init_weights
+from ..models.quant import calibrate_quant, serving_mode
 from ..utils.device import resolve_device
 from ..utils.flax_params import state_dict_from_flax
 
@@ -43,9 +49,6 @@ class Predictor:
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
                  allow_random_init: bool = False):
-        if cfg.test.int8:
-            raise NotImplementedError(
-                f"test.int8={cfg.test.int8!r}: int8 serving is not ported")
         if cfg.test.use_pnp:
             raise NotImplementedError(
                 "test.use_pnp: the RANSAC-Kabsch refinement is not ported")
@@ -53,7 +56,8 @@ class Predictor:
         self.cfg = cfg
         self.assets = assets
         self.batch_size = batch_size
-        model = RDPN(cfg)
+        int8, static = serving_mode(cfg)
+        model = RDPN(cfg, int8=int8, int8_static=static)
         if params_pkl:
             with open(params_pkl, "rb") as f:
                 loaded = pickle.load(f)
@@ -66,7 +70,9 @@ class Predictor:
                 "Predictor requires params_pkl (refusing to serve "
                 "random-init weights); pass allow_random_init=True for "
                 "smoke tests")
+        # Int8Conv keeps its weight in float32 under the cast
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        self._needs_calibration = bool(int8 and static)
 
     @torch.no_grad()
     def predict(self, rgb: np.ndarray, depth: np.ndarray, K: np.ndarray,
@@ -104,7 +110,14 @@ class Predictor:
                     [self.assets.full_idx(d.obj_id) for d in dets],
                     dtype=torch.long).to(dev),
             }
-            out = self.model(preprocess_rois_grouped(self.cfg, frames, rois))
+            batch = preprocess_rois_grouped(self.cfg, frames, rois)
+            if self._needs_calibration:
+                # static int8: the scales come from the first served batch.
+                # The JAX Predictor pads the batch by repeating its last
+                # detection; an absmax cannot change by repeats.
+                calibrate_quant(self.model, [batch])
+                self._needs_calibration = False
+            out = self.model(batch)
             R = out["rot_ego"].cpu().numpy()
             t = out["trans"].cpu().numpy()
             for i, d in enumerate(dets):

@@ -5,16 +5,21 @@ Counterpart of ``rdpn6d_tpu/models/heads.py:DenseHead`` (the reference's
 ``rot_head_net.features.*`` indices: 0 convT, 1 norm, 2 relu, then a
 (conv3x3, norm, relu) triple per conv, then the 1x1 output conv. The
 optional ``skip64`` (backbone.rot_concat) is concatenated after the
-upsampling triple, and layers past the third upsample ×2 first.
+upsampling triple, and layers past the third upsample ×2 first. Under
+int8 the 2·``num_layers`` body convs are ``Int8Conv`` (``models/quant.py``);
+the 1×1 output conv stays in the model's dtype.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 from torch import nn
 
 from ..ops.resize import upsample_bilinear_align_corners
 from .norm import make_norm
+from .quant import conv_factory
 
 
 class DenseHead(nn.Module):
@@ -22,7 +27,8 @@ class DenseHead(nn.Module):
                  coord_dim: int = 3, region_dim: int = 33,
                  num_filters: int = 256, num_layers: int = 3,
                  norm: str = "BN", gn_groups: int = 32,
-                 skip_channels: int = 0):
+                 skip_channels: int = 0, int8: bool = False,
+                 int8_static: Any = False):
         super().__init__()
         self.mask_dim, self.coord_dim = mask_dim, coord_dim
         self.num_layers = num_layers
@@ -33,8 +39,9 @@ class DenseHead(nn.Module):
                                padding=1, output_padding=1, bias=False),
             make_norm(norm, num_filters, gn_groups), nn.ReLU()]
         cin = num_filters + skip_channels
+        conv = conv_factory(int8, int8_static)
         for _ in range(2 * num_layers):
-            layers += [nn.Conv2d(cin, num_filters, 3, padding=1, bias=False),
+            layers += [conv(cin, num_filters, 3, padding=1),
                        make_norm(norm, num_filters, gn_groups), nn.ReLU()]
             cin = num_filters
         layers.append(nn.Conv2d(num_filters,

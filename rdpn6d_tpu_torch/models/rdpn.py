@@ -1,6 +1,6 @@
 """RDPN top module: backbone -> fusion -> dense head -> Patch-PnP -> pose.
 
-Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN``, without int8 and remat.
+Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN``, without remat.
 Submodules carry the reference checkpoint's names (``backbone.*``,
 ``backbone.spatial_net.*``, ``rot_head_net.features.*``, ``pnp_net.*``), so
 ``state_dict()`` has the reference layout; ``loss.use_mtl`` adds the
@@ -9,11 +9,18 @@ package's layout (channels last); inside, the network runs NCHW in the
 parameters' dtype (or under the caller's autocast), with logits, the PnP
 outputs and the pose recovery in float32. ``train()`` mode is the JAX
 package's ``train=True``: batch-statistics BatchNorm and DropBlock.
+``int8`` (False | "" | True | "all" | "head" | "trunk" | "trunk0".."trunk3")
+and ``int8_static`` (False | True | "per_channel") build the W8A8 serving
+model of ``models/quant.py`` with the same parameters: the head's body
+convs and/or the trunk's block convs (all stages, or one) become
+``Int8Conv``; the stem, the fusion net, the head's output conv and the PnP
+net stay in the model's dtype.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 from torch import nn
@@ -34,6 +41,7 @@ from ..ops.resize import (
 from .conv_pnp import ConvPnPNet
 from .heads import DenseHead
 from .pointnet import SpatialPointNet
+from .quant import int8_targets
 from .resnet import ResNetTrunk
 
 
@@ -56,9 +64,11 @@ def pnp_in_channels(cfg: Config) -> int:
 
 
 class RDPN(nn.Module):
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, int8: Any = False,
+                 int8_static: Any = False):
         super().__init__()
         h, pnp = cfg.head, cfg.pnp
+        trunk_stages, int8_head = int8_targets(int8)
         if cfg.backbone.space_to_depth:
             raise NotImplementedError("backbone.space_to_depth is not "
                                       "ported yet")
@@ -67,7 +77,8 @@ class RDPN(nn.Module):
                 f"pnp_head={pnp.pnp_head!r} r_only={pnp.r_only}: only "
                 "ConvPnPNet without TransHead is ported yet")
         self.cfg = cfg
-        self.backbone = ResNetTrunk(cfg.backbone.depth)
+        self.backbone = ResNetTrunk(cfg.backbone.depth, trunk_stages,
+                                    int8_static)
         ch = self.backbone.stage_channels
         # the reference keeps the fusion net inside the backbone module
         # (its state_dict keys are backbone.spatial_net.*)
@@ -82,7 +93,8 @@ class RDPN(nn.Module):
             region_dim=h.region_dim * (nc if h.region_class_aware else 1),
             num_filters=h.num_filters, num_layers=h.num_layers,
             norm=h.norm, gn_groups=h.gn_groups,
-            skip_channels=ch[0] if concat else 0)
+            skip_channels=ch[0] if concat else 0, int8=int8_head,
+            int8_static=int8_static)
         self.pnp_net = ConvPnPNet(
             pnp_in_channels(cfg), rot_dim=pnp.rot_dim, featdim=pnp.featdim,
             num_layers=pnp.num_layers, gn_groups=pnp.gn_groups,

@@ -3,16 +3,21 @@
 Counterpart of ``rdpn6d_tpu/models/resnet.py`` (``BasicBlock``,
 ``Bottleneck``, ``ResNetTrunk``). Names follow torchvision
 (``conv1``/``bn1``/``layerN.i.{conv,bn}k``/``downsample``), which is the
-reference checkpoint's ``backbone.*`` layout. The space-to-depth stem is
-not ported yet.
+reference checkpoint's ``backbone.*`` layout. Under int8 the blocks' convs
+of the quantized stages, the 1×1 downsample included, are ``Int8Conv``
+(``models/quant.py``); the stem stays in the model's dtype. The
+space-to-depth stem is not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 from torch import nn
 
 from .norm import BatchNorm2d
+from .quant import conv_factory
 
 RESNET_SPECS: dict[int, tuple[str, tuple[int, ...]]] = {
     18: ("basic", (2, 2, 2, 2)),
@@ -30,16 +35,18 @@ def _bn(c: int) -> BatchNorm2d:
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 int8: bool = False, int8_static: Any = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        conv = conv_factory(int8, int8_static)
+        self.conv1 = conv(cin, planes, 3, stride, 1)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = conv(planes, planes, 3, 1, 1)
         self.bn2 = _bn(planes)
         self.downsample = None
         if stride != 1 or cin != planes:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(cin, planes, 1, stride, bias=False), _bn(planes))
+            self.downsample = nn.Sequential(conv(cin, planes, 1, stride),
+                                            _bn(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -51,19 +58,21 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 int8: bool = False, int8_static: Any = False):
         super().__init__()
         out = planes * 4
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        conv = conv_factory(int8, int8_static)
+        self.conv1 = conv(cin, planes, 1)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = conv(planes, planes, 3, stride, 1)
         self.bn2 = _bn(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.conv3 = conv(planes, out, 1)
         self.bn3 = _bn(out)
         self.downsample = None
         if stride != 1 or cin != out:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(cin, out, 1, stride, bias=False), _bn(out))
+            self.downsample = nn.Sequential(conv(cin, out, 1, stride),
+                                            _bn(out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -74,9 +83,13 @@ class Bottleneck(nn.Module):
 
 
 class ResNetTrunk(nn.Module):
-    """conv7x7/2 + maxpool/2 + 4 stages: 256² RGB -> 8x8 final feature."""
+    """conv7x7/2 + maxpool/2 + 4 stages: 256² RGB -> 8x8 final feature.
+    ``int8_stages``: which of the 4 stages run their convs in int8 (None:
+    none)."""
 
-    def __init__(self, depth: int = 34):
+    def __init__(self, depth: int = 34,
+                 int8_stages: tuple[bool, ...] | None = None,
+                 int8_static: Any = False):
         super().__init__()
         kind, layers = RESNET_SPECS[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
@@ -89,7 +102,10 @@ class ResNetTrunk(nn.Module):
             blocks = []
             for i in range(n):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blocks.append(block(cin, planes, stride))
+                blocks.append(block(
+                    cin, planes, stride,
+                    int8=bool(int8_stages and int8_stages[stage]),
+                    int8_static=int8_static))
                 cin = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             self.stage_channels.append(cin)

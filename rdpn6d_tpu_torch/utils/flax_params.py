@@ -17,6 +17,11 @@ Layouts: conv kernels HWIO -> OIHW; the transposed conv's
 ``fc1``'s input axis from flax's NHWC flatten order to torch's NCHW one,
 over the PnP net's own output map (derived from the config, not assumed
 8x8). ``loss.use_mtl``'s ``log_var_*`` leaves sit at the top of both.
+
+int8 serving's calibrated scales: the flax ``quant`` collection holds an
+``act_amax`` (a scalar, or one value per input channel) at the path of each
+static ``Int8Conv``; ``load_quant`` puts them into the port's
+``Int8Conv.act_amax`` buffers and ``quant_tree`` reads them back.
 """
 
 from __future__ import annotations
@@ -242,3 +247,68 @@ def checkpoint_from_params_pkl(cfg: Config, params_pkl: str, ckpt_dir: str,
     mgr = CheckpointManager(ckpt_dir)
     mgr.save(step, create_train_state(cfg, model))
     return f"{mgr.directory}/{step}"
+
+
+class _ConvPaths:
+    """A writer that only records each conv's flax path by port name."""
+
+    def __init__(self):
+        self.paths: dict[str, tuple[str, ...]] = {}
+
+    def conv(self, key: str, path: tuple[str, ...]):
+        self.paths[key.lstrip(".")] = path
+
+    def conv_t(self, key, path):
+        pass
+
+    def bn(self, key, path):
+        pass
+
+    def norm(self, kind, key, prefix, i):
+        pass
+
+
+def conv_paths(cfg: Config) -> dict[str, tuple[str, ...]]:
+    """Port module name -> flax module path of every trunk and head conv."""
+    w = _ConvPaths()
+    resnet_state(w, cfg.backbone.depth, "backbone", ("backbone",))
+    head_state(w, cfg.head.num_layers, cfg.head.norm, "rot_head_net",
+               ("dense_head",))
+    return w.paths
+
+
+def load_quant(model, quant: dict) -> None:
+    """Copy a flax ``quant`` collection (numpy leaves) into the static
+    ``Int8Conv.act_amax`` buffers of ``model`` (an ``RDPN``). Raises
+    ValueError naming the leaves it lacks."""
+    from ..models.quant import static_convs
+
+    paths = conv_paths(model.cfg)
+    tree = _Tree({}, {})
+    tree.trees["quant"] = quant or {}
+    values = {}
+    for name, m in static_convs(model).items():
+        v = tree.get("quant", paths[name] + ("act_amax",))
+        if v is not None:
+            values[name] = (m, torch.from_numpy(np.array(v, np.float32)))
+    if tree.missing:
+        raise ValueError(f"quant tree does not cover the model's static "
+                         f"int8 convs — missing {sorted(tree.missing)[:5]}")
+    with torch.no_grad():
+        for m, v in values.values():
+            m.act_amax.copy_(v.reshape(m.act_amax.shape))
+
+
+def quant_tree(model) -> dict:
+    """The flax ``quant`` collection of ``model``'s static ``Int8Conv``
+    absmax buffers, as numpy."""
+    from ..models.quant import static_convs
+
+    paths = conv_paths(model.cfg)
+    out: dict = {}
+    for name, m in static_convs(model).items():
+        node = out
+        for k in paths[name]:
+            node = node.setdefault(k, {})
+        node["act_amax"] = m.act_amax.detach().cpu().numpy()
+    return out

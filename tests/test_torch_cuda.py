@@ -15,6 +15,12 @@ import torch
 
 from rdpn6d_tpu_torch.ops import cuda_build
 from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
+from rdpn6d_tpu_torch.ops.int8_conv import (
+    int8_conv,
+    int8_conv_plain,
+    quantize_act,
+    quantize_act_plain,
+)
 from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
 from rdpn6d_tpu_torch.ops.region import region_label, region_label_plain
 from rdpn6d_tpu_torch.ops.surface_labels import (
@@ -642,3 +648,193 @@ def test_jpeg_reader_on_card_machine(card, tmp_path):
     write_jpeg(str(tmp_path / "e.jpg"), img, quality=95)
     back = imread_rgb(str(tmp_path / "e.jpg"))
     assert np.abs(back.astype(int) - img).mean() < 2.0
+
+
+def _act_inputs(B, C, H, W, mode, dtype, seed):
+    """Post-BN/ReLU-like activations with channels of unlike ranges, and
+    the scalar absmax and SmoothQuant factors a mode needs."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, C, H, W, generator=g) \
+        * torch.rand(C, generator=g)[None, :, None, None] * 3
+    x = x.clamp_min(-0.3).to(dtype)
+    amax = t = None
+    if mode == "static":
+        amax = x.float().abs().amax() * 0.9        # some inputs clip
+    elif mode == "per_channel":
+        t = torch.rand(C, generator=g) + 0.25
+        amax = (x.float().abs().amax(dim=(0, 2, 3)) / t).amax()
+    return x, amax, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C,H,W", [
+    (16, 320, 64, 64), (16, 256, 64, 64),            # lm13's head at B=16
+    (16, 64, 64, 64), (16, 128, 32, 32), (16, 256, 16, 16), (16, 512, 8, 8),
+    (3, 8, 7, 33), (2, 16, 5, 9), (1, 40, 3, 65)])   # ragged
+def test_quantize_act_kernel_matches_plain(card, mode, dtype, B, C, H, W):
+    x, amax, t = _act_inputs(B, C, H, W, mode, dtype, B * C + H)
+    x, amax, t = (None if v is None else v.to(card) for v in (x, amax, t))
+    before = cuda_build.LAUNCHES.get("quantize_act", 0)
+    xq, sx = quantize_act(x, mode, amax, t)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["quantize_act"] == before + 1
+    rq, rs = quantize_act_plain(x, mode, amax, t)
+    assert xq.shape == (B, H, W, -(-C // 32) * 32)
+    assert torch.equal(sx, rs)
+    assert torch.equal(xq, rq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_act_half_way_values_round_to_even(card, mode, dtype):
+    """x / s = k + 0.5 exactly (s = 1: an absmax of 127; per channel t = 2
+    and x = 2k + 1): the kernel rounds half to even, as jnp.round does."""
+    k = torch.arange(-127, 127, dtype=torch.float32)
+    half = k + 0.5
+    if mode == "per_channel":
+        half = 2 * half
+    x = torch.cat([half, torch.full((1,), 127.0 * (2 if mode == "per_channel"
+                                                   else 1))])
+    x = x.reshape(1, 1, 1, -1).expand(2, 3, 2, -1).contiguous().to(dtype)
+    amax = None if mode == "dynamic" else torch.tensor(127.0)
+    t = torch.full((3,), 2.0) if mode == "per_channel" else None
+    x, amax, t = (None if v is None else v.to(card) for v in (x, amax, t))
+    xq, sx = quantize_act(x, mode, amax, t)
+    rq, rs = quantize_act_plain(x, mode, amax, t)
+    torch.cuda.synchronize()
+    assert torch.equal(sx, rs) and bool((rs == 1.0).all())
+    assert torch.equal(xq, rq)
+    got = xq[0, 0, :254, 0].cpu().to(torch.int32)
+    want = torch.round(k + 0.5).clamp(-127, 127).to(torch.int32)
+    assert torch.equal(got, want)
+
+
+def _same(a, b) -> bool:
+    """Equal, NaN where the other is NaN (its payload aside)."""
+    return torch.equal(a.isnan(), b.isnan()) \
+        and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_kernels_nan_as_plain(card, mode, dtype):
+    """A NaN (and a NaN with its sign bit set) in sample 0: the dynamic
+    scale and so the whole output of that sample is NaN, and a NaN
+    quantizes to 0, as in the plain version and XLA; sample 1 is
+    untouched."""
+    x, amax, t = _act_inputs(2, 40, 9, 11, mode, dtype, 5)
+    x[0, 3, 4, 5] = float("nan")
+    x[0, 38, 0, 10] = -float("nan")
+    g = torch.Generator().manual_seed(6)
+    wq = torch.zeros(24, 3, 3, 64, dtype=torch.int8)
+    wq[..., :40] = torch.randint(-127, 128, (24, 3, 3, 40), generator=g,
+                                 dtype=torch.int8)
+    sw = torch.rand(24, generator=g) * 0.002 + 1e-4
+    x, amax, t, wq, sw = (None if v is None else v.to(card)
+                          for v in (x, amax, t, wq, sw))
+    xq, sx = quantize_act(x, mode, amax, t)
+    rq, rs = quantize_act_plain(x, mode, amax, t)
+    out = int8_conv(xq, sx, wq, sw, 1, 1, dtype)
+    ref = int8_conv_plain(rq, rs, wq, sw, 1, 1, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and _same(sx, rs) and _same(out, ref)
+    assert int(xq[0, 4, 5, 3]) == 0 and int(xq[0, 0, 10, 38]) == 0
+    assert bool(sx[1].isfinite()) and bool(out[1].isfinite().all())
+    if mode == "dynamic":
+        assert bool(sx[0].isnan()) and bool(out[0].isnan().all())
+    else:
+        assert bool(out.isfinite().all())
+
+
+def _conv_inputs(B, H, W, C, N, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    cp = -(-C // 32) * 32
+    xq = torch.zeros(B, H, W, cp, dtype=torch.int8)
+    xq[..., :C] = torch.randint(-127, 128, (B, H, W, C), generator=g,
+                                dtype=torch.int8)
+    wq = torch.zeros(N, k, k, cp, dtype=torch.int8)
+    wq[..., :C] = torch.randint(-127, 128, (N, k, k, C), generator=g,
+                                dtype=torch.int8)
+    sx = torch.rand(B, generator=g) * 0.02 + 1e-3
+    sw = torch.rand(N, generator=g) * 0.002 + 1e-4
+    return xq, sx, wq, sw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,N,k,stride,pad", [
+    (16, 64, 64, 320, 256, 3, 1, 1), (16, 64, 64, 256, 256, 3, 1, 1),
+    (16, 64, 64, 64, 64, 3, 1, 1), (16, 64, 64, 64, 128, 3, 2, 1),
+    (16, 64, 64, 64, 128, 1, 2, 0), (16, 32, 32, 128, 256, 3, 2, 1),
+    (16, 16, 16, 256, 512, 1, 2, 0), (16, 8, 8, 512, 512, 3, 1, 1),
+    # ragged M and N, Cin not a multiple of 32
+    (3, 7, 9, 8, 24, 3, 1, 1), (1, 5, 5, 16, 130, 3, 2, 1),
+    (2, 11, 6, 40, 8, 1, 1, 0), (1, 1, 1, 320, 1, 3, 1, 1)])
+def test_int8_conv_kernel_matches_plain(card, out_dtype, B, H, W, C, N, k,
+                                        stride, pad):
+    xq, sx, wq, sw = (v.to(card) for v in _conv_inputs(B, H, W, C, N, k,
+                                                       H * C + N))
+    before = cuda_build.LAUNCHES.get("int8_conv", 0)
+    out = int8_conv(xq, sx, wq, sw, stride, pad, out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["int8_conv"] == before + 1
+    ref = int8_conv_plain(xq, sx, wq, sw, stride, pad, out_dtype)
+    assert out.shape == ref.shape and out.dtype == out_dtype
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True, "per_channel"])
+def test_int8_conv_module_quantizes_as_on_cpu(card, static):
+    """The module's weight and activation scales on the card are the CPU's
+    bit for bit (CUDA divides by a Python scalar through its reciprocal;
+    the port divides by a tensor), and so is the output."""
+    from rdpn6d_tpu_torch.models.quant import Int8Conv, calibrate_quant
+
+    x, _, _ = _act_inputs(4, 40, 9, 11, "dynamic", torch.float32, 3)
+    g = torch.Generator().manual_seed(7)
+    cpu = Int8Conv(40, 24, 3, 2, 1, static)
+    with torch.no_grad():
+        cpu.weight.copy_(torch.randn(24, 40, 3, 3, generator=g) * 0.1)
+    gpu = Int8Conv(40, 24, 3, 2, 1, static)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(card)
+    if static:
+        calibrate_quant(cpu, [x])
+        calibrate_quant(gpu, [x.to(card)])
+        assert torch.equal(gpu.act_amax.cpu(), cpu.act_amax)
+    for a, b in zip(gpu.quantized(), cpu.quantized()):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.cpu(), b)
+    with torch.no_grad():
+        assert torch.equal(gpu(x.to(card)).cpu(), cpu(x))
+
+
+@pytest.mark.cuda
+def test_int8_kernels_cpu_tensors_never_launch(card):
+    xq, sx, wq, sw = _conv_inputs(1, 5, 5, 8, 4, 3, 0)
+    x = torch.randn(1, 8, 5, 5)
+    before = dict(cuda_build.LAUNCHES)
+    int8_conv(xq, sx, wq, sw, 1, 1, torch.float32)
+    quantize_act(x, "dynamic")
+    assert {k: cuda_build.LAUNCHES.get(k, 0) for k in before} == before
+    assert cuda_build.LAUNCHES.get("int8_conv", 0) == before.get(
+        "int8_conv", 0)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_bad_input(card):
+    xq, sx, wq, sw = (v.to(card) for v in _conv_inputs(1, 5, 5, 8, 4, 3, 0))
+    with pytest.raises(ValueError):
+        int8_conv(xq[..., :16], sx, wq[..., :16], sw, 1, 1, torch.float32)
+    with pytest.raises(ValueError):
+        int8_conv(xq, sx, wq.cpu(), sw, 1, 1, torch.float32)
+    with pytest.raises(ValueError):
+        int8_conv(xq, sx, wq, sw, 1, 1, torch.float16)
+    with pytest.raises(ValueError):
+        quantize_act(torch.randn(1, 8, 5, 5, device=card), "static")

@@ -187,9 +187,13 @@ def test_eval_refusals(tree, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmain.main(base + ["--eval-only", "--opts",
                                f'train.output_dir="{tmp_path}"'])
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_run_eval(cfg.apply_opts(['test.int8="head"']), ckpt_dir="",
+    with pytest.raises(NotImplementedError, match="use_pnp"):
+        t_run_eval(cfg.apply_opts(["test.use_pnp=true"]), ckpt_dir="",
                    split_name="two_obj_test", device="cpu")
+    with pytest.raises(ValueError, match="int8='foo'"):
+        t_run_eval(cfg.apply_opts(['test.int8="foo"']), ckpt_dir="",
+                   split_name="two_obj_test", device="cpu",
+                   allow_random_init=True)
 
 
 def test_checkpoint_manager_round_trip(tmp_path):

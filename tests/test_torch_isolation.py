@@ -36,7 +36,9 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.data.augment", "rdpn6d_tpu_torch.data.jpeg",
             "rdpn6d_tpu_torch.data.image",
             "rdpn6d_tpu_torch.configs.lmo",
-            "rdpn6d_tpu_torch.ops.surface_labels"} <= set(mods)
+            "rdpn6d_tpu_torch.ops.surface_labels",
+            "rdpn6d_tpu_torch.ops.int8_conv",
+            "rdpn6d_tpu_torch.models.quant"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -138,8 +138,8 @@ def test_predictor_refusals(served):
     assets = tassets.synthetic_class_assets(num_regions=4)
     with pytest.raises(ValueError, match="random-init"):
         TPredictor(cfg, assets, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TPredictor(cfg.apply_opts(['test.int8="head"']), assets,
+    with pytest.raises(ValueError, match="trunk0..trunk3"):
+        TPredictor(cfg.apply_opts(['test.int8="trunk5"']), assets,
                    device="cpu", allow_random_init=True)
     with pytest.raises(NotImplementedError):
         TPredictor(cfg.apply_opts(["test.use_pnp=true"]), assets,
