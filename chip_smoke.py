@@ -106,7 +106,8 @@ Phases, each fatal on failure:
               (``csrc/int8_conv.cu``) against their plain versions on the
               card at lm13's head shapes at B = 16 (320->256 and 256->256,
               3x3 at 64²), one conv per trunk stage (3x3 at stride 1 and 2,
-              a 1x1 stride-2 downsample), a ragged M and C_in of 40 and 8,
+              a 1x1 stride-2 downsample), K = 32, N of 257 and 192, a
+              ragged M and C_in of 40 and 8,
               in the dynamic, static and per-channel modes: xq, scales and
               outputs bit-equal, a NaN as the plain version has it; (b)
               lm13 at full width through ``Predictor`` in
@@ -132,7 +133,9 @@ Phases, each fatal on failure:
               events, ``queued_ms`` and the profiler, beside its bound, the
               plain version, cuDNN's bf16 ``F.conv2d`` and
               ``torch._int_mm`` over ``F.unfold`` (checked equal to the
-              kernel's output), and ``quantize_act``'s beside its bound.
+              kernel's output), and ``quantize_act``'s beside its bound;
+              the conv kernel's registers, spills and shared memory from
+              the build log, and its launch plan at the head.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12)
@@ -1704,7 +1707,9 @@ BF16_FLOPS_PER_S = 989e12    # ... and dense bf16, cuDNN's yardstick
 # (label, B, H, W, C_in, C_out, k, stride, pad): lm13's head at the serving
 # batch of 16 (320 input channels after rot_concat's skip, then 256), one
 # conv per trunk stage at 256² ROIs (3x3 at stride 1 and 2, a 1x1 stride-2
-# downsample), and ragged M and C_in not a multiple of 32
+# downsample), K of one 32-byte wgmma step (a quarter slab), N past a
+# 256-wide tile and between widths, and ragged M (tiles across samples)
+# and C_in not a multiple of 32
 INT8_HEAD = [("head 320->256 3x3", 16, 64, 64, 320, 256, 3, 1, 1),
              ("head 256->256 3x3", 16, 64, 64, 256, 256, 3, 1, 1)]
 INT8_SHAPES = INT8_HEAD + [
@@ -1713,6 +1718,9 @@ INT8_SHAPES = INT8_HEAD + [
     ("stage2 64->128 1x1/2", 16, 64, 64, 64, 128, 1, 2, 0),
     ("stage3 128->256 3x3/2", 16, 32, 32, 128, 256, 3, 2, 1),
     ("stage4 256->512 3x3/2", 16, 16, 16, 256, 512, 3, 2, 1),
+    ("K 32 1x1 32->40", 2, 9, 13, 32, 40, 1, 1, 0),
+    ("ragged N 64->257 3x3", 2, 12, 12, 64, 257, 3, 1, 1),
+    ("ragged N 96->192 3x3", 3, 7, 9, 96, 192, 3, 1, 1),
     ("ragged 40->24 3x3", 3, 7, 9, 40, 24, 3, 1, 1),
     ("ragged 8->130 3x3/2", 1, 5, 5, 8, 130, 3, 2, 1)]
 INT8_MODES = {"dynamic": False, "static": True,
@@ -1843,6 +1851,16 @@ def check_int8(dev, card):
           "(dynamic: the sample's output NaN; static: the NaN quantized "
           "to 0)")
 
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.ops.int8_conv import LIBRARY, int8_conv_plan
+
+    _, built = cuda_build.load(LIBRARY)
+    for name, u in cuda_build.ptxas_usage(built.log).items():
+        if "int8_conv_kernel" in name:
+            print(f"kernel: int8_conv build {name}: {u['registers']} "
+                  f"registers, {u['spill_stores']} bytes spill stores, "
+                  f"{u['spill_loads']} bytes spill loads, {u['smem']} bytes "
+                  "static shared memory")
     times = {}
     for i, shape in enumerate(INT8_HEAD):
         label, B, H, W, C, N, k, stride, pad = shape
@@ -1889,7 +1907,13 @@ def check_int8(dev, card):
         qq = queued_ms(lambda: quantize_act(x, "static", amax, t), iters=30)
         qp = cuda_ms(lambda: quantize_act_plain(x, "static", amax, t),
                      iters=5, warmup=1)
-        print(f"kernel: int8_conv {label} B={B} {H}x{W} bf16 out: "
+        plan = int8_conv_plan(B, H // stride, W // stride, N,
+                              k * k * xq.shape[3],
+                              cuda_build.sm_count(dev.index))
+        print(f"kernel: int8_conv {label} B={B} {H}x{W} bf16 out, "
+              f"{plan.bn}-wide tiles, {plan.stages} stages, "
+              f"{plan.smem_bytes} bytes of dynamic shared memory, grid "
+              f"{plan.grid}: "
               f"{ms:.4f} ms by CUDA events ({100 * bound_ms / ms:.1f}% of "
               f"bound), device time {q_ms:.4f} (queued) / {p_ms:.4f} "
               f"(profiler); bound {bound_ms:.4f} ms ({bound_by}); plain "

@@ -37,26 +37,51 @@
 // 39.1 us. The bytes (xq and wq read once, bf16 out written once) take
 // ~16 us at 3.35 TB/s either way.
 //
-// Design (simple and right first; wgmma, TMA and persistent tiles are later
-// work):
-//  * Implicit GEMM: M = B Ho Wo rows, N = Cout columns, K = kh kw Cp, in
-//    k-tiles of 32 int8 (one tap's 32 channels: Cp is a multiple of 32, so
-//    a k-tile never straddles two taps).
-//  * A block of 256 threads (8 warps, 2 along M x 4 along N) owns a
-//    128 x 128 output tile; a warp 64 x 32, as 4 x 4 tensor-core products
-//    mma.sync.m16n8k32.s32.s8.s8.s32 per k-tile, 64 int32 accumulators a
-//    thread.
-//  * A tiles are gathered from the NHWC xq as im2col on the fly: a thread
-//    copies 16 bytes of one output pixel's tap; taps in the padding, and
-//    rows past M, are zero-filled by cp.async's src-size 0. B tiles are
-//    rows of wq. Both go to shared memory by cp.async through kStages
-//    buffers, so the copies of the next tiles run under this tile's
-//    products.
-//  * Shared rows are 48 bytes (32 + 16 of padding): the fragment loads
-//    (a warp reads 8 rows x 4 words) hit 32 distinct banks.
-//  * The epilogue writes NCHW directly: lanes of a warp cover 8
-//    consecutive pixels of 4 channels, so bfloat16 stores use half of each
-//    32-byte sector. Staging through shared memory is later work.
+// Design (simple and right first; TMA, a staged halo, warp specialisation
+// and persistent tiles are later work):
+//  * Implicit GEMM: M = B Ho Wo rows, N = Cout columns, K = kh kw Cp. A is
+//    the im2col of the NHWC xq and B is wq [N][K]: both K-major, the only
+//    layout wgmma takes for 8-bit operands.
+//  * A block of 256 threads, two warpgroups, owns a 128 x BN output tile
+//    (BN 256, 128 or 64 and the stage count from ops/int8_conv.py's
+//    int8_conv_plan, passed in and checked); each warpgroup issues
+//    wgmma.mma_async.m64nBNk32.s32.s8.s8 on its 64 rows with both operands
+//    in shared memory, BN / 2 int32 accumulators a thread.
+//  * K goes in slabs of 128 bytes (four k32 wgmmas) through a ring of
+//    kStages buffers in dynamic shared memory, filled by cp.async from all
+//    256 threads. Each 16-byte chunk has its own tap and channel, advanced
+//    from its k offset slab by slab (Cp is a multiple of 32, so no chunk
+//    straddles a tap); a tap in the padding, a row past M or N and a chunk
+//    past K are zero-filled by cp.async's src-size 0. The loader's work
+//    sits between two barriers, so it is kept short: each A row's origin
+//    in xq is computed once, a slab adds one tap offset and tests two
+//    bounds a row.
+//  * Shared layout: wgmma's canonical K-major layout with the 128-byte
+//    swizzle: tile row r's 128 bytes of the slab at r 128, its 16-byte
+//    chunk c at (c ^ r % 8) 16, so the eight rows of an 8-row group put a
+//    chunk on eight distinct bank quarters. The descriptor's stride byte
+//    offset (SBO) steps between 8-row groups; a k32 step moves its start
+//    address by 32 bytes (PTX ISA, "Matrix Descriptor Format").
+//    tests/test_torch_int8_plan.py places the chunks and reads them back
+//    through these constants in numpy. Without a swizzle (core matrices of
+//    8 x 16 bytes, 128 bytes apart along K) wgmma's reads fall on the same
+//    banks. A warp's 32 chunks fill 512 contiguous bytes: no bank
+//    conflicts on the copies.
+//  * A slab: cp.async.wait_group; fence.proxy.async (cp.async writes
+//    through the generic proxy, wgmma reads through the async proxy);
+//    __syncthreads; the slab's wgmmas, committed as one group; the copies
+//    of the slab kStages - 2 ahead, into the buffer of slab kt - 2, whose
+//    wgmmas every warpgroup waited for before the barrier; then
+//    wgmma.wait_group 1, so one slab's wgmmas run under the next slab's
+//    wait and barrier. The fence waits for the thread's copies in flight
+//    too; a 128-byte slab holds enough tensor work to cover that.
+//  * Epilogue: the accumulators go through shared memory (the ring is free
+//    by then), 64 channels at a time, so that a warp stores 32 consecutive
+//    pixels of one channel at once (64 bytes of bfloat16) where the direct
+//    stores of the wgmma fragment used half of each 32-byte sector. A tile
+//    that crosses a sample or passes N is masked.
+//  * Traffic from L2, the 320 -> 256 head conv at 128 x 256 tiles: each
+//    block reads its A rows and all of B once per slab, ~0.57 GB in all.
 //  * The quantize kernel transposes NCHW to NHWC through a 32-channel x
 //    32-pixel shared tile: reads along W and writes along C are coalesced.
 //    The dynamic mode first reduces each sample's absmax over blocks into
@@ -78,15 +103,23 @@ constexpr int kQThreads = 256;
 constexpr int kAmaxThreads = 256;
 constexpr int kAmaxMaxBlocks = 64;   // blocks a sample's absmax at most
 // conv
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;           // bytes of K a stage holds: one k-tile
-constexpr int kStages = 3;
+constexpr int kBM = 128;          // tile rows: two warpgroups of 64
+constexpr int kBK = 128;          // bytes of K a stage holds: a slab
+constexpr int kKStep = 32;        // bytes of K one wgmma takes
 constexpr int kConvThreads = 256;
-constexpr int kRowBytes = 48;     // a shared row: 32 bytes + 16 of padding
-constexpr int kWarpsN = 4;
-constexpr int kMTiles = 4;        // m16 tiles a warp: 64 rows
-constexpr int kNTiles = 4;        // n8 tiles a warp: 32 columns
+constexpr int kChunk = 16;        // bytes a cp.async copies
+// the shared layout wgmma reads: K-major rows of kBK bytes with the
+// 128-byte swizzle (descriptor layout type 1; chunk c of row r at r kBK +
+// (c ^ r % 8) 16), 8-row groups kSBO apart; LBO is unused by a swizzled
+// K-major operand (1, as CUTLASS sets it)
+constexpr int kLayoutType = 1;
+constexpr int kLBO = 16;
+constexpr int kSBO = 8 * kBK;
+constexpr int kEpiChannels = 64;  // channels a pass of the staged epilogue
+constexpr int kEpiPitch = kBM + 4;          // int32 a staged channel row
+// the launch plans implemented, (BN, stages): one ring depth for each tile
+// width (ops/int8_conv.STAGES); 128 wide, two blocks share an SM
+#define INT8_CONV_PLANS(X) X(256, 4) X(128, 3) X(64, 4)
 
 enum Mode { kDynamic = 0, kStatic = 1, kPerChannel = 2 };
 
@@ -171,11 +204,10 @@ __global__ void __launch_bounds__(kQThreads)
 
 // -------------------------------------------------------------------- conv
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem,
                                            bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = pred ? 16 : 0;   // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem),
                "l"(gmem), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -186,148 +218,301 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// cp.async's writes (generic proxy) made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// wgmma fence, commit and wait
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-__device__ __forceinline__ unsigned lds32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// A shared-memory matrix descriptor (base offset 0: the ring starts on a
+// 1024-byte boundary): start address, LBO and SBO, each in 16-byte units,
+// and the layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)(kLBO >> 4) << 16 | (uint64_t)(kSBO >> 4) << 32 |
+         (uint64_t)kLayoutType << 62;
 }
+
+#define D4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define D16(i) D4(i), D4(i + 4), D4(i + 8), D4(i + 12)
+#define D32(i) D16(i), D16(i + 16)
+#define D64(i) D32(i), D32(i + 32)
+#define D128(i) D64(i), D64(i + 64)
+
+// d += A (64 x 32, descriptor da) B^T (BN x 32, descriptor db), int8 in,
+// int32 sums; issued by the 128 threads of a warpgroup together.
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(int (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p;\n}\n"
+        : D32(0)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(int (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63}"
+        ", %64, %65, p;\n}\n"
+        : D64(0)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct Wgmma<256> {
+  __device__ __forceinline__ static void mma(int (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+        "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+        "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+        ", %128, %129, p;\n}\n"
+        : D128(0)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+
+#undef D4
+#undef D16
+#undef D32
+#undef D64
+#undef D128
 
 struct ConvShape {
   int B, H, W, Cp, N, kh, kw, stride, pad, Ho, Wo;
 };
 
-// Grid (ceil(M / kBM), ceil(N / kBN)); block kConvThreads.
-template <typename TOut>
-__global__ void __launch_bounds__(kConvThreads)
+// Grid (ceil(M / kBM), ceil(N / BN)); block kConvThreads; dynamic shared
+// memory kStages (kBM + BN) kBK bytes.
+template <int BN, int kStages, typename TOut>
+__global__ void __launch_bounds__(kConvThreads, 1)
     int8_conv_kernel(const int8_t* __restrict__ xq,
                      const float* __restrict__ sx,
                      const int8_t* __restrict__ wq,
                      const float* __restrict__ sw, TOut* __restrict__ out,
                      ConvShape sh) {
-  __shared__ __align__(16) int8_t As[kStages][kBM][kRowBytes];
-  __shared__ __align__(16) int8_t Bs[kStages][kBN][kRowBytes];
+  constexpr int kABytes = kBM * kBK;
+  constexpr int kStageBytes = (kBM + BN) * kBK;
+  constexpr int kChunksRow = kBK / kChunk;               // 4
+  constexpr int kRowsPass = kConvThreads / kChunksRow;   // rows a pass: 32
+  constexpr int kARows = kBM / kRowsPass;                // A rows a thread
+  constexpr int kBRows = BN / kRowsPass;                 // B rows a thread
+  constexpr int kPassBytes = kRowsPass / 8 * kSBO;       // a pass's bytes
+  static_assert(kStages >= 3, "the ring needs a slab in flight");
+  static_assert(kEpiChannels * kEpiPitch * 4 <= kStages * kStageBytes,
+                "the staged epilogue reuses the ring");
+  extern __shared__ __align__(1024) int8_t smem[];
 
   const int tid = threadIdx.x;
   const int hw = sh.Ho * sh.Wo;
   const long long M = (long long)sh.B * hw;
   const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int slabs = sh.Cp / kCinAlign;
-  const int KT = sh.kh * sh.kw * slabs;
-  const long long K = (long long)KT * kBK;
+  const int n0 = blockIdx.y * BN;
+  const int K = sh.kh * sh.kw * sh.Cp;
+  const int KT = (K + kBK - 1) / kBK;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-  // the A row and B row this thread copies: 2 threads a row, 16 B each
-  const int row = tid >> 1, half = tid & 1;
-  const long long m = m0 + row;
-  const bool m_ok = m < M;
-  int iy0 = 0, ix0 = 0;
-  const int8_t* xb = xq;
-  if (m_ok) {
-    const int b = (int)(m / hw);
-    const int r = (int)(m - (long long)b * hw);
-    const int oy = r / sh.Wo, ox = r - oy * sh.Wo;
-    iy0 = oy * sh.stride - sh.pad;
-    ix0 = ox * sh.stride - sh.pad;
-    xb = xq + (size_t)b * sh.H * sh.W * sh.Cp;
+  // the loader: this thread copies chunk kc of tile rows r + kRowsPass i
+  // (A and B) to one shared offset within a tile. An A row's origin is the byte
+  // offset in xq of its tap (0, 0) at channel 0, off the image where that
+  // tap is in the padding; a row past M starts far above the image, so no
+  // tap passes the bounds test. A B row past N has no bytes (klim 0).
+  const int kc = tid % kChunksRow, r = tid / kChunksRow;
+  const uint32_t dst = r * kBK + (kc ^ r % 8) * kChunk;
+  long long a_org[kARows];
+  int iy0[kARows], ix0[kARows];
+#pragma unroll
+  for (int i = 0; i < kARows; ++i) {
+    const long long m = m0 + r + i * kRowsPass;
+    const int b = m < M ? (int)(m / hw) : 0;
+    const int p = m < M ? (int)(m - (long long)b * hw) : 0;
+    const int oy = p / sh.Wo, ox = p - oy * sh.Wo;
+    iy0[i] = oy * sh.stride - sh.pad;
+    ix0[i] = ox * sh.stride - sh.pad;
+    a_org[i] = (((long long)b * sh.H + iy0[i]) * sh.W + ix0[i]) * sh.Cp;
+    if (m >= M) iy0[i] = INT_MIN / 2;
   }
-  const int n_row = n0 + row;
-  const bool n_ok = n_row < sh.N;
-  const int8_t* wrow = wq + (n_ok ? (size_t)n_row * K : 0);
-
-  auto load = [&](int stage, int kt) {
-    const int tap = kt / slabs;
-    const int c0 = (kt - tap * slabs) * kCinAlign + 16 * half;
-    const int ky = tap / sh.kw, kx = tap - ky * sh.kw;
-    const int iy = iy0 + ky, ix = ix0 + kx;
-    const bool a_ok = m_ok && iy >= 0 && iy < sh.H && ix >= 0 && ix < sh.W;
-    const int8_t* a_src =
-        a_ok ? xb + ((size_t)iy * sh.W + ix) * sh.Cp + c0 : xq;
-    cp_async16(&As[stage][row][16 * half], a_src, a_ok);
-    const int8_t* b_src =
-        n_ok ? wrow + (size_t)kt * kBK + 16 * half : wq;
-    cp_async16(&Bs[stage][row][16 * half], b_src, n_ok);
+  // its B rows n0 + r + kRowsPass j below N: j < b_rows
+  const int8_t* wrow = wq + (size_t)(n0 + r) * K;
+  const int b_rows = (sh.N - n0 - r + kRowsPass - 1) / kRowsPass;
+  // the chunk's k offset, and its tap (ky, kx) and channel c: advanced by
+  // a slab per load, the slabs loaded in order
+  int k = kc * kChunk, c = k, kx = 0, ky = 0;
+  auto settle = [&] {
+    while (c >= sh.Cp) {
+      c -= sh.Cp;
+      if (++kx == sh.kw) kx = 0, ++ky;
+    }
+  };
+  settle();
+  auto load = [&](int stage) {
+    const uint32_t a = sbase + stage * kStageBytes + dst;
+    const long long tap = ((long long)ky * sh.W + kx) * sh.Cp + c;
+    const bool k_ok = k < K;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const bool ok = k_ok && (unsigned)(iy0[i] + ky) < (unsigned)sh.H &&
+                      (unsigned)(ix0[i] + kx) < (unsigned)sh.W;
+      cp_async16(a + i * kPassBytes, ok ? xq + (a_org[i] + tap) : xq, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < kBRows; ++j) {
+      const bool ok = k_ok && j < b_rows;
+      cp_async16(a + kABytes + j * kPassBytes,
+                 ok ? wrow + ((size_t)j * kRowsPass * K + k) : wq, ok);
+    }
+    k += kBK;
+    c += kBK;
+    settle();
   };
 
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp / kWarpsN) * (kMTiles * 16);
-  const int wn = (warp % kWarpsN) * (kNTiles * 8);
-  const int gid = lane >> 2, tig = lane & 3;
-
-  int acc[kMTiles][kNTiles][4];
+  const int wg = tid / 128;   // this warpgroup's rows: 64 wg .. 64 wg + 63
+  int acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load(s, s);
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < KT) load(s);
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < KT) load(next % kStages, next);
+    cp_async_wait<kStages - 3>();   // this thread's copies of slab kt
+    fence_proxy_async();
+    __syncthreads();                // everyone's; slab kt - 2 read by all
+    const uint32_t st = sbase + (kt % kStages) * kStageBytes;
+    const uint64_t da = smem_desc(st + wg * (64 / 8) * kSBO);
+    const uint64_t db = smem_desc(st + kABytes);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kBK / kKStep; ++s)   // the next 32 bytes of the rows
+      Wgmma<BN>::mma(acc, da + s * (kKStep >> 4), db + s * (kKStep >> 4));
+    wgmma_commit();
+    const int next = kt + kStages - 2;
+    if (next < KT) load(next % kStages);
     cp_async_commit();
-
-    const int st = kt % kStages;
-    unsigned af[kMTiles][4], bf[kNTiles][2];
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i) {
-      const int r = wm + i * 16 + gid;
-      af[i][0] = lds32(&As[st][r][tig * 4]);
-      af[i][1] = lds32(&As[st][r + 8][tig * 4]);
-      af[i][2] = lds32(&As[st][r][16 + tig * 4]);
-      af[i][3] = lds32(&As[st][r + 8][16 + tig * 4]);
-    }
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      const int c = wn + j * 8 + gid;
-      bf[j][0] = lds32(&Bs[st][c][tig * 4]);
-      bf[j][1] = lds32(&Bs[st][c][16 + tig * 4]);
-    }
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+    wgmma_wait<1>();
+    fence_acc(acc);
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
   cp_async_wait<0>();
+  __syncthreads();
 
-  // epilogue: acc[i][j] = rows (gid, gid + 8) x columns (2 tig, 2 tig + 1)
+  // epilogue. The fragment: warp w of the warpgroup holds rows 16 w +
+  // lane / 4 (+ 8) and, in each 8-column group j, columns 8 j + 2 (lane %
+  // 4) + {0, 1}: acc[4 j + 2 h + e] is row + 8 h, column + e.
+  int* stage = reinterpret_cast<int*>(smem);
+  const int warp = tid / 32, lane = tid % 32;
+  const int frow = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int fcol = 2 * (lane % 4);
+  // the store phase: this lane's pixels m0 + lane + 32 i
+  constexpr int kPix = kBM / 32;
+  size_t obase[kPix];
+  float sxp[kPix];
+  bool p_ok[kPix];
 #pragma unroll
-  for (int i = 0; i < kMTiles; ++i) {
+  for (int i = 0; i < kPix; ++i) {
+    const long long m = m0 + lane + 32 * i;
+    p_ok[i] = m < M;
+    const int b = p_ok[i] ? (int)(m / hw) : 0;
+    const int p = p_ok[i] ? (int)(m - (long long)b * hw) : 0;
+    obase[i] = (size_t)b * sh.N * hw + p;
+    sxp[i] = p_ok[i] ? sx[b] : 0.f;
+  }
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const long long mm = m0 + wm + i * 16 + gid + 8 * hf;
-      if (mm >= M) continue;
-      const int b = (int)(mm / hw);
-      const int p = (int)(mm - (long long)b * hw);
-      const float sxb = sx[b];
-      TOut* ob = out + (size_t)b * sh.N * hw + p;
+  for (int cc = 0; cc < BN / kEpiChannels; ++cc) {
+    if (n0 + cc * kEpiChannels >= sh.N) break;
 #pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
+    for (int j = 0; j < kEpiChannels / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + j * 8 + 2 * tig + e;
-          if (n >= sh.N) continue;
-          const float scale = __fmul_rn(sxb, sw[n]);
-          store(ob + (size_t)n * hw,
-                __fmul_rn(__int2float_rn(acc[i][j][2 * hf + e]), scale));
-        }
-      }
+      for (int v = 0; v < 4; ++v)
+        stage[(8 * j + fcol + v % 2) * kEpiPitch + frow + 8 * (v / 2)] =
+            acc[4 * (cc * kEpiChannels / 8 + j) + v];
+    __syncthreads();
+    for (int nl = warp; nl < kEpiChannels; nl += kConvThreads / 32) {
+      const int n = n0 + cc * kEpiChannels + nl;
+      if (n >= sh.N) break;
+      const float swn = sw[n];
+#pragma unroll
+      for (int i = 0; i < kPix; ++i)
+        if (p_ok[i])
+          store(out + obase[i] + (size_t)n * hw,
+                __fmul_rn(__int2float_rn(stage[nl * kEpiPitch + lane + 32 * i]),
+                          __fmul_rn(sxp[i], swn)));
     }
+    __syncthreads();
   }
 }
+
+
+// The shared memory of an instantiation is fixed (its ring), so the
+// attribute that allows it is set once a device, not at every launch (a
+// CUDA API call on the host's path of every served conv).
+template <int BN, int kStages, typename TOut>
+cudaError_t conv(const int8_t* xq, const float* sx, const int8_t* wq,
+                 const float* sw, void* out, const ConvShape& sh, dim3 grid,
+                 int smem, int device, cudaStream_t s) {
+  const auto kernel = int8_conv_kernel<BN, kStages, TOut>;
+  static bool allowed[64];
+  if (device < 0 || device >= 64 || !allowed[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) allowed[device] = true;
+  }
+  kernel<<<grid, kConvThreads, smem, s>>>(xq, sx, wq, sw,
+                                          static_cast<TOut*>(out), sh);
+  return cudaGetLastError();
+}
+
 
 // Makes `device` current for `launch` and restores the caller's device.
 template <typename F>
@@ -399,31 +584,39 @@ int int8_quantize_launch(const void* x, int x_bf16, int mode,
 }
 
 // xq [B,H,W,Cp] int8, sx [B], wq [N,kh,kw,Cp] int8, sw [N] -> out
-// [B,N,Ho,Wo] bfloat16 (out_bf16 = 1) or float32. Returns a cudaError_t as
-// an int.
+// [B,N,Ho,Wo] bfloat16 (out_bf16 = 1) or float32, by the launch plan of
+// ops/int8_conv.int8_conv_plan: tile width bn, stages, dynamic shared
+// memory bytes and grid, refused unless it is one this file implements and
+// fits the shape. Returns a cudaError_t as an int.
 int int8_conv_launch(const int8_t* xq, const float* sx, const int8_t* wq,
                      const float* sw, void* out, int out_bf16, int B, int H,
                      int W, int Cp, int N, int kh, int kw, int stride, int pad,
-                     int Ho, int Wo, int device, void* stream) {
+                     int Ho, int Wo, int device, void* stream, int bn,
+                     int stages, int smem, int grid_x, int grid_y) {
   if (B <= 0 || N <= 0 || Ho <= 0 || Wo <= 0) return 0;
   const long long M = (long long)B * Ho * Wo;
   const long long m_blocks = (M + kBM - 1) / kBM;
   if (Cp <= 0 || Cp % kCinAlign != 0 || kh <= 0 || kw <= 0 || stride <= 0 ||
       pad < 0 || (Ho - 1) * stride - pad + kh > H + pad ||
       (Wo - 1) * stride - pad + kw > W + pad || m_blocks > INT_MAX ||
-      (N + kBN - 1) / kBN > 65535 || (long long)Ho * Wo > INT_MAX)
+      (long long)Ho * Wo > INT_MAX || (long long)kh * kw * Cp > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (bn <= 0 || grid_x != m_blocks || grid_y != (N + bn - 1) / bn ||
+      grid_y > 65535 || smem != stages * (kBM + bn) * kBK)
     return (int)cudaErrorInvalidValue;
   const ConvShape sh{B, H, W, Cp, N, kh, kw, stride, pad, Ho, Wo};
-  const dim3 grid((unsigned)m_blocks, (N + kBN - 1) / kBN);
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&] {
-    if (out_bf16)
-      int8_conv_kernel<__nv_bfloat16><<<grid, kConvThreads, 0, s>>>(
-          xq, sx, wq, sw, static_cast<__nv_bfloat16*>(out), sh);
-    else
-      int8_conv_kernel<float><<<grid, kConvThreads, 0, s>>>(
-          xq, sx, wq, sw, static_cast<float*>(out), sh);
-    return cudaGetLastError();
+  return on_device(device, [&]() -> cudaError_t {
+#define INT8_CONV_PLAN(BN, STAGES)                                          \
+  if (bn == BN && stages == STAGES)                                         \
+    return out_bf16 ? conv<BN, STAGES, __nv_bfloat16>(                      \
+                          xq, sx, wq, sw, out, sh, grid, smem, device, s)   \
+                    : conv<BN, STAGES, float>(xq, sx, wq, sw, out, sh,      \
+                                              grid, smem, device, s);
+    INT8_CONV_PLANS(INT8_CONV_PLAN)
+#undef INT8_CONV_PLAN
+    return cudaErrorInvalidValue;
   });
 }
 

@@ -16,8 +16,10 @@ before and reads it after.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -87,6 +89,43 @@ def build(name: str) -> Built:
         f.write(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     return Built(lib, log)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int | None) -> int:
+    """The SMs of CUDA device ``index``, for a kernel's launch plan."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """Each kernel's resources from a build log of ``-Xptxas -v``: mangled
+    name -> registers, spill_stores and spill_loads (bytes) and smem (bytes
+    of static shared memory; dynamic shared memory is not in the log)."""
+    usage: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {"registers": 0, "spill_stores": 0,
+                           "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem"] = int(m.group(1)) if m else 0
+            name = None
+    return usage
 
 
 def load(name: str) -> tuple[ctypes.CDLL, Built]:

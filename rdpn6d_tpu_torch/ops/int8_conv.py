@@ -12,7 +12,9 @@ XLA int8 convolution with int32 accumulation; the port runs it in
   static calibrated scalar, or, per channel, the static scalar of the
   SmoothQuant-balanced activation (x divided by t[c] * s).
 - ``int8_conv`` convolves that with int8 weights [N, kh, kw, Cp] (scale per
-  output channel) and returns NCHW in the model's dtype.
+  output channel) and returns NCHW in the model's dtype. On the card it is
+  an implicit GEMM on ``wgmma``; ``int8_conv_plan`` picks its tile width,
+  ring depth, shared memory and grid, which the launcher checks.
 
 Both pick by the tensors' device: CPU tensors take the plain version, CUDA
 tensors launch the kernel (built with nvcc at first use) or raise. Every
@@ -27,6 +29,8 @@ below float64's 2^53).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +43,62 @@ QUANTIZE = "quantize_act"
 CIN_ALIGN = 32                 # kCinAlign in the source: one k-tile
 MODES = {"dynamic": 0, "static": 1, "per_channel": 2}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+# the conv kernel's launch (constants of csrc/int8_conv.cu)
+TILE_M = 128                   # kBM: output pixels a block, 2 warpgroups
+SLAB_BYTES = 128               # kBK: bytes of K a ring stage holds
+# the ring's stages for each tile width the source instantiates
+# (INT8_CONV_PLANS): as deep as shared memory allows, 128 wide with two
+# blocks an SM
+STAGES = {256: 4, 128: 3, 64: 4}
+SMEM_LIMIT = 232_448           # dynamic shared memory a block may have
+GRID_X_LIMIT = 2**31 - 1
+GRID_Y_LIMIT = 65_535
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How the kernel covers an M x N output (M = B Ho Wo pixels, N output
+    channels): blocks of ``TILE_M`` x ``bn`` on a ``grid`` of
+    (ceil(M / TILE_M), ceil(N / bn)), K through a ring of ``stages`` slabs
+    of ``SLAB_BYTES`` in ``smem_bytes`` of dynamic shared memory."""
+
+    bn: int
+    stages: int
+    smem_bytes: int
+    grid: tuple[int, int]
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_conv_plan(B: int, Ho: int, Wo: int, N: int, K: int,
+                   sm_count: int = H100_SMS,
+                   bn: int | None = None) -> ConvPlan:
+    """The launch plan of ``int8_conv`` for B x Ho x Wo output pixels, N
+    output channels and K = kh kw Cp bytes of reduction, on a card of
+    ``sm_count`` SMs. The tile width is the narrowest of 64, 128 and 256
+    that holds N (256 past it), halved while the grid would leave SMs
+    without a block, so each im2col row is gathered once where N <= 256
+    and the card fills where M is small. ``bn`` forces another
+    implemented width (for timing and tests)."""
+    if min(B, Ho, Wo, N) < 1 or K < 1 or K % CIN_ALIGN:
+        raise ValueError(f"int8_conv_plan: no plan for B={B} Ho={Ho} "
+                         f"Wo={Wo} N={N} K={K}")
+    m_tiles = -(-(B * Ho * Wo) // TILE_M)
+    if bn is None:
+        bn = next((w for w in (64, 128) if N <= w), 256)
+        while bn > 64 and m_tiles * -(-N // bn) < sm_count:
+            bn //= 2
+    if bn not in STAGES:
+        raise ValueError(f"int8_conv_plan: no {bn}-wide tile (one of "
+                         f"{sorted(STAGES)})")
+    stages = STAGES[bn]
+    plan = ConvPlan(bn, stages, stages * (TILE_M + bn) * SLAB_BYTES,
+                    (m_tiles, -(-N // bn)))
+    if plan.grid[0] > GRID_X_LIMIT or plan.grid[1] > GRID_Y_LIMIT:
+        raise ValueError(f"int8_conv_plan: grid {plan.grid} exceeds the "
+                         f"card's limits")
+    return plan
 
 
 def padded_channels(c: int) -> int:
@@ -224,9 +284,12 @@ def _check_conv(xq, sx, wq, sw, stride, padding, out_dtype) -> None:
 
 def _int8_conv_launch(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
                       sw: torch.Tensor, stride: int, padding: int,
-                      out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the convolution kernel on the current stream, arguments
-    checked by ``int8_conv``; one counted launch."""
+                      out_dtype: torch.dtype,
+                      plan: ConvPlan | None = None) -> torch.Tensor:
+    """Launch the convolution kernel on the current stream by ``plan``
+    (default: ``int8_conv_plan``'s; tests and ``time_int8.py`` force the
+    other widths), arguments checked by ``int8_conv``; one counted
+    launch."""
     xq, wq = xq.contiguous(), wq.contiguous()
     sx, sw = sx.contiguous(), sw.contiguous()
     B, H, W, Cp = xq.shape
@@ -237,15 +300,19 @@ def _int8_conv_launch(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     out = torch.empty(B, N, Ho, Wo, dtype=out_dtype, device=dev)
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("int8_conv: xq and wq must be 16-byte aligned")
+    if plan is None:
+        plan = int8_conv_plan(B, Ho, Wo, N, kh * kw * Cp,
+                              cuda_build.sm_count(dev.index))
     lib, _ = cuda_build.load(LIBRARY)
     fn = lib.int8_conv_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] + [ctypes.c_int] * 5
     err = fn(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
              out.data_ptr(), int(out_dtype == torch.bfloat16), B, H, W, Cp,
              N, kh, kw, stride, padding, Ho, Wo, dev.index,
-             torch._C._cuda_getCurrentRawStream(dev.index))
+             torch._C._cuda_getCurrentRawStream(dev.index), plan.bn,
+             plan.stages, plan.smem_bytes, *plan.grid)
     _raise_on(lib, err, CONV)
     cuda_build.count_launch(CONV)
     return out

@@ -155,11 +155,6 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("min_dist2: inputs must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int | None) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def min_dist2_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream. a [B,N,D], b [B,M,D]
     float32 contiguous CUDA tensors -> [B,N]."""
@@ -181,7 +176,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if B == 0 or N == 0:
         return out
     index = a.device.index
-    plan = launch_plan(B, N, M, D, _sm_count(index))
+    plan = launch_plan(B, N, M, D, cuda_build.sm_count(index))
     scratch = torch.empty((plan.splits, B, N), dtype=torch.float32,
                           device=a.device) if plan.splits > 1 else None
     fn = lib.min_dist2_launch

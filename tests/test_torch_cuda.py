@@ -16,8 +16,11 @@ import torch
 from rdpn6d_tpu_torch.ops import cuda_build
 from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
 from rdpn6d_tpu_torch.ops.int8_conv import (
+    STAGES,
+    _int8_conv_launch,
     int8_conv,
     int8_conv_plain,
+    int8_conv_plan,
     quantize_act,
     quantize_act_plain,
 )
@@ -764,16 +767,26 @@ def _conv_inputs(B, H, W, C, N, k, seed):
     return xq, sx, wq, sw
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,W,C,N,k,stride,pad", [
+# (B, H, W, C_in, N, k, stride, pad)
+INT8_CONV_SHAPES = [
     (16, 64, 64, 320, 256, 3, 1, 1), (16, 64, 64, 256, 256, 3, 1, 1),
     (16, 64, 64, 64, 64, 3, 1, 1), (16, 64, 64, 64, 128, 3, 2, 1),
     (16, 64, 64, 64, 128, 1, 2, 0), (16, 32, 32, 128, 256, 3, 2, 1),
     (16, 16, 16, 256, 512, 1, 2, 0), (16, 8, 8, 512, 512, 3, 1, 1),
     # ragged M and N, Cin not a multiple of 32
     (3, 7, 9, 8, 24, 3, 1, 1), (1, 5, 5, 16, 130, 3, 2, 1),
-    (2, 11, 6, 40, 8, 1, 1, 0), (1, 1, 1, 320, 1, 3, 1, 1)])
+    (2, 11, 6, 40, 8, 1, 1, 0), (1, 1, 1, 320, 1, 3, 1, 1),
+    # K not a multiple of the 128-byte slab (K = 32), N of 192 and 257 (a
+    # second tile of one column), tiles across samples at B = 3 with N =
+    # 512, the head at B = 1 (too few tiles for 256-wide ones)
+    (2, 9, 13, 32, 40, 1, 1, 0), (2, 12, 12, 64, 192, 3, 1, 1),
+    (2, 12, 12, 64, 257, 3, 1, 1), (3, 7, 9, 96, 512, 3, 1, 1),
+    (1, 64, 64, 320, 256, 3, 1, 1), (1, 9, 10, 40, 64, 3, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,N,k,stride,pad", INT8_CONV_SHAPES)
 def test_int8_conv_kernel_matches_plain(card, out_dtype, B, H, W, C, N, k,
                                         stride, pad):
     xq, sx, wq, sw = (v.to(card) for v in _conv_inputs(B, H, W, C, N, k,
@@ -785,6 +798,39 @@ def test_int8_conv_kernel_matches_plain(card, out_dtype, B, H, W, C, N, k,
     ref = int8_conv_plain(xq, sx, wq, sw, stride, pad, out_dtype)
     assert out.shape == ref.shape and out.dtype == out_dtype
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bn", sorted(STAGES))
+@pytest.mark.parametrize("B,H,W,C,N,k,stride,pad", [
+    (16, 64, 64, 320, 256, 3, 1, 1), (3, 7, 9, 8, 24, 3, 1, 1),
+    (2, 9, 13, 32, 40, 1, 1, 0), (2, 12, 12, 64, 257, 3, 1, 1),
+    (1, 5, 5, 16, 130, 3, 2, 1)])
+def test_int8_conv_every_plan_matches_plain(card, out_dtype, bn, B, H, W, C,
+                                            N, k, stride, pad):
+    """Each implemented tile width, forced, is bit-equal to the plain
+    version."""
+    xq, sx, wq, sw = (v.to(card) for v in _conv_inputs(B, H, W, C, N, k,
+                                                       H * C + N))
+    Ho, Wo = ((s + 2 * pad - k) // stride + 1 for s in (H, W))
+    plan = int8_conv_plan(B, Ho, Wo, N, k * k * xq.shape[3], bn=bn)
+    out = _int8_conv_launch(xq, sx, wq, sw, stride, pad, out_dtype, plan)
+    ref = int8_conv_plain(xq, sx, wq, sw, stride, pad, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_int8_conv_build_spills_nothing(card):
+    """ptxas keeps every conv instantiation's accumulators in registers:
+    no spill stores or loads in the build log."""
+    _, built = cuda_build.load("int8_conv")
+    usage = {name: u for name, u in cuda_build.ptxas_usage(built.log).items()
+             if "int8_conv_kernel" in name}
+    assert len(usage) == 2 * len(STAGES)
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
 
 
 @pytest.mark.cuda

@@ -61,6 +61,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "profile_step.py")
     yield os.path.join(ROOT, "time_min_dist2.py")
+    yield os.path.join(ROOT, "time_int8.py")
     yield os.path.join(ROOT, "time_labels.py")
 
 
