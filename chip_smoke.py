@@ -109,24 +109,39 @@ Phases, each fatal on failure:
               a 1x1 stride-2 downsample), K = 32, N of 257 and 192, a
               ragged M and C_in of 40 and 8,
               in the dynamic, static and per-channel modes: xq, scales and
-              outputs bit-equal, a NaN as the plain version has it; (b)
+              outputs bit-equal, a NaN as the plain version has it; the
+              fused ``bn_relu_quantize`` (BN + ReLU + concat + quantize)
+              against its plain version in every mode, bf16 and f32, at
+              the head's 256 and 256 + 64 skip channels, 512 at 8x8,
+              channels not a multiple of 32, H W not a multiple of 8 or of
+              the pixel tile, B = 1 and with a NaN in y and in the skip
+              (xq and sx bit-equal), then timed at the head's shapes beside
+              its bound, its plain version and the unfused BN, ReLU,
+              ``torch.cat`` and ``quantize_act``; (b)
               lm13 at full width through ``Predictor`` in
               int8-head-static and int8-head (dynamic) beside bf16, on 16
               frames of 16 detections (256 poses, one batch of 16 a
               frame), each mode in turns, 4 passes each: poses/s, 6
-              ``int8_conv`` and 6 ``quantize_act`` launches a served batch;
+              ``int8_conv`` and 6 ``bn_relu_quantize`` launches (no
+              ``quantize_act``) a served batch; the head's device time a
+              batch of 16 (queued and profiler) and its kernel launches,
+              folded against the same head run op by op (at least 13
+              launches fewer) and bf16's head;
               one pass in int8-all with per-channel scales (every trunk
-              block's convs too: 41 int8 convs a batch), each of its int8
+              block's convs too: 41 int8 convs a batch, the head's 6 with
+              the BN before them folded), each of its int8
               convs bit-equal to a CPU copy of the module on the card's
               input; float32 int8-head-static and int8-all per-channel card
               vs CPU with the card's calibrated scales carried to the CPU
-              (through the flax quant tree) and each int8 conv's input too:
-              every int8 conv's output bit-equal, poses within 1e-3; the
+              (through the flax quant tree) and each int8 conv's input too
+              (a folded conv's BN input and skip): every int8 conv's output
+              bit-equal, poses within 1e-3; the
               free-running difference of int8-head-static and the
               activations quantized differently conv by conv printed;
               (c) ``main --eval-only`` with ``test.int8="head"
               test.int8_static=true`` on phase 9's tree and checkpoint:
-              launches (6 ``int8_conv`` a batch, ``min_dist2`` one an
+              launches (6 ``int8_conv`` and 6 ``bn_relu_quantize`` a batch,
+              ``min_dist2`` one an
               object), calibration on the first batch, the MEAN table
               beside phase 9's bf16 one (reported: seeded weights), split
               wall time; (d) ``int8_conv``'s time at the head shapes by CUDA
@@ -1920,35 +1935,208 @@ def check_int8(dev, card):
               f"{plain_ms:.4f}; cuDNN bf16 F.conv2d {lib_ms:.4f} (its bound "
               f"{bf16_bound:.4f}); F.unfold + torch._int_mm {mm_ms:.4f} "
               f"(_int_mm alone {mm_only_ms:.4f}) [{card}]")
+        qdq = queued_ms(lambda: quantize_act(x, "dynamic"), iters=30)
         print(f"kernel: quantize_act {C}x{H}x{W} B={B} bf16 in: static "
-              f"{qk:.4f} ms by CUDA events (device time {qq:.4f} queued), "
-              f"dynamic {qd:.4f}; bound {q[0]:.4f} ms ({q[1]}); plain "
-              f"{qp:.4f} [{card}]")
+              f"device time {qq:.4f} ms (queued; "
+              f"{100 * q[0] / qq:.1f}% of bound), {qk:.4f} by CUDA events "
+              f"over a burst; dynamic {qdq:.4f} (queued), {qd:.4f} (events);"
+              f" bound {q[0]:.4f} ms ({q[1]}); plain {qp:.4f} [{card}]")
         times[label] = ({"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": lib_ms},
-                        {"ms": qk, "plain_ms": qp, "bound_ms": q[0],
-                         "bound_by": q[1], "library_ms": None})
+                        # device time: a burst of this op is bound by
+                        # the wrapper's host time
+                        {"ms": qq, "events_ms": qk, "plain_ms": qp,
+                         "bound_ms": q[0], "bound_by": q[1],
+                         "library_ms": None})
     first = times[INT8_HEAD[0][0]]
     return conv_err, quant_err, first[0], first[1]
 
 
+# phase 12(a)'s fused quantizer (label, B, C1, C2, H, W): lm13's head at
+# B = 16 (256 BN'd channels, the first conv's 256 + rot_concat's 64 skip
+# channels), the trunk's widest, channels not a multiple of 32, H W not a
+# multiple of 8 (scalar loads) or of the 64-pixel tile, B = 1
+FUSED_HEAD = [("head 256", 16, 256, 0, 64, 64),
+              ("head 256 + 64 skip", 16, 256, 64, 64, 64)]
+FUSED_RAGGED = ("40 + 8 skip at 7x33 (scalar loads)", 3, 40, 8, 7, 33)
+FUSED_SHAPES = FUSED_HEAD + [
+    ("512 at 8x8", 16, 512, 0, 8, 8), FUSED_RAGGED,
+    ("72 at 6x20 (a partial pixel tile)", 2, 72, 0, 6, 20),
+    ("33 + 31 skip, B = 1", 1, 33, 31, 8, 8)]
+
+
+def bn_relu_quantize_bound(B, C1, C2, H, W, elem=2) -> tuple[float, str]:
+    """Least ms for ``bn_relu_quantize``: y and skip (``elem`` bytes an
+    element) and the BN's 3 C1 float32 constants read once, xq (padded
+    to 32 channels) and sx written once; an FMA, a divide and a round an
+    element are far below the card's rate."""
+    from rdpn6d_tpu_torch.ops.int8_conv import padded_channels
+
+    return 1e3 * (elem * B * (C1 + C2) * H * W + 12 * C1
+                  + B * H * W * padded_channels(C1 + C2) + 4 * B) \
+        / HBM_BYTES_PER_S, "bytes"
+
+
+def fused_case(dev, shape, mode, dtype, seed):
+    """Seeded inputs of ``bn_relu_quantize`` on the card: (y, skip, a
+    ``BatchNorm2d`` in eval mode, its folded constants, amax, t), the
+    static amax taken from the plain activation (some inputs clip)."""
+    import torch
+
+    from rdpn6d_tpu_torch.models.norm import BatchNorm2d
+    from rdpn6d_tpu_torch.ops.int8_conv import bn_relu_plain
+
+    _, B, C1, C2, H, W = shape
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn(B, C1, H, W, generator=g) \
+        * (torch.rand(C1, generator=g) * 3)[None, :, None, None]
+    skip = torch.randn(B, C2, H, W, generator=g).clamp_min(0) if C2 \
+        else None
+    bn = BatchNorm2d(C1)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(C1, generator=g))
+        bn.bias.copy_(torch.randn(C1, generator=g) * 0.5)
+        bn.running_mean.copy_(torch.randn(C1, generator=g) * 0.5)
+        bn.running_var.copy_(torch.rand(C1, generator=g) * 2 + 0.05)
+    bn = bn.eval().to(dev)
+    y = y.to(dev, dtype)
+    skip = None if skip is None else skip.to(dev, dtype)
+    consts = bn.folded()
+    a = bn_relu_plain(y, *consts, skip).float()
+    amax = t = None
+    if mode == "static":
+        amax = a.abs().amax() * 0.9
+    elif mode == "per_channel":
+        t = (torch.rand(C1 + C2, generator=g) + 0.25).to(dev)
+        amax = (a.abs().amax(dim=(0, 2, 3)) / t).amax() * 0.9
+    return y, skip, bn, consts, amax, t
+
+
+def check_bn_relu_quantize(dev, card):
+    """Phase 12(a) for ``bn_relu_quantize``: the kernel against its plain
+    version on the card in every mode, bfloat16 and float32, at every
+    shape of ``FUSED_SHAPES`` (xq and sx bit-equal) and with a NaN in y
+    and in the skip; then its time at the head shapes by CUDA events and
+    ``queued_ms`` beside its bound, its plain version and the unfused
+    sequence it replaces (torch's BN, ReLU, ``torch.cat`` and
+    ``quantize_act``), timed in the same run. Returns (max_abs_err, the
+    kernels line's times: the head's 256 + 64 shape, static, bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdpn6d_tpu_torch.ops.int8_conv import (
+        bn_relu_quantize,
+        bn_relu_quantize_plain,
+        quantize_act,
+    )
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) \
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+    err = 0.0
+    for i, shape in enumerate(FUSED_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            for mode in INT8_MODES:
+                y, skip, _, consts, amax, t = fused_case(dev, shape, mode,
+                                                         dtype, 200 + i)
+                xq, sx = bn_relu_quantize(y, *consts, mode, amax, t, skip)
+                rq, rs = bn_relu_quantize_plain(y, *consts, mode, amax, t,
+                                                skip)
+                torch.cuda.synchronize()
+                e = float((xq.int() - rq.int()).abs().max()) \
+                    + float((sx - rs).abs().max())
+                check(torch.equal(xq, rq) and torch.equal(sx, rs),
+                      f"bn_relu_quantize {mode} {dtype} at {shape[0]}: xq "
+                      f"or sx differ from the plain version's ({e:.3e})")
+                err = max(err, e)
+        print(f"kernel: bn_relu_quantize {shape[0]} B={shape[1]} "
+              f"{shape[4]}x{shape[5]}, bf16 / f32 x dynamic / static / "
+              "per_channel: xq and sx bit-equal to the plain version")
+    shape = FUSED_RAGGED
+    for mode in INT8_MODES:
+        y, skip, _, consts, amax, t = fused_case(dev, shape, mode,
+                                                 torch.bfloat16, 7)
+        y[0, 3, 2, 4] = float("nan")
+        skip[0, 5, 6, 1] = -float("nan")
+        xq, sx = bn_relu_quantize(y, *consts, mode, amax, t, skip)
+        rq, rs = bn_relu_quantize_plain(y, *consts, mode, amax, t, skip)
+        torch.cuda.synchronize()
+        check(torch.equal(xq, rq) and same(sx, rs)
+              and int(xq[0, 2, 4, 3]) == 0 and int(xq[0, 6, 1, 45]) == 0
+              and bool(sx[0].isnan()) == (mode == "dynamic")
+              and bool(sx[1].isfinite()),
+              f"bn_relu_quantize with a NaN, {mode}: not as the plain "
+              "version")
+    print(f"kernel: bn_relu_quantize {shape[0]} with a NaN in y and in the "
+          "skip of sample 0, dynamic / static / per_channel: as the plain "
+          "version (dynamic: the sample's scale NaN; a NaN quantized to 0)")
+
+    times = {}
+    for i, shape in enumerate(FUSED_HEAD):
+        label, B, C1, C2, H, W = shape
+        bound, by = bn_relu_quantize_bound(B, C1, C2, H, W)
+        for mode in INT8_MODES:
+            y, skip, bn, consts, amax, t = fused_case(
+                dev, shape, mode, torch.bfloat16, 300 + i)
+
+            def fused():
+                return bn_relu_quantize(y, *consts, mode, amax, t, skip)
+
+            def unfused():
+                a = F.relu(bn(y))
+                if skip is not None:
+                    a = torch.cat([a, skip], dim=1)
+                return quantize_act(a, mode, amax, t)
+
+            ms = cuda_ms(fused, iters=50)
+            q_ms = queued_ms(fused, iters=30)
+            u_ms = cuda_ms(unfused, iters=50)
+            uq_ms = queued_ms(unfused, iters=30)
+            plain_ms = cuda_ms(lambda: bn_relu_quantize_plain(
+                y, *consts, mode, amax, t, skip), iters=3, warmup=1)
+            print(f"kernel: bn_relu_quantize {label} B={B} {H}x{W} bf16 "
+                  f"{mode}: device time {q_ms:.4f} ms (queued; "
+                  f"{100 * bound / q_ms:.1f}% of bound), {ms:.4f} by CUDA "
+                  f"events over a burst; bound {bound:.4f} ms ({by}); the "
+                  f"unfused BN + ReLU{' + cat' if skip is not None else ''}"
+                  f" + quantize_act {u_ms:.4f} (queued {uq_ms:.4f}); plain "
+                  f"{plain_ms:.4f} [{card}]")
+            if mode == "static" and skip is not None:
+                # device time: a burst of this op is bound by the
+                # wrapper's host time
+                times = {"ms": q_ms, "events_ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": None}
+    return err, times
+
+
 def int8_hooks(model, feed=None):
     """Hooks on ``model``'s serving Int8Convs (not calibration passes):
-    record each conv's input and output, in call order; with ``feed`` (a
-    list of inputs in call order) each conv takes the fed input in place
-    of its own. Returns (inputs, outputs, handles)."""
+    record each conv's arguments (its input; where it folds the BN before
+    it, that BN's input, the BN and the skip) and its output, in call
+    order; with ``feed`` (a list of such arguments in call order) each conv
+    takes the fed input and skip in place of its own, keeping its own BN.
+    Returns (arguments, outputs, handles)."""
+    import torch
+
     from rdpn6d_tpu_torch.models.quant import Int8Conv
 
-    inputs, outputs = [], []
+    calls, outputs = [], []
 
     def pre(mod, args):
         if mod.calibrating:
             return None
-        x = args[0] if feed is None else feed[len(inputs)].to(
-            args[0].device)
-        inputs.append(x.detach().clone())
-        return None if feed is None else (x,)
+        if feed is not None:
+            fed, dev = feed[len(calls)], args[0].device
+            args = (fed[0].to(dev),) if len(args) == 1 else (
+                fed[0].to(dev), args[1],
+                None if fed[2] is None else fed[2].to(dev))
+        calls.append(tuple(a.detach().clone()
+                           if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return None if feed is None else args
 
     def post(mod, args, out):
         if not mod.calibrating:
@@ -1959,7 +2147,30 @@ def int8_hooks(model, feed=None):
         if isinstance(m, Int8Conv):
             handles += [m.register_forward_pre_hook(pre),
                         m.register_forward_hook(post)]
-    return inputs, outputs, handles
+    return calls, outputs, handles
+
+
+def quantized_input_plain(args, mode, amax, t):
+    """xq of what an Int8Conv called with ``args`` (on the CPU)
+    quantizes, by the plain versions."""
+    from rdpn6d_tpu_torch.ops.int8_conv import (
+        bn_relu_quantize_plain,
+        quantize_act_plain,
+    )
+
+    if len(args) > 1 and args[1] is not None:
+        return bn_relu_quantize_plain(args[0], *args[1].folded(), mode,
+                                      amax, t, args[2])
+    return quantize_act_plain(args[0], mode, amax, t)
+
+
+def args_to_cpu(args):
+    """An Int8Conv call's arguments on the CPU (a copy of its BN)."""
+    import torch
+
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else
+                 None if a is None else copy.deepcopy(a).cpu()
+                 for a in args)
 
 
 # phase 12(b)'s served traffic: frames that each fill the Predictor's
@@ -1969,10 +2180,12 @@ INT8_SERVE_TURNS = ("bf16", "int8-head-static", "int8-head", "int8-head",
                     "int8-head-static", "bf16") * 2
 
 
-def serve_counted(pred, frames, name, n_int8):
+def serve_counted(pred, frames, name, n_int8, n_fold):
     """One served pass with the launches counted from zero: checks every
-    pose finite and ``n_int8`` launches of each int8 kernel a frame (one
-    batch a frame; none for a float model). Returns (poses/s, launches)."""
+    pose finite, ``n_int8`` ``int8_conv`` launches a frame (one batch a
+    frame; none for a float model), ``n_fold`` of them quantized by
+    ``bn_relu_quantize`` and the rest by ``quantize_act``. Returns
+    (poses/s, launches)."""
     from rdpn6d_tpu_torch.ops import cuda_build
 
     n_det = sum(len(f[2]) for f in frames)
@@ -1983,10 +2196,10 @@ def serve_counted(pred, frames, name, n_int8):
     check(len(flat) == n_det and all(
         np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
         for r in flat), f"{name}: non-finite or missing poses")
-    want = n_int8 * len(frames)
-    check(got.get("int8_conv", 0) == want
-          and got.get("quantize_act", 0) == want,
-          f"{name}: int8 launches {got}, want {want} of each")
+    want = {"int8_conv": n_int8, "bn_relu_quantize": n_fold,
+            "quantize_act": n_int8 - n_fold}
+    check(all(got.get(k, 0) == v * len(frames) for k, v in want.items()),
+          f"{name}: int8 launches {got}, want {want} a frame")
     return n_det / secs, got
 
 
@@ -2002,7 +2215,6 @@ def int8_card_vs_cpu(cfg, assets, frame, card, opts, free_running):
 
     from rdpn6d_tpu_torch.engine.predictor import Predictor
     from rdpn6d_tpu_torch.models.quant import Int8Conv
-    from rdpn6d_tpu_torch.ops.int8_conv import quantize_act_plain
     from rdpn6d_tpu_torch.utils.flax_params import load_quant, quant_tree
 
     c = cfg.apply_opts(opts)
@@ -2012,7 +2224,7 @@ def int8_card_vs_cpu(cfg, assets, frame, card, opts, free_running):
               for d in ("cuda", "cpu"))
     n8 = sum(isinstance(m, Int8Conv) for m in gp.model.modules())
     rgb, depth, dets = frame
-    g_in, g_out, hs = int8_hooks(gp.model)
+    g_calls, g_out, hs = int8_hooks(gp.model)
     gpu_res = gp.predict(rgb, depth, K_LM, dets)
     for h in hs:
         h.remove()
@@ -2027,7 +2239,7 @@ def int8_card_vs_cpu(cfg, assets, frame, card, opts, free_running):
         return dR, dt
 
     label = f"{' '.join(opts)} f32 card vs CPU"
-    c_in, c_out, hs = int8_hooks(cp.model, feed=[x.cpu() for x in g_in])
+    c_calls, c_out, hs = int8_hooks(cp.model, feed=g_calls)
     carried = cp.predict(rgb, depth, K_LM, dets)
     for h in hs:
         h.remove()
@@ -2036,32 +2248,114 @@ def int8_card_vs_cpu(cfg, assets, frame, card, opts, free_running):
     for i, (a, b) in enumerate(zip(g_out, c_out)):
         check(torch.equal(a.cpu(), b), f"{label}: int8 conv {i}: card and "
               "CPU outputs differ on the same input")
+    n_fold = sum(len(c) > 1 and c[1] is not None for c in g_calls)
     dR, dt = pose_diff(carried)
     print(f"parity: {label} over {len(dets)} ROIs, the card's scales and "
-          f"each int8 conv's input carried to the CPU: all {n8} int8 conv "
-          f"outputs bit-equal; max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e} "
-          f"(tol 1e-3) [{card}]")
+          f"each int8 conv's input carried to the CPU ({n_fold} of them the "
+          f"input of the BN folded into the conv, with its skip): all {n8} "
+          f"int8 conv outputs bit-equal; max |dR| {dR:.3e}, max |dt|/|t| "
+          f"{dt:.3e} (tol 1e-3) [{card}]")
     check(dR <= 1e-3 and dt <= 1e-3, f"{label}: poses disagree")
     if not free_running:
         return
-    f_in, _, hs = int8_hooks(cp.model)
+    f_calls, _, hs = int8_hooks(cp.model)
     free = cp.predict(rgb, depth, K_LM, dets)
     for h in hs:
         h.remove()
     flips = []
     for m, a, b in zip(
             [m for m in cp.model.modules() if isinstance(m, Int8Conv)],
-            g_in, f_in):
+            g_calls, f_calls):
         _, _, amax, t = m.quantized()
         mode = "per_channel" if m.per_channel else "static"
-        qa, _ = quantize_act_plain(a.cpu(), mode, amax, t)
-        qb, _ = quantize_act_plain(b, mode, amax, t)
-        flips.append(int((qa != qb).sum()))
+        qa, _ = quantized_input_plain(args_to_cpu(a), mode, amax, t)
+        qb, _ = quantized_input_plain(b, mode, amax, t)
+        flips.append(f"{int((qa != qb).sum())}/{qa.numel()}")
     dR, dt = pose_diff(free)
     print(f"parity: {label}, free-running (each on its own activations): "
           f"max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e}; activations quantized "
-          f"differently conv by conv {flips} of {g_in[0].numel()} / "
-          f"{g_in[1].numel()} (reported, not gated)")
+          f"differently conv by conv {', '.join(flips)} (reported, not "
+          "gated)")
+
+
+def profiled_calls(fn, iters: int) -> tuple[float, float]:
+    """(device ms, kernel launches) a call of ``fn``, from torch.profiler
+    over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")
+          and e.self_device_time_total > 0
+          and not getattr(e, "is_user_annotation", False)]
+    check(bool(ev), "the profiler saw no device time")
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / iters,
+            sum(e.count for e in ev) / iters)
+
+
+def unfused_head(head, x, skip64=None):
+    """``head``'s forward op by op, as before the fold: each BN, ReLU and
+    the concat run apart, and each int8 conv quantizes its own input
+    through ``quantize_act`` (the sequence ``bn_relu_quantize`` replaces).
+    Returns the logits."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.resize import upsample_bilinear_align_corners
+
+    f = head.features
+    x = f[2](f[1](f[0](x)))
+    if skip64 is not None:
+        x = torch.cat([x, skip64.to(x.dtype)], dim=1)
+    for i in range(head.num_layers):
+        if i >= 3:
+            x = upsample_bilinear_align_corners(x, x.shape[2] * 2,
+                                                x.shape[3] * 2)
+        for j in range(2):
+            k = 3 + 3 * (2 * i + j)
+            x = f[k + 2](f[k + 1](f[k](x)))
+    return f[-1](x).float()
+
+
+def head_device_time(pred, frame, label, card, int8: bool) -> dict:
+    """The head of ``pred`` on the input one served batch of 16 gives it:
+    device ms a call (``queued_ms`` behind a 4096² float32 product, and
+    the profiler's sum) and kernel launches a call (profiler); for an
+    int8 BN head also run op by op (``unfused_head``: the unfused
+    sequence). Prints them and returns {"fused"|"unfused"|"float":
+    (queued ms, profiler ms, launches)}."""
+    import torch
+
+    head = pred.model.rot_head_net
+    seen = {}
+
+    def grab(mod, args, kwargs):
+        seen["args"], seen["kwargs"] = args, kwargs
+
+    h = head.register_forward_pre_hook(grab, with_kwargs=True)
+    rgb, depth, dets = frame
+    pred.predict(rgb, depth, K_LM, dets)
+    h.remove()
+    B = seen["args"][0].shape[0]
+    kinds = (("fused", head), ("unfused", lambda *a, **k: unfused_head(
+        head, *a, **k))) if int8 else (("float", head),)
+    out = {}
+    for name, fn in kinds:
+        def run():
+            with torch.no_grad():
+                return fn(*seen["args"], **seen["kwargs"])
+        out[name] = (queued_ms(run, iters=20, filler=4096),
+                     *profiled_calls(run, iters=10))
+    line = "; ".join(f"{k} {q:.4f} ms (profiler {p:.4f}), {n:.0f} kernel "
+                     f"launches" for k, (q, p, n) in out.items())
+    print(f"serve: lm13 full width {label} head (convT to the 1x1 output "
+          f"conv) at B = {B}, device time a batch: {line} [{card}]")
+    return out
 
 
 def run_int8_serving(dev, card, cfg, assets, frames, bf16_pred, profile):
@@ -2091,23 +2385,37 @@ def run_int8_serving(dev, card, cfg, assets, frames, bf16_pred, profile):
     for pred in preds.values():
         serve(pred, full[:2])   # warm-up at B = 16; static calibrates here
     n8 = 2 * cfg.head.num_layers
-    launches = {"int8_conv": 0, "quantize_act": 0}
+    n_fold = n8 - max(0, cfg.head.num_layers - 3)  # none behind an upsample
+    launches = {"int8_conv": 0, "quantize_act": 0, "bn_relu_quantize": 0}
     rates = {k: [] for k in preds}
     for name in INT8_SERVE_TURNS:
+        float_model = name == "bf16"
         rate, got = serve_counted(preds[name], full, name,
-                                  0 if name == "bf16" else n8)
+                                  0 if float_model else n8,
+                                  0 if float_model else n_fold)
         if name != "bf16":
             for k in launches:
                 launches[k] += got.get(k, 0)
         rates[name].append(rate)
+    folds = f"; {n8} int8_conv and {n_fold} bn_relu_quantize launches a batch"
     for name, r in rates.items():
         print(f"serve: lm13 full width {name}: {n_det} poses from "
               f"{len(full)} frames of 16 detections (one batch of 16 a "
               f"frame) a pass, poses/s {' '.join(f'{v:.1f}' for v in r)} "
               f"(median {float(np.median(r)):.1f}; in turns: "
               f"{', '.join(INT8_SERVE_TURNS[:6])}, twice)"
-              f"{'' if name == 'bf16' else f'; {n8} int8_conv and {n8} quantize_act launches a batch'}"
+              f"{'' if name == 'bf16' else folds}"
               f" [{card}]")
+    # the head's device time a batch of 16, fused against the unfused
+    # sequence (the same model run op by op) and bf16's head
+    heads = {name: head_device_time(preds[name], full[0], name, card,
+                                    int8=name != "bf16")
+             for name in ("int8-head-static", "int8-head", "bf16")}
+    for name in ("int8-head-static", "int8-head"):
+        fewer = heads[name]["unfused"][2] - heads[name]["fused"][2]
+        check(fewer >= 2 * n_fold + 1, f"{name} head: {fewer:.0f} fewer "
+              f"kernel launches fused than unfused, want >= "
+              f"{2 * n_fold + 1} (a BN and a ReLU a fold and the concat)")
     if profile:
         for name in ("bf16", "int8-head-static"):
             profile_pass(f"served pass at B = 16, {name}",
@@ -2121,7 +2429,7 @@ def run_int8_serving(dev, card, cfg, assets, frames, bf16_pred, profile):
                                  allow_random_init=True))
     serve(p_all, full[:1])           # calibrates on the first batch
     n_all = sum(isinstance(m, Int8Conv) for m in p_all.model.modules())
-    rate, got = serve_counted(p_all, full, "int8-all", n_all)
+    rate, got = serve_counted(p_all, full, "int8-all", n_all, n_fold)
     for k in launches:
         launches[k] += got.get(k, 0)
     print(f"serve: lm13 full width int8-all per-channel: {n_det} poses, "
@@ -2129,22 +2437,23 @@ def run_int8_serving(dev, card, cfg, assets, frames, bf16_pred, profile):
           f"head), launches {got} [{card}]")
     # that model's int8 convs on phase 3's first frame, each against a CPU
     # copy of the module (plain versions) on the card's input to it
-    g_in, g_out, hs = int8_hooks(p_all.model)
+    g_calls, g_out, hs = int8_hooks(p_all.model)
     rgb, depth, dets = frames[0]
     p_all.predict(rgb, depth, K_LM, dets)
     for h in hs:
         h.remove()
     convs = [m for m in p_all.model.modules() if isinstance(m, Int8Conv)]
-    check(len(g_in) == len(g_out) == n_all,
-          f"int8-all: {len(g_in)} int8 conv calls, want {n_all}")
+    check(len(g_calls) == len(g_out) == n_all,
+          f"int8-all: {len(g_calls)} int8 conv calls, want {n_all}")
     with torch.no_grad():
-        for i, (m, x, y) in enumerate(zip(convs, g_in, g_out)):
-            ref = copy.deepcopy(m).cpu()(x.cpu())
+        for i, (m, args, y) in enumerate(zip(convs, g_calls, g_out)):
+            ref = copy.deepcopy(m).cpu()(*args_to_cpu(args))
             check(torch.equal(y.cpu(), ref), f"int8-all bf16 pass: int8 "
                   f"conv {i} differs from its CPU copy on the card's input")
     print(f"parity: int8-all per-channel bf16 served batch of {len(dets)}: "
-          f"all {n_all} int8 conv outputs bit-equal to the CPU's (plain "
-          f"versions) on the card's inputs [{card}]")
+          f"all {n_all} int8 conv outputs ({n_fold} with the BN before them "
+          f"folded) bit-equal to the CPU's (plain versions) on the card's "
+          f"inputs [{card}]")
 
     int8_card_vs_cpu(cfg, assets, frames[0], card,
                      ['test.int8="head"', "test.int8_static=true"], True)
@@ -2181,10 +2490,11 @@ def run_int8_eval(dev, card, work, bf16_mean):
     res = res["lm_13_test"]
     want = 6 * -(-n_rois // 32)      # 6 head convs a batch of 32
     check(got.get("int8_conv", 0) == want
-          and got.get("quantize_act", 0) == want
+          and got.get("bn_relu_quantize", 0) == want
+          and got.get("quantize_act", 0) == 0
           and got.get("min_dist2", 0) == 13,
-          f"int8 eval launches {got}, want int8_conv and quantize_act "
-          f"{want}, min_dist2 13")
+          f"int8 eval launches {got}, want int8_conv and bn_relu_quantize "
+          f"{want}, quantize_act 0, min_dist2 13")
     ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
     check(len(ident) == n_rois and bool(np.isfinite(R).all()
                                         and np.isfinite(t).all()),
@@ -2418,6 +2728,7 @@ def main(argv=None) -> int:
 
         # 12. int8 serving -----------------------------------------------
         int8_err, quant_err, int8_times, quant_times = check_int8(dev, card)
+        fused_err, fused_times = check_bn_relu_quantize(dev, card)
         serve8 = run_int8_serving(dev, card, cfg, assets, frames,
                                   preds["bf16"], args.profile)
         eval8 = run_int8_eval(dev, card, work, bf16_mean)
@@ -2464,7 +2775,13 @@ def main(argv=None) -> int:
         "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
         "replaces": "rdpn6d_tpu/models/quant.py:32",
         "launches": serve8["quantize_act"] + eval8.get("quantize_act", 0),
-        "max_abs_err": quant_err, **quant_times}], "card": card}
+        "max_abs_err": quant_err, **quant_times}, {
+        "name": "bn_relu_quantize", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "rdpn6d_tpu/models/quant.py:140",
+        "launches": serve8["bn_relu_quantize"]
+        + eval8.get("bn_relu_quantize", 0),
+        "max_abs_err": fused_err, **fused_times}], "card": card}
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

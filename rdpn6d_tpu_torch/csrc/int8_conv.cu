@@ -1,4 +1,4 @@
-// int8_conv: the W8A8 convolution of int8 serving, in two entry points.
+// int8_conv: the W8A8 convolution of int8 serving, in three entry points.
 //
 //  * quantize: activations x, NCHW bfloat16 or float32 [B,C,H,W] -> xq, NHWC
 //    int8 [B,H,W,Cp] with the channels zero-padded to Cp (a multiple of 32),
@@ -6,6 +6,11 @@
 //    absmax of the sample over C, H and W), a static calibrated scalar, or
 //    the static scalar of the SmoothQuant-balanced activation (per-channel:
 //    x is divided by t[c] * s).
+//  * bn_relu_quantize: the same, of relu(bn(y)) with an optional skip
+//    appended on the channel axis: y [B,C1,H,W] is the input of an eval
+//    BatchNorm folded into float32 constants mean, mul and bias [C1]; skip
+//    [B,C2,H,W] (no BN, no ReLU) follows as channels C1 .. C1 + C2 - 1.
+//    One pass where the head ran a BN, a ReLU, a concat and quantize.
 //  * conv: xq ⊛ wq, with wq int8 [N][kh][kw][Cp] (scale sw [N] per output
 //    channel), int32 accumulation, dequantized to out [B,N,Ho,Wo] NCHW in
 //    bfloat16 or float32.
@@ -13,14 +18,24 @@
 // Replaces rdpn6d_tpu/models/quant.py:42 Int8Conv (its quantization, :32
 // quantize_symmetric and :103-155; the int32-accumulating XLA convolution,
 // :131-133 and :146-148). Not a Pallas kernel: on the TPU it is an XLA int8
-// convolution on the MXU.
+// convolution on the MXU. bn_relu_quantize is what XLA makes of the head's
+// BN -> relu -> concatenate -> static requantize (rdpn6d_tpu/models/
+// heads.py:70-84, quant.py:127 and :140): one elementwise fusion, which
+// quant.py:47-55 names as the static mode's gain.
 //
 // Arithmetic, op for op as the JAX package and the plain version
 // (ops/int8_conv.py) compute it, so that all three agree bit for bit:
 //  * s = max(amax, 1e-12) / 127 in float32 (__fdiv_rn);
+//  * the folded BN (flax's _normalize order, as XLA's CPU build computes
+//    it): z = fma(y - mean[c], mul[c], bias[c]) in float32 (__fsub_rn,
+//    then __fmaf_rn: one rounding), rounded to the model's dtype
+//    (__float2bfloat16_rn under bfloat16), then relu keeping NaN as
+//    jnp.maximum does (max.NaN.f32; fmaxf drops it); a skip channel is
+//    taken as it is;
 //  * q = clip(rint(x / d), -127, 127) with d = s, or d = t[c] * s
-//    (__fmul_rn, the product first, as quant.py:127), x / d by __fdiv_rn,
-//    rintf rounding half to even as jnp.round does;
+//    (__fmul_rn, the product first, as quant.py:127), x / d correctly
+//    rounded (from d's correctly rounded reciprocal and two FMAs; see
+//    quant()), rounded half to even as jnp.round does (cvt.rni);
 //  * y = float(acc) * (sx[b] * sw[n]) (the product first, quant.py:149-150
 //    and :134), __int2float_rn and __fmul_rn, then __float2bfloat16_rn for
 //    bfloat16 output. The build has no --use_fast_math.
@@ -30,8 +45,13 @@
 // The int32 sum is exact in any order: |acc| <= 127^2 * K, 4.6e7 at the
 // largest K (2880) of the head, far from overflow.
 //
-// Bound, the lm13 head at the serving batch of 16 (M = 16 x 64 x 64 output
-// pixels, N = 256): operations. 2 M N K int8 operations over 1,979 TOP/s
+// Bound of the quantizers: bytes. x (or y and skip) read once, xq written
+// once: at B = 16, 64 x 64, bf16, 256 channels 0.0150 ms and 256 BN'd +
+// 64 skip channels 0.0188 ms at 3.35 TB/s; a divide, a round and an FMA an
+// element are far below the card's rate.
+//
+// Bound of the conv, the lm13 head at the serving batch of 16 (M = 16 x
+// 64 x 64 output pixels, N = 256): operations. 2 M N K int8 operations over 1,979 TOP/s
 // dense (H100 SXM): K = 2880 (320 input channels, the first conv after the
 // rot_concat skip) 96.6 GOP = 48.8 us; K = 2304 (256 -> 256) 77.3 GOP =
 // 39.1 us. The bytes (xq and wq read once, bf16 out written once) take
@@ -82,24 +102,53 @@
 //    that crosses a sample or passes N is masked.
 //  * Traffic from L2, the 320 -> 256 head conv at 128 x 256 tiles: each
 //    block reads its A rows and all of B once per slab, ~0.57 GB in all.
-//  * The quantize kernel transposes NCHW to NHWC through a 32-channel x
-//    32-pixel shared tile: reads along W and writes along C are coalesced.
-//    The dynamic mode first reduces each sample's absmax over blocks into
-//    an unsigned word by atomicMax: |x| orders as its bits, and a NaN's
-//    bits order above every other value's, so the max propagates NaN.
+//  * The quantizers are one kernel template (quantize_kernel; the folded
+//    BN is a compile-time prologue). A block owns a tile, kQPix
+//    consecutive pixels (h W + w) of one sample, and walks its channels
+//    kQCh at a time: each stage, kQCh channel rows of kQPix pixels, comes
+//    by 16-byte cp.async copies (8 bf16 pixels a copy) into a ring of
+//    kQStages buffers, so three stages are in flight while one is
+//    quantized. The rows land XOR-swizzled: 16-byte chunk j of channel row
+//    ch at chunk j ^ (ch >> kQSwzShift & kQSwzMask). A thread quantizes 4
+//    channels x 2 pixels of a stage (a 32- or 64-bit shared read a
+//    channel; the swizzle puts a warp's reads on 32 distinct banks) and
+//    packs each pixel's 4 channels into one word of an out tile
+//    [kQPix][Cp + kQPad] in shared memory (the padding puts a warp's word
+//    stores on distinct banks). The tile's xq, kQPix x Cp contiguous
+//    bytes, then leaves in 16-byte stores. The BN constants, and each
+//    channel's divisor and its reciprocal, sit in shared memory; x / d
+//    takes the reciprocal and two FMAs (quant()), not a division. Where
+//    H W is not a multiple of 8 bf16 (4 float32) pixels, or a pointer is
+//    not 16-byte aligned, the rows come by scalar loads through the same
+//    layout. tests/test_torch_fused_quant.py emulates the layout and the
+//    thread map in numpy with these constants.
+//  * The dynamic mode first reduces each sample's absmax, prologue
+//    applied, over blocks (whole channel planes a block) into an unsigned
+//    word by atomicMax (16-byte loads): |x| orders as its bits, and a
+//    NaN's bits order above every other value's, so the max propagates
+//    NaN. At the head (33.5 MB of
+//    bf16 at B = 16, 256 channels) the second read finds the activation
+//    in the 50 MB L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace {
 
 constexpr int kCinAlign = 32;     // channel padding of xq and wq: one k-tile
 // quantize
-constexpr int kQTile = 32;        // pixels along W and channels a block tile
+constexpr int kQPix = 64;         // pixels (h W + w, one sample) a block
+constexpr int kQCh = 32;          // channels a stage: one k-tile of xq
+constexpr int kQStages = 4;       // the ring along channels
 constexpr int kQThreads = 256;
+constexpr int kQPad = 16;         // bytes past Cp a pixel row of the out tile
+constexpr int kQSwzShift = 2;     // the input rows' swizzle (see above)
+constexpr int kQSwzMask = 7;
+constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
 constexpr int kAmaxThreads = 256;
 constexpr int kAmaxMaxBlocks = 64;   // blocks a sample's absmax at most
 // conv
@@ -132,78 +181,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// ---------------------------------------------------------------- quantize
-
-template <typename T>
-__global__ void __launch_bounds__(kAmaxThreads)
-    absmax_kernel(const T* __restrict__ x, long long per_sample,
-                  unsigned* __restrict__ amax_bits) {
-  const T* xs = x + (size_t)blockIdx.y * per_sample;
-  // the max of the bits of |x|: the float max, with NaN above all
-  unsigned m = 0u;
-  for (long long i = (long long)blockIdx.x * kAmaxThreads + threadIdx.x;
-       i < per_sample; i += (long long)gridDim.x * kAmaxThreads)
-    m = max(m, __float_as_uint(fabsf(to_f32(xs[i]))));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ unsigned warp_max[kAmaxThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < kAmaxThreads / 32 ? warp_max[threadIdx.x] : 0u;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (threadIdx.x == 0) atomicMax(&amax_bits[blockIdx.y], m);
-  }
-}
-
-// Block (w-tile, h, b): 32 pixels of row h of sample b, every channel tile.
-// amax: [B] (dynamic) or [1]; t: [C] (per-channel) or unused.
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kQThreads)
-    quantize_kernel(const T* __restrict__ x, const float* __restrict__ amax,
-                    const float* __restrict__ t, int8_t* __restrict__ xq,
-                    float* __restrict__ sx, int C, int H, int W, int Cp) {
-  const int b = blockIdx.z, h = blockIdx.y, w0 = blockIdx.x * kQTile;
-  const float a = kMode == kDynamic ? amax[b] : amax[0];
-  // max(a, 1e-12) keeping a NaN, as jnp.maximum does (fmaxf drops it)
-  const float s = __fdiv_rn(a != a ? a : fmaxf(a, 1e-12f), 127.0f);
-  if (blockIdx.x == 0 && h == 0 && threadIdx.x == 0) sx[b] = s;
-  __shared__ int8_t tile[kQTile][kQTile + 4];   // [channel][pixel]
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const size_t plane = (size_t)H * W;
-  const T* xr = x + (size_t)b * C * plane + (size_t)h * W;
-  int8_t* out = xq + ((size_t)b * H + h) * W * (size_t)Cp;
-  const int p = threadIdx.x >> 3, g = threadIdx.x & 7;   // write: pixel, word
-  for (int c0 = 0; c0 < Cp; c0 += kQTile) {
-    for (int cc = ty; cc < kQTile; cc += kQThreads / 32) {
-      const int c = c0 + cc, w = w0 + tx;
-      float q = 0.f;
-      if (c < C && w < W) {
-        const float v = to_f32(xr[(size_t)c * plane + w]);
-        const float d = kMode == kPerChannel ? __fmul_rn(t[c], s) : s;
-        const float r = rintf(__fdiv_rn(v, d));
-        q = r != r ? 0.f : fminf(fmaxf(r, -127.f), 127.f);   // NaN -> 0
-      }
-      tile[cc][tx] = (int8_t)(int)q;
-    }
-    __syncthreads();
-    if (w0 + p < W) {
-      const uint32_t word = (uint32_t)(uint8_t)tile[4 * g][p] |
-                            (uint32_t)(uint8_t)tile[4 * g + 1][p] << 8 |
-                            (uint32_t)(uint8_t)tile[4 * g + 2][p] << 16 |
-                            (uint32_t)(uint8_t)tile[4 * g + 3][p] << 24;
-      *reinterpret_cast<uint32_t*>(out + (size_t)(w0 + p) * Cp + c0 + 4 * g) =
-          word;
-    }
-    __syncthreads();
-  }
-}
-
-// -------------------------------------------------------------------- conv
-
 __device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem,
                                            bool pred) {
   const int n = pred ? 16 : 0;   // 0: fill the 16 bytes with zeros
@@ -217,6 +194,265 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// ---------------------------------------------------------------- quantize
+
+// What a quantizer reads: y [B,C1,P] (P = H W) in T, for bn_relu_quantize
+// the folded BN's input; skip [B,C2,P] in T or none (C2 = 0); mean, mul,
+// bias [C1] (BN only); amax [1] (static modes) or the bits of [B] absmaxes
+// (dynamic); t [C1 + C2] (per channel). Writes xq [B,P,Cp] and sx [B].
+struct QuantArgs {
+  const void* y;
+  const void* skip;
+  const float* mean;
+  const float* mul;
+  const float* bias;
+  const float* amax;
+  const float* t;
+  int8_t* xq;
+  float* sx;
+  int C1, C2, P, Cp;
+};
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The value quantized for an element v of a channel: relu(bn(v)) rounded
+// to T where the channel is BN'd (bn), else v itself.
+template <typename T, bool kBN>
+__device__ __forceinline__ float prologue(float v, bool bn, float mean,
+                                          float mul, float bias) {
+  if (!kBN || !bn) return v;
+  const float z = round_to<T>(__fmaf_rn(__fsub_rn(v, mean), mul, bias));
+  float r;   // relu keeping NaN, as jnp.maximum (fmaxf drops it)
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(z), "f"(0.f));
+  return r;
+}
+
+// clip(rint(v / d), -127, 127), NaN to 0 as XLA converts it. v / d is
+// taken correctly rounded, as __fdiv_rn gives it, from r = RN(1 / d): q0 =
+// RN(v r) is within an ulp of v / d, the FMA gives the remainder v - q0 d
+// exactly, and RN(q0 + rem r) is the correctly rounded quotient
+// (Markstein's theorem), where nothing overflows or underflows. An
+// underflowing quotient rounds to 0 and an overflowing one clips to ±127
+// either way; where q0 is not finite (v infinite, or v / d past the float
+// range) the remainder would be NaN, and q0 is the quotient's own value.
+__device__ __forceinline__ uint32_t quant(float v, float d, float r) {
+  const float q0 = __fmul_rn(v, r);
+  const float q =
+      isfinite(q0) ? __fmaf_rn(__fmaf_rn(-q0, d, v), r, q0) : q0;
+  // cvt.rni: half to even as jnp.round, NaN to 0 and saturating, as XLA
+  // converts; then the clip
+  const int i = __float2int_rn(q);
+  return (uint32_t)(uint8_t)(int8_t)min(max(i, -127), 127);
+}
+
+// the chunk where 16-byte chunk j of a stage's channel row ch lands
+__device__ __forceinline__ int swz(int j, int ch) {
+  return j ^ ((ch >> kQSwzShift) & kQSwzMask);
+}
+
+// Grid (blocks, B): the max of the bits of |prologue(x)| over sample b,
+// atomically into amax_bits[b] (zeroed by the caller): the float max, with
+// NaN above all. A block walks whole channel planes, blocks apart; kVec:
+// 16-byte loads (P a multiple of their elements).
+template <typename T, bool kBN, bool kVec>
+__global__ void __launch_bounds__(kAmaxThreads)
+    absmax_kernel(QuantArgs a, unsigned* __restrict__ amax_bits) {
+  constexpr int kV = kVec ? 16 / (int)sizeof(T) : 1;
+  const int b = blockIdx.y, C = a.C1 + a.C2, P = a.P;
+  unsigned m = 0u;
+  for (int c = blockIdx.x; c < C; c += gridDim.x) {
+    const bool bn = c < a.C1;
+    const T* src = bn ? static_cast<const T*>(a.y) + ((size_t)b * a.C1 + c) * P
+                      : static_cast<const T*>(a.skip) +
+                            ((size_t)b * a.C2 + c - a.C1) * P;
+    float mean = 0.f, mul = 0.f, bias = 0.f;
+    if (kBN && bn) {
+      mean = __ldg(a.mean + c);
+      mul = __ldg(a.mul + c);
+      bias = __ldg(a.bias + c);
+    }
+    for (int p = threadIdx.x * kV; p < P; p += kAmaxThreads * kV) {
+      uint4 raw;
+      if constexpr (kVec)
+        raw = __ldg(reinterpret_cast<const uint4*>(src + p));
+      else
+        *reinterpret_cast<T*>(&raw) = src[p];
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int e = 0; e < kV; ++e)
+        m = max(m, __float_as_uint(fabsf(prologue<T, kBN>(
+                       to_f32(v[e]), bn, mean, mul, bias))));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  __shared__ unsigned warp_max[kAmaxThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < kAmaxThreads / 32 ? warp_max[threadIdx.x] : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (threadIdx.x == 0) atomicMax(&amax_bits[b], m);
+  }
+}
+
+// The shared memory of a quantize block: the ring, the out tile, then the
+// BN constants (3 C1 floats) and, per channel, each channel's divisor
+// t[c] s and its reciprocal (2 (C1 + C2) floats).
+template <typename T>
+__host__ __device__ constexpr int quant_stage_bytes() {
+  return kQCh * kQPix * (int)sizeof(T);
+}
+template <typename T>
+long long quant_smem(int C1, int C2, int Cp, bool bn, bool per_channel) {
+  return (long long)kQStages * quant_stage_bytes<T>() +
+         (long long)kQPix * (Cp + kQPad) +
+         4LL * ((bn ? 3LL * C1 : 0) + (per_channel ? 2LL * (C1 + C2) : 0));
+}
+
+// Block (pixel tile, b): pixels p0 .. p0 + kQPix - 1 of sample b, every
+// channel stage (see the design notes at the top).
+template <typename T, int kMode, bool kBN, bool kVec>
+__global__ void __launch_bounds__(kQThreads)
+    quantize_kernel(QuantArgs a) {
+  constexpr int kV = 16 / (int)sizeof(T);          // elements a chunk
+  constexpr int kRowBytes = kQPix * (int)sizeof(T);
+  constexpr int kRowChunks = kRowBytes / 16;
+  constexpr int kStageBytes = quant_stage_bytes<T>();
+  static_assert(kQThreads == 256 && kQPix == 64 && kQCh == 32,
+                "the thread map: 8 warps x 4 pixel pairs x 8 channel quads");
+  static_assert(kRowChunks >= kQSwzMask + 1, "the swizzle stays in a row");
+  using Bits = typename std::conditional<sizeof(T) == 2, uint16_t,
+                                         uint32_t>::type;
+  using Pair = typename std::conditional<sizeof(T) == 2, uint32_t,
+                                         uint2>::type;
+  extern __shared__ __align__(16) uint8_t qsmem[];
+
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int p0 = blockIdx.x * kQPix;
+  const int C1 = a.C1, C = a.C1 + a.C2, P = a.P, Cp = a.Cp;
+  const int np = min(kQPix, P - p0);
+  const int opitch = Cp + kQPad;
+  uint8_t* ring = qsmem;
+  uint8_t* otile = qsmem + kQStages * kStageBytes;
+  float* s_mean = reinterpret_cast<float*>(otile + kQPix * opitch);
+  float* s_mul = s_mean + C1;
+  float* s_bias = s_mul + C1;
+  float* s_d = kBN ? s_bias + C1 : s_mean;   // per channel: t[c] s
+  float* s_r = s_d + C;                      // and its reciprocal
+  const float am = kMode == kDynamic
+                       ? __uint_as_float(reinterpret_cast<const unsigned*>(
+                             a.amax)[b])
+                       : a.amax[0];
+  // max(am, 1e-12) keeping a NaN, as jnp.maximum does (fmaxf drops it)
+  const float s = __fdiv_rn(am != am ? am : fmaxf(am, 1e-12f), 127.0f);
+  const float rs = __frcp_rn(s);
+  if (blockIdx.x == 0 && tid == 0) a.sx[b] = s;
+  if (kBN)
+    for (int c = tid; c < C1; c += kQThreads) {
+      s_mean[c] = a.mean[c];
+      s_mul[c] = a.mul[c];
+      s_bias[c] = a.bias[c];
+    }
+  if (kMode == kPerChannel)
+    for (int c = tid; c < C; c += kQThreads) {
+      s_d[c] = __fmul_rn(a.t[c], s);   // the product first (quant.py:127)
+      s_r[c] = __frcp_rn(s_d[c]);
+    }
+
+  const T* y = static_cast<const T*>(a.y) + (size_t)b * C1 * P + p0;
+  const T* sk = static_cast<const T*>(a.skip) + (size_t)b * a.C2 * P + p0;
+  const uint32_t sring =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  // stage st: channel rows st kQCh .. + kQCh - 1 into ring buffer st %
+  // kQStages; a row past C or a pixel past P is zero
+  auto load = [&](int st) {
+    const int buf = (st % kQStages) * kStageBytes, c0 = st * kQCh;
+    if constexpr (kVec) {
+      for (int i = tid; i < kQCh * kRowChunks; i += kQThreads) {
+        const int ch = i / kRowChunks, j = i % kRowChunks, c = c0 + ch;
+        const bool ok = c < C && j * kV < np;
+        const T* src = !ok      ? y
+                       : c < C1 ? y + (size_t)c * P + j * kV
+                                : sk + (size_t)(c - C1) * P + j * kV;
+        cp_async16(sring + buf + ch * kRowBytes + swz(j, ch) * 16, src, ok);
+      }
+    } else {
+      for (int i = tid; i < kQCh * kQPix; i += kQThreads) {
+        const int ch = i / kQPix, px = i % kQPix, c = c0 + ch;
+        Bits v = 0;
+        if (c < C && px < np)
+          v = *reinterpret_cast<const Bits*>(
+              c < C1 ? y + (size_t)c * P + px
+                     : sk + (size_t)(c - C1) * P + px);
+        *reinterpret_cast<Bits*>(ring + buf + ch * kRowBytes +
+                                 swz(px / kV, ch) * 16 +
+                                 (px % kV) * (int)sizeof(T)) = v;
+      }
+    }
+  };
+
+  // this thread: channels 4 q .. 4 q + 3 of a stage at pixels 2 pp, 2 pp + 1
+  const int lane = tid & 31, q = lane & 7, pp = (tid >> 5) * 4 + (lane >> 3);
+  const int px = 2 * pp;
+  const int nst = Cp / kQCh;
+#pragma unroll
+  for (int st = 0; st < kQStages - 1; ++st) {
+    if (st < nst) load(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kQStages - 2>();   // this thread's copies of stage st
+    __syncthreads();                 // everyone's; stage st - 1 read by all
+    if (st + kQStages - 1 < nst) load(st + kQStages - 1);
+    cp_async_commit();
+    const uint8_t* buf = ring + (st % kQStages) * kStageBytes;
+    uint32_t word0 = 0u, word1 = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ch = 4 * q + i, c = st * kQCh + ch;
+      if (c >= C) continue;           // padding: 0
+      const Pair pair = *reinterpret_cast<const Pair*>(
+          buf + ch * kRowBytes + swz(px / kV, ch) * 16 +
+          (px % kV) * (int)sizeof(T));
+      const T* v = reinterpret_cast<const T*>(&pair);
+      const bool bn = kBN && c < C1;
+      const float mean = bn ? s_mean[c] : 0.f, mul = bn ? s_mul[c] : 0.f,
+                  bias = bn ? s_bias[c] : 0.f;
+      const float d = kMode == kPerChannel ? s_d[c] : s;
+      const float r = kMode == kPerChannel ? s_r[c] : rs;
+      word0 |= quant(prologue<T, kBN>(to_f32(v[0]), bn, mean, mul, bias), d,
+                     r) << (8 * i);
+      word1 |= quant(prologue<T, kBN>(to_f32(v[1]), bn, mean, mul, bias), d,
+                     r) << (8 * i);
+    }
+    uint8_t* o = otile + px * opitch + st * kQCh + 4 * q;
+    *reinterpret_cast<uint32_t*>(o) = word0;
+    *reinterpret_cast<uint32_t*>(o + opitch) = word1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the block's xq: np x Cp contiguous bytes, by 16-byte stores
+  const int row_chunks = Cp / 16;
+  uint4* out = reinterpret_cast<uint4*>(a.xq + ((size_t)b * P + p0) * Cp);
+  for (int i = tid; i < np * row_chunks; i += kQThreads) {
+    const int p = i / row_chunks, j = i - p * row_chunks;
+    out[i] = *reinterpret_cast<const uint4*>(otile + p * opitch + j * 16);
+  }
+}
+
+// -------------------------------------------------------------------- conv
 
 // cp.async's writes (generic proxy) made visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -528,32 +764,76 @@ int on_device(int device, F launch) {
   return (int)err;
 }
 
-template <typename T>
-cudaError_t quantize(const T* x, int mode, const float* amax, const float* t,
-                     unsigned* amax_scratch, int8_t* xq, float* sx, int B,
-                     int C, int H, int W, int Cp, cudaStream_t s) {
+// One quantize launch (after the absmax launch in the dynamic mode) by
+// instantiation. The shared memory allowed is set once a device, to the
+// card's limit, not at every launch.
+template <typename T, int kMode, bool kBN, bool kVec>
+cudaError_t quantize_tile(const QuantArgs& a, int B, int smem, int device,
+                          cudaStream_t s) {
+  const auto kernel = quantize_kernel<T, kMode, kBN, kVec>;
+  static bool allowed[64];
+  if (device < 0 || device >= 64 || !allowed[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) allowed[device] = true;
+  }
+  kernel<<<dim3((a.P + kQPix - 1) / kQPix, B), kQThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kBN, bool kVec>
+cudaError_t quantize_by_mode(QuantArgs a, int mode, unsigned* amax_scratch,
+                             int B, int smem, int device, cudaStream_t s) {
   if (mode == kDynamic) {
-    const long long per_sample = (long long)C * H * W;
-    long long blocks = (per_sample + 16 * kAmaxThreads - 1) /
-                       (16 * kAmaxThreads);
-    blocks = blocks < 1 ? 1 : blocks > kAmaxMaxBlocks ? kAmaxMaxBlocks : blocks;
-    absmax_kernel<T><<<dim3((unsigned)blocks, B), kAmaxThreads, 0, s>>>(
-        x, per_sample, amax_scratch);
+    const int C = a.C1 + a.C2;
+    const int blocks = C < kAmaxMaxBlocks ? C : kAmaxMaxBlocks;
+    absmax_kernel<T, kBN, kVec><<<dim3(blocks, B), kAmaxThreads, 0, s>>>(
+        a, amax_scratch);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    amax = reinterpret_cast<const float*>(amax_scratch);
+    a.amax = reinterpret_cast<const float*>(amax_scratch);
+    return quantize_tile<T, kDynamic, kBN, kVec>(a, B, smem, device, s);
   }
-  const dim3 grid((W + kQTile - 1) / kQTile, H, B);
-  if (mode == kDynamic)
-    quantize_kernel<T, kDynamic><<<grid, kQThreads, 0, s>>>(x, amax, t, xq, sx,
-                                                            C, H, W, Cp);
-  else if (mode == kStatic)
-    quantize_kernel<T, kStatic><<<grid, kQThreads, 0, s>>>(x, amax, t, xq, sx,
-                                                           C, H, W, Cp);
-  else
-    quantize_kernel<T, kPerChannel><<<grid, kQThreads, 0, s>>>(
-        x, amax, t, xq, sx, C, H, W, Cp);
-  return cudaGetLastError();
+  if (mode == kStatic)
+    return quantize_tile<T, kStatic, kBN, kVec>(a, B, smem, device, s);
+  return quantize_tile<T, kPerChannel, kBN, kVec>(a, B, smem, device, s);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Checks the arguments and launches on `device` (made current, then
+// restored). Returns a cudaError_t.
+template <typename T, bool kBN>
+int quantize_launch(QuantArgs a, int mode, unsigned* amax_scratch, int B,
+                    int H, int W, int device, cudaStream_t s) {
+  if (B <= 0 || H <= 0 || W <= 0) return 0;
+  const int C = a.C1 + a.C2;
+  if (a.C1 <= 0 || a.C2 < 0 || a.Cp < C || a.Cp % kCinAlign != 0 ||
+      mode < 0 || mode > 2 || B > 65535 || (long long)H * W > INT_MAX ||
+      (a.C2 > 0) != (a.skip != nullptr) ||
+      (mode == kDynamic && amax_scratch == nullptr) ||
+      (mode != kDynamic && a.amax == nullptr) ||
+      (mode == kPerChannel && a.t == nullptr) ||
+      (kBN && (a.mean == nullptr || a.mul == nullptr || a.bias == nullptr)) ||
+      !aligned16(a.xq))
+    return (int)cudaErrorInvalidValue;
+  a.P = H * W;
+  const long long smem = quant_smem<T>(a.C1, a.C2, a.Cp, kBN,
+                                       mode == kPerChannel);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  // 16-byte copies where no chunk straddles a channel row and every row
+  // starts on 16 bytes
+  const bool vec = a.P % (16 / (int)sizeof(T)) == 0 && aligned16(a.y) &&
+                   (a.C2 == 0 || aligned16(a.skip));
+  return on_device(device, [&] {
+    return vec ? quantize_by_mode<T, kBN, true>(a, mode, amax_scratch, B,
+                                                (int)smem, device, s)
+               : quantize_by_mode<T, kBN, false>(a, mode, amax_scratch, B,
+                                                 (int)smem, device, s);
+  });
 }
 
 }  // namespace
@@ -568,19 +848,32 @@ int int8_quantize_launch(const void* x, int x_bf16, int mode,
                          unsigned* amax_scratch, int8_t* xq, float* sx, int B,
                          int C, int H, int W, int Cp, int device,
                          void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return 0;
-  if (C <= 0 || Cp < C || Cp % kCinAlign != 0 || mode < 0 || mode > 2 ||
-      H > 65535 || B > 65535 || (mode == kDynamic && amax_scratch == nullptr) ||
-      (mode != kDynamic && amax == nullptr) ||
-      (mode == kPerChannel && t == nullptr))
-    return (int)cudaErrorInvalidValue;
+  const QuantArgs a{x, nullptr, nullptr, nullptr, nullptr, amax, t,
+                    xq, sx, C, 0, 0, Cp};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&] {
-    return x_bf16 ? quantize(static_cast<const __nv_bfloat16*>(x), mode, amax,
-                             t, amax_scratch, xq, sx, B, C, H, W, Cp, s)
-                  : quantize(static_cast<const float*>(x), mode, amax, t,
-                             amax_scratch, xq, sx, B, C, H, W, Cp, s);
-  });
+  return x_bf16 ? quantize_launch<__nv_bfloat16, false>(a, mode, amax_scratch,
+                                                        B, H, W, device, s)
+                : quantize_launch<float, false>(a, mode, amax_scratch, B, H,
+                                                W, device, s);
+}
+
+// relu(fma(y - mean, mul, bias)) of y [B,C1,H,W], then skip [B,C2,H,W] (or
+// null with C2 = 0), both bfloat16 (x_bf16 = 1) or float32; mean, mul,
+// bias [C1] float32; the modes as int8_quantize_launch's, t [C1 + C2];
+// xq [B,H,W,Cp], sx [B]. Returns a cudaError_t as an int.
+int int8_bn_relu_quantize_launch(const void* y, const void* skip,
+                                 const float* mean, const float* mul,
+                                 const float* bias, int x_bf16, int mode,
+                                 const float* amax, const float* t,
+                                 unsigned* amax_scratch, int8_t* xq,
+                                 float* sx, int B, int C1, int C2, int H,
+                                 int W, int Cp, int device, void* stream) {
+  const QuantArgs a{y, skip, mean, mul, bias, amax, t, xq, sx, C1, C2, 0, Cp};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? quantize_launch<__nv_bfloat16, true>(a, mode, amax_scratch,
+                                                       B, H, W, device, s)
+                : quantize_launch<float, true>(a, mode, amax_scratch, B, H, W,
+                                               device, s);
 }
 
 // xq [B,H,W,Cp] int8, sx [B], wq [N,kh,kw,Cp] int8, sw [N] -> out

@@ -18,6 +18,12 @@ The four modes of the JAX package's ``Int8Conv``:
   by t_c, weights quantized after multiplying by t_c;
 - static (``static_act=True``): s = max(amax, 1e-12) / 127, a scalar;
 - dynamic (the default): s per sample from the sample's absmax.
+A conv may take a folded pre-op (``forward(y, pre, skip)``): ``pre`` is the
+eval ``BatchNorm2d`` before it (its ReLU implied) and ``skip`` channels
+appended after it, so that the conv quantizes relu(bn(y)) ++ skip in one
+``bn_relu_quantize`` pass, as the JAX package's XLA fuses the requantize
+into the BN and ReLU before it; calibration records the absmax of exactly
+those values (``ops/int8_conv.bn_relu_plain``).
 Weights are quantized per output channel from the float32 weight. The
 weight and ``act_amax`` stay float32 when the module is cast to another
 floating dtype (``_apply``), as the JAX package keeps ``kernel`` in float32
@@ -34,13 +40,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_conv import (
+    bn_relu_plain,
+    bn_relu_quantize,
     int8_conv,
     pack_weight,
     quantize_act,
     quantize_symmetric,
 )
-
-_LOW = (torch.bfloat16, torch.float16)
+from .norm import keep_float32
 
 
 class Int8Conv(nn.Conv2d):
@@ -63,13 +70,8 @@ class Int8Conv(nn.Conv2d):
         self._cache: tuple | None = None
 
     def _apply(self, fn, recurse=True):
-        def keep_float32(t):
-            out = fn(t)
-            if t.dtype == torch.float32 and out.dtype in _LOW:
-                out = t.to(device=out.device)
-            return out
         self._cache = None
-        return super()._apply(keep_float32, recurse)
+        return super()._apply(keep_float32(fn), recurse)
 
     def quantized(self) -> tuple[torch.Tensor, torch.Tensor,
                                  torch.Tensor | None, torch.Tensor | None]:
@@ -101,11 +103,20 @@ class Int8Conv(nn.Conv2d):
         self._cache = (key, value)
         return value
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pre: nn.Module | None = None,
+                skip: torch.Tensor | None = None) -> torch.Tensor:
+        """x [B,C,H,W] -> the conv's output in x's dtype. With ``pre`` (an
+        eval ``BatchNorm2d``, or anything with its ``folded()``) x is that
+        BN's input and the conv takes relu(pre(x)), then ``skip`` on the
+        channel axis."""
+        if pre is None and skip is not None:
+            raise ValueError("Int8Conv: a skip is folded only behind a BN")
         if self.calibrating:
             with torch.no_grad(), torch.autocast(x.device.type,
                                                  enabled=False):
-                xf = x.float()
+                a = x if pre is None else bn_relu_plain(x, *pre.folded(),
+                                                        skip)
+                xf = a.float()
                 dims = (0, 2, 3) if self.per_channel else None
                 seen = xf.abs().amax() if dims is None \
                     else xf.abs().amax(dim=dims)
@@ -116,7 +127,10 @@ class Int8Conv(nn.Conv2d):
         wq, sw, amax, t = self.quantized()
         mode = "per_channel" if self.per_channel else \
             "static" if self.static_act else "dynamic"
-        xq, sx = quantize_act(x, mode, amax, t)
+        if pre is None:
+            xq, sx = quantize_act(x, mode, amax, t)
+        else:
+            xq, sx = bn_relu_quantize(x, *pre.folded(), mode, amax, t, skip)
         return int8_conv(xq, sx, wq, sw, self.stride[0], self.padding[0],
                          x.dtype)
 

@@ -11,6 +11,13 @@ XLA int8 convolution with int32 accumulation; the port runs it in
   the scale per sample [B] float32: the dynamic per-sample absmax, a
   static calibrated scalar, or, per channel, the static scalar of the
   SmoothQuant-balanced activation (x divided by t[c] * s).
+- ``bn_relu_quantize`` does the same to relu(bn(y)), an eval BatchNorm
+  folded into float32 (mean, mul, bias), with an optional skip appended on
+  the channel axis: one pass where the head ran a BN, a ReLU, a concat and
+  ``quantize_act`` (the JAX package's XLA fuses the static requantize into
+  the BN and ReLU before it, ``rdpn6d_tpu/models/quant.py:47-55``). The BN
+  is flax's ``_normalize`` as XLA computes it: fma(y - mean, mul, bias) in
+  float32, one rounding, then the model's dtype.
 - ``int8_conv`` convolves that with int8 weights [N, kh, kw, Cp] (scale per
   output channel) and returns NCHW in the model's dtype. On the card it is
   an implicit GEMM on ``wgmma``; ``int8_conv_plan`` picks its tile width,
@@ -37,9 +44,10 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-LIBRARY = "int8_conv"          # csrc/int8_conv.cu holds both entry points
+LIBRARY = "int8_conv"          # csrc/int8_conv.cu holds the entry points
 CONV = "int8_conv"             # the names their launches are counted under
 QUANTIZE = "quantize_act"
+BN_RELU_QUANTIZE = "bn_relu_quantize"
 CIN_ALIGN = 32                 # kCinAlign in the source: one k-tile
 MODES = {"dynamic": 0, "static": 1, "per_channel": 2}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
@@ -169,20 +177,108 @@ def quantize_act_plain(x: torch.Tensor, mode: str,
     return xq, s
 
 
-def _check_act(x, mode, amax, t) -> None:
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """a * b + c of float32 tensors, rounded once to float32 (CUDA's
+    ``__fmaf_rn``). The float64 product is exact; the float64 sum is made
+    round-to-odd from its TwoSum error, so its rounding to float32 is the
+    exact value's (53 >= 24 + 2 bits); a plain float64 sum then a cast
+    would round twice."""
+    p = a.double() * b.double()
+    cc = c.double()
+    s = p + cc
+    bb = s - p
+    err = (p - (s - bb)) + (cc - bb)
+    inexact = (err != 0) & s.isfinite()
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    return torch.where(inexact & even, torch.nextafter(s, toward), s).float()
+
+
+def bn_relu_plain(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+                  bias: torch.Tensor, skip: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """relu(fma(y - mean, mul, bias)) in y's dtype, with ``skip`` (in y's
+    dtype) appended on the channel axis: what ``bn_relu_quantize``
+    quantizes, in its order. The ReLU keeps NaN, as ``jnp.maximum``."""
+    d = y.float() - mean.float()[:, None, None]
+    z = fma_f32(d, mul.float()[:, None, None],
+                bias.float()[:, None, None]).to(y.dtype)
+    z = torch.where(z.isnan(), z, z.clamp_min(0))
+    return z if skip is None else torch.cat([z, skip.to(y.dtype)], dim=1)
+
+
+def bn_relu_quantize_plain(y: torch.Tensor, mean: torch.Tensor,
+                           mul: torch.Tensor, bias: torch.Tensor, mode: str,
+                           amax: torch.Tensor | None = None,
+                           t: torch.Tensor | None = None,
+                           skip: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of ``bn_relu_quantize`` (same arguments)."""
+    return quantize_act_plain(bn_relu_plain(y, mean, mul, bias, skip), mode,
+                              amax, t)
+
+
+def _check_act(x, mode, amax, t, name="quantize_act", channels=None) -> None:
+    """``channels``: those t covers (default x's)."""
     if mode not in MODES:
-        raise ValueError(f"quantize_act: mode {mode!r} not in {list(MODES)}")
+        raise ValueError(f"{name}: mode {mode!r} not in {list(MODES)}")
     if x.dim() != 4 or x.dtype not in _OUT_DTYPES:
-        raise ValueError(f"quantize_act: expected NCHW bfloat16/float32, got "
+        raise ValueError(f"{name}: expected NCHW bfloat16/float32, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if mode != "dynamic" and (amax is None or amax.numel() != 1
                               or amax.device != x.device):
-        raise ValueError(f"quantize_act: mode {mode!r} needs a scalar amax "
+        raise ValueError(f"{name}: mode {mode!r} needs a scalar amax "
                          f"on {x.device}")
-    if mode == "per_channel" and (t is None or t.shape != (x.shape[1],)
+    channels = x.shape[1] if channels is None else channels
+    if mode == "per_channel" and (t is None or t.shape != (channels,)
                                   or t.device != x.device):
-        raise ValueError(f"quantize_act: per_channel needs t of shape "
-                         f"({x.shape[1]},) on {x.device}")
+        raise ValueError(f"{name}: per_channel needs t of shape "
+                         f"({channels},) on {x.device}")
+
+
+def _check_bn(y, mean, mul, bias, skip) -> None:
+    c1 = y.shape[1] if y.dim() == 4 else -1
+    for v in (mean, mul, bias):
+        if v.shape != (c1,) or v.dtype != torch.float32 \
+                or v.device != y.device:
+            raise ValueError(f"bn_relu_quantize: expected float32 mean, mul "
+                             f"and bias of shape ({c1},) on {y.device}; got "
+                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    if skip is not None and (
+            skip.dim() != 4 or skip.dtype not in _OUT_DTYPES
+            or skip.device != y.device or skip.shape[0] != y.shape[0]
+            or skip.shape[2:] != y.shape[2:]):
+        raise ValueError(f"bn_relu_quantize: skip {skip.dtype} "
+                         f"{tuple(skip.shape)} on {skip.device} does not "
+                         f"match y {tuple(y.shape)} on {y.device}")
+
+
+def _launch_quantizer(name: str, argtypes: list, y: torch.Tensor,
+                      channels: int, mode: str, amax, t, args):
+    """Allocate xq [B,H,W,Cp], sx [B] (and the dynamic mode's scratch) for
+    a quantizer of ``channels`` channels and call the library function
+    ``name`` (ctypes ``argtypes``) with ``args(xq, sx, scratch, amax,
+    t)``; ``y`` sets B, H, W and the device. Returns (xq, sx, the error
+    code, the library)."""
+    B, _, H, W = y.shape
+    dev = y.device
+    xq = torch.empty(B, H, W, padded_channels(channels), dtype=torch.int8,
+                     device=dev)
+    sx = torch.empty(B, dtype=torch.float32, device=dev)
+    scratch = torch.zeros(B, dtype=torch.int32, device=dev) \
+        if mode == "dynamic" else None
+    a = None if amax is None else amax.float().reshape(1).contiguous()
+    tt = None if mode != "per_channel" else t.float().contiguous()
+    lib, _ = cuda_build.load(LIBRARY)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+    return xq, sx, fn(*args(xq, sx, scratch, a, tt)), lib
+
+
+def _ptr(v):
+    return None if v is None else v.data_ptr()
 
 
 def _quantize_act_launch(x: torch.Tensor, mode: str,
@@ -195,26 +291,17 @@ def _quantize_act_launch(x: torch.Tensor, mode: str,
     x = x.contiguous()
     B, C, H, W = x.shape
     dev = x.device
-    xq = torch.empty(B, H, W, padded_channels(C), dtype=torch.int8,
-                     device=dev)
-    sx = torch.empty(B, dtype=torch.float32, device=dev)
-    scratch = torch.zeros(B, dtype=torch.int32, device=dev) \
-        if mode == "dynamic" else None
-    a = None if amax is None else amax.float().reshape(1).contiguous()
-    tt = None if mode != "per_channel" else t.float().contiguous()
-    lib, _ = cuda_build.load(LIBRARY)
-    fn = lib.int8_quantize_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
-            + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
-    def ptr(v):
-        return None if v is None else v.data_ptr()
+    def tail(xq, sx, scratch, a, tt):
+        return [_ptr(x), int(x.dtype == torch.bfloat16), MODES[mode],
+                _ptr(a), _ptr(tt), _ptr(scratch), _ptr(xq), _ptr(sx), B, C,
+                H, W, xq.shape[3], dev.index,
+                torch._C._cuda_getCurrentRawStream(dev.index)]
 
-    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), MODES[mode],
-             ptr(a), ptr(tt), ptr(scratch), xq.data_ptr(), sx.data_ptr(),
-             B, C, H, W, xq.shape[3], dev.index,
-             torch._C._cuda_getCurrentRawStream(dev.index))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    xq, sx, err, lib = _launch_quantizer(
+        "int8_quantize_launch", [P, I, I] + [P] * 5 + [I] * 6 + [P], x, C,
+        mode, amax, t, tail)
     _raise_on(lib, err, QUANTIZE)
     cuda_build.count_launch(QUANTIZE)
     return xq, sx
@@ -238,6 +325,60 @@ def quantize_act(x: torch.Tensor, mode: str,
     if x.device.type == "cuda":
         return _quantize_act_launch(x, mode, amax, t)
     raise ValueError(f"quantize_act: no kernel for device {x.device}")
+
+
+def _bn_relu_quantize_launch(y, mean, mul, bias, mode, amax, t, skip
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fused quantize kernel (after the absmax kernel in the
+    dynamic mode) on the current stream, arguments checked by
+    ``bn_relu_quantize``; one counted launch."""
+    y = y.contiguous()
+    if skip is not None:
+        skip = skip.to(y.dtype).contiguous()
+    B, C1, H, W = y.shape
+    C2 = 0 if skip is None else skip.shape[1]
+    dev = y.device
+    consts = [v.contiguous() for v in (mean, mul, bias)]
+
+    def tail(xq, sx, scratch, a, tt):
+        return [_ptr(y), _ptr(skip), *map(_ptr, consts),
+                int(y.dtype == torch.bfloat16), MODES[mode], _ptr(a),
+                _ptr(tt), _ptr(scratch), _ptr(xq), _ptr(sx), B, C1, C2, H, W,
+                xq.shape[3], dev.index,
+                torch._C._cuda_getCurrentRawStream(dev.index)]
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    xq, sx, err, lib = _launch_quantizer(
+        "int8_bn_relu_quantize_launch", [P] * 5 + [I, I] + [P] * 5 + [I] * 7
+        + [P], y, C1 + C2, mode, amax, t, tail)
+    _raise_on(lib, err, BN_RELU_QUANTIZE)
+    cuda_build.count_launch(BN_RELU_QUANTIZE)
+    return xq, sx
+
+
+def bn_relu_quantize(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+                     bias: torch.Tensor, mode: str,
+                     amax: torch.Tensor | None = None,
+                     t: torch.Tensor | None = None,
+                     skip: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_act`` of relu(fma(y - mean, mul, bias)), rounded to y's
+    dtype, with ``skip`` [B,C2,H,W] (cast to y's dtype, no BN or ReLU)
+    appended on the channel axis: y [B,C1,H,W] bfloat16/float32, mean, mul,
+    bias [C1] float32 (``BatchNorm2d.folded``); ``mode``, ``amax`` and
+    ``t`` [C1 + C2] as ``quantize_act``'s. Returns (xq [B,H,W,Cp] int8,
+    sx [B] float32). CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    _check_act(y, mode, amax, t, BN_RELU_QUANTIZE,
+               y.shape[1] + (0 if skip is None else skip.shape[1])
+               if y.dim() == 4 else None)
+    _check_bn(y, mean, mul, bias, skip)
+    if y.device.type == "cpu":
+        return bn_relu_quantize_plain(y, mean, mul, bias, mode, amax, t, skip)
+    if y.device.type == "cuda":
+        return _bn_relu_quantize_launch(y, mean, mul, bias, mode, amax, t,
+                                        skip)
+    raise ValueError(f"bn_relu_quantize: no kernel for device {y.device}")
 
 
 def conv_out_size(size: int, k: int, stride: int, padding: int) -> int:

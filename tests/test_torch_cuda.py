@@ -18,6 +18,8 @@ from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
 from rdpn6d_tpu_torch.ops.int8_conv import (
     STAGES,
     _int8_conv_launch,
+    bn_relu_quantize,
+    bn_relu_quantize_plain,
     int8_conv,
     int8_conv_plain,
     int8_conv_plan,
@@ -884,3 +886,157 @@ def test_int8_kernels_refuse_bad_input(card):
         int8_conv(xq, sx, wq, sw, 1, 1, torch.float16)
     with pytest.raises(ValueError):
         quantize_act(torch.randn(1, 8, 5, 5, device=card), "static")
+
+
+def _fused_inputs(B, C1, C2, H, W, mode, dtype, seed):
+    """y [B,C1,H,W] and skip [B,C2,H,W] in ``dtype``, a BN's folded
+    constants and the mode's amax and t, the static ones taken from the
+    plain activation (some inputs clip)."""
+    from rdpn6d_tpu_torch.models.norm import BatchNorm2d
+    from rdpn6d_tpu_torch.ops.int8_conv import bn_relu_plain
+
+    g = torch.Generator().manual_seed(seed)
+    y = (torch.randn(B, C1, H, W, generator=g)
+         * (torch.rand(C1, generator=g) * 3)[None, :, None, None]).to(dtype)
+    skip = None if not C2 else torch.randn(B, C2, H, W, generator=g).clamp_min(
+        0).to(dtype)
+    bn = BatchNorm2d(C1)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(C1, generator=g))
+        bn.bias.copy_(torch.randn(C1, generator=g) * 0.5)
+        bn.running_mean.copy_(torch.randn(C1, generator=g) * 0.5)
+        bn.running_var.copy_(torch.rand(C1, generator=g) * 2 + 0.05)
+    consts = bn.eval().folded()
+    a = bn_relu_plain(y, *consts, skip).float()
+    amax = t = None
+    if mode == "static":
+        amax = a.abs().amax() * 0.9
+    elif mode == "per_channel":
+        t = torch.rand(C1 + C2, generator=g) + 0.25
+        amax = (a.abs().amax(dim=(0, 2, 3)) / t).amax() * 0.9
+    return y, skip, consts, amax, t
+
+
+def _on(card, *vs):
+    return [None if v is None else v.to(card) for v in vs]
+
+
+# (B, C1, C2, H, W): lm13's head at B = 16 (256 BN'd channels, and 256 +
+# the 64 skip channels of rot_concat), the trunk's widest; channels not a
+# multiple of 32, H W not a multiple of 8 (scalar loads) and of the 64-pixel
+# tile, B = 1
+FUSED_SHAPES = [(16, 256, 0, 64, 64), (16, 256, 64, 64, 64),
+                (16, 512, 0, 8, 8), (3, 40, 8, 7, 33), (2, 72, 0, 6, 20),
+                (1, 33, 31, 8, 8), (2, 24, 0, 5, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C1,C2,H,W", FUSED_SHAPES)
+def test_bn_relu_quantize_kernel_matches_plain(card, mode, dtype, B, C1, C2,
+                                               H, W):
+    y, skip, consts, amax, t = _fused_inputs(B, C1, C2, H, W, mode, dtype,
+                                             B * C1 + C2 + H)
+    y, skip, amax, t = _on(card, y, skip, amax, t)
+    consts = _on(card, *consts)
+    before = cuda_build.LAUNCHES.get("bn_relu_quantize", 0)
+    xq, sx = bn_relu_quantize(y, *consts, mode, amax, t, skip)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["bn_relu_quantize"] == before + 1
+    rq, rs = bn_relu_quantize_plain(y, *consts, mode, amax, t, skip)
+    assert xq.shape == (B, H, W, -(-(C1 + C2) // 32) * 32)
+    assert torch.equal(sx, rs)
+    assert torch.equal(xq, rq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static", "per_channel"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_relu_quantize_nan_and_unaligned_as_plain(card, mode, dtype):
+    """A NaN in y and one in the skip of sample 0: the dynamic scale is
+    NaN there, a NaN quantizes to 0; y starting off a 16-byte boundary
+    takes the scalar loads, bit-equal all the same."""
+    y, skip, consts, amax, t = _fused_inputs(2, 40, 24, 8, 16, mode, dtype,
+                                             9)
+    y[0, 3, 2, 4] = float("nan")
+    skip[0, 5, 7, 1] = -float("nan")
+    y, skip, amax, t = _on(card, y, skip, amax, t)
+    consts = _on(card, *consts)
+    flat = torch.empty(y.numel() + 1, dtype=dtype, device=card)
+    shifted = flat[1:].view(y.shape)
+    shifted.copy_(y)
+    for yy in (y, shifted):
+        xq, sx = bn_relu_quantize(yy, *consts, mode, amax, t, skip)
+        rq, rs = bn_relu_quantize_plain(y, *consts, mode, amax, t, skip)
+        torch.cuda.synchronize()
+        assert torch.equal(xq, rq) and _same(sx, rs)
+        assert int(xq[0, 2, 4, 3]) == 0 and int(xq[0, 7, 1, 45]) == 0
+        assert bool(sx[0].isnan()) == (mode == "dynamic")
+        assert bool(sx[1].isfinite())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True, "per_channel"])
+def test_int8_head_folds_and_matches_cpu(card, static):
+    """A BN int8 head with a skip on the card: its int8 convs take the
+    BN before them folded (``bn_relu_quantize``, one launch a conv and no
+    ``quantize_act``), and each one's output equals a CPU copy of it on the
+    card's inputs, bit for bit."""
+    import copy
+
+    from rdpn6d_tpu_torch.models.heads import DenseHead
+    from rdpn6d_tpu_torch.models.quant import Int8Conv, calibrate_quant
+
+    torch.manual_seed(0)
+    head = DenseHead(48, num_filters=32, num_layers=2, skip_channels=16,
+                     int8=True, int8_static=static)
+    for m in head.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            with torch.no_grad():
+                m.running_var.uniform_(0.2, 2.0)
+                m.running_mean.normal_(0.0, 0.3)
+                m.bias.normal_(0.0, 0.3)
+    head = head.eval()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 48, 8, 8, generator=g)
+    skip = torch.randn(3, 16, 16, 16, generator=g).clamp_min(0)
+    gpu = copy.deepcopy(head).to(card, torch.bfloat16)
+    if static:
+        calibrate_quant(_HeadCall(gpu, skip.to(card, torch.bfloat16)).eval(),
+                        [x.to(card, torch.bfloat16)])
+    calls = []
+
+    def keep(mod, args, out):
+        calls.append((mod, args, out))
+
+    hooks = [m.register_forward_hook(keep) for m in gpu.modules()
+             if isinstance(m, Int8Conv)]
+    before = dict(cuda_build.LAUNCHES)
+    with torch.no_grad():
+        gpu(x.to(card, torch.bfloat16), skip.to(card, torch.bfloat16))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    got = {k: cuda_build.LAUNCHES.get(k, 0) - before.get(k, 0)
+           for k in ("bn_relu_quantize", "quantize_act", "int8_conv")}
+    assert got == {"bn_relu_quantize": 4, "quantize_act": 0,
+                   "int8_conv": 4}
+    assert all(args[1] is not None for _, args, _ in calls)
+    with torch.no_grad():
+        for mod, args, out in calls:
+            cpu = copy.deepcopy(mod).cpu()
+            ref = cpu(args[0].cpu(), copy.deepcopy(args[1]).cpu(),
+                      None if args[2] is None else args[2].cpu())
+            assert torch.equal(out.cpu(), ref)
+
+
+class _HeadCall(torch.nn.Module):
+    """A head with its skip bound, for ``calibrate_quant``."""
+
+    def __init__(self, head, skip):
+        super().__init__()
+        self.head, self.skip = head, skip
+
+    def forward(self, x):
+        return self.head(x, self.skip)

@@ -7,9 +7,14 @@ Tolerances:
   (tolerance 0): both sides round every float op in float32 in the same
   order, and the int32 sum is exact on both;
 - the whole model, ``Predictor`` and ``run_eval`` with each int8 conv fed
-  JAX's own input to that conv ("carried", as the calibrated scales are):
-  every int8 conv's output bit-equal; logits within 1e-4; poses within
-  1e-3 (rotation entries; translation relative to its norm), ``run_eval``'s
+  JAX's own input to that conv ("carried", as the calibrated scales are;
+  a head conv that folds the BN, ReLU and concat before it is fed JAX's
+  input to that BN, JAX's folded multiplier rsqrt(var + eps) * scale and
+  JAX's skip channels, so that the fused quantizer is held to XLA's BN;
+  a calibration pass, which the JAX package runs op by op, is fed JAX's
+  conv input): every int8 conv's output bit-equal (to JAX's conv applied
+  op by op to the same input); logits within 1e-4; poses within 1e-3
+  (rotation entries; translation relative to its norm), ``run_eval``'s
   CSV within 1e-4 as ``tests/test_torch_eval_runner.py``. Free-running,
   each side on its own activations, the inputs of the first int8 conv
   differ by float32 sums in other orders, so a few land on the other side
@@ -22,6 +27,7 @@ Tolerances:
   absmax that is 1e-5 relative).
 """
 
+import functools
 import os
 import pickle
 
@@ -31,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 from flax import linen as fnn
+from jax.experimental import io_callback
 
 import rdpn6d_tpu.data.refs as jrefs
 import rdpn6d_tpu_torch.data.refs as trefs
@@ -58,6 +65,7 @@ from rdpn6d_tpu_torch.models import init_weights
 from rdpn6d_tpu_torch.models.quant import Int8Conv, calibrate_quant
 from rdpn6d_tpu_torch.ops import cuda_build
 from rdpn6d_tpu_torch.ops.int8_conv import (
+    bn_relu_quantize,
     int8_conv,
     quantize_act,
     quantize_symmetric,
@@ -322,38 +330,168 @@ def test_int8_convs_match_jax_quant_tree(mode, static):
 
 # ------------------------------------------------------------ whole model
 
-def _jax_conv_io(model, variables, batch):
-    """The model's outputs, and every JAX Int8Conv's input and output in
-    call order."""
-    seen = []
-
-    def grab(next_fun, args, kwargs, context):
-        out = next_fun(*args, **kwargs)
-        if isinstance(context.module, JInt8Conv) \
-                and context.method_name == "__call__":
-            seen.append((np.asarray(args[0]), np.asarray(out)))
-        return out
-
-    with fnn.intercept_methods(grab):
-        out = model.apply(variables, batch, train=False)
-    return out, seen
-
-
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
 
-def _run(tm, tb, carried=None):
-    """The port model's outputs and each Int8Conv's input; with
-    ``carried`` (JAX's inputs, in call order) every Int8Conv takes JAX's
-    input in place of its own."""
+class _JaxBN:
+    """A port BatchNorm2d's folded constants with JAX's multiplier."""
+
+    def __init__(self, bn, mul):
+        mean, _, bias = bn.folded()
+        self._folded = (mean, torch.from_numpy(np.asarray(mul)).to(
+            mean.device), bias)
+
+    def folded(self):
+        return self._folded
+
+
+class _Carry:
+    """Records every JAX Int8Conv call in call order (calibration passes
+    included; under jit by ordered ``io_callback``s): its input, its output
+    and the input and multiplier rsqrt(var + eps) * scale of the BatchNorm
+    called last before it; under jit each BN and Int8Conv input goes
+    through the host (``through_host``), so that the module reads the
+    value recorded. ``attach`` feeds them in the same order to a
+    port model's Int8Convs (``_carried``), cut to the port's batch (the
+    JAX package pads a batch by repeating its last ROI; the port does
+    not)."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+        self.used = 0
+        self._bn = self._x = None
+
+    def run_jax(self, fn):
+        def keep_bn(x, mul):
+            self._bn = (np.asarray(x), np.asarray(mul))
+
+        def keep_input(x):
+            self._x = np.asarray(x)
+
+        def keep_conv(y, variables, mod):
+            self.calls.append({"x": self._x, "y": np.asarray(y),
+                               "bn": self._bn, "module": mod,
+                               "variables": jax.device_get(variables)})
+
+        def through_host(keep, x, *more):
+            """x, after ``keep(x, *more)`` on the host: under jit XLA
+            must materialize x to pass it, and the reader takes what was
+            recorded. Without that, XLA fuses an int8 conv's dequantizing
+            product into the next BN's fusion, whose outputs then match
+            no carried input (1 ulp off in ~10%), optimization barrier or
+            not."""
+            if not isinstance(x, jax.core.Tracer):
+                keep(x, *more)
+                return x
+
+            def f(x, *more):
+                keep(x, *more)
+                return np.asarray(x)
+            # one ordered effect for every record: their order holds
+            return io_callback(f, jax.ShapeDtypeStruct(x.shape, x.dtype),
+                               x, *more, ordered=True)
+
+        def grab(next_fun, args, kwargs, context):
+            mod = context.module
+            if context.method_name != "__call__":
+                return next_fun(*args, **kwargs)
+            if isinstance(mod, fnn.BatchNorm):
+                mul = jax.lax.rsqrt(mod.get_variable("batch_stats", "var")
+                                    + mod.epsilon) \
+                    * mod.get_variable("params", "scale")
+                args = (through_host(keep_bn, args[0], mul),) + args[1:]
+            elif isinstance(mod, JInt8Conv):
+                args = (through_host(keep_input, args[0]),) + args[1:]
+            out = next_fun(*args, **kwargs)
+            if isinstance(mod, JInt8Conv):
+                variables = {"params": {
+                    "kernel": mod.get_variable("params", "kernel")}}
+                if mod.static_act:
+                    variables["quant"] = {"act_amax": mod.get_variable(
+                        "quant", "act_amax")}
+                out = through_host(functools.partial(
+                    keep_conv, mod=mod.clone(parent=None)), out, variables)
+            return out
+
+        with fnn.intercept_methods(grab):
+            out = fn()
+        jax.effects_barrier()
+        return out
+
+    def attach(self, model):
+        """Hooks feeding JAX's calls to ``model``'s Int8Convs; each served
+        call's output is kept in ``self.outputs`` beside its JAX call."""
+        self.outputs = []
+
+        def pre(mod, args):
+            call = self.calls[self.used]
+            self.used += 1
+            return _carried(mod, call, args)
+
+        def post(mod, args, out):
+            if not mod.calibrating:
+                self.outputs.append((self.calls[self.used - 1], out))
+
+        convs = [m for m in model.modules() if isinstance(m, Int8Conv)]
+        return [m.register_forward_pre_hook(pre) for m in convs] \
+            + [m.register_forward_hook(post) for m in convs]
+
+    def assert_outputs_equal(self):
+        """Every served int8 conv's output equals JAX's op by op on the
+        same input, bit for bit."""
+        assert self.outputs
+        for call, out in self.outputs:
+            want = _jax_op_by_op(call)[:out.shape[0]]
+            np.testing.assert_array_equal(out.numpy(),
+                                          want.transpose(0, 3, 1, 2))
+
+
+def _jax_op_by_op(call):
+    """The JAX Int8Conv of ``call`` applied op by op (not under jit) to its
+    recorded input: the reference of an int8 conv's output. Under jit XLA
+    fuses the dequantizing product acc * (sx * sw) into its program, and
+    up to ~10% of a conv's outputs come out 1 ulp otherwise at these
+    widths."""
+    return np.asarray(call["module"].apply(call["variables"], call["x"]))
+
+
+def _carried(mod, call, args):
+    """What a port Int8Conv called with ``args`` takes from the JAX call
+    ``call``: JAX's conv input; where the port folds the BN before the
+    conv, JAX's input to that BN, its multiplier and JAX's skip channels
+    (the rest of the conv's input). A calibration pass takes JAX's conv
+    input either way: the JAX package calibrates op by op, where its BN
+    rounds the product and the sum apart."""
+    x = args[0]
+    n, c1 = x.shape[0], x.shape[1]
+    if len(args) < 2 or args[1] is None or mod.calibrating:
+        xj = call["x"]
+        skip = args[2] if len(args) > 2 else None
+        assert xj.shape[0] >= n and xj.shape[1:3] == tuple(x.shape[2:]) \
+            and xj.shape[3] == c1 + (0 if skip is None else skip.shape[1])
+        return (_nchw(xj[:n]).to(x.dtype),)
+    yj, mul = call["bn"]
+    skip = args[2]
+    assert yj.shape[0] >= n and yj.shape[1:] == tuple(
+        x.permute(0, 2, 3, 1).shape[1:])
+    assert call["x"].shape[3] == c1 + (0 if skip is None else skip.shape[1])
+    sj = None if skip is None else _nchw(call["x"][:n, ..., c1:]).to(x.dtype)
+    return (_nchw(yj[:n]).to(x.dtype), _JaxBN(args[1], mul), sj)
+
+
+def _run(tm, tb, carry=None):
+    """The port model's outputs, its Int8Convs and, in call order, each
+    Int8Conv call's module and arguments; with ``carry`` (a ``_Carry``
+    that ran the JAX model) every call takes JAX's (``_carried``)."""
     convs = [m for m in tm.modules() if isinstance(m, Int8Conv)]
-    inputs = []
+    calls = []
 
     def pre(mod, args):
-        inputs.append(args[0].detach().clone())
-        if carried is not None:
-            return (_nchw(carried[len(inputs) - 1]),)
+        if carry is not None:
+            args = _carried(mod, carry.calls[len(calls)], args)
+        calls.append((mod, args))
+        return args
 
     hooks = [m.register_forward_pre_hook(pre) for m in convs]
     try:
@@ -362,7 +500,15 @@ def _run(tm, tb, carried=None):
     finally:
         for h in hooks:
             h.remove()
-    return out, convs, inputs
+    return out, convs, calls
+
+
+def _quantized_input(args, mode, amax, t):
+    """xq of the input an Int8Conv call with ``args`` quantizes."""
+    if len(args) > 1 and args[1] is not None:
+        return bn_relu_quantize(args[0], *args[1].folded(), mode, amax, t,
+                                args[2])
+    return quantize_act(args[0], mode, amax, t)
 
 
 def _assert_outputs_close(out, ref):
@@ -374,48 +520,6 @@ def _assert_outputs_close(out, ref):
     tj = np.asarray(ref["trans"])
     np.testing.assert_allclose(out["trans"].numpy(), tj, rtol=0,
                                atol=1e-3 * np.abs(tj).max())
-
-
-class _Carry:
-    """Records every JAX Int8Conv input, in call order (calibration passes
-    included; under jit by ordered debug callbacks), and feeds them in the
-    same order to a port model's Int8Convs, cut to the port's batch (the
-    JAX package pads a batch by repeating its last ROI; the port does
-    not)."""
-
-    def __init__(self):
-        self.inputs: list[np.ndarray] = []
-        self.used = 0
-
-    def run_jax(self, fn):
-        def keep(x):
-            self.inputs.append(np.asarray(x))
-
-        def grab(next_fun, args, kwargs, context):
-            if isinstance(context.module, JInt8Conv) \
-                    and context.method_name == "__call__":
-                if isinstance(args[0], jax.core.Tracer):
-                    jax.debug.callback(keep, args[0], ordered=True)
-                else:
-                    keep(args[0])
-            return next_fun(*args, **kwargs)
-
-        with fnn.intercept_methods(grab):
-            out = fn()
-        jax.effects_barrier()
-        return out
-
-    def attach(self, model):
-        def pre(mod, args):
-            xj = self.inputs[self.used]
-            self.used += 1
-            n = args[0].shape[0]
-            assert xj.shape[0] >= n and xj.shape[1:] == tuple(
-                args[0].permute(0, 2, 3, 1).shape[1:])
-            return (_nchw(xj[:n]).to(args[0].dtype),)
-
-        return [m.register_forward_pre_hook(pre) for m in model.modules()
-                if isinstance(m, Int8Conv)]
 
 
 def _leaves(tree, pre=()):
@@ -438,8 +542,10 @@ def _model_matches_jax(jmodel, int8, static):
     batch = make_batch(jcfg, B=2, seed=4)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     quant = j_calibrate(jm, params, stats, [jb])
-    ref, j_io = _jax_conv_io(
-        jm, {"params": params, "batch_stats": stats, "quant": quant}, jb)
+    carry = _Carry()
+    ref = carry.run_jax(lambda: jax.jit(
+        lambda v, b: jm.apply(v, b, train=False))(
+        {"params": params, "batch_stats": stats, "quant": quant}, jb))
 
     tcfg = TConfig().apply_opts(OPTS)
     tm = TRDPN(tcfg, int8=int8, int8_static=static)
@@ -460,25 +566,26 @@ def _model_matches_jax(jmodel, int8, static):
     # input to every int8 conv: each conv's output is JAX's bit for bit,
     # and the rest of the model agrees as the float model does
     load_quant(tm, jax.device_get(quant))
-    out, convs, _ = _run(tm, tb, carried=[x for x, _ in j_io])
-    assert len(convs) == len(j_io) == len(own)
+    out, convs, calls = _run(tm, tb, carry=carry)
+    assert len(convs) == len(calls) == len(carry.calls) == len(own)
     with torch.no_grad():
-        for m, (xj, yj) in zip(convs, j_io):
+        for (m, args), call in zip(calls, carry.calls):
             np.testing.assert_array_equal(
-                m(_nchw(xj)).numpy(), yj.transpose(0, 3, 1, 2))
+                m(*args).numpy(), _jax_op_by_op(call).transpose(0, 3, 1, 2))
     _assert_outputs_close(out, ref)
     # free-running, each side on its own activations: at the first int8
     # conv they differ by float32 sums alone, so few activations land on
     # the other side of a rounding boundary; each such flip moves the
     # next convs' inputs by a quantization step, so later convs flip more
-    free, _, t_inputs = _run(tm, tb)
+    free, _, t_calls = _run(tm, tb)
     mode = "per_channel" if static == "per_channel" else "static"
     flips = []
-    for m, xt, (xj, _) in zip(convs, t_inputs, j_io):
+    for (m, args), call in zip(t_calls, carry.calls):
         _, _, amax, t = m.quantized()
-        q_t, _ = quantize_act(xt, mode, amax, t)
-        q_j, _ = quantize_act(_nchw(xj), mode, amax, t)
-        flips.append((int((q_t != q_j).sum()), xt.numel()))
+        q_t, _ = _quantized_input(args, mode, amax, t)
+        q_j, _ = quantize_act(_nchw(call["x"]), mode, amax, t)
+        flips.append((int((q_t != q_j).sum()),
+                      q_j[..., :m.in_channels].numel()))
     dlog = max(float(np.abs(free[k].numpy() - np.asarray(ref[k])).max())
                for k in ("mask_logits", "coord_out", "region_logits"))
     print(f"int8 {int8} static={static}, free-running: flipped activations "
@@ -553,7 +660,8 @@ def test_int8_predictor_matches_jax(pkl, static):
     n8 = sum(isinstance(m, Int8Conv) for m in tp.model.modules())
     assert n8 == 2 * tp.cfg.head.num_layers
     # calibration (static) and 2 served batches, each through every conv
-    assert carry.used == len(carry.inputs) == n8 * (2 + static)
+    assert carry.used == len(carry.calls) == n8 * (2 + static)
+    carry.assert_outputs_equal()
     _assert_poses_close(t_out, j_out, 1e-3)
     dR = max(float(np.abs(a["R"] - b["R"]).max()) for a, b in zip(free,
                                                                   j_out))
@@ -637,7 +745,8 @@ def test_int8_run_eval_matches_jax(tree, weights, tmp_path, monkeypatch,  # noqa
                    split_name="two_obj_test", batch_size=2,
                    csv_path=str(tmp_path / "port.csv"),
                    dtype=torch.float32, device="cpu")
-    assert carry.used == len(carry.inputs) == 6 * (3 + static)
+    assert carry.used == len(carry.calls) == 6 * (3 + static)
+    carry.assert_outputs_equal()
     j_id, j_R, j_t = _read_csv(tmp_path / "jax.csv")
     t_id, t_R, t_t = _read_csv(tmp_path / "port.csv")
     assert t_id == j_id

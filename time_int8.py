@@ -1,11 +1,24 @@
 #!/usr/bin/env python3
-"""Time of the port's ``int8_conv`` kernel (``rdpn6d_tpu_torch``,
+"""Time of the port's int8 kernels (``rdpn6d_tpu_torch``,
 ``csrc/int8_conv.cu``) at the shapes of int8 serving, on one NVIDIA GPU,
-bfloat16 out:
+bfloat16:
 
     head 320->256 3x3     lm13's first head conv at B = 16, 64x64
     head 256->256 3x3     the head's other convs
     stage3 128->256 3x3/2 a trunk conv (int8-all), 32x32 -> 16x16
+
+then the quantizers at the head's shapes (256 BN'd channels, and 256 +
+rot_concat's 64 skip channels, B = 16, 64x64): the fused
+``bn_relu_quantize`` where the tree has it ("absent" where not), and the
+unfused sequence it replaces (torch's BN, ReLU, ``torch.cat``, then the
+tree's ``quantize_act``), static and dynamic, by CUDA events over bursts
+and by ``queued_ms`` (a burst of one quantizer call is bound by the host's
+time to make the call, so the queued time is the device's); and last the
+whole lm13
+int8-head-static head (``DenseHead``, seeded weights, static scales
+calibrated on its input) at B = 16: its device time a batch and its
+kernel launches a call; and the whole bf16 lm13 model's forward at
+B = 16 the same way (what the bf16 serving path pays for its norms).
 
     python3 time_int8.py [--root DIR] [--plans]
 
@@ -181,8 +194,200 @@ def main(argv=None) -> int:
                       f"{p.stages} stages: CUDA events "
                       + ", ".join(f"{x:.4f}" for x in t) + f" ms [{card}]")
         result["shapes"].append(entry)
+    result["quantizers"] = time_quantizers(cs, ic, dev, tree, card)
+    result["head"] = time_head(cs, dev, tree, card)
+    result["bf16_model"] = time_bf16_model(cs, dev, tree, card)
     print(json.dumps(result))
     return 0
+
+
+def quantizer_inputs(dev, B, C1, C2, H, W, mode):
+    """Seeded bf16 y [B,C1,H,W] and skip [B,C2,H,W] on ``dev``, an eval
+    ``nn.BatchNorm2d`` with float32 statistics, its folded (mean, mul,
+    bias) and the static amax (None in the dynamic mode), made with
+    PyTorch alone: the same whatever the tree."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(C1 + C2)
+    y = (torch.randn(B, C1, H, W, generator=g)
+         * (torch.rand(C1, generator=g) * 3)[None, :, None, None]).to(
+        dev, torch.bfloat16)
+    skip = torch.randn(B, C2, H, W, generator=g).clamp_min(0).to(
+        dev, torch.bfloat16) if C2 else None
+    bn = torch.nn.BatchNorm2d(C1, eps=1e-5)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(C1, generator=g))
+        bn.bias.copy_(torch.randn(C1, generator=g) * 0.5)
+        bn.running_mean.copy_(torch.randn(C1, generator=g) * 0.5)
+        bn.running_var.copy_(torch.rand(C1, generator=g) * 2 + 0.05)
+    rs = (1.0 / np.sqrt((bn.running_var + bn.eps).double().numpy())).astype(
+        np.float32)
+    consts = (bn.running_mean, torch.from_numpy(rs) * bn.weight.detach(),
+              bn.bias.detach())
+    bn = bn.eval().to(dev)
+    consts = tuple(v.to(dev) for v in consts)
+    amax = None
+    if mode == "static":
+        a = F.relu(bn(y)).float()
+        amax = a.abs().amax() * 0.9
+        if skip is not None:
+            amax = torch.maximum(amax, skip.float().abs().amax())
+    return y, skip, bn, consts, amax, None
+
+
+def time_quantizers(cs, ic, dev, tree, card) -> list:
+    """The fused quantizer (where the tree has it) against the unfused
+    sequence of the same tree at the head's shapes, bf16, static and
+    dynamic, by CUDA events (three bursts) and ``queued_ms``."""
+    import torch
+    import torch.nn.functional as F
+
+    fused_op = getattr(ic, "bn_relu_quantize", None)
+    out = []
+    for label, B, C1, C2, H, W in cs.FUSED_HEAD:
+        bound, by = cs.bn_relu_quantize_bound(B, C1, C2, H, W)
+        for mode in ("static", "dynamic"):
+            y, skip, bn, consts, amax, t = quantizer_inputs(
+                dev, B, C1, C2, H, W, mode)
+
+            def unfused():
+                a = F.relu(bn(y))
+                if skip is not None:
+                    a = torch.cat([a, skip], dim=1)
+                return ic.quantize_act(a, mode, amax, t)
+
+            def fused():
+                return fused_op(y, *consts, mode, amax, t, skip)
+
+            a = F.relu(bn(y))
+            if skip is not None:
+                a = torch.cat([a, skip], dim=1)
+            entry = {"shape": label, "mode": mode, "bound_ms": bound,
+                     "unfused_ms": [cs.cuda_ms(unfused, iters=ITERS)
+                                    for _ in range(REPEATS)],
+                     "unfused_queued_ms": cs.queued_ms(unfused, iters=30),
+                     "quantize_act_ms": [cs.cuda_ms(
+                         lambda: ic.quantize_act(a, mode, amax, t),
+                         iters=ITERS) for _ in range(REPEATS)],
+                     "quantize_act_queued_ms": cs.queued_ms(
+                         lambda: ic.quantize_act(a, mode, amax, t),
+                         iters=30),
+                     "quantize_act_bound_ms": cs.quantize_act_bound(
+                         B, C1 + C2, H, W)[0]}
+            if fused_op is not None:
+                xq, sx = fused()
+                rq, rs = ic.bn_relu_quantize_plain(y, *consts, mode, amax,
+                                                   t, skip)
+                if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
+                    raise SystemExit(f"time_int8: {tree} bn_relu_quantize "
+                                     f"{label} {mode}: disagrees with its "
+                                     "plain version")
+                entry["fused_ms"] = [cs.cuda_ms(fused, iters=ITERS)
+                                     for _ in range(REPEATS)]
+                entry["fused_queued_ms"] = cs.queued_ms(fused, iters=30)
+            fz = ("absent" if fused_op is None else
+                  ", ".join(f"{v:.4f}" for v in entry["fused_ms"])
+                  + f" ms, queued {entry['fused_queued_ms']:.4f}, "
+                  f"{100 * bound / entry['fused_queued_ms']:.1f}% of bound "
+                  "(queued)")
+            print(f"time_int8: {tree} quantizers {label} B={B} {H}x{W} "
+                  f"bf16 {mode}: bn_relu_quantize {fz}; bound {bound:.4f} "
+                  f"ms ({by}); unfused BN + ReLU"
+                  f"{' + cat' if skip is not None else ''} + quantize_act "
+                  + ", ".join(f"{v:.4f}" for v in entry["unfused_ms"])
+                  + f" ms, queued {entry['unfused_queued_ms']:.4f}; "
+                  "quantize_act alone "
+                  + ", ".join(f"{v:.4f}" for v in entry["quantize_act_ms"])
+                  + f" ms, queued {entry['quantize_act_queued_ms']:.4f} "
+                  f"(bound {entry['quantize_act_bound_ms']:.4f}) [{card}]")
+            out.append(entry)
+    return out
+
+
+def time_head(cs, dev, tree, card) -> dict:
+    """lm13's int8-head-static head at B = 16, seeded weights (the port's
+    init, then BN statistics drawn from a seed), its static scales
+    calibrated on the seeded input: device ms a call (``queued_ms`` behind
+    a 4096² float32 product; the profiler's sum) and kernel launches a
+    call (profiler)."""
+    import torch
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.models.quant import calibrate_quant
+
+    cfg = lm13.get_config().apply_opts(['head.init="fan_in"'])
+    model = init_weights(RDPN(cfg, int8="head", int8_static=True),
+                         torch.Generator().manual_seed(0))
+    head = model.rot_head_net
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in head.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.copy_(torch.rand(m.num_features, generator=g)
+                                    + 0.5)
+                m.running_mean.copy_(torch.randn(m.num_features,
+                                                 generator=g) * 0.1)
+    head = head.to(dev, torch.bfloat16).eval()
+    f = head.features
+    skip_c = f[3].in_channels - f[0].out_channels
+    x = torch.randn(16, f[0].in_channels, 32, 32, generator=g).to(
+        dev, torch.bfloat16)
+    skip = torch.randn(16, skip_c, 64, 64, generator=g).clamp_min(0).to(
+        dev, torch.bfloat16)
+
+    class Bound(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.head = head
+
+        def forward(self, inp):
+            return self.head(inp, skip)
+
+    calibrate_quant(Bound().eval(), [x])   # leaves the head in eval mode
+
+    def run():
+        with torch.no_grad():
+            return head(x, skip)
+
+    q = cs.queued_ms(run, iters=20, filler=4096)
+    p_ms, n = cs.profiled_calls(run, iters=10)
+    print(f"time_int8: {tree} lm13 int8-head-static head at B = 16: device "
+          f"time {q:.4f} ms a batch (queued; profiler {p_ms:.4f}), "
+          f"{n:.0f} kernel launches a call [{card}]")
+    return {"queued_ms": q, "profiler_ms": p_ms, "launches": n}
+
+
+
+def time_bf16_model(cs, dev, tree, card) -> dict:
+    """The whole lm13 model in bf16 (seeded weights, eval mode) on a
+    seeded batch of 16 ROIs: device ms a forward (``queued_ms`` behind an
+    8192² float32 product, longer than the host takes to launch it; the
+    profiler's sum) and kernel launches a forward (profiler)."""
+    import torch
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.synthetic import dummy_train_batch
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+
+    cfg = lm13.get_config().apply_opts(['head.init="fan_in"'])
+    model = init_weights(RDPN(cfg), torch.Generator().manual_seed(0))
+    model = model.to(dev, torch.bfloat16).eval()
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in dummy_train_batch(cfg, 16, seed=2).items()}
+
+    def run():
+        with torch.no_grad():
+            return model(batch)
+
+    q = cs.queued_ms(run, iters=10, filler=8192)
+    p_ms, n = cs.profiled_calls(run, iters=5)
+    print(f"time_int8: {tree} lm13 bf16 model forward at B = 16: device "
+          f"time {q:.4f} ms (queued; profiler {p_ms:.4f}), {n:.0f} kernel "
+          f"launches a forward [{card}]")
+    return {"queued_ms": q, "profiler_ms": p_ms, "launches": n}
 
 
 if __name__ == "__main__":
