@@ -180,7 +180,7 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
             torch.distributed.is_initialized() and \
             torch.distributed.get_world_size() > 1:
         raise NotImplementedError("multi-process eval sharding is not "
-                                  "ported (ROADMAP: DDP)")
+                                  "ported (ROADMAP queue 1 item 16)")
     device = next(model.parameters()).device if model is not None \
         else resolve_device(device)
     split = get_split(split_name)
@@ -214,9 +214,12 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
         return preprocess_rois_grouped(cfg, b["frames"], b["rois"])
 
     def eval_step(b):
-        with torch.no_grad(), torch.autocast(device.type, dtype=dtype,
-                                             enabled=autocast):
-            return model(preprocess(b))
+        # the preprocessing in float32 whatever the model's dtype, as the
+        # JAX package's: only the forward runs under autocast
+        with torch.no_grad():
+            batch = preprocess(b)
+            with torch.autocast(device.type, dtype=dtype, enabled=autocast):
+                return model(batch)
 
     def asset(oid, key):
         return eval_assets.for_obj(oid)[key]

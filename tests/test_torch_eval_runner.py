@@ -151,6 +151,53 @@ def test_run_eval_bop19_targets_match_jax(tree, weights, tmp_path,
     assert t["bop19"] == j["bop19"]
 
 
+def test_live_bf16_eval_preprocesses_in_float32(tree, tmp_path,
+                                               monkeypatch):
+    """Evaluating a live model under bf16 autocast: the batch the model
+    receives is the float32 preprocessing of its frames bit for bit (no
+    op of the preprocessing runs in bf16), and within 1e-5 of the JAX
+    package's, which preprocesses in float32 whatever the model's dtype
+    (the tolerance of ``test_torch_slice.py``: the TPU path crops by
+    matmul, the port by gather)."""
+    from rdpn6d_tpu.data.pipeline import preprocess_rois_grouped as j_grouped
+    from rdpn6d_tpu_torch.data import pipeline
+
+    monkeypatch.setattr(trefs, "DATA_ROOT", tree)
+    opts = OPTS + [f'train.output_dir="{tmp_path}"']
+    cfg = TConfig().apply_opts(opts)
+    live = init_weights(TRDPN(cfg), torch.Generator().manual_seed(3))
+    grouped = pipeline.preprocess_rois_grouped
+    inputs, seen = [], []
+
+    def recording(cfg_, frames, rois, *a, **kw):
+        inputs.append((frames, rois))
+        return grouped(cfg_, frames, rois, *a, **kw)
+
+    monkeypatch.setattr(pipeline, "preprocess_rois_grouped", recording)
+    hook = live.register_forward_pre_hook(
+        lambda mod, args: seen.append({k: v.clone()
+                                       for k, v in args[0].items()}))
+    try:
+        t_run_eval(cfg, ckpt_dir="", split_name="two_obj_test",
+                   batch_size=2, dtype=torch.bfloat16, model=live)
+    finally:
+        hook.remove()
+    assert len(seen) == len(inputs) == 3
+    jcfg = JConfig().apply_opts(opts)
+    for (frames, rois), batch in zip(inputs, seen):
+        ref = grouped(cfg, frames, rois)
+        assert batch.keys() == ref.keys()
+        for k, v in ref.items():
+            assert v.dtype == batch[k].dtype and torch.equal(batch[k], v), k
+        j = j_grouped(jcfg, {k: jnp.asarray(v.numpy())
+                             for k, v in frames.items()},
+                      {k: jnp.asarray(v.numpy()) for k, v in rois.items()},
+                      jax.random.PRNGKey(0), train=False)
+        for k in ("roi_img", "roi_coord_2d", "roi_cam", "resize_ratio"):
+            np.testing.assert_allclose(batch[k].numpy(), np.asarray(j[k]),
+                                       rtol=1e-6, atol=1e-5, err_msg=k)
+
+
 def test_main_eval_only_cpu(tree, weights, tmp_path, monkeypatch):
     monkeypatch.setattr(trefs, "DATA_ROOT", tree)
     _, _, ckpt = weights
