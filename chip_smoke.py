@@ -19,11 +19,19 @@ Phases, each fatal on failure:
               64 keypoints (65 and 200); ``surface_labels`` with every mask
               kind, both coordinate modes, crops off the frame and taps on
               exact half pixels, masks and ids equal to the plain
-              version's;
+              version's; ``roi_crop`` (the network inputs of a ROI batch)
+              at B = 1, 16 and 24 of 1 and 8 480x640 frames, uint8 and
+              float32 RGB, depth in metres (a NaN pixel) and raw with a
+              factor, windows across every edge, off the frame, of scale 1
+              and max(H, W) and on half pixels, normalised and not, 256/64
+              and 128/32, bit-equal to its plain version, then timed at
+              the served batch beside its plain version, ``F.grid_sample``
+              and its bound;
   3. serve  — the lm13 configuration at full width (ResNet-34, 256² ROIs,
               64² head maps, 32 regions, rot_concat), seeded random
               weights, through ``Predictor.predict``: 3 distinct 480x640
-              RGB-D frames with 5, 6 and 5 detections, in bf16 and float32;
+              RGB-D frames with 5, 6 and 5 detections, in bf16 and float32,
+              one ``roi_crop`` launch a served batch;
   4. score  — ADD / ADI / re / te / proj of those poses against seeded GT
               poses on a 13-object bank of 4096 model points each; ADI
               goes through the ``min_dist2`` kernel (its launch count must
@@ -154,7 +162,9 @@ Phases, each fatal on failure:
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12)
-and read right after it.
+and read right after it. In phases 3, 6, 9, 10, 11 and 12(c) the batches
+the entry points preprocess are counted too (``PreprocessCalls``), and
+``roi_crop`` must have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -194,6 +204,12 @@ REGION_LABEL_BYTES_PER_PIXEL = 28
 # surface_labels: per output pixel 4 B of depth and 1 B of packed masks in,
 # 4 B of m, 4 of trunc, 4 of region and 12 of coord out
 SURFACE_LABELS_BYTES_PER_PIXEL = 29
+# roi_crop: per input-crop pixel 6 float32 out, per coordinate pixel 5;
+# per source pixel its taps reach, its RGB and depth in once; ~96 float32
+# operations an input-crop pixel (4 planes of 4 taps weighted and blended,
+# the normalisation, the back-projection; a division counted as one)
+ROI_CROP_OPS_PER_PIXEL = 96
+SERVE_BATCH = 16             # the Predictor's batch of phases 3 and 12
 GT_LABELS_OUT_RES = 64       # lm13's label maps
 TRAIN_STEPS = 12
 TRAIN_ROIS = 24
@@ -806,6 +822,260 @@ def check_surface_labels(dev, card):
                        bound_ms=bound_ms, bound_by=bound_by)
 
 
+def same_bits(a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    import torch
+
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())) and bool(
+        torch.equal(a.masked_fill(nan, 0), b.masked_fill(nan, 0)))
+
+
+def roi_crop_inputs(B, F, H, W, seed, dev, rgb_dtype, raw, S):
+    """``roi_crop``'s frame and window arguments: F frames (a smooth colour
+    field with noise, uint8 or float32; a depth surface of 0.6-1.1 m with
+    5% holes, as float32 metres with one NaN pixel, or int32 raw units with
+    a factor of 1000 or 10000 a frame), LineMOD's K scaled to the frame,
+    each ROI's frame drawn at random, a window near the frame with a side
+    0.1-1.3x max(H, W) clamped to [1, max(H, W)]; then, as far as B
+    reaches, ROI 0 across the top-left corner, 1 across the bottom-right,
+    2 wholly off the frame, 3 of scale 1, 4 of scale max(H, W), 5 with its
+    taps on exact half pixels (an integer centre and a step of 0.75)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing="ij")
+    phase = torch.rand(F, 1, 1, 3, generator=g) * 6.28
+    rgb = 127.5 + 100 * torch.sin(
+        xx[None, ..., None] / torch.tensor([40.0, 49.0, 58.0])
+        + yy[None, ..., None] / 55 + phase) \
+        + 8 * torch.randn(F, H, W, 3, generator=g)
+    rgb = rgb.clamp(0, 255)
+    if rgb_dtype == "uint8":
+        rgb = rgb.to(torch.uint8)
+    depth = (0.6 + 0.4 * torch.rand(F, 1, 1, generator=g)
+             + 0.1 * torch.sin(xx / 70) * torch.cos(yy / 90)) \
+        * (torch.rand(F, H, W, generator=g) > 0.05)
+    factor = None
+    if raw:
+        factor = torch.tensor([1000.0, 10000.0] * F)[:F]
+        depth = torch.round(depth * factor[:, None, None]).to(torch.int32)
+    else:
+        depth[0, H // 2, W // 2] = float("nan")
+    f = float(K_LM[0, 0]) * W / 640
+    K = torch.tensor([[f, 0.0, W / 2], [0.0, f, H / 2], [0.0, 0.0, 1.0]]) \
+        .repeat(F, 1, 1)
+    K[:, :2, 2] += torch.rand(F, 2, generator=g) - 0.5
+    frame_idx = torch.randint(0, F, (B,), generator=g)
+    side = float(max(H, W))
+    center = torch.rand(B, 2, generator=g) * torch.tensor([1.2 * W, 1.2 * H]) \
+        - torch.tensor([0.1 * W, 0.1 * H])
+    scale = ((torch.rand(B, generator=g) * 1.2 + 0.1) * side).clamp(1, side)
+    edges = [((0.0, 0.0), 0.3 * side), ((W - 1.0, H - 1.0), 0.5 * side),
+             ((-side, -side), 0.4 * side), ((W / 3, H / 3), 1.0),
+             ((W / 2, H / 2), side), ((float(W // 2), float(H // 2)),
+                                      0.75 * S)]
+    for b, ((cx, cy), sd) in enumerate(edges[:B]):
+        center[b] = torch.tensor([cx, cy])
+        scale[b] = sd
+    return [None if t is None else t.contiguous().to(dev)
+            for t in (rgb, depth, factor, K, frame_idx, center, scale)]
+
+
+def roi_crop_bound(rgb, depth, frame_idx, center, scale, S, O
+                   ) -> tuple[float, str]:
+    """Least ms the card could take for ``roi_crop`` on these inputs: the
+    outputs written once, B (S² 6 + O² 5) float32; each source pixel that
+    this call's bilinear taps reach read once (its RGB and its depth), the
+    coordinate axes, K, the factors and each ROI's scalars; against
+    ROI_CROP_OPS_PER_PIXEL operations an input-crop pixel. The larger,
+    and which it is."""
+    F, H, W = depth.shape
+    B = frame_idx.shape[0]
+    hit = np.zeros((F, H, W), bool)
+    c, sc = center.cpu().numpy(), scale.cpu().numpy()
+    fi = frame_idx.cpu().numpy()
+    grid = np.arange(S, dtype=np.float32) - np.float32(S / 2)
+    for b in range(B):
+        step = sc[b] / np.float32(S)
+        taps = []
+        for axis, n in ((1, H), (0, W)):
+            x0 = np.floor(c[b, axis] + grid * step).astype(np.int64)
+            k = np.unique(np.concatenate([x0, x0 + 1]))
+            taps.append(k[(k >= 0) & (k < n)])
+        hit[fi[b]][np.ix_(*taps)] = True
+    per_px = 3 * rgb.element_size() + depth.element_size()
+    in_bytes = int(hit.sum()) * per_px + (H + W) * 4 + F * (9 + 1) * 4 \
+        + B * (8 + 3 * 4)
+    out_bytes = B * (S * S * 6 + O * O * 5) * 4
+    bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    ops_s = B * S * S * ROI_CROP_OPS_PER_PIXEL / FP32_INSTR_PER_S
+    return 1e3 * max(ops_s, bytes_s), \
+        "operations" if ops_s >= bytes_s else "bytes"
+
+
+def library_roi_crop(rgb, depth, frame_idx, center, scale, S):
+    """The yardstick, crop only (no normalisation, back-projection or
+    coordinate map): ``F.grid_sample`` (bilinear, zero padding,
+    align_corners=True) of the RGB and depth planes of each ROI's frame,
+    [B,4,H,W] float32, at the S grid's source coordinates. Its inputs are
+    made here, outside the call it returns; timed only, the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as fn
+
+    from rdpn6d_tpu_torch.ops.warp import _src_coords
+
+    H, W = depth.shape[1], depth.shape[2]
+    planes = torch.cat([rgb.float(), depth.float()[..., None]], -1)[
+        frame_idx].permute(0, 3, 1, 2).contiguous()
+    sx, sy = _src_coords(center, scale, S)
+    B = frame_idx.shape[0]
+    grid = torch.stack([(sx * (2.0 / (W - 1)) - 1)[:, None, :].expand(B, S, S),
+                        (sy * (2.0 / (H - 1)) - 1)[:, :, None].expand(B, S, S)],
+                       -1).contiguous()
+    return lambda: fn.grid_sample(planes, grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True)
+
+
+def check_roi_crop(dev, card):
+    """Phase 2 for ``roi_crop``: the kernel against its plain version at
+    B = 1, 16 and 24, F = 1 and 8 frames with mixed frame indices, uint8
+    and float32 RGB, float32 depth (a NaN pixel) and int32 raw depth with a
+    factor, windows across every edge, wholly off the frame, of scale 1 and
+    max(H, W) and on exact half pixels, normalised and not, at 256 / 64 and
+    128 / 32; the RGB and the coordinate map bit-equal (NaN where the plain
+    version has NaN), xyz within 1e-5 of its largest value (the design
+    gives it bit for bit: 0 is expected). Then times the served batch (16
+    ROIs of one 480x640 frame, uint8 RGB, depth in metres, lm13's boxes)
+    beside the plain version, ``F.grid_sample`` and the bound. Returns
+    (the largest xyz difference, times)."""
+    import torch
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.pipeline import dzi_jitter
+    from rdpn6d_tpu_torch.ops.roi_crop import roi_crop, roi_crop_plain
+
+    cfg = lm13.get_config()
+    d = cfg.data
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    worst = 0.0
+    for (B, F, rgb_dtype, raw, S, O) in [
+            (1, 1, "uint8", False, 256, 64), (16, 1, "uint8", False, 256, 64),
+            (16, 1, "uint8", True, 256, 64), (24, 8, "uint8", True, 256, 64),
+            (24, 8, "float32", False, 256, 64),
+            (16, 8, "float32", True, 128, 32)]:
+        inp = roi_crop_inputs(B, F, 480, 640, B + F + S, dev, rgb_dtype, raw,
+                              S)
+        for normalize in (True, False):
+            got = roi_crop(*inp, S, O, mean, std, normalize=normalize)
+            ref = roi_crop_plain(*inp, S, O, mean, std, normalize=normalize)
+            torch.cuda.synchronize()
+            what = (f"B={B} F={F} {rgb_dtype} RGB, "
+                    f"{'raw' if raw else 'metre'} depth, {S}/{O}, "
+                    f"normalize={normalize}")
+            check(same_bits(got[0][..., :3], ref[0][..., :3])
+                  and same_bits(got[1][..., 3:], ref[1][..., 3:]),
+                  f"roi_crop RGB or coordinate map differs at {what}")
+            xyz = [(got[0][..., 3:], ref[0][..., 3:]),
+                   (got[1][..., :3], ref[1][..., :3])]
+            check(all(bool(torch.equal(a.isnan(), r.isnan())) for a, r in xyz),
+                  f"roi_crop xyz NaN pattern differs at {what}")
+            errs = [float((a - r).nan_to_num(0).abs().amax(dim=(0, 1, 2))
+                          .max()) for a, r in xyz]
+            by_ch = (got[0][..., 3:] - ref[0][..., 3:]).nan_to_num(0).abs() \
+                .amax(dim=(0, 1, 2)).tolist()
+            top = float(ref[0][..., 3:].nan_to_num(0).abs().max())
+            err = max(errs)
+            check(err <= 1e-5 * max(top, 1.0), f"roi_crop xyz differs by "
+                  f"{err:.3e} (x, y, z: {by_ch}) at {what}")
+            worst = max(worst, err)
+            print(f"kernel: roi_crop {what}: RGB and coordinate map "
+                  f"bit-equal, xyz max_abs_err {err:.3e} (x, y, z "
+                  f"{by_ch[0]:.1e} {by_ch[1]:.1e} {by_ch[2]:.1e}; tol "
+                  f"{1e-5 * max(top, 1.0):.1e}) [{card}]")
+
+    # the served batch: one frame, 16 detections, as Predictor hands it over
+    rgb, depth, dets = make_frames(seed=21, counts=(SERVE_BATCH,))[0]
+    bbox = torch.from_numpy(np.stack([x.bbox_xyxy for x in dets]))
+    center, scale = dzi_jitter(bbox, (480, 640), pad_scale=d.dzi_pad_scale)
+    args = [torch.from_numpy(rgb)[None].to(dev),
+            torch.from_numpy(depth)[None].to(dev), None,
+            torch.from_numpy(K_LM)[None].to(dev),
+            torch.zeros(SERVE_BATCH, dtype=torch.long, device=dev),
+            center.to(dev), scale.to(dev)]
+    S, O = d.input_res, d.out_res
+
+    def kernel():
+        return roi_crop(*args, S, O, d.pixel_mean, d.pixel_std)
+
+    def plain():
+        return roi_crop_plain(*args, S, O, d.pixel_mean, d.pixel_std)
+
+    lib = library_roi_crop(args[0], args[1], args[4], args[5], args[6], S)
+    crop = roi_crop(*args, S, O, d.pixel_mean, d.pixel_std,
+                    normalize=False)[0]
+    lib_err = float((lib()[:, :3].permute(0, 2, 3, 1) - crop[..., :3])
+                    .abs().max())
+    check(lib_err <= 0.5, f"grid_sample's RGB crop differs from the "
+          f"kernel's by {lib_err:.3e}: not the same crop")
+    ms = queued_ms(kernel, iters=200)
+    prof_ms = device_ms(kernel, iters=200)
+    events_ms = cuda_ms(kernel, iters=200)
+    # the plain chain's kernels' own time: queued behind filler work, its
+    # copies of mean and std from pageable memory drain the stream and it
+    # runs at the host's launch rate
+    plain_ms = device_ms(plain, iters=20)
+    plain_q_ms = queued_ms(plain, iters=20, filler=8192)
+    lib_ms = queued_ms(lib, iters=200)
+    bound_ms, bound_by = roi_crop_bound(args[0], args[1], args[4], args[5],
+                                        args[6], S, O)
+    print(f"kernel: roi_crop served batch, {SERVE_BATCH} ROIs of one 480x640 "
+          f"frame -> {S}/{O}, uint8 RGB, depth in metres: device time "
+          f"(queued) {ms:.5f} ms, {100 * bound_ms / ms:.1f}% of bound "
+          f"(profiler {prof_ms:.5f} ms; CUDA events over a burst "
+          f"{events_ms:.5f} ms), plain {plain_ms:.4f} ms of device time "
+          f"(queued {plain_q_ms:.4f} ms), grid_sample of the 4 planes (crop "
+          f"only, no back-projection; RGB within {lib_err:.1e} of the "
+          f"kernel's) {lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+          f"[{card}]")
+    return worst, dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+
+
+class PreprocessCalls:
+    """Counts the batches preprocessed inside a ``with`` block: the calls
+    of ``preprocess_rois_grouped`` through the names the predictor, the
+    trainer and the eval runner (at each call, from the pipeline module)
+    reach it by, summed over the blocks it is used in."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        from rdpn6d_tpu_torch.data import pipeline
+        from rdpn6d_tpu_torch.engine import predictor, trainer
+
+        self._mods = (pipeline, predictor, trainer)
+        self._orig = pipeline.preprocess_rois_grouped
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+
+        for m in self._mods:
+            m.preprocess_rois_grouped = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.preprocess_rois_grouped = self._orig
+        return False
+
+
 def train_config(amp: bool, out_dir: str):
     """lm13 at full width, seeded fan-in init, no pretrained trunk (the
     torchvision weights are not on disk), 24 ROIs a step; the trainer's
@@ -870,7 +1140,8 @@ def run_train(dev, card, profile: bool, work: str):
     torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launches()
     start = time.perf_counter()
-    trainer.train(itertools.cycle(batches), step_hook=hook)
+    with PreprocessCalls() as calls:
+        trainer.train(itertools.cycle(batches), step_hook=hook)
     torch.cuda.synchronize()
     launches = dict(cuda_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -883,6 +1154,9 @@ def run_train(dev, card, profile: bool, work: str):
     check(launches.get("gt_labels", 0) >= TRAIN_STEPS,
           f"gt_labels launched {launches.get('gt_labels', 0)} times "
           f"in {TRAIN_STEPS} train steps")
+    check(launches.get("roi_crop", 0) == calls.n == TRAIN_STEPS,
+          f"roi_crop launched {launches.get('roi_crop', 0)} times for "
+          f"{calls.n} preprocessed batches in {TRAIN_STEPS} train steps")
     after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     params = [n for n, _ in model.named_parameters()]
     moved = sum(not torch.equal(after[n], before[n]) for n in params)
@@ -1115,8 +1389,8 @@ def read_csv(path):
 
 def run_eval_phase(dev, card, work):
     """Phase 9: the eval entry point on an LM tree written under
-    ``work/data``; returns ``min_dist2``'s launches in ``main``'s run and
-    its MEAN table."""
+    ``work/data``; returns the kernels' launches in ``main``'s run and its
+    MEAN table."""
     import torch
 
     from rdpn6d_tpu_torch import main as port_main
@@ -1152,17 +1426,23 @@ def run_eval_phase(dev, card, work):
     torch.cuda.synchronize()
     cuda_build.reset_launches()
     t0 = time.perf_counter()
-    res = port_main.main([
-        "--config-file",
-        os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
-        "--eval-only", "--opts", f'train.output_dir="{out}"'])
+    with PreprocessCalls() as calls:
+        res = port_main.main([
+            "--config-file",
+            os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
+            "--eval-only", "--opts", f'train.output_dir="{out}"'])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_build.LAUNCHES.get("min_dist2", 0)
+    got = dict(cuda_build.LAUNCHES)
+    launches = got.get("min_dist2", 0)
     check(list(res) == ["lm_13_test"], f"main evaluated {list(res)}")
     res = res["lm_13_test"]
     check(launches == len(objs), f"min_dist2 launched {launches} times "
           f"for {len(objs)} scored objects")
+    n_batches = -(-n_rois // 32)       # run_eval's batches of 32
+    check(got.get("roi_crop", 0) == calls.n == n_batches,
+          f"roi_crop launched {got.get('roi_crop', 0)} times for "
+          f"{calls.n} preprocessed batches ({n_batches} expected)")
     ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
     check(len(ident) == n_rois, f"CSV has {len(ident)} rows for "
           f"{n_rois} instances")
@@ -1184,7 +1464,8 @@ def run_eval_phase(dev, card, work):
           f"{st['n_rois']} ROIs, {rate:.1f} poses/s over the "
           f"{st['n_timed']} ROIs past warm-up ({st['wall_s']:.3f} s), "
           f"split wall time {wall:.2f} s (records, assets, checkpoint, "
-          f"decode, model, scoring, CSV, curves); min_dist2 x{launches}; "
+          f"decode, model, scoring, CSV, curves); min_dist2 x{launches}, "
+          f"roi_crop x{got.get('roi_crop', 0)} in {calls.n} batches; "
           f"MEAN ad_10 {res['mean']['ad_10']:.2f} [{card}]")
 
     register_split(Split("lm_13_test_2obj", "lm", "test",
@@ -1219,7 +1500,7 @@ def run_eval_phase(dev, card, work):
           f"ADI {worst['adi']:.3e} of the diameter (tol 1e-3), re "
           f"{worst['re']:.3e} deg (tol 0.1) [{card}]")
     min_dist2_eval_shape(dev, card, cfg.loss.num_pm_points)
-    return launches, res["mean"]
+    return got, res["mean"]
 
 
 def instrument_trainer(rec: dict):
@@ -1380,9 +1661,10 @@ def run_train_from_disk(dev, card, work, profile: bool):
         cuda_build.reset_launches()
         t0 = time.perf_counter()
         try:
-            state = port_main.main(
-                ["--config-file", config] + ["--resume"] * resume
-                + ["--opts", *opts, f"solver.total_epochs={epochs}"])
+            with PreprocessCalls() as calls:
+                state = port_main.main(
+                    ["--config-file", config] + ["--resume"] * resume
+                    + ["--opts", *opts, f"solver.total_epochs={epochs}"])
         finally:
             undo()
         torch.cuda.synchronize()
@@ -1390,7 +1672,7 @@ def run_train_from_disk(dev, card, work, profile: bool):
         got = dict(cuda_build.LAUNCHES)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        rec.update(wall=wall, launches=got, state=state,
+        rec.update(wall=wall, launches=got, state=state, batches=calls.n,
                    peak=torch.cuda.max_memory_allocated())
         runs.append(rec)
 
@@ -1436,6 +1718,10 @@ def run_train_from_disk(dev, card, work, profile: bool):
               and r["launches"].get("region_label", 0) == 0,
               "surface_labels or region_label launched: the xyz crops were "
               "not shipped")
+        # one an iteration and one an eval batch
+        check(r["launches"].get("roi_crop", 0) == r["batches"] >= n,
+              f"roi_crop launched {r['launches'].get('roi_crop', 0)} times "
+              f"for {r['batches']} preprocessed batches ({n} iterations)")
     check(first["launches"].get("min_dist2", 0) == len(objs),
           f"min_dist2 launched {first['launches'].get('min_dist2', 0)} "
           f"times for {len(objs)} evaluated objects")
@@ -1643,7 +1929,9 @@ def run_train_lmo(dev, card, work):
     cuda_build.reset_launches()
     t0 = time.perf_counter()
     try:
-        state = port_main.main(["--config-file", config, "--opts", *opts])
+        with PreprocessCalls() as calls:
+            state = port_main.main(["--config-file", config, "--opts",
+                                    *opts])
     finally:
         undo()
         pipeline.draw_color_aug = draw
@@ -1675,6 +1963,10 @@ def run_train_lmo(dev, card, work):
     check(launches.get("min_dist2", 0) == n_objs,
           f"min_dist2 launched {launches.get('min_dist2', 0)} times for "
           f"{n_objs} evaluated objects")
+    # one an iteration, colour-augmented or not, and one an eval batch
+    check(launches.get("roi_crop", 0) == calls.n > iters,
+          f"roi_crop launched {launches.get('roi_crop', 0)} times for "
+          f"{calls.n} preprocessed batches ({iters} iterations and the eval)")
     ident, R, t = read_csv(os.path.join(out, "lmo_bop_test_bop19.csv"))
     check(len(ident) == len(targets)
           and bool(np.isfinite(R).all() and np.isfinite(t).all()),
@@ -2479,11 +2771,12 @@ def run_int8_eval(dev, card, work, bf16_mean):
     torch.cuda.synchronize()
     cuda_build.reset_launches()
     t0 = time.perf_counter()
-    res = port_main.main([
-        "--config-file",
-        os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
-        "--eval-only", "--opts", f'train.output_dir="{out}"',
-        'test.int8="head"', "test.int8_static=true"])
+    with PreprocessCalls() as calls:
+        res = port_main.main([
+            "--config-file",
+            os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
+            "--eval-only", "--opts", f'train.output_dir="{out}"',
+            'test.int8="head"', "test.int8_static=true"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = dict(cuda_build.LAUNCHES)
@@ -2495,6 +2788,10 @@ def run_int8_eval(dev, card, work, bf16_mean):
           and got.get("min_dist2", 0) == 13,
           f"int8 eval launches {got}, want int8_conv and bn_relu_quantize "
           f"{want}, quantize_act 0, min_dist2 13")
+    # the static calibration preprocesses the first batch once more
+    check(got.get("roi_crop", 0) == calls.n == -(-n_rois // 32) + 1,
+          f"int8 eval: roi_crop launched {got.get('roi_crop', 0)} times for "
+          f"{calls.n} preprocessed batches")
     ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
     check(len(ident) == n_rois and bool(np.isfinite(R).all()
                                         and np.isfinite(t).all()),
@@ -2545,7 +2842,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     # 1. build --------------------------------------------------------------
-    kernels = ["min_dist2", "region_label", "int8_conv"]
+    kernels = ["min_dist2", "region_label", "int8_conv", "roi_crop"]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import sys; from rdpn6d_tpu_torch.ops "
@@ -2617,6 +2914,7 @@ def main(argv=None) -> int:
     label_err, label_times = check_region_label(dev, card)
     gt_err, gt_times = check_gt_labels(dev, card)
     surface_err, surface_times = check_surface_labels(dev, card)
+    crop_err, crop_times = check_roi_crop(dev, card)
 
     # 3. serve ----------------------------------------------------------------
     cfg = lm13.get_config().apply_opts(['head.init="fan_in"'])
@@ -2634,8 +2932,10 @@ def main(argv=None) -> int:
         serve(preds[name], frames)    # warm-up: cuDNN plans per batch size
     cuda_build.reset_launches()
     served = {}
+    calls = PreprocessCalls()
     for name in ("bf16", "f32"):
-        outs, secs = serve(preds[name], frames)
+        with calls:
+            outs, secs = serve(preds[name], frames)
         flat = [r for o in outs for r in o]
         check(len(flat) == n_det, f"{name}: {len(flat)} poses for "
               f"{n_det} detections")
@@ -2649,6 +2949,14 @@ def main(argv=None) -> int:
         print(f"serve: lm13 full width {name}: {n_det} poses from "
               f"{len(frames)} frames in {secs * 1e3:.1f} ms = "
               f"{n_det / secs:.1f} poses/s [{card}]")
+
+    serve_batches = 2 * sum(-(-len(f[2]) // SERVE_BATCH) for f in frames)
+    crop_launches = cuda_build.LAUNCHES.get("roi_crop", 0)
+    check(crop_launches == calls.n == serve_batches,
+          f"roi_crop launched {crop_launches} times for {calls.n} "
+          f"preprocessed batches ({serve_batches} served batches)")
+    print(f"serve: roi_crop x{crop_launches} in {serve_batches} served "
+          "batches")
 
     if args.profile:
         profile_pass("served pass, bf16",
@@ -2739,7 +3047,8 @@ def main(argv=None) -> int:
         "name": "min_dist2", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/min_dist2.cu",
         "replaces": "rdpn6d_tpu/ops/pallas_kernels.py:57",
-        "launches": launches.get("min_dist2", 0) + eval_launches
+        "launches": launches.get("min_dist2", 0)
+        + eval_launches.get("min_dist2", 0)
         + disk_launches.get("min_dist2", 0)
         + lmo_launches.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
@@ -2781,7 +3090,15 @@ def main(argv=None) -> int:
         "replaces": "rdpn6d_tpu/models/quant.py:140",
         "launches": serve8["bn_relu_quantize"]
         + eval8.get("bn_relu_quantize", 0),
-        "max_abs_err": fused_err, **fused_times}], "card": card}
+        "max_abs_err": fused_err, **fused_times}, {
+        "name": "roi_crop", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/roi_crop.cu",
+        "replaces": "rdpn6d_tpu/ops/warp.py:130",
+        "launches": crop_launches + train_launches.get("roi_crop", 0)
+        + eval_launches.get("roi_crop", 0)
+        + disk_launches.get("roi_crop", 0)
+        + lmo_launches.get("roi_crop", 0) + eval8.get("roi_crop", 0),
+        "max_abs_err": crop_err, **crop_times}], "card": card}
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,11 @@ Counterpart of ``rdpn6d_tpu/data/pipeline.py``:
 
 Batched over ROIs, each reading its frame by index, so frames are moved to
 the device once whatever the number of ROIs; per-instance GT maps ride the
-ROI axis. The crops are gathers (``ops/warp.py``); the TPU path writes them
-as matmuls for the MXU. Depth stays float32 end to end.
+ROI axis. The network inputs (the RGB and depth crops, the normalisation,
+the back-projection and the coordinate map) come from one kernel on the
+card (``ops/roi_crop.roi_crop``), gathers on the CPU (``ops/warp.py``); the
+TPU path writes the crops as matmuls for the MXU. Depth stays float32 end
+to end.
 
 The DZI and colour-aug draws cannot match JAX's threefry, so they are
 inputs: pass ``center_scale`` to use given boxes and ``aug_params`` given
@@ -34,12 +37,11 @@ import torch
 
 from ..config import Config
 from ..geometry.allocentric import ego_to_allo_mat
-from ..geometry.camera import backproject_depth, crop_K
 from ..geometry.rotations import mat_to_ortho6d
 from ..ops.binning import quantize_coords
 from ..ops.gt_labels import gt_labels
+from ..ops.roi_crop import roi_crop
 from ..ops.surface_labels import surface_labels
-from ..ops.warp import crop_affine, crop_resize_frames
 from .augment import color_augment, config_ops, draw_color_aug
 
 
@@ -90,25 +92,6 @@ def dzi_jitter(bbox_xyxy: torch.Tensor, im_hw: tuple[int, int],
     return center, scale.clamp(1.0, float(max(im_hw)))
 
 
-def coord_2d_map(height: int, width: int,
-                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """Full-frame normalized 2-D coordinate map [H, W, 2] in [0, 1]."""
-    x = torch.linspace(0.0, 1.0, width, device=device)
-    y = torch.linspace(0.0, 1.0, height, device=device)
-    yy, xx = torch.meshgrid(y, x, indexing="ij")
-    return torch.stack([xx, yy], dim=-1)
-
-
-def _backproject_crop(depth_crop: torch.Tensor, K: torch.Tensor,
-                      center: torch.Tensor, scale: torch.Tensor,
-                      input_res: int, out_res: int) -> torch.Tensor:
-    """depth crops [B, S, S] -> camera-frame XYZ [B, S, S, 3] via the
-    crop-warped intrinsics, depth divided by resize_ratio first."""
-    Kc = crop_K(K, crop_affine(center, scale, input_res))
-    resize_ratio = out_res / scale
-    return backproject_depth(depth_crop / resize_ratio[:, None, None], Kc)
-
-
 _GT_FRAME_KEYS = ("xyz", "mask_visib", "mask_trunc")
 
 
@@ -147,16 +130,20 @@ def preprocess_rois_grouped(
             "maps on the frame axis; pass GT maps per ROI instead")
     input_res, out_res = d.input_res, d.out_res
     rgb_full = frames["rgb"]
+    if rgb_full.dtype not in (torch.uint8, torch.float32):
+        rgb_full = rgb_full.float()
     H, W = rgb_full.shape[1], rgb_full.shape[2]
     dev = rgb_full.device
     if "depth_raw" in frames:
-        depth_full = frames["depth_raw"].float() \
-            / frames["depth_factor"].float()[:, None, None]
+        depth, factor = frames["depth_raw"], frames["depth_factor"].float()
+        if depth.dtype == torch.uint16:     # as the JAX package ships it
+            depth = depth.to(torch.int32)
     else:
-        depth_full = frames["depth"].float()
+        depth, factor = frames["depth"].float(), None
     fidx = rois["frame_idx"].long()
     bbox = rois["bbox"].float()
-    K = frames["K"].float()[fidx]
+    K_frames = frames["K"].float()
+    K = K_frames[fidx]
 
     if center_scale is not None:
         center, scale = (t.float() for t in center_scale)
@@ -168,10 +155,15 @@ def preprocess_rois_grouped(
     bh = (bbox[:, 3] - bbox[:, 1]).clamp_min(1.0)
     resize_ratio = out_res / scale
 
-    rgb = crop_resize_frames(rgb_full, fidx, center, scale, input_res)
     ops = config_ops(d.color_aug_ops, d.color_aug_type) \
         if train and d.color_aug_prob > 0 else ()
+    # [B, S, S, 6] and [B, O, O, 5]: one kernel on the card
+    roi_img, roi_coord_2d = roi_crop(
+        rgb_full, depth, factor, K_frames, fidx, center, scale, input_res,
+        out_res, d.pixel_mean, d.pixel_std, normalize=not ops)
     if ops:
+        # colour aug between the crop and the normalisation, on the RGB
+        rgb = roi_img[..., :3]
         if aug_params is None:
             aug_params = draw_color_aug(ops, fidx.shape[0], d.color_aug_prob,
                                         generator, (input_res, input_res),
@@ -179,22 +171,9 @@ def preprocess_rois_grouped(
         aug = color_augment(rgb, aug_params["ops"], ops)
         rgb = torch.where(aug_params["apply"].to(dev)[:, None, None, None],
                           aug, rgb)
-    mean = torch.tensor(d.pixel_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(d.pixel_std, dtype=torch.float32, device=dev)
-    rgb = (rgb - mean) / std
-
-    depth_crop = crop_resize_frames(depth_full, fidx, center, scale,
-                                    input_res)
-    depth_xyz = _backproject_crop(depth_crop, K, center, scale, input_res,
-                                  out_res)
-    roi_img = torch.cat([rgb, depth_xyz], dim=-1)       # [B, S, S, 6]
-
-    uv01 = coord_2d_map(H, W, dev)[None]
-    zero_idx = torch.zeros_like(fidx)
-    coord2d = crop_resize_frames(uv01, zero_idx, center, scale, out_res)
-    stride = input_res // out_res
-    roi_coord_2d = torch.cat([depth_xyz[:, ::stride, ::stride], coord2d],
-                             dim=-1)                    # [B, O, O, 5]
+        mean = torch.tensor(d.pixel_mean, dtype=torch.float32, device=dev)
+        std = torch.tensor(d.pixel_std, dtype=torch.float32, device=dev)
+        roi_img[..., :3] = (rgb - mean) / std
     out = {
         "roi_img": roi_img,
         "roi_coord_2d": roi_coord_2d,
@@ -211,13 +190,14 @@ def preprocess_rois_grouped(
             out[k] = rois[k]
     if not train:
         return out
-    out.update(_train_labels(cfg, rois, depth_full, fidx, K, center, scale,
-                             bw, bh, resize_ratio))
+    out.update(_train_labels(cfg, rois, depth, factor, fidx, K, center,
+                             scale, bw, bh, resize_ratio))
     return out
 
 
 def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
-                  depth_full: torch.Tensor, fidx: torch.Tensor,
+                  depth: torch.Tensor, factor: torch.Tensor | None,
+                  fidx: torch.Tensor,
                   K: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
                   bw: torch.Tensor, bh: torch.Tensor,
                   resize_ratio: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -246,7 +226,10 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
         labels = gt_labels(visib_in, trunc_in, xyz, gt_center, scale, fps,
                            R_gt, extent, out_res, residual=residual)
     else:
-        # no xyz map: xyz = R^T (p_cam - t) of each tap's back-projection
+        # no xyz map: xyz = R^T (p_cam - t) of each tap's back-projection,
+        # from the full-frame depth in metres
+        depth_full = depth if factor is None \
+            else depth.float() / factor[:, None, None]
         labels = surface_labels(depth_full, fidx, visib_in, trunc_in, K,
                                 center, scale, fps, R_gt, t_gt, extent,
                                 out_res, residual=residual)

@@ -28,6 +28,7 @@ from rdpn6d_tpu_torch.ops.int8_conv import (
 )
 from rdpn6d_tpu_torch.ops.min_dist import min_dist2, min_dist2_plain
 from rdpn6d_tpu_torch.ops.region import region_label, region_label_plain
+from rdpn6d_tpu_torch.ops.roi_crop import roi_crop, roi_crop_plain
 from rdpn6d_tpu_torch.ops.surface_labels import (
     surface_labels,
     surface_labels_plain,
@@ -593,6 +594,7 @@ def test_lmo_train_labels_card_matches_cpu(card, ship_xyz):
     kernel = "gt_labels" if ship_xyz else "surface_labels"
     assert cuda_build.LAUNCHES.get(kernel, 0) == 1
     assert cuda_build.LAUNCHES.get("region_label", 0) == 0
+    assert cuda_build.LAUNCHES.get("roi_crop", 0) == 1
     cpu, gpu = outs
     for k in ("roi_mask_visib", "roi_mask_trunc", "roi_mask_obj"):
         assert torch.equal(cpu[k], gpu[k]), k
@@ -1040,3 +1042,124 @@ class _HeadCall(torch.nn.Module):
 
     def forward(self, x):
         return self.head(x, self.skip)
+
+
+def _crop_inputs(B, F, H, W, seed, rgb_dtype, raw, S):
+    """``roi_crop``'s frame and window arguments on the CPU: noisy RGB
+    (uint8 or float32), a depth surface with holes (float32 metres with a
+    NaN pixel, or int32 raw units with a factor a frame), K, mixed frame
+    indices, windows near the frame clamped to [1, max(H, W)]; ROI 0
+    across the top-left corner, 1 wholly off the frame, 2 of scale 1, 3
+    of scale max(H, W), 4 on exact half pixels."""
+    g = torch.Generator().manual_seed(seed)
+    rgb = torch.rand(F, H, W, 3, generator=g) * 255
+    if rgb_dtype == "uint8":
+        rgb = rgb.to(torch.uint8)
+    depth = (0.6 + 0.4 * torch.rand(F, H, W, generator=g)) \
+        * (torch.rand(F, H, W, generator=g) > 0.05)
+    factor = None
+    if raw:
+        factor = torch.tensor([1000.0, 10000.0] * F)[:F]
+        depth = torch.round(depth * factor[:, None, None]).to(torch.int32)
+    else:
+        depth[0, H // 2, W // 2] = float("nan")
+    K = torch.tensor([[572.4 * W / 640, 0.0, W / 2],
+                      [0.0, 573.6 * W / 640, H / 2], [0.0, 0.0, 1.0]]) \
+        .repeat(F, 1, 1)
+    frame_idx = torch.randint(0, F, (B,), generator=g)
+    side = float(max(H, W))
+    center = torch.rand(B, 2, generator=g) * torch.tensor([1.2 * W, 1.2 * H]) \
+        - torch.tensor([0.1 * W, 0.1 * H])
+    scale = ((torch.rand(B, generator=g) * 1.2 + 0.1) * side).clamp(1, side)
+    edges = [((0.0, 0.0), 0.3 * side), ((-side, -side), 0.4 * side),
+             ((W / 3, H / 3), 1.0), ((W / 2, H / 2), side),
+             ((float(W // 2), float(H // 2)), 0.75 * S)]
+    for b, ((cx, cy), sd) in enumerate(edges[:B]):
+        center[b] = torch.tensor([cx, cy])
+        scale[b] = sd
+    return [rgb, depth, factor, K, frame_idx, center, scale]
+
+
+def _same(a, b) -> bool:
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())) and bool(
+        torch.equal(a.masked_fill(nan, 0), b.masked_fill(nan, 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("B,F,rgb_dtype,raw,S,O", [
+    (1, 1, "uint8", False, 256, 64), (16, 1, "uint8", False, 256, 64),
+    (16, 1, "uint8", True, 256, 64), (24, 8, "uint8", True, 256, 64),
+    (24, 8, "float32", False, 256, 64), (16, 8, "float32", True, 128, 32),
+    (5, 2, "uint8", True, 33, 11)])
+def test_roi_crop_kernel_matches_plain(card, normalize, B, F, rgb_dtype, raw,
+                                       S, O):
+    """Bit for bit, NaN where the plain version has NaN (the kernel rounds
+    every op as the plain version does); one counted launch a call."""
+    inp = [None if t is None else t.to(card) for t in
+           _crop_inputs(B, F, 480, 640, B + S, rgb_dtype, raw, S)]
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    before = cuda_build.LAUNCHES.get("roi_crop", 0)
+    img, coord = roi_crop(*inp, S, O, mean, std, normalize=normalize)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["roi_crop"] == before + 1
+    ref_img, ref_coord = roi_crop_plain(*inp, S, O, mean, std,
+                                        normalize=normalize)
+    assert img.shape == (B, S, S, 6) and coord.shape == (B, O, O, 5)
+    assert _same(img, ref_img) and _same(coord, ref_coord)
+
+
+@pytest.mark.cuda
+def test_roi_crop_kernel_refuses_bad_input(card):
+    inp = [None if t is None else t.to(card)
+           for t in _crop_inputs(2, 1, 40, 56, 0, "uint8", True, 32)]
+    mean, std = (0.0, 0.0, 0.0), (255.0, 255.0, 255.0)
+    with pytest.raises(TypeError):
+        roi_crop(inp[0].float().double(), *inp[1:], 32, 8, mean, std)
+    with pytest.raises(ValueError):                     # mixed devices
+        roi_crop(*inp[:4], inp[4].cpu(), *inp[5:], 32, 8, mean, std)
+    with pytest.raises(ValueError):                     # no O grid stride
+        roi_crop(*inp, 30, 8, mean, std)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_preprocessing_launches_one_roi_crop(card, train):
+    """``preprocess_rois_grouped`` of 6 ROIs of 2 frames launches one
+    ``roi_crop`` in eval and in train mode, and agrees with the CPU."""
+    from rdpn6d_tpu_torch.config import Config
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
+    from rdpn6d_tpu_torch.data.synthetic import dummy_grouped_inputs
+
+    cfg = Config()
+    frames, rois = dummy_grouped_inputs(cfg, n_frames=2, rois_per_frame=3,
+                                        seed=5, im_hw=(480, 640),
+                                        focal=572.0, ship_xyz=True)
+    bbox = torch.from_numpy(rois["bbox"])
+    cs = (0.5 * (bbox[:, :2] + bbox[:, 2:]),
+          1.5 * (bbox[:, 2:] - bbox[:, :2]).amax(-1))
+    outs = []
+    for dev in ("cpu", card):
+        cuda_build.reset_launches()
+        out = preprocess_rois_grouped(
+            cfg, {k: torch.from_numpy(v).to(dev) for k, v in frames.items()},
+            {k: torch.from_numpy(v).to(dev) for k, v in rois.items()},
+            train=train, center_scale=tuple(t.to(dev) for t in cs))
+        outs.append({k: v.cpu() for k, v in out.items()})
+    assert cuda_build.LAUNCHES.get("roi_crop", 0) == 1
+    cpu, gpu = outs
+    # float32 on both; the card's torch.linspace and CPU's may round the
+    # coordinate map's axes apart by an ulp
+    for k in ("roi_img", "roi_coord_2d"):
+        assert float((cpu[k] - gpu[k]).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_roi_crop_build_spills_nothing(card):
+    _, built = cuda_build.load("roi_crop")
+    usage = {name: u for name, u in cuda_build.ptxas_usage(built.log).items()
+             if "roi_crop_kernel" in name}
+    assert len(usage) == 4
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)

@@ -38,6 +38,7 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.configs.lmo",
             "rdpn6d_tpu_torch.ops.surface_labels",
             "rdpn6d_tpu_torch.ops.int8_conv",
+            "rdpn6d_tpu_torch.ops.roi_crop",
             "rdpn6d_tpu_torch.models.quant"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -63,6 +64,7 @@ def _sources():
     yield os.path.join(ROOT, "time_min_dist2.py")
     yield os.path.join(ROOT, "time_int8.py")
     yield os.path.join(ROOT, "time_labels.py")
+    yield os.path.join(ROOT, "time_crop.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
