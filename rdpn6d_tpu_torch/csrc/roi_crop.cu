@@ -59,6 +59,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -117,6 +119,44 @@ __device__ __forceinline__ float depth_at(const void* depth, size_t i,
   return __ldg(static_cast<const float*>(depth) + i);
 }
 
+// The grid pixels (io, jo) of the O grid, at (io stride, jo stride) of the
+// S grid, that come before flattened S-grid pixel P = i S + j: every grid
+// row above row i, and in row i (where it is a grid row) the columns left
+// of j. They are in the same order in roi_coord as in roi_img, so a block's
+// contiguous run of S-grid pixels holds a contiguous run of grid pixels.
+__device__ __forceinline__ int grid_before(int P, int S, int O, int stride) {
+  const int i = P / S, j = P - i * S;
+  int n = min(O, (i + stride - 1) / stride) * O;
+  if (i % stride == 0 && i / stride < O) n += min(O, (j + stride - 1) / stride);
+  return n;
+}
+
+// Store n floats of a shared tile to dst, in 16-byte vectors where both
+// line up: the tile holds dst[k] at tile[mis + k], mis = dst's offset in
+// floats from the 16-byte boundary below it, so the vector chunks of the
+// two coincide; the partial chunks at either end go as scalars. Chunks
+// are dealt to the block's nt threads in turn, so a warp stores 512
+// contiguous bytes.
+__device__ __forceinline__ void store_span(float* __restrict__ dst,
+                                           const float* tile, int mis, int n,
+                                           int t, int nt) {
+  float* base = dst - mis;
+  const int end = mis + n;
+  for (int c = t; 4 * c < end; c += nt) {
+    const int lo = 4 * c;
+    if (lo >= mis && lo + 4 <= end) {
+      reinterpret_cast<float4*>(base)[c] =
+          reinterpret_cast<const float4*>(tile)[c];
+    } else {
+      for (int e = max(lo, mis); e < min(lo + 4, end); ++e) base[e] = tile[e];
+    }
+  }
+}
+
+__device__ __forceinline__ int misalign(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
 // Staged per ROI: centre x, y; scale / S; scale / O; resize_ratio; Kc's
 // fx, fy, cx, cy; the depth factor
 enum { kCx, kCy, kStepS, kStepO, kRatio, kFx, kFy, kKx, kKy, kFactor, kN };
@@ -134,15 +174,27 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
                 int F, int H, int W, int S, int O, int stride, float mean0,
                 float mean1, float mean2, float std0, float std1, float std2,
                 int normalize) {
+  // the block's tile: 6 floats a pixel, then 5 a grid pixel, each laid out
+  // as its span of roi_img / roi_coord lies against 16-byte boundaries
+  __shared__ __align__(16) float img_tile[kThreads * 6 + 4];
+  __shared__ __align__(16) float coord_tile[kThreads * 5 + 4];
   __shared__ float sc[kN];
   __shared__ long long sfr;
+  __shared__ int sg0, sng;
   const int b = blockIdx.y;
   const int t = threadIdx.x;
+  const int p0 = blockIdx.x * kThreads;
+  const int npx = min(kThreads, S * S - p0);
   if (t == 0) sfr = frame_idx[b];
   if (t < 2) sc[kCx + t] = center[(size_t)b * 2 + t];
   if (t == 2) sc[kStepS] = __fdiv_rn(scale[b], (float)S);
   if (t == 3) sc[kStepO] = __fdiv_rn(scale[b], (float)O);
   if (t == 4) sc[kRatio] = __fmul_rn(__frcp_rn(scale[b]), (float)O);
+  if (t == 10) {
+    const int g0 = grid_before(p0, S, O, stride);
+    sg0 = g0;
+    sng = grid_before(p0 + npx, S, O, stride) - g0;
+  }
   __syncthreads();
   const long long f = sfr;
   if (f < 0 || f >= F) __trap();           // as an index assert would
@@ -158,72 +210,90 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   }
   if (t == 9) sc[kFactor] = kRaw ? depth_factor[f] : 1.f;
   __syncthreads();
-  const int p = blockIdx.x * kThreads + t;
-  if (p >= S * S) return;
+  const int g0 = sg0, ng = sng;
+  float* img_dst = roi_img + ((size_t)b * S * S + p0) * 6;
+  float* coord_dst = roi_coord + ((size_t)b * O * O + g0) * 5;
+  const int mis_img = misalign(img_dst), mis_coord = misalign(coord_dst);
 
-  // the S-grid taps, as ops/warp._src_coords takes them
-  const int i = p / S, j = p - i * S;
-  const float half = 0.5f * (float)S;
-  const Axis ax = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)j, half),
-                                                    sc[kStepS])), W);
-  const Axis ay = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)i, half),
-                                                    sc[kStepS])), H);
-  const float w00 = valid(ay.v0, ax.v0), w01 = valid(ay.v0, ax.v1);
-  const float w10 = valid(ay.v1, ax.v0), w11 = valid(ay.v1, ax.v1);
-  const size_t frame = (size_t)f * H * W;
-  const size_t p00 = frame + (size_t)ay.i0 * W + ax.i0;
-  const size_t p01 = frame + (size_t)ay.i0 * W + ax.i1;
-  const size_t p10 = frame + (size_t)ay.i1 * W + ax.i0;
-  const size_t p11 = frame + (size_t)ay.i1 * W + ax.i1;
+  if (t < npx) {
+    // the S-grid taps, as ops/warp._src_coords takes them
+    const int p = p0 + t;
+    const int i = p / S, j = p - i * S;
+    const float half = 0.5f * (float)S;
+    const Axis ax = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)j,
+                                                                half),
+                                                      sc[kStepS])), W);
+    const Axis ay = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)i,
+                                                                half),
+                                                      sc[kStepS])), H);
+    const float w00 = valid(ay.v0, ax.v0), w01 = valid(ay.v0, ax.v1);
+    const float w10 = valid(ay.v1, ax.v0), w11 = valid(ay.v1, ax.v1);
+    const size_t frame = (size_t)f * H * W;
+    const size_t p00 = frame + (size_t)ay.i0 * W + ax.i0;
+    const size_t p01 = frame + (size_t)ay.i0 * W + ax.i1;
+    const size_t p10 = frame + (size_t)ay.i1 * W + ax.i0;
+    const size_t p11 = frame + (size_t)ay.i1 * W + ax.i1;
 
-  float px[6];
-  const float mean[3] = {mean0, mean1, mean2};
-  const float sd[3] = {std0, std1, std2};
+    float px[6];
+    const float mean[3] = {mean0, mean1, mean2};
+    const float sd[3] = {std0, std1, std2};
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float v = blend(__fmul_rn(rgb_at(rgb, p00 * 3 + c), w00),
-                          __fmul_rn(rgb_at(rgb, p01 * 3 + c), w01),
-                          __fmul_rn(rgb_at(rgb, p10 * 3 + c), w10),
-                          __fmul_rn(rgb_at(rgb, p11 * 3 + c), w11), ay.f,
-                          ax.f);
-    px[c] = normalize ? __fdiv_rn(__fsub_rn(v, mean[c]), sd[c]) : v;
+    for (int c = 0; c < 3; ++c) {
+      const float v = blend(__fmul_rn(rgb_at(rgb, p00 * 3 + c), w00),
+                            __fmul_rn(rgb_at(rgb, p01 * 3 + c), w01),
+                            __fmul_rn(rgb_at(rgb, p10 * 3 + c), w10),
+                            __fmul_rn(rgb_at(rgb, p11 * 3 + c), w11), ay.f,
+                            ax.f);
+      px[c] = normalize ? __fdiv_rn(__fsub_rn(v, mean[c]), sd[c]) : v;
+    }
+    const float fac = sc[kFactor];
+    const float d = blend(__fmul_rn(depth_at<kRaw>(depth, p00, fac), w00),
+                          __fmul_rn(depth_at<kRaw>(depth, p01, fac), w01),
+                          __fmul_rn(depth_at<kRaw>(depth, p10, fac), w10),
+                          __fmul_rn(depth_at<kRaw>(depth, p11, fac), w11),
+                          ay.f, ax.f);
+    const float z = __fdiv_rn(d, sc[kRatio]);
+    px[3] = __fdiv_rn(__fmul_rn(__fsub_rn((float)j, sc[kKx]), z), sc[kFx]);
+    px[4] = __fdiv_rn(__fmul_rn(__fsub_rn((float)i, sc[kKy]), z), sc[kFy]);
+    px[5] = z;
+    // 8-byte shared stores (mis_img is even): a half-warp's 16 land on
+    // 32 distinct banks
+    float2* o = reinterpret_cast<float2*>(img_tile + mis_img + 6 * t);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o[k] = make_float2(px[2 * k], px[2 * k + 1]);
+    if (i % stride == 0 && j % stride == 0) {
+      // the strided xyz of the O grid: this pixel's own
+      float* row = coord_tile + mis_coord +
+                   5 * ((i / stride) * O + j / stride - g0);
+      row[0] = px[3];
+      row[1] = px[4];
+      row[2] = px[5];
+    }
   }
-  const float fac = sc[kFactor];
-  const float d = blend(__fmul_rn(depth_at<kRaw>(depth, p00, fac), w00),
-                        __fmul_rn(depth_at<kRaw>(depth, p01, fac), w01),
-                        __fmul_rn(depth_at<kRaw>(depth, p10, fac), w10),
-                        __fmul_rn(depth_at<kRaw>(depth, p11, fac), w11), ay.f,
-                        ax.f);
-  const float z = __fdiv_rn(d, sc[kRatio]);
-  px[3] = __fdiv_rn(__fmul_rn(__fsub_rn((float)j, sc[kKx]), z), sc[kFx]);
-  px[4] = __fdiv_rn(__fmul_rn(__fsub_rn((float)i, sc[kKy]), z), sc[kFy]);
-  px[5] = z;
-  float2* out = reinterpret_cast<float2*>(roi_img + ((size_t)b * S * S + p) * 6);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) out[k] = make_float2(px[2 * k], px[2 * k + 1]);
-
-  if (i % stride != 0 || j % stride != 0) return;
-  // the O-grid row: the strided xyz and the coordinate map's crop
-  const int io = i / stride, jo = j / stride;
-  const float half_o = 0.5f * (float)O;
-  const Axis bx = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)jo,
-                                                              half_o),
-                                                    sc[kStepO])), W);
-  const Axis by = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)io,
-                                                              half_o),
-                                                    sc[kStepO])), H);
-  const float u00 = valid(by.v0, bx.v0), u01 = valid(by.v0, bx.v1);
-  const float u10 = valid(by.v1, bx.v0), u11 = valid(by.v1, bx.v1);
-  const float x0 = __ldg(lx + bx.i0), x1 = __ldg(lx + bx.i1);
-  const float y0 = __ldg(ly + by.i0), y1 = __ldg(ly + by.i1);
-  float* row = roi_coord + ((size_t)b * O * O + (size_t)io * O + jo) * 5;
-  row[0] = px[3];
-  row[1] = px[4];
-  row[2] = px[5];
-  row[3] = blend(__fmul_rn(x0, u00), __fmul_rn(x1, u01), __fmul_rn(x0, u10),
-                 __fmul_rn(x1, u11), by.f, bx.f);
-  row[4] = blend(__fmul_rn(y0, u00), __fmul_rn(y0, u01), __fmul_rn(y1, u10),
-                 __fmul_rn(y1, u11), by.f, bx.f);
+  if (t < ng) {
+    // the coordinate map's crop at grid pixel g0 + t, on the O grid's taps
+    const int g = g0 + t;
+    const int io = g / O, jo = g - io * O;
+    const float half_o = 0.5f * (float)O;
+    const Axis bx = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)jo,
+                                                                half_o),
+                                                      sc[kStepO])), W);
+    const Axis by = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)io,
+                                                                half_o),
+                                                      sc[kStepO])), H);
+    const float u00 = valid(by.v0, bx.v0), u01 = valid(by.v0, bx.v1);
+    const float u10 = valid(by.v1, bx.v0), u11 = valid(by.v1, bx.v1);
+    const float x0 = __ldg(lx + bx.i0), x1 = __ldg(lx + bx.i1);
+    const float y0 = __ldg(ly + by.i0), y1 = __ldg(ly + by.i1);
+    float* row = coord_tile + mis_coord + 5 * t;
+    row[3] = blend(__fmul_rn(x0, u00), __fmul_rn(x1, u01), __fmul_rn(x0, u10),
+                   __fmul_rn(x1, u11), by.f, bx.f);
+    row[4] = blend(__fmul_rn(y0, u00), __fmul_rn(y0, u01), __fmul_rn(y1, u10),
+                   __fmul_rn(y1, u11), by.f, bx.f);
+  }
+  __syncthreads();
+  store_span(img_dst, img_tile, mis_img, 6 * npx, t, kThreads);
+  store_span(coord_dst, coord_tile, mis_coord, 5 * ng, t, kThreads);
 }
 
 template <typename RgbT, bool kRaw>
