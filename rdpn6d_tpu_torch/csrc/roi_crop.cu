@@ -109,13 +109,42 @@ __device__ __forceinline__ float rgb_at(const float* p, size_t i) {
   return __ldg(p + i);
 }
 
+// RN(1 / d) for a divisor whose quotients may take div_rn's FMA path:
+// |d| in [2^-125, 2^125], so the reciprocal is normal. NaN elsewhere,
+// which sends every quotient by d to __fdiv_rn.
+__device__ __forceinline__ float recip(float d) {
+  const float m = fabsf(d);
+  return m >= 0x1p-125f && m <= 0x1p125f ? __frcp_rn(d)
+                                         : __int_as_float(0x7fc00000);
+}
+
+// a / d correctly rounded, as __fdiv_rn gives it, from r = recip(d): q0 =
+// RN(a r) is within an ulp of a / d, the FMA gives the remainder a - q0 d
+// exactly, and RN(q0 + rem r) is the correctly rounded quotient
+// (Markstein's theorem), where nothing overflows or underflows. The FMA
+// path is taken only where that is so: r normal (recip); 2^-125 <= |q0| <=
+// 2^125, so q0 and the quotient are normal and q0 d stays finite; |a| >=
+// 2^-100, so the remainder, a multiple of min(ulp(a), ulp(q0) ulp(d)) >=
+// 2^-148, lies on the float grid and is exact. a = 0 gives q0 = +-0, the
+// exact quotient. Anything else (a subnormal or huge quotient, a tiny
+// numerator, NaN, an infinity, d out of range) takes __fdiv_rn.
+__device__ __forceinline__ float div_rn(float a, float d, float r) {
+  const float q0 = __fmul_rn(a, r);
+  const float m = fabsf(q0);
+  if (m >= 0x1p-125f && m <= 0x1p125f && fabsf(a) >= 0x1p-100f)
+    return __fmaf_rn(__fmaf_rn(-q0, d, a), r, q0);
+  if (a == 0.f && q0 == 0.f) return q0;
+  return __fdiv_rn(a, d);
+}
+
 // kRaw: depth is int32 raw units, divided by the frame's factor per tap
+// (r its reciprocal)
 template <bool kRaw>
 __device__ __forceinline__ float depth_at(const void* depth, size_t i,
-                                          float factor) {
+                                          float factor, float r) {
   if (kRaw)
-    return __fdiv_rn((float)__ldg(static_cast<const int*>(depth) + i),
-                     factor);
+    return div_rn((float)__ldg(static_cast<const int*>(depth) + i), factor,
+                  r);
   return __ldg(static_cast<const float*>(depth) + i);
 }
 
@@ -158,8 +187,12 @@ __device__ __forceinline__ int misalign(const float* p) {
 }
 
 // Staged per ROI: centre x, y; scale / S; scale / O; resize_ratio; Kc's
-// fx, fy, cx, cy; the depth factor
-enum { kCx, kCy, kStepS, kStepO, kRatio, kFx, kFy, kKx, kKy, kFactor, kN };
+// fx, fy, cx, cy; the depth factor; the reciprocals (recip) of
+// resize_ratio, fx', fy', the factor and the three stds
+enum {
+  kCx, kCy, kStepS, kStepO, kRatio, kFx, kFy, kKx, kKy, kFactor,
+  kRRatio, kRFx, kRFy, kRFactor, kRStd, kN = kRStd + 3
+};
 
 template <typename RgbT, bool kRaw>
 __global__ void __launch_bounds__(kThreads)
@@ -189,7 +222,15 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   if (t < 2) sc[kCx + t] = center[(size_t)b * 2 + t];
   if (t == 2) sc[kStepS] = __fdiv_rn(scale[b], (float)S);
   if (t == 3) sc[kStepO] = __fdiv_rn(scale[b], (float)O);
-  if (t == 4) sc[kRatio] = __fmul_rn(__frcp_rn(scale[b]), (float)O);
+  if (t == 4) {
+    const float ratio = __fmul_rn(__frcp_rn(scale[b]), (float)O);
+    sc[kRatio] = ratio;
+    sc[kRRatio] = recip(ratio);
+  }
+  if (t >= 11 && t < 14) {
+    const float sd = t == 11 ? std0 : t == 12 ? std1 : std2;
+    sc[kRStd + t - 11] = recip(sd);
+  }
   if (t == 10) {
     const int g0 = grid_before(p0, S, O, stride);
     sg0 = g0;
@@ -205,10 +246,16 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     const float* k = cam + f * 9;
     const float r = __fmul_rn(__frcp_rn(scale[b]), (float)S);
     const float ti = __fsub_rn(0.5f * (float)S, __fmul_rn(r, sc[kCx + row]));
-    sc[kFx + (t - 5)] = __fadd_rn(__fmul_rn(r, k[row * 3 + col]),
-                                  __fmul_rn(ti, k[6 + col]));
+    const float kc = __fadd_rn(__fmul_rn(r, k[row * 3 + col]),
+                               __fmul_rn(ti, k[6 + col]));
+    sc[kFx + (t - 5)] = kc;
+    if (t < 7) sc[kRFx + (t - 5)] = recip(kc);
   }
-  if (t == 9) sc[kFactor] = kRaw ? depth_factor[f] : 1.f;
+  if (t == 9) {
+    const float fac = kRaw ? depth_factor[f] : 1.f;
+    sc[kFactor] = fac;
+    sc[kRFactor] = recip(fac);
+  }
   __syncthreads();
   const int g0 = sg0, ng = sng;
   float* img_dst = roi_img + ((size_t)b * S * S + p0) * 6;
@@ -244,17 +291,21 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
                             __fmul_rn(rgb_at(rgb, p10 * 3 + c), w10),
                             __fmul_rn(rgb_at(rgb, p11 * 3 + c), w11), ay.f,
                             ax.f);
-      px[c] = normalize ? __fdiv_rn(__fsub_rn(v, mean[c]), sd[c]) : v;
+      px[c] = normalize ? div_rn(__fsub_rn(v, mean[c]), sd[c], sc[kRStd + c])
+                        : v;
     }
-    const float fac = sc[kFactor];
-    const float d = blend(__fmul_rn(depth_at<kRaw>(depth, p00, fac), w00),
-                          __fmul_rn(depth_at<kRaw>(depth, p01, fac), w01),
-                          __fmul_rn(depth_at<kRaw>(depth, p10, fac), w10),
-                          __fmul_rn(depth_at<kRaw>(depth, p11, fac), w11),
-                          ay.f, ax.f);
-    const float z = __fdiv_rn(d, sc[kRatio]);
-    px[3] = __fdiv_rn(__fmul_rn(__fsub_rn((float)j, sc[kKx]), z), sc[kFx]);
-    px[4] = __fdiv_rn(__fmul_rn(__fsub_rn((float)i, sc[kKy]), z), sc[kFy]);
+    const float fac = sc[kFactor], rfac = sc[kRFactor];
+    const float d =
+        blend(__fmul_rn(depth_at<kRaw>(depth, p00, fac, rfac), w00),
+              __fmul_rn(depth_at<kRaw>(depth, p01, fac, rfac), w01),
+              __fmul_rn(depth_at<kRaw>(depth, p10, fac, rfac), w10),
+              __fmul_rn(depth_at<kRaw>(depth, p11, fac, rfac), w11), ay.f,
+              ax.f);
+    const float z = div_rn(d, sc[kRatio], sc[kRRatio]);
+    px[3] = div_rn(__fmul_rn(__fsub_rn((float)j, sc[kKx]), z), sc[kFx],
+                   sc[kRFx]);
+    px[4] = div_rn(__fmul_rn(__fsub_rn((float)i, sc[kKy]), z), sc[kFy],
+                   sc[kRFy]);
     px[5] = z;
     // 8-byte shared stores (mis_img is even): a half-warp's 16 land on
     // 32 distinct banks

@@ -31,6 +31,7 @@ from rdpn6d_tpu_torch.data import pipeline
 from rdpn6d_tpu_torch.data import synthetic as tsyn
 from rdpn6d_tpu_torch.geometry.camera import crop_K
 from rdpn6d_tpu_torch.ops import roi_crop as rc
+from rdpn6d_tpu_torch.ops.int8_conv import fma_f32
 from rdpn6d_tpu_torch.ops.warp import crop_affine
 
 F32 = np.float32
@@ -190,11 +191,37 @@ def _blend(v00, v01, v10, v11, fy, fx):
         + (v11 * fy) * fx
 
 
+def _recip(d):
+    """The kernel's ``recip``: RN(1 / d) where |d| is in [2^-125, 2^125],
+    else NaN (every quotient by d then takes the IEEE division)."""
+    d = F32(d)
+    return F32(1) / d if 2.0 ** -125 <= abs(d) <= 2.0 ** 125 else F32(np.nan)
+
+
+def _div_rn(a, d, r):
+    """The kernel's ``div_rn`` of float32 ``a`` by the scalar ``d`` with
+    r = ``_recip(d)``: q0 = RN(a r), then RN(q0 + fma(-q0, d, a) r) with
+    each FMA rounded once (``fma_f32``) where q0 and a are in the safe
+    range, q0 where a = 0, and the correctly rounded a / d elsewhere."""
+    a = np.asarray(a, F32)
+    d, r = F32(d), F32(r)
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        q0 = a * r
+        m = np.abs(q0)
+        fast = (m >= 2.0 ** -125) & (m <= 2.0 ** 125) \
+            & (np.abs(a) >= 2.0 ** -100)
+        ta, tq = torch.from_numpy(a), torch.from_numpy(q0)
+        rem = fma_f32(-tq, torch.full_like(ta, float(d)), ta)
+        q = fma_f32(rem, torch.full_like(ta, float(r)), tq).numpy()
+        return np.where(fast, q, np.where((a == 0) & (q0 == 0), q0, a / d))
+
+
 def emulate_kernel(rgb, depth, factor, K, fidx, center, scale, S, O, mean,
                    std, normalize, lx, ly):
     """``csrc/roi_crop.cu``'s arithmetic in numpy float32, op for op: the
-    block's staged scalars, then each pixel's taps, blends, normalisation
-    and back-projection, and the O grid's coordinate map."""
+    block's staged scalars and reciprocals, then each pixel's taps, blends,
+    normalisation and back-projection (each division by a per-ROI constant
+    through ``_div_rn``), and the O grid's coordinate map."""
     B = len(fidx)
     H, W = rgb.shape[1], rgb.shape[2]
     stride = S // O
@@ -228,13 +255,13 @@ def emulate_kernel(rgb, depth, factor, K, fidx, center, scale, S, O, mean,
         for c in range(3):
             v = _blend(*taps(rgb[f, :, :, c]), fy, fx)
             if normalize:
-                v = (v - F32(mean[c])) / F32(std[c])
+                v = _div_rn(v - F32(mean[c]), std[c], _recip(std[c]))
             img[b, :, :, c] = v
-        plane = depth[f] if factor is None \
-            else depth[f].astype(F32) / factor[f]
-        z = _blend(*taps(plane), fy, fx) / ratio
-        img[b, :, :, 3] = ((j - kcx) * z) / kfx
-        img[b, :, :, 4] = ((i - kcy) * z) / kfy
+        plane = depth[f] if factor is None else _div_rn(
+            depth[f].astype(F32), factor[f], _recip(factor[f]))
+        z = _div_rn(_blend(*taps(plane), fy, fx), ratio, _recip(ratio))
+        img[b, :, :, 3] = _div_rn((j - kcx) * z, kfx, _recip(kfx))
+        img[b, :, :, 4] = _div_rn((i - kcy) * z, kfy, _recip(kfy))
         img[b, :, :, 5] = z
         coord[b, :, :, :3] = img[b, ::stride, ::stride, 3:]
         jo = np.arange(O, dtype=F32)[None, :]
@@ -274,6 +301,117 @@ def test_kernel_emulation_is_bit_equal_to_plain(case, normalize):
     np.testing.assert_array_equal(e_coord, coord.numpy())
     if not raw:
         assert np.isnan(e_img).any() == bool(img.isnan().any())
+
+
+# Frames that drive each division by a per-ROI constant into its edge
+# ranges, as (name, depth multiplier, factor (None: metres), K's fx and
+# fy, stds); the depth is 0.6-1 m times the multiplier, as float32 metres
+# or rounded to raw units: quotients below the normal range (depths near
+# 10^-38; x and y near the principal point below 2^-100 too); z past
+# 10^30 over an fx' near 10^-17, whose quotients overflow; the factors 1
+# and 65535; stds whose reciprocals are inexact, one past 2^125 (its
+# reciprocal subnormal) and one subnormal.
+LM_STD = (58.395, 57.12, 57.375)
+DIV_EDGES = [
+    ("subnormal_metres", 1e-36, None, None, LM_STD),
+    ("subnormal_raw", 3.0, 3e38, None, LM_STD),
+    ("huge_z_tiny_fx_metres", 1e30, None, 1e-20, LM_STD),
+    ("huge_z_tiny_fx_raw", 65535.0, 1e-30, 1e-20, LM_STD),
+    ("factor_1", 1000.0, 1.0, None, LM_STD),
+    ("factor_65535", 65535.0, 65535.0, None, LM_STD),
+    ("inexact_std", 1.0, None, None, (3.0, 0.1, 7e37)),
+    ("tiny_std", 1000.0, 1000.0, None, (1e-39, 1e-30, 255.0)),
+]
+
+
+def _edge_frames(mult, factor, fx, seed):
+    """Two 40x56 frames of ``_frames`` with the depth times ``mult``, as
+    float32 metres (a NaN pixel) or, with a ``factor``, int32 raw units;
+    fx and fy replaced where ``fx`` is given."""
+    frames = _frames(2, 40, 56, seed, "uint8", False)
+    depth = frames.pop("depth").astype(np.float64) * mult
+    if factor is not None:
+        frames["depth_raw"] = np.round(depth).astype(np.int32)
+        frames["depth_factor"] = np.full(2, factor, F32)
+    else:
+        frames["depth"] = depth.astype(F32)
+        frames["depth"][0, 20, 18] = np.nan
+    if fx is not None:
+        frames["K"][:, 0, 0] = frames["K"][:, 1, 1] = fx
+    return frames
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("edge", DIV_EDGES, ids=[e[0] for e in DIV_EDGES])
+def test_kernel_emulation_bit_equal_at_division_edges(edge, normalize):
+    """The kernel's divisions (``_div_rn``: the FMA path, the zero path and
+    the IEEE branch) stay bit-equal to the plain version's quotients where
+    they underflow, overflow or divide by an inexact reciprocal."""
+    _, mult, factor, fx, std = edge
+    raw = factor is not None
+    frames = _edge_frames(mult, factor, fx, 13)
+    # around the principal point, off the frame, half pixels, two frames
+    rois = _rois([[8, 6, 48, 34], [-20, -10, 10, 12], [10, 7, 26, 23],
+                  [20, 10, 50, 35]], [0, 0, 1, 1])
+    center, scale_ = _box_crop(rois, 40, 56)
+    mean = (123.675, 116.28, 103.53)
+    key = "depth_raw" if raw else "depth"
+    args = _crop_args(frames, rois, center, scale_)
+    img, coord = rc.roi_crop_plain(*args, 32, 8, mean, std,
+                                   normalize=normalize)
+    lx, ly = (a.numpy() for a in rc.coord_axes(40, 56, "cpu"))
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        e_img, e_coord = emulate_kernel(
+            frames["rgb"], frames[key], frames.get("depth_factor"),
+            frames["K"], rois["frame_idx"], center.numpy(), scale_.numpy(),
+            32, 8, mean, std, normalize, lx, ly)
+    np.testing.assert_array_equal(e_img.view(np.int32)[~np.isnan(e_img)],
+                                  img.numpy().view(np.int32)[~np.isnan(e_img)])
+    np.testing.assert_array_equal(np.isnan(e_img), img.isnan().numpy())
+    np.testing.assert_array_equal(e_coord, coord.numpy())
+    xyz = img[..., 3:].numpy()
+    tiny = (xyz != 0) & (np.abs(xyz) < 2.0 ** -126)
+    if edge[0].startswith("subnormal"):
+        assert tiny.any()                     # the edge is reached
+    if edge[0].startswith("huge"):
+        assert np.isinf(xyz).any()
+
+
+def _all_mantissas():
+    """Every float32 in [1, 2): with a normal divisor and no underflow or
+    overflow, a quotient's rounding depends on the numerator's significand
+    alone, so this binade stands for every normal numerator."""
+    return ((np.arange(2 ** 23, dtype=np.int64) + (127 << 23))
+            .astype(np.int32).view(F32))
+
+
+@pytest.mark.parametrize("d", [58.395, 57.12, 57.375, 65535.0, 1000.0, 3.0,
+                               0.1, 0.6113281, 1.1754944e-38, 2.0 ** 126])
+def test_reciprocal_division_is_correctly_rounded(d):
+    """``_div_rn`` (the kernel's ``div_rn``) equals IEEE float32 division for
+    every significand of the numerator, scaled across the exponent range
+    (so that the FMA path, the zero path and the IEEE branch are all
+    taken), and for random numerators of every exponent; with the ±0, ±inf
+    and NaN numerators."""
+    a = _all_mantissas()
+    r = _recip(d)
+    with np.errstate(over="ignore", under="ignore", invalid="ignore",
+                     divide="ignore"):
+        for e in (0, -60, 60, -100, 100, -126, 127):
+            # the whole binade at 2^0, every 97th significand elsewhere
+            x = a if e == 0 else np.ldexp(a[::97], e).astype(F32)
+            got = _div_rn(x, d, r)
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          (x / F32(d)).view(np.int32))
+        rng = np.random.RandomState(5)
+        bits = rng.randint(0, 2 ** 31 - 1, 2 ** 20).astype(np.int32)
+        x = np.concatenate([bits.view(F32), np.array(
+            [0.0, -0.0, np.inf, -np.inf, np.nan, 2.0 ** -149], F32)])
+        x = np.where(rng.rand(len(x)) < 0.5, -x, x).astype(F32)
+        got, want = _div_rn(x, d, r), x / F32(d)
+    same = (got.view(np.int32) == want.view(np.int32)) \
+        | (np.isnan(got) & np.isnan(want))
+    assert same.all(), x[~same][:5]
 
 
 def test_coord_axes_are_linspace_not_a_quotient():
