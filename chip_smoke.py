@@ -940,6 +940,49 @@ def library_roi_crop(rgb, depth, frame_idx, center, scale, S):
                                   padding_mode="zeros", align_corners=True)
 
 
+# The shapes roi_crop is timed at (phase 2, time_crop.py), lm13's 256 / 64:
+# name -> (what, ROIs a frame, frames, raw depth, normalize, seed)
+ROI_CROP_SHAPES = {
+    "served": (f"served batch, {SERVE_BATCH} ROIs of one 480x640 frame, "
+               "uint8 RGB, depth in metres", SERVE_BATCH, 1, False, True, 21),
+    "eval": ("eval batch, 32 ROIs of 8 480x640 frames, uint8 RGB, raw "
+             "int32 depth", 4, 8, True, True, 31),
+    "train": (f"train shape, {TRAIN_ROIS} ROIs of 8 480x640 frames, uint8 "
+              "RGB, raw int32 depth, normalize=False", TRAIN_ROIS // 8, 8,
+              True, False, 41),
+}
+
+
+def roi_crop_shape(name, dev):
+    """``roi_crop``'s tensor arguments at one of ROI_CROP_SHAPES, on
+    ``dev``: ``make_frames``' frames and detection boxes, each box's
+    test-time window (``dzi_jitter`` at lm13's pad scale), LineMOD's K; raw
+    depth is the frame's metres in int32 millimetres with a factor of
+    1000, as LM's PNGs hold it. Returns (what, args, normalize)."""
+    import torch
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.pipeline import dzi_jitter
+
+    what, per_frame, n_frames, raw, normalize, seed = ROI_CROP_SHAPES[name]
+    frames = make_frames(seed=seed, counts=(per_frame,) * n_frames)
+    bbox = torch.from_numpy(np.stack([x.bbox_xyxy for f in frames
+                                      for x in f[2]]))
+    center, scale = dzi_jitter(bbox, (480, 640),
+                               pad_scale=lm13.get_config().data.dzi_pad_scale)
+    depth = torch.from_numpy(np.stack([f[1] for f in frames]))
+    factor = None
+    if raw:
+        factor = torch.full((n_frames,), 1000.0)
+        depth = torch.round(depth * 1000.0).to(torch.int32)
+    args = [torch.from_numpy(np.stack([f[0] for f in frames])), depth,
+            factor, torch.from_numpy(K_LM)[None].repeat(n_frames, 1, 1),
+            torch.arange(n_frames).repeat_interleave(per_frame), center,
+            scale]
+    return what, [None if t is None else t.contiguous().to(dev)
+                  for t in args], normalize
+
+
 def check_roi_crop(dev, card):
     """Phase 2 for ``roi_crop``: the kernel against its plain version at
     B = 1, 16 and 24, F = 1 and 8 frames with mixed frame indices, uint8
@@ -950,12 +993,13 @@ def check_roi_crop(dev, card):
     version has NaN), xyz within 1e-5 of its largest value (the design
     gives it bit for bit: 0 is expected). Then times the served batch (16
     ROIs of one 480x640 frame, uint8 RGB, depth in metres, lm13's boxes)
-    beside the plain version, ``F.grid_sample`` and the bound. Returns
-    (the largest xyz difference, times)."""
+    beside the plain version, ``F.grid_sample`` and the bound, and the eval
+    batch and train shape of ROI_CROP_SHAPES (raw depth), each checked
+    bit for bit and timed beside its bound. Returns (the largest xyz
+    difference, times)."""
     import torch
 
     from rdpn6d_tpu_torch.configs import lm13
-    from rdpn6d_tpu_torch.data.pipeline import dzi_jitter
     from rdpn6d_tpu_torch.ops.roi_crop import roi_crop, roi_crop_plain
 
     cfg = lm13.get_config()
@@ -998,14 +1042,7 @@ def check_roi_crop(dev, card):
                   f"{1e-5 * max(top, 1.0):.1e}) [{card}]")
 
     # the served batch: one frame, 16 detections, as Predictor hands it over
-    rgb, depth, dets = make_frames(seed=21, counts=(SERVE_BATCH,))[0]
-    bbox = torch.from_numpy(np.stack([x.bbox_xyxy for x in dets]))
-    center, scale = dzi_jitter(bbox, (480, 640), pad_scale=d.dzi_pad_scale)
-    args = [torch.from_numpy(rgb)[None].to(dev),
-            torch.from_numpy(depth)[None].to(dev), None,
-            torch.from_numpy(K_LM)[None].to(dev),
-            torch.zeros(SERVE_BATCH, dtype=torch.long, device=dev),
-            center.to(dev), scale.to(dev)]
+    _, args, _ = roi_crop_shape("served", dev)
     S, O = d.input_res, d.out_res
 
     def kernel():
@@ -1041,9 +1078,27 @@ def check_roi_crop(dev, card):
           f"only, no back-projection; RGB within {lib_err:.1e} of the "
           f"kernel's) {lib_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
           f"[{card}]")
-    return worst, dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+    times = dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    for name in ("eval", "train"):
+        what, args, normalize = roi_crop_shape(name, dev)
+        got = roi_crop(*args, S, O, d.pixel_mean, d.pixel_std,
+                       normalize=normalize)
+        ref = roi_crop_plain(*args, S, O, d.pixel_mean, d.pixel_std,
+                             normalize=normalize)
+        torch.cuda.synchronize()
+        check(same_bits(got[0], ref[0]) and same_bits(got[1], ref[1]),
+              f"roi_crop differs from its plain version at the {what}")
+        q_ms = queued_ms(lambda: roi_crop(*args, S, O, d.pixel_mean,
+                                          d.pixel_std, normalize=normalize),
+                         iters=200)
+        b_ms, b_by = roi_crop_bound(args[0], args[1], args[4], args[5],
+                                    args[6], S, O)
+        print(f"kernel: roi_crop {what}: bit-equal to plain; device time "
+              f"(queued) {q_ms:.5f} ms, {100 * b_ms / q_ms:.1f}% of its "
+              f"bound {b_ms:.5f} ms ({b_by}) [{card}]")
+        times[f"{name}_ms"], times[f"{name}_bound_ms"] = q_ms, b_ms
+    return worst, times
 
 
 class PreprocessCalls:

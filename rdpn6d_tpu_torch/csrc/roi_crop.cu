@@ -63,7 +63,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// A block: up to kThreads S-grid pixels, as whole rows where S <= kThreads
+// (blockDim (S, kThreads / S)), else as a kThreads-wide segment of a row
+// (blockDim (kThreads, 1)); the rows of a tile are contiguous in roi_img.
+constexpr int kThreads = 256;
 
 // The two taps of a bilinear axis at source coordinate s over n pixels:
 // clamped indices, 0/1 validities and the fraction f.
@@ -101,12 +104,38 @@ __device__ __forceinline__ float blend(float v00, float v01, float v10,
   return __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d);
 }
 
-__device__ __forceinline__ float rgb_at(const unsigned char* p, size_t i) {
-  return (float)__ldg(p + i);
+// The RGB of one source row's two taps, x0 and x1, at element offset
+// a = (y W + x0) 3 of the frame p; x1 is x0 + 1, or x0 where the axis
+// clamped it (two false). uint8: the 6 (or 3) bytes come from the 1-3
+// aligned 32-bit words that hold them, through two funnel shifts (each
+// word holds a byte of the frame, so no load leaves its allocation);
+// float32: one load an element.
+__device__ __forceinline__ void rgb_row(const unsigned char* p, int a,
+                                        bool two, float* v0, float* v1) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p + a);
+  const unsigned* w = reinterpret_cast<const unsigned*>(addr & ~uintptr_t{3});
+  const int off = (int)(addr & 3), last = off + (two ? 5 : 2);
+  const unsigned w0 = __ldg(w);
+  const unsigned w1 = last >= 4 ? __ldg(w + 1) : 0u;
+  const unsigned w2 = last >= 8 ? __ldg(w + 2) : 0u;
+  const unsigned lo = __funnelshift_r(w0, w1, 8 * off);   // bytes a..a+3
+  const unsigned hi = __funnelshift_r(w1, w2, 8 * off);   // a+4..a+7
+  v0[0] = (float)(lo & 0xffu);
+  v0[1] = (float)((lo >> 8) & 0xffu);
+  v0[2] = (float)((lo >> 16) & 0xffu);
+  v1[0] = two ? (float)(lo >> 24) : v0[0];
+  v1[1] = two ? (float)(hi & 0xffu) : v0[1];
+  v1[2] = two ? (float)((hi >> 8) & 0xffu) : v0[2];
 }
 
-__device__ __forceinline__ float rgb_at(const float* p, size_t i) {
-  return __ldg(p + i);
+__device__ __forceinline__ void rgb_row(const float* p, int a, bool two,
+                                        float* v0, float* v1) {
+  const int a1 = two ? a + 3 : a;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    v0[c] = __ldg(p + a + c);
+    v1[c] = __ldg(p + a1 + c);
+  }
 }
 
 // RN(1 / d) for a divisor whose quotients may take div_rn's FMA path:
@@ -140,7 +169,7 @@ __device__ __forceinline__ float div_rn(float a, float d, float r) {
 // kRaw: depth is int32 raw units, divided by the frame's factor per tap
 // (r its reciprocal)
 template <bool kRaw>
-__device__ __forceinline__ float depth_at(const void* depth, size_t i,
+__device__ __forceinline__ float depth_at(const void* depth, int i,
                                           float factor, float r) {
   if (kRaw)
     return div_rn((float)__ldg(static_cast<const int*>(depth) + i), factor,
@@ -215,9 +244,16 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   __shared__ long long sfr;
   __shared__ int sg0, sng;
   const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int p0 = blockIdx.x * kThreads;
-  const int npx = min(kThreads, S * S - p0);
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  // the tile: rows [row0, row0 + blockDim.y) whole, or a segment
+  // [col0, col0 + blockDim.x) of row row0; thread t holds its pixel t
+  const int nseg = (S + kThreads - 1) / kThreads;
+  const int row0 = nseg == 1 ? blockIdx.x * blockDim.y : blockIdx.x / nseg;
+  const int col0 = nseg == 1 ? 0 : (blockIdx.x - row0 * nseg) * kThreads;
+  const int p0 = row0 * S + col0;
+  const int npx = nseg == 1 ? min((int)blockDim.y, S - row0) * S
+                            : min(kThreads, S - col0);
   if (t == 0) sfr = frame_idx[b];
   if (t < 2) sc[kCx + t] = center[(size_t)b * 2 + t];
   if (t == 2) sc[kStepS] = __fdiv_rn(scale[b], (float)S);
@@ -227,14 +263,14 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     sc[kRatio] = ratio;
     sc[kRRatio] = recip(ratio);
   }
-  if (t >= 11 && t < 14) {
-    const float sd = t == 11 ? std0 : t == 12 ? std1 : std2;
-    sc[kRStd + t - 11] = recip(sd);
-  }
   if (t == 10) {
     const int g0 = grid_before(p0, S, O, stride);
     sg0 = g0;
     sng = grid_before(p0 + npx, S, O, stride) - g0;
+  }
+  if (t >= 11 && t < 14) {
+    const float sd = t == 11 ? std0 : t == 12 ? std1 : std2;
+    sc[kRStd + t - 11] = recip(sd);
   }
   __syncthreads();
   const long long f = sfr;
@@ -262,10 +298,10 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   float* coord_dst = roi_coord + ((size_t)b * O * O + g0) * 5;
   const int mis_img = misalign(img_dst), mis_coord = misalign(coord_dst);
 
+  const int i = row0 + threadIdx.y, j = col0 + threadIdx.x;
   if (t < npx) {
-    // the S-grid taps, as ops/warp._src_coords takes them
-    const int p = p0 + t;
-    const int i = p / S, j = p - i * S;
+    // the S-grid taps, as ops/warp._src_coords takes them; offsets within
+    // the frame in 32 bits (the launcher admits H W 3 < 2^31)
     const float half = 0.5f * (float)S;
     const Axis ax = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)j,
                                                                 half),
@@ -276,30 +312,33 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     const float w00 = valid(ay.v0, ax.v0), w01 = valid(ay.v0, ax.v1);
     const float w10 = valid(ay.v1, ax.v0), w11 = valid(ay.v1, ax.v1);
     const size_t frame = (size_t)f * H * W;
-    const size_t p00 = frame + (size_t)ay.i0 * W + ax.i0;
-    const size_t p01 = frame + (size_t)ay.i0 * W + ax.i1;
-    const size_t p10 = frame + (size_t)ay.i1 * W + ax.i0;
-    const size_t p11 = frame + (size_t)ay.i1 * W + ax.i1;
+    const int o00 = ay.i0 * W + ax.i0, o10 = ay.i1 * W + ax.i0;
+    const int o01 = ay.i0 * W + ax.i1, o11 = ay.i1 * W + ax.i1;
+    const bool two = ax.i1 != ax.i0;
 
-    float px[6];
+    float px[6], v00[3], v01[3], v10[3], v11[3];
+    rgb_row(rgb + frame * 3, o00 * 3, two, v00, v01);
+    rgb_row(rgb + frame * 3, o10 * 3, two, v10, v11);
     const float mean[3] = {mean0, mean1, mean2};
     const float sd[3] = {std0, std1, std2};
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float v = blend(__fmul_rn(rgb_at(rgb, p00 * 3 + c), w00),
-                            __fmul_rn(rgb_at(rgb, p01 * 3 + c), w01),
-                            __fmul_rn(rgb_at(rgb, p10 * 3 + c), w10),
-                            __fmul_rn(rgb_at(rgb, p11 * 3 + c), w11), ay.f,
-                            ax.f);
+      const float v = blend(__fmul_rn(v00[c], w00), __fmul_rn(v01[c], w01),
+                            __fmul_rn(v10[c], w10), __fmul_rn(v11[c], w11),
+                            ay.f, ax.f);
       px[c] = normalize ? div_rn(__fsub_rn(v, mean[c]), sd[c], sc[kRStd + c])
                         : v;
     }
+    const void* dframe =
+        kRaw ? static_cast<const void*>(static_cast<const int*>(depth) + frame)
+             : static_cast<const void*>(static_cast<const float*>(depth) +
+                                        frame);
     const float fac = sc[kFactor], rfac = sc[kRFactor];
     const float d =
-        blend(__fmul_rn(depth_at<kRaw>(depth, p00, fac, rfac), w00),
-              __fmul_rn(depth_at<kRaw>(depth, p01, fac, rfac), w01),
-              __fmul_rn(depth_at<kRaw>(depth, p10, fac, rfac), w10),
-              __fmul_rn(depth_at<kRaw>(depth, p11, fac, rfac), w11), ay.f,
+        blend(__fmul_rn(depth_at<kRaw>(dframe, o00, fac, rfac), w00),
+              __fmul_rn(depth_at<kRaw>(dframe, o01, fac, rfac), w01),
+              __fmul_rn(depth_at<kRaw>(dframe, o10, fac, rfac), w10),
+              __fmul_rn(depth_at<kRaw>(dframe, o11, fac, rfac), w11), ay.f,
               ax.f);
     const float z = div_rn(d, sc[kRatio], sc[kRRatio]);
     px[3] = div_rn(__fmul_rn(__fsub_rn((float)j, sc[kKx]), z), sc[kFx],
@@ -343,19 +382,19 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
                    __fmul_rn(y1, u11), by.f, bx.f);
   }
   __syncthreads();
-  store_span(img_dst, img_tile, mis_img, 6 * npx, t, kThreads);
-  store_span(coord_dst, coord_tile, mis_coord, 5 * ng, t, kThreads);
+  store_span(img_dst, img_tile, mis_img, 6 * npx, t, nt);
+  store_span(coord_dst, coord_tile, mis_coord, 5 * ng, t, nt);
 }
 
 template <typename RgbT, bool kRaw>
-void launch(dim3 grid, cudaStream_t s, const void* rgb, const void* depth,
+void launch(dim3 grid, dim3 block, cudaStream_t s, const void* rgb, const void* depth,
             const float* depth_factor, const float* cam,
             const long long* frame_idx, const float* center,
             const float* scale, const float* lx, const float* ly,
             float* roi_img, float* roi_coord, int F, int H, int W, int S,
             int O, int stride, const float* mean, const float* std,
             int normalize) {
-  roi_crop_kernel<RgbT, kRaw><<<grid, kThreads, 0, s>>>(
+  roi_crop_kernel<RgbT, kRaw><<<grid, block, 0, s>>>(
       static_cast<const RgbT*>(rgb), depth, depth_factor, cam, frame_idx,
       center, scale, lx, ly, roi_img, roi_coord, F, H, W, S, O, stride,
       mean[0], mean[1], mean[2], std[0], std[1], std[2], normalize);
@@ -381,25 +420,29 @@ int roi_crop_launch(const void* rgb, int rgb_u8, const void* depth,
     return (int)cudaErrorInvalidValue;
   const int stride = S / O;
   if ((S + stride - 1) / stride != O) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(((long long)S * S + kThreads - 1) / kThreads), B);
+  if ((long long)H * W * 3 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // whole rows of S <= kThreads pixels a block, else kThreads-wide segments
+  const int nseg = (S + kThreads - 1) / kThreads;
+  const dim3 block(nseg == 1 ? S : kThreads, nseg == 1 ? kThreads / S : 1);
+  const dim3 grid(nseg == 1 ? (S + block.y - 1) / block.y : S * nseg, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool raw = depth_factor != nullptr;
   if (rgb_u8 && raw)
-    launch<unsigned char, true>(grid, s, rgb, depth, depth_factor, cam,
+    launch<unsigned char, true>(grid, block, s, rgb, depth, depth_factor, cam,
                                 frame_idx, center, scale, lx, ly, roi_img,
                                 roi_coord, F, H, W, S, O, stride, mean, std,
                                 normalize);
   else if (rgb_u8)
-    launch<unsigned char, false>(grid, s, rgb, depth, depth_factor, cam,
+    launch<unsigned char, false>(grid, block, s, rgb, depth, depth_factor, cam,
                                  frame_idx, center, scale, lx, ly, roi_img,
                                  roi_coord, F, H, W, S, O, stride, mean, std,
                                  normalize);
   else if (raw)
-    launch<float, true>(grid, s, rgb, depth, depth_factor, cam, frame_idx,
+    launch<float, true>(grid, block, s, rgb, depth, depth_factor, cam, frame_idx,
                         center, scale, lx, ly, roi_img, roi_coord, F, H, W, S,
                         O, stride, mean, std, normalize);
   else
-    launch<float, false>(grid, s, rgb, depth, depth_factor, cam, frame_idx,
+    launch<float, false>(grid, block, s, rgb, depth, depth_factor, cam, frame_idx,
                          center, scale, lx, ly, roi_img, roi_coord, F, H, W,
                          S, O, stride, mean, std, normalize);
   return (int)cudaGetLastError();

@@ -1110,6 +1110,59 @@ def test_roi_crop_kernel_matches_plain(card, normalize, B, F, rgb_dtype, raw,
     assert _same(img, ref_img) and _same(coord, ref_coord)
 
 
+# The divisions by per-ROI constants at their edges, as
+# tests/test_torch_roi_crop.py's DIV_EDGES: (name, depth multiplier,
+# factor (None: metres), K's fx and fy, stds). Quotients below the normal
+# range, z past 10^30 over an fx' near 10^-17, the factors 1 and 65535,
+# stds with inexact, subnormal and NaN-sent reciprocals; each depth edge in
+# both forms.
+LM_STD = (58.395, 57.12, 57.375)
+CROP_DIV_EDGES = [
+    ("subnormal_metres", 1e-36, None, None, LM_STD),
+    ("subnormal_raw", 3.0, 3e38, None, LM_STD),
+    ("huge_z_tiny_fx_metres", 1e30, None, 1e-20, LM_STD),
+    ("huge_z_tiny_fx_raw", 65535.0, 1e-30, 1e-20, LM_STD),
+    ("factor_1", 1000.0, 1.0, None, LM_STD),
+    ("factor_65535", 65535.0, 65535.0, None, LM_STD),
+    ("inexact_std_metres", 1.0, None, None, (3.0, 0.1, 7e37)),
+    ("tiny_std_raw", 1000.0, 1000.0, None, (1e-39, 1e-30, 255.0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("edge", CROP_DIV_EDGES,
+                         ids=[e[0] for e in CROP_DIV_EDGES])
+def test_roi_crop_kernel_bit_equal_at_division_edges(card, edge, normalize):
+    """The kernel's reciprocal divisions, their zero path and their IEEE
+    branch give the plain version's quotients bit for bit where they
+    underflow, overflow or divide by an inexact reciprocal."""
+    _, mult, factor, fx, std = edge
+    rgb, depth, _, K, fidx, center, scale = _crop_inputs(
+        6, 2, 480, 640, 17, "uint8", False, 256)
+    depth = depth.double() * mult
+    if factor is not None:
+        depth = torch.round(depth.nan_to_num(0)).to(torch.int32)
+        factor = torch.full((2,), factor)
+    else:
+        depth = depth.float()
+    if fx is not None:
+        K[:, 0, 0] = K[:, 1, 1] = fx
+    inp = [None if t is None else t.to(card)
+           for t in (rgb, depth, factor, K, fidx, center, scale)]
+    mean = (123.675, 116.28, 103.53)
+    img, coord = roi_crop(*inp, 256, 64, mean, std, normalize=normalize)
+    ref_img, ref_coord = roi_crop_plain(*inp, 256, 64, mean, std,
+                                        normalize=normalize)
+    torch.cuda.synchronize()
+    assert _same(img, ref_img) and _same(coord, ref_coord)
+    xyz = ref_img[..., 3:]
+    if edge[0].startswith("subnormal"):
+        assert bool(((xyz != 0) & (xyz.abs() < 2.0 ** -126)).any())
+    if edge[0].startswith("huge"):
+        assert bool(xyz.isinf().any())
+
+
 @pytest.mark.cuda
 def test_roi_crop_kernel_refuses_bad_input(card):
     inp = [None if t is None else t.to(card)

@@ -18,6 +18,9 @@ holes) at small sizes. Tolerances:
   of order before the card does.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -412,6 +415,170 @@ def test_reciprocal_division_is_correctly_rounded(d):
     same = (got.view(np.int32) == want.view(np.int32)) \
         | (np.isnan(got) & np.isnan(want))
     assert same.all(), x[~same][:5]
+
+
+# ------------------------------------------- the kernel's tile map, in numpy
+
+SRC = os.path.join(os.path.dirname(rc.__file__), os.pardir, "csrc",
+                   "roi_crop.cu")
+
+
+def _tile_consts():
+    """``csrc/roi_crop.cu``'s block size, and the lines of its launch
+    shape, tile map and shared-memory layout that ``_emulate_tiles``
+    follows."""
+    with open(SRC) as f:
+        text = f.read()
+    m = re.search(r"constexpr int kThreads = (\d+);", text)
+    assert m, f"kThreads not found in {SRC}"
+    for line in (
+            "const int nseg = (S + kThreads - 1) / kThreads;",
+            "const dim3 block(nseg == 1 ? S : kThreads, nseg == 1 ? "
+            "kThreads / S : 1);",
+            "const dim3 grid(nseg == 1 ? (S + block.y - 1) / block.y : "
+            "S * nseg, B);",
+            "const int t = threadIdx.y * blockDim.x + threadIdx.x;",
+            "const int row0 = nseg == 1 ? blockIdx.x * blockDim.y : "
+            "blockIdx.x / nseg;",
+            "const int col0 = nseg == 1 ? 0 : (blockIdx.x - row0 * nseg) * "
+            "kThreads;",
+            "const int i = row0 + threadIdx.y, j = col0 + threadIdx.x;",
+            "float2* o = reinterpret_cast<float2*>(img_tile + mis_img + "
+            "6 * t);",
+            "5 * ((i / stride) * O + j / stride - g0);",
+            "float* row = coord_tile + mis_coord + 5 * t;",
+            "store_span(img_dst, img_tile, mis_img, 6 * npx, t, nt);",
+            "store_span(coord_dst, coord_tile, mis_coord, 5 * ng, t, nt);",
+            "for (int c = t; 4 * c < end; c += nt) {",
+            "if (lo >= mis && lo + 4 <= end) {"):
+        assert line in " ".join(text.split()), line
+    return int(m.group(1))
+
+
+def _grid_before(P, S, O, stride):
+    """The kernel's ``grid_before``: O-grid pixels before S-grid pixel P."""
+    i, j = P // S, P % S
+    n = min(O, -(-i // stride)) * O
+    if i % stride == 0 and i // stride < O:
+        n += min(O, -(-j // stride))
+    return n
+
+
+def _conflicts(addrs, width):
+    """Extra shared-memory wavefronts of one warp-wide access of ``width``
+    bytes a lane at byte addresses ``addrs`` (active lanes only): a
+    4-byte access is served for the whole warp at once, an 8-byte one a
+    half-warp at a time, a 16-byte one a quarter-warp at a time; a bank
+    serving two different words costs one more."""
+    per = 128 // width
+    extra = 0
+    for g in range(0, 32, per):
+        banks = {}
+        for lane, a in addrs:
+            if g <= lane < g + per:
+                for w in range(a // 4, (a + width) // 4):
+                    banks.setdefault(w % 32, set()).add(w)
+        extra += max((len(v) for v in banks.values()), default=1) - 1
+    return extra
+
+
+def _emulate_tiles(B, S, O):
+    """Every block of the kernel's grid over B ROIs: its threads' pixels,
+    their shared-tile slots and the coalesced stores, with each element's
+    flat index standing for its value. Returns (roi_img ids, write counts,
+    roi_coord ids, write counts, bank conflicts by access)."""
+    nthreads = _tile_consts()
+    stride = S // O
+    nseg = -(-S // nthreads)
+    bdx, bdy = (S, nthreads // S) if nseg == 1 else (nthreads, 1)
+    blocks = -(-S // bdy) if nseg == 1 else S * nseg
+    nt = bdx * bdy
+    img = np.full(B * S * S * 6, -1, np.int64)
+    n_img = np.zeros(B * S * S * 6, np.int64)
+    coord = np.full(B * O * O * 5, -1, np.int64)
+    n_coord = np.zeros(B * O * O * 5, np.int64)
+    conflicts = {"img STS.64": 0, "coord STS.32": 0, "LDS.128": 0}
+    t = np.arange(nt)
+    tx, ty = t % bdx, t // bdx
+    for b in range(B):
+        for bx in range(blocks):
+            row0 = bx * bdy if nseg == 1 else bx // nseg
+            col0 = 0 if nseg == 1 else (bx - row0 * nseg) * nthreads
+            p0 = row0 * S + col0
+            npx = min(bdy, S - row0) * S if nseg == 1 \
+                else min(nthreads, S - col0)
+            g0 = _grid_before(p0, S, O, stride)
+            ng = _grid_before(p0 + npx, S, O, stride) - g0
+            img_at, coord_at = (b * S * S + p0) * 6, (b * O * O + g0) * 5
+            mis_i, mis_c = img_at % 4, coord_at % 4   # 16-byte aligned bases
+            i, j = row0 + ty, col0 + tx
+            live = t < npx
+            assert ((i * S + j == p0 + t) & (i < S) & (j < S))[live].all()
+            assert not ((i < S) & (j < S) & (j >= col0) & ~live
+                        & (i * S + j < p0 + npx)).any()
+            itile = np.full(nt * 6 + 4, -1, np.int64)
+            ctile = np.full(nt * 5 + 4, -1, np.int64)
+            for tt in t[live]:
+                slots = mis_i + 6 * tt + np.arange(6)
+                assert (itile[slots] == -1).all()
+                itile[slots] = (b * S * S + p0 + tt) * 6 + np.arange(6)
+            on_grid = live & (i % stride == 0) & (j % stride == 0)
+            gl = (i // stride) * O + j // stride - g0
+            assert (np.sort(gl[on_grid]) == np.arange(ng)).all()
+            for tt in t[on_grid]:
+                slots = mis_c + 5 * gl[tt] + np.arange(3)
+                assert (ctile[slots] == -1).all()
+                ctile[slots] = (b * O * O + g0 + gl[tt]) * 5 + np.arange(3)
+            for tt in range(ng):
+                slots = mis_c + 5 * tt + np.arange(3, 5)
+                assert (ctile[slots] == -1).all()
+                ctile[slots] = (b * O * O + g0 + tt) * 5 + np.arange(3, 5)
+            for w0 in range(0, nt, 32):
+                lanes = [(tt - w0, tt) for tt in range(w0, min(w0 + 32, nt))]
+                for k in range(3):
+                    conflicts["img STS.64"] += _conflicts(
+                        [(ln, 4 * (mis_i + 6 * tt + 2 * k))
+                         for ln, tt in lanes if live[tt]], 8)
+                for c in range(5):
+                    conflicts["coord STS.32"] += _conflicts(
+                        [(ln, 4 * (mis_c + 5 * gl[tt] + c))
+                         for ln, tt in lanes if c < 3 and on_grid[tt]]
+                        + [(ln, 4 * (mis_c + 5 * tt + c))
+                           for ln, tt in lanes if c >= 3 and tt < ng], 4)
+            # store_span: chunk c to thread c % nt, vector where whole
+            for out, n_out, tile, at, mis, n in (
+                    (img, n_img, itile, img_at, mis_i, 6 * npx),
+                    (coord, n_coord, ctile, coord_at, mis_c, 5 * ng)):
+                end = mis + n
+                chunks = -(-end // 4)
+                for k0 in range(0, chunks, nt):
+                    for w0 in range(0, nt, 32):
+                        vec = [(ln, 16 * (k0 + w0 + ln)) for ln in range(32)
+                               if k0 + w0 + ln < chunks
+                               and 4 * (k0 + w0 + ln) >= mis
+                               and 4 * (k0 + w0 + ln) + 4 <= end]
+                        conflicts["LDS.128"] += _conflicts(vec, 16)
+                for c in range(chunks):
+                    for e in range(max(4 * c, mis), min(4 * c + 4, end)):
+                        out[at - mis + e] = tile[e]
+                        n_out[at - mis + e] += 1
+    return img, n_img, coord, n_coord, conflicts
+
+
+@pytest.mark.parametrize("S,O", [(256, 64), (128, 32), (33, 11), (300, 75),
+                                 (7, 7), (1, 1)])
+def test_tile_map_writes_each_element_once(S, O):
+    """The kernel's blocks (whole rows of S <= kThreads pixels, a ragged
+    last block of rows at 33 / 11; kThreads-wide row segments, the last one
+    ragged, at 300 / 75) write every roi_img and roi_coord element exactly
+    once, with its own value, through shared tiles whose every access is
+    free of bank conflicts; 2 ROIs, so that odd S puts the second ROI's
+    span off the 16-byte grid."""
+    img, n_img, coord, n_coord, conflicts = _emulate_tiles(2, S, O)
+    assert (n_img == 1).all() and (n_coord == 1).all()
+    assert (img == np.arange(img.size)).all()
+    assert (coord == np.arange(coord.size)).all()
+    assert conflicts == {"img STS.64": 0, "coord STS.32": 0, "LDS.128": 0}
 
 
 def test_coord_axes_are_linspace_not_a_quotient():

@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
-"""Device time, device operations and host time of the port's ROI
-preprocessing (``rdpn6d_tpu_torch``, ``data/pipeline.preprocess_rois_grouped``)
-on one NVIDIA GPU, at lm13's full width:
+"""Device time of the port's ROI crop kernel, and device time, device
+operations and host time of its ROI preprocessing (``rdpn6d_tpu_torch``,
+``data/pipeline.preprocess_rois_grouped``) on one NVIDIA GPU, at lm13's
+full width. First ``roi_crop`` alone (``ops/roi_crop.roi_crop``: device
+time queued, ``chip_smoke.queued_ms``, over 200 calls) at the three shapes
+of ``chip_smoke.ROI_CROP_SHAPES``: the served batch (16 ROIs of one
+480x640 frame, depth in metres), an eval batch (32 ROIs of 8 frames, raw
+int32 depth with a factor) and the train shape (24 ROIs of 8 frames, raw
+depth, ``normalize=False``), each beside its bound
+(``chip_smoke.roi_crop_bound``), with the kernel's registers and spills
+from its build log; then the preprocessing:
 
     serve  the eval half of a served batch: 16 detections of one 480x640
            frame (uint8 RGB, depth in metres), as ``Predictor`` hands them
@@ -15,7 +23,7 @@ width in bf16 (seeded weights) on 16 frames of 16 detections (256 poses,
 one batch of 16 a frame; chip_smoke's phase-12 traffic), a warm-up pass
 and 4 timed passes (host clock, synchronized).
 
-    python3 time_crop.py [--root DIR]
+    python3 time_crop.py [--root DIR] [--crop-only]
 
 ``--root`` names the directory whose ``rdpn6d_tpu_torch`` is timed
 (default: the one beside this script), so that two trees, such as a change
@@ -27,7 +35,8 @@ queued behind filler work (``chip_smoke.queued_ms``, launch latency
 included), the device operations the profiler sees in one call (kernels,
 copies, fills) and the host ms to enqueue one call (wall time around the
 call, no synchronize; median). Prints them beside the card's name and
-power limit, then one JSON line. Exits non-zero without a CUDA device.
+power limit, then one JSON line. ``--crop-only`` stops after the kernel
+alone. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +75,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE,
                     help="directory holding the rdpn6d_tpu_torch to time")
+    ap.add_argument("--crop-only", action="store_true",
+                    help="time roi_crop alone, not the preprocessing and "
+                         "served poses/s")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -98,6 +110,11 @@ def main(argv=None) -> int:
     card = cs.nvidia_smi("name,power.limit")
     dev = torch.device("cuda")
     tree = os.path.relpath(root, HERE)
+    result = {"root": tree, "card": card, "roi_crop": crop_alone(cs, tree,
+                                                                 card, dev)}
+    if args.crop_only:
+        print(json.dumps(result))
+        return 0
 
     # the served batch, as Predictor.predict builds it
     cfg = lm13.get_config()
@@ -133,7 +150,6 @@ def main(argv=None) -> int:
                                                   train_rois, train=True,
                                                   center_scale=box)),
     }
-    result = {"root": tree, "card": card}
     for name, (what, fn) in cases.items():
         dev_ms = cs.device_ms(fn, iters=CALLS)
         # ~1.1 TFLOP of filler: longer than the host takes to launch the
@@ -150,6 +166,41 @@ def main(argv=None) -> int:
     result["poses_per_s"] = served_rates(cs, tree, card)
     print(json.dumps(result))
     return 0
+
+
+def crop_alone(cs, tree, card, dev) -> dict:
+    """``roi_crop``'s device time (queued) at each of
+    ``cs.ROI_CROP_SHAPES``, beside its bound, and the registers and spills
+    of each of its instantiations."""
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.ops.roi_crop import roi_crop
+
+    d = lm13.get_config().data
+    S, O = d.input_res, d.out_res
+    out = {}
+    for name in cs.ROI_CROP_SHAPES:
+        what, args, normalize = cs.roi_crop_shape(name, dev)
+
+        def run():
+            return roi_crop(*args, S, O, d.pixel_mean, d.pixel_std,
+                            normalize=normalize)
+
+        ms = cs.queued_ms(run, iters=200)
+        bound_ms, bound_by = cs.roi_crop_bound(args[0], args[1], args[4],
+                                               args[5], args[6], S, O)
+        print(f"time_crop: {tree} roi_crop alone, {what} -> {S}/{O}: device "
+              f"time (queued) {ms:.5f} ms, {100 * bound_ms / ms:.1f}% of its "
+              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+        out[name] = {"queued_ms": ms, "bound_ms": bound_ms}
+    _, built = cuda_build.load("roi_crop")
+    usage = cuda_build.ptxas_usage(built.log)
+    print(f"time_crop: {tree} roi_crop build: " + "; ".join(
+        f"{n}: {u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} bytes spilled, {u['smem']} bytes smem"
+        for n, u in usage.items()))
+    out["ptxas"] = usage
+    return out
 
 
 def served_rates(cs, tree, card) -> list[float]:
