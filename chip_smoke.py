@@ -26,7 +26,9 @@ Phases, each fatal on failure:
               and max(H, W) and on half pixels, normalised and not, 256/64
               and 128/32, bit-equal to its plain version, then timed at
               the served batch beside its plain version, ``F.grid_sample``
-              and its bound;
+              and its bound, and checked and timed beside its bound at an
+              eval batch (32 ROIs of 8 frames) and the train shape (24
+              ROIs of 8 frames, ``normalize=False``), both of raw depth;
   3. serve  — the lm13 configuration at full width (ResNet-34, 256² ROIs,
               64² head maps, 32 regions, rot_concat), seeded random
               weights, through ``Predictor.predict``: 3 distinct 480x640

@@ -27,11 +27,21 @@
 // ~300 launches for a served batch of 16.
 //
 // Design for Hopper:
-//  * One thread an S x S output pixel, 128 a block, the ROI on grid.y. The
+//  * A block of 256 threads computes a tile of up to 256 S x S pixels of
+//    one ROI (the ROI on grid.y): whole rows where S <= 256, blockDim
+//    (S, 256 / S), the last block of rows ragged; else a 256-wide segment
+//    of a row. A tile is a contiguous span of roi_img, and the O-grid
+//    pixels inside it a contiguous span of roi_coord (grid_before). The
 //    ROI's scalars (centre, the two grids' steps scale / S and scale / O,
 //    resize_ratio, the four entries of Kc that the back-projection reads,
-//    the frame, the depth factor) are computed by a few threads and staged
-//    once per block in shared memory.
+//    the frame, the depth factor, the reciprocals of the divisors) are
+//    computed by a few threads and staged once per block in shared memory.
+//  * Each thread writes its pixel's 6 floats into a shared tile (three
+//    8-byte stores, free of bank conflicts), each O-grid pixel its xyz and
+//    the first ng threads the coordinate map of the tile's ng grid pixels;
+//    then the block stores both tiles as 16-byte vectors, contiguous across
+//    the warp (store_span), rather than 6 floats a thread 24 bytes apart
+//    and 5-float rows as scalars.
 //  * Every float op is an _rn intrinsic in ops/roi_crop.roi_crop_plain's
 //    order, so that nvcc contracts nothing into an FMA, and the kernel
 //    equals the plain version bit for bit: the source coordinate
@@ -44,18 +54,21 @@
 //    correctly rounded reciprocal of scale times O or S (PyTorch's
 //    `O / scale`); Kc[i][j] = r K[i][j] + t_i K[2][j] with
 //    t_i = S/2 - r c_i, the element-wise composition the plain version
-//    writes in place of the matrix product; ((j - cx') d) / fx'.
+//    writes in place of the matrix product; ((j - cx') d) / fx'. Each
+//    division by a per-ROI constant (std, the factor, resize_ratio, fx',
+//    fy') is the correctly rounded quotient from the divisor's reciprocal
+//    and two FMAs (div_rn), with __fdiv_rn where that would under- or
+//    overflow.
 //  * The coordinate map is never built: its value at a tap is the axis'
 //    linspace entry (passed in, computed by torch.linspace, which is not
 //    i / (n - 1)) times the tap's validity.
+//  * Offsets within a frame are 32-bit (3 H W < 2^31); a uint8 row's two
+//    RGB taps come from the 1-3 aligned words that hold their 6 bytes.
 //  * Bound: bytes. The writes are B (S^2 6 + O^2 5) 4 bytes (26.5 MB at a
 //    served batch of 16, 256 / 64); the reads at least each source pixel
-//    of each ROI's window once, min(scale^2, H W) (3 + 4) bytes: ~9 us at
-//    3.35 TB/s. A thread stores its 6 floats as three 8-byte stores, 24
-//    bytes apart across the warp; the 5-float coordinate rows are scalar
-//    stores. Staging the tile in shared memory for coalesced stores is
-//    left for later: the gain this design goes for is the ~300 launches.
-//    TMA is not used: the taps are a gather at a fractional stride.
+//    of each ROI's window once, min(scale^2, H W) (3 + 4) bytes: ~8.5 us at
+//    3.35 TB/s. TMA is not used: the taps are a gather at a fractional
+//    stride.
 
 #include <cuda_runtime.h>
 
@@ -63,10 +76,14 @@
 
 namespace {
 
-// A block: up to kThreads S-grid pixels, as whole rows where S <= kThreads
-// (blockDim (S, kThreads / S)), else as a kThreads-wide segment of a row
-// (blockDim (kThreads, 1)); the rows of a tile are contiguous in roi_img.
+// A block of kThreads threads walks `iters` tiles of up to kThreads S-grid
+// pixels of one ROI, one pixel a thread a tile: where S <= kThreads a tile
+// is R = kThreads / S whole rows (blockDim (S, R)) and a thread keeps its
+// column through the block's R iters rows; else a block is one
+// kThreads-wide segment of a row (blockDim (kThreads, 1), iters 1). The
+// block's rows (at most kMaxRows) are contiguous in roi_img.
 constexpr int kThreads = 256;
+constexpr int kMaxRows = 256;
 
 // The two taps of a bilinear axis at source coordinate s over n pixels:
 // clamped indices, 0/1 validities and the fraction f.
@@ -92,16 +109,30 @@ __device__ __forceinline__ float valid(bool vy, bool vx) {
   return vy && vx ? 1.f : 0.f;
 }
 
-// ((v00 (1-fy)) (1-fx) + (v01 (1-fy)) fx) + (v10 fy) (1-fx) + (v11 fy) fx,
-// each tap value already multiplied by its validity
+// ((v00 gy) gx + (v01 gy) fx) + (v10 fy) gx + (v11 fy) fx, gy = 1 - fy and
+// gx = 1 - fx, each tap value already multiplied by its validity
 __device__ __forceinline__ float blend(float v00, float v01, float v10,
-                                       float v11, float fy, float fx) {
-  const float gy = __fsub_rn(1.f, fy), gx = __fsub_rn(1.f, fx);
+                                       float v11, float fy, float fx, float gy,
+                                       float gx) {
   const float a = __fmul_rn(__fmul_rn(v00, gy), gx);
   const float b = __fmul_rn(__fmul_rn(v01, gy), fx);
   const float c = __fmul_rn(__fmul_rn(v10, fy), gx);
   const float d = __fmul_rn(__fmul_rn(v11, fy), fx);
   return __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d);
+}
+
+__device__ __forceinline__ float blend(float v00, float v01, float v10,
+                                       float v11, float fy, float fx) {
+  return blend(v00, v01, v10, v11, fy, fx, __fsub_rn(1.f, fy),
+               __fsub_rn(1.f, fx));
+}
+
+// Byte k of w as a float, exactly: the byte under the exponent of 2^23,
+// less 2^23 (a byte permute and an add, where a conversion would take the
+// slower conversion pipe).
+__device__ __forceinline__ float byte_f(unsigned w, unsigned k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4b000000u, 0x7650u | k)),
+                   8388608.f);
 }
 
 // The RGB of one source row's two taps, x0 and x1, at element offset
@@ -120,12 +151,12 @@ __device__ __forceinline__ void rgb_row(const unsigned char* p, int a,
   const unsigned w2 = last >= 8 ? __ldg(w + 2) : 0u;
   const unsigned lo = __funnelshift_r(w0, w1, 8 * off);   // bytes a..a+3
   const unsigned hi = __funnelshift_r(w1, w2, 8 * off);   // a+4..a+7
-  v0[0] = (float)(lo & 0xffu);
-  v0[1] = (float)((lo >> 8) & 0xffu);
-  v0[2] = (float)((lo >> 16) & 0xffu);
-  v1[0] = two ? (float)(lo >> 24) : v0[0];
-  v1[1] = two ? (float)(hi & 0xffu) : v0[1];
-  v1[2] = two ? (float)((hi >> 8) & 0xffu) : v0[2];
+  v0[0] = byte_f(lo, 0);
+  v0[1] = byte_f(lo, 1);
+  v0[2] = byte_f(lo, 2);
+  v1[0] = two ? byte_f(lo, 3) : v0[0];
+  v1[1] = two ? byte_f(hi, 0) : v0[1];
+  v1[2] = two ? byte_f(hi, 1) : v0[2];
 }
 
 __device__ __forceinline__ void rgb_row(const float* p, int a, bool two,
@@ -223,8 +254,17 @@ enum {
   kRRatio, kRFx, kRFy, kRFactor, kRStd, kN = kRStd + 3
 };
 
+// Staged per S-grid row of a block: the row axis' tap offsets y0 W and
+// y1 W, its validities and fraction as floats, 1 - fy, the row index as
+// a float, and its O-grid row (-1 off the grid); two 16-byte reads.
+struct __align__(16) Row {
+  int y0w, y1w;
+  float wy0, wy1, fy, gy, fi;
+  int io;
+};
+
 template <typename RgbT, bool kRaw>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
                 const float* __restrict__ depth_factor,
                 const float* __restrict__ cam,
@@ -233,27 +273,29 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
                 const float* __restrict__ scale,
                 const float* __restrict__ lx, const float* __restrict__ ly,
                 float* __restrict__ roi_img, float* __restrict__ roi_coord,
-                int F, int H, int W, int S, int O, int stride, float mean0,
-                float mean1, float mean2, float std0, float std1, float std2,
-                int normalize) {
-  // the block's tile: 6 floats a pixel, then 5 a grid pixel, each laid out
-  // as its span of roi_img / roi_coord lies against 16-byte boundaries
-  __shared__ __align__(16) float img_tile[kThreads * 6 + 4];
-  __shared__ __align__(16) float coord_tile[kThreads * 5 + 4];
+                int F, int H, int W, int S, int O, int stride, int iters,
+                float mean0, float mean1, float mean2, float std0,
+                float std1, float std2, int normalize) {
+  // two tiles of each kind, a tile an iteration in turn: 6 floats a pixel,
+  // 5 a grid pixel, each laid out as its span of roi_img / roi_coord lies
+  // against 16-byte boundaries
+  __shared__ __align__(16) float img_tile[2][kThreads * 6 + 4];
+  __shared__ __align__(16) float coord_tile[2][kThreads * 5 + 4];
+  __shared__ Row srow[kMaxRows];
+  __shared__ int2 sgrid[kMaxRows];          // an iteration's g0 and ng
   __shared__ float sc[kN];
   __shared__ long long sfr;
-  __shared__ int sg0, sng;
   const int b = blockIdx.y;
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
   const int nt = blockDim.x * blockDim.y;
-  // the tile: rows [row0, row0 + blockDim.y) whole, or a segment
-  // [col0, col0 + blockDim.x) of row row0; thread t holds its pixel t
+  // the block: rows [row0, row0 + rows) whole, blockDim.y of them an
+  // iteration; or the segment [col0, col0 + blockDim.x) of row row0
   const int nseg = (S + kThreads - 1) / kThreads;
-  const int row0 = nseg == 1 ? blockIdx.x * blockDim.y : blockIdx.x / nseg;
+  const int R = blockDim.y;
+  const int row0 = nseg == 1 ? blockIdx.x * R * iters : blockIdx.x / nseg;
   const int col0 = nseg == 1 ? 0 : (blockIdx.x - row0 * nseg) * kThreads;
-  const int p0 = row0 * S + col0;
-  const int npx = nseg == 1 ? min((int)blockDim.y, S - row0) * S
-                            : min(kThreads, S - col0);
+  const int rows = min(R * iters, S - row0);
+  const int ncol = nseg == 1 ? S : min(kThreads, S - col0);
   if (t == 0) sfr = frame_idx[b];
   if (t < 2) sc[kCx + t] = center[(size_t)b * 2 + t];
   if (t == 2) sc[kStepS] = __fdiv_rn(scale[b], (float)S);
@@ -263,14 +305,16 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     sc[kRatio] = ratio;
     sc[kRRatio] = recip(ratio);
   }
-  if (t == 10) {
-    const int g0 = grid_before(p0, S, O, stride);
-    sg0 = g0;
-    sng = grid_before(p0 + npx, S, O, stride) - g0;
-  }
   if (t >= 11 && t < 14) {
     const float sd = t == 11 ? std0 : t == 12 ? std1 : std2;
     sc[kRStd + t - 11] = recip(sd);
+  }
+  for (int k = t; k < iters; k += nt) {
+    // iteration k's span of S-grid pixels and the grid pixels inside it
+    const int pa = nseg == 1 ? min(row0 + R * k, S) * S : row0 * S + col0;
+    const int pb = nseg == 1 ? min(row0 + R * k + R, S) * S : pa + ncol;
+    const int g0 = grid_before(pa, S, O, stride);
+    sgrid[k] = make_int2(g0, grid_before(pb, S, O, stride) - g0);
   }
   __syncthreads();
   const long long f = sfr;
@@ -292,98 +336,130 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     sc[kFactor] = fac;
     sc[kRFactor] = recip(fac);
   }
-  __syncthreads();
-  const int g0 = sg0, ng = sng;
-  float* img_dst = roi_img + ((size_t)b * S * S + p0) * 6;
-  float* coord_dst = roi_coord + ((size_t)b * O * O + g0) * 5;
-  const int mis_img = misalign(img_dst), mis_coord = misalign(coord_dst);
-
-  const int i = row0 + threadIdx.y, j = col0 + threadIdx.x;
-  if (t < npx) {
-    // the S-grid taps, as ops/warp._src_coords takes them; offsets within
-    // the frame in 32 bits (the launcher admits H W 3 < 2^31)
-    const float half = 0.5f * (float)S;
-    const Axis ax = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)j,
-                                                                half),
-                                                      sc[kStepS])), W);
+  const float half = 0.5f * (float)S;
+  for (int k = t; k < rows; k += nt) {
+    // the S-grid row's taps, as ops/warp._src_coords takes them
+    const int i = row0 + k;
     const Axis ay = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)i,
                                                                 half),
                                                       sc[kStepS])), H);
-    const float w00 = valid(ay.v0, ax.v0), w01 = valid(ay.v0, ax.v1);
-    const float w10 = valid(ay.v1, ax.v0), w11 = valid(ay.v1, ax.v1);
-    const size_t frame = (size_t)f * H * W;
-    const int o00 = ay.i0 * W + ax.i0, o10 = ay.i1 * W + ax.i0;
-    const int o01 = ay.i0 * W + ax.i1, o11 = ay.i1 * W + ax.i1;
-    const bool two = ax.i1 != ax.i0;
-
-    float px[6], v00[3], v01[3], v10[3], v11[3];
-    rgb_row(rgb + frame * 3, o00 * 3, two, v00, v01);
-    rgb_row(rgb + frame * 3, o10 * 3, two, v10, v11);
-    const float mean[3] = {mean0, mean1, mean2};
-    const float sd[3] = {std0, std1, std2};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float v = blend(__fmul_rn(v00[c], w00), __fmul_rn(v01[c], w01),
-                            __fmul_rn(v10[c], w10), __fmul_rn(v11[c], w11),
-                            ay.f, ax.f);
-      px[c] = normalize ? div_rn(__fsub_rn(v, mean[c]), sd[c], sc[kRStd + c])
-                        : v;
-    }
-    const void* dframe =
-        kRaw ? static_cast<const void*>(static_cast<const int*>(depth) + frame)
-             : static_cast<const void*>(static_cast<const float*>(depth) +
-                                        frame);
-    const float fac = sc[kFactor], rfac = sc[kRFactor];
-    const float d =
-        blend(__fmul_rn(depth_at<kRaw>(dframe, o00, fac, rfac), w00),
-              __fmul_rn(depth_at<kRaw>(dframe, o01, fac, rfac), w01),
-              __fmul_rn(depth_at<kRaw>(dframe, o10, fac, rfac), w10),
-              __fmul_rn(depth_at<kRaw>(dframe, o11, fac, rfac), w11), ay.f,
-              ax.f);
-    const float z = div_rn(d, sc[kRatio], sc[kRRatio]);
-    px[3] = div_rn(__fmul_rn(__fsub_rn((float)j, sc[kKx]), z), sc[kFx],
-                   sc[kRFx]);
-    px[4] = div_rn(__fmul_rn(__fsub_rn((float)i, sc[kKy]), z), sc[kFy],
-                   sc[kRFy]);
-    px[5] = z;
-    // 8-byte shared stores (mis_img is even): a half-warp's 16 land on
-    // 32 distinct banks
-    float2* o = reinterpret_cast<float2*>(img_tile + mis_img + 6 * t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) o[k] = make_float2(px[2 * k], px[2 * k + 1]);
-    if (i % stride == 0 && j % stride == 0) {
-      // the strided xyz of the O grid: this pixel's own
-      float* row = coord_tile + mis_coord +
-                   5 * ((i / stride) * O + j / stride - g0);
-      row[0] = px[3];
-      row[1] = px[4];
-      row[2] = px[5];
-    }
-  }
-  if (t < ng) {
-    // the coordinate map's crop at grid pixel g0 + t, on the O grid's taps
-    const int g = g0 + t;
-    const int io = g / O, jo = g - io * O;
-    const float half_o = 0.5f * (float)O;
-    const Axis bx = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)jo,
-                                                                half_o),
-                                                      sc[kStepO])), W);
-    const Axis by = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)io,
-                                                                half_o),
-                                                      sc[kStepO])), H);
-    const float u00 = valid(by.v0, bx.v0), u01 = valid(by.v0, bx.v1);
-    const float u10 = valid(by.v1, bx.v0), u11 = valid(by.v1, bx.v1);
-    const float x0 = __ldg(lx + bx.i0), x1 = __ldg(lx + bx.i1);
-    const float y0 = __ldg(ly + by.i0), y1 = __ldg(ly + by.i1);
-    float* row = coord_tile + mis_coord + 5 * t;
-    row[3] = blend(__fmul_rn(x0, u00), __fmul_rn(x1, u01), __fmul_rn(x0, u10),
-                   __fmul_rn(x1, u11), by.f, bx.f);
-    row[4] = blend(__fmul_rn(y0, u00), __fmul_rn(y0, u01), __fmul_rn(y1, u10),
-                   __fmul_rn(y1, u11), by.f, bx.f);
+    Row r;
+    r.y0w = ay.i0 * W;
+    r.y1w = ay.i1 * W;
+    r.wy0 = ay.v0 ? 1.f : 0.f;
+    r.wy1 = ay.v1 ? 1.f : 0.f;
+    r.fy = ay.f;
+    r.gy = __fsub_rn(1.f, ay.f);
+    r.fi = (float)i;
+    r.io = i % stride == 0 ? i / stride : -1;
+    srow[k] = r;
   }
   __syncthreads();
-  store_span(img_dst, img_tile, mis_img, 6 * npx, t, nt);
-  store_span(coord_dst, coord_tile, mis_coord, 5 * ng, t, nt);
+
+  // the thread's column, the same through every iteration; offsets within
+  // the frame in 32 bits (the launcher admits H W 3 < 2^31)
+  const int j = col0 + threadIdx.x;
+  const Axis ax = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)j, half),
+                                                    sc[kStepS])), W);
+  const float wx0 = ax.v0 ? 1.f : 0.f, wx1 = ax.v1 ? 1.f : 0.f;
+  const float gx = __fsub_rn(1.f, ax.f);
+  const bool two = ax.i1 != ax.i0;
+  const int jo = j % stride == 0 ? j / stride : -1;
+  const float jk = __fsub_rn((float)j, sc[kKx]);
+  const size_t frame = (size_t)f * H * W;
+  const RgbT* rgbf = rgb + frame * 3;
+  const void* dframe =
+      kRaw ? static_cast<const void*>(static_cast<const int*>(depth) + frame)
+           : static_cast<const void*>(static_cast<const float*>(depth) +
+                                      frame);
+  const float mean[3] = {mean0, mean1, mean2};
+  const float sd[3] = {std0, std1, std2};
+  const float fac = sc[kFactor], rfac = sc[kRFactor];
+  const float ratio = sc[kRatio], rratio = sc[kRRatio];
+  const float kfx = sc[kFx], rkfx = sc[kRFx];
+  const float kfy = sc[kFy], rkfy = sc[kRFy], kky = sc[kKy];
+  const float rsd[3] = {sc[kRStd], sc[kRStd + 1], sc[kRStd + 2]};
+
+  for (int it = 0; R * it < rows; ++it) {
+    const int lr = R * it + threadIdx.y;             // the block's row
+    const int2 gs = sgrid[it];
+    const int g0 = gs.x, ng = gs.y;
+    float* itile = img_tile[it & 1];
+    float* ctile = coord_tile[it & 1];
+    const int pa = (row0 + R * it) * S + col0;
+    float* img_dst = roi_img + ((size_t)b * S * S + pa) * 6;
+    float* coord_dst = roi_coord + ((size_t)b * O * O + g0) * 5;
+    const int mis_img = misalign(img_dst), mis_coord = misalign(coord_dst);
+    const int npx = nseg == 1 ? (min(R * it + R, rows) - R * it) * S : ncol;
+    if (lr < rows && (int)threadIdx.x < ncol) {
+      const Row r = srow[lr];
+      const float w00 = __fmul_rn(r.wy0, wx0), w01 = __fmul_rn(r.wy0, wx1);
+      const float w10 = __fmul_rn(r.wy1, wx0), w11 = __fmul_rn(r.wy1, wx1);
+      const int o00 = r.y0w + ax.i0, o10 = r.y1w + ax.i0;
+      const int o01 = r.y0w + ax.i1, o11 = r.y1w + ax.i1;
+
+      float px[6], v00[3], v01[3], v10[3], v11[3];
+      rgb_row(rgbf, o00 * 3, two, v00, v01);
+      rgb_row(rgbf, o10 * 3, two, v10, v11);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = blend(__fmul_rn(v00[c], w00), __fmul_rn(v01[c], w01),
+                              __fmul_rn(v10[c], w10), __fmul_rn(v11[c], w11),
+                              r.fy, ax.f, r.gy, gx);
+        px[c] = normalize ? div_rn(__fsub_rn(v, mean[c]), sd[c], rsd[c]) : v;
+      }
+      const float d =
+          blend(__fmul_rn(depth_at<kRaw>(dframe, o00, fac, rfac), w00),
+                __fmul_rn(depth_at<kRaw>(dframe, o01, fac, rfac), w01),
+                __fmul_rn(depth_at<kRaw>(dframe, o10, fac, rfac), w10),
+                __fmul_rn(depth_at<kRaw>(dframe, o11, fac, rfac), w11), r.fy,
+                ax.f, r.gy, gx);
+      const float z = div_rn(d, ratio, rratio);
+      px[3] = div_rn(__fmul_rn(jk, z), kfx, rkfx);
+      px[4] = div_rn(__fmul_rn(__fsub_rn(r.fi, kky), z), kfy, rkfy);
+      px[5] = z;
+      // 8-byte shared stores (mis_img is even): a half-warp's 16 land on
+      // 32 distinct banks
+      float2* o = reinterpret_cast<float2*>(itile + mis_img + 6 * t);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        o[k] = make_float2(px[2 * k], px[2 * k + 1]);
+      if (r.io >= 0 && jo >= 0) {
+        // the strided xyz of the O grid: this pixel's own
+        float* row = ctile + mis_coord + 5 * (r.io * O + jo - g0);
+        row[0] = px[3];
+        row[1] = px[4];
+        row[2] = px[5];
+      }
+    }
+    if (t < ng) {
+      // the coordinate map's crop at grid pixel g0 + t, on the O grid's
+      // taps
+      const int g = g0 + t;
+      const int io = g / O, jg = g - io * O;
+      const float half_o = 0.5f * (float)O;
+      const Axis bx = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)jg,
+                                                                  half_o),
+                                                        sc[kStepO])), W);
+      const Axis by = axis(__fadd_rn(sc[kCy], __fmul_rn(__fsub_rn((float)io,
+                                                                  half_o),
+                                                        sc[kStepO])), H);
+      const float u00 = valid(by.v0, bx.v0), u01 = valid(by.v0, bx.v1);
+      const float u10 = valid(by.v1, bx.v0), u11 = valid(by.v1, bx.v1);
+      const float x0 = __ldg(lx + bx.i0), x1 = __ldg(lx + bx.i1);
+      const float y0 = __ldg(ly + by.i0), y1 = __ldg(ly + by.i1);
+      float* row = ctile + mis_coord + 5 * t;
+      row[3] = blend(__fmul_rn(x0, u00), __fmul_rn(x1, u01),
+                     __fmul_rn(x0, u10), __fmul_rn(x1, u11), by.f, bx.f);
+      row[4] = blend(__fmul_rn(y0, u00), __fmul_rn(y0, u01),
+                     __fmul_rn(y1, u10), __fmul_rn(y1, u11), by.f, bx.f);
+    }
+    // one barrier an iteration: the next one fills the other tiles, whose
+    // stores (two iterations back) every thread has passed
+    __syncthreads();
+    store_span(img_dst, itile, mis_img, 6 * npx, t, nt);
+    store_span(coord_dst, ctile, mis_coord, 5 * ng, t, nt);
+  }
 }
 
 template <typename RgbT, bool kRaw>
@@ -392,12 +468,12 @@ void launch(dim3 grid, dim3 block, cudaStream_t s, const void* rgb, const void* 
             const long long* frame_idx, const float* center,
             const float* scale, const float* lx, const float* ly,
             float* roi_img, float* roi_coord, int F, int H, int W, int S,
-            int O, int stride, const float* mean, const float* std,
-            int normalize) {
+            int O, int stride, int iters, const float* mean,
+            const float* std, int normalize) {
   roi_crop_kernel<RgbT, kRaw><<<grid, block, 0, s>>>(
       static_cast<const RgbT*>(rgb), depth, depth_factor, cam, frame_idx,
       center, scale, lx, ly, roi_img, roi_coord, F, H, W, S, O, stride,
-      mean[0], mean[1], mean[2], std[0], std[1], std[2], normalize);
+      iters, mean[0], mean[1], mean[2], std[0], std[1], std[2], normalize);
 }
 
 }  // namespace
@@ -406,45 +482,52 @@ extern "C" {
 
 // rgb_u8 != 0: rgb is uint8, else float32. depth_factor non-null: depth is
 // int32 raw units, else float32 metres. frame_idx int64 [B], each in
-// [0, F); O <= S with ceil(S / stride) == O for stride = S / O. mean, std:
-// 3 floats each on the host. Returns cudaGetLastError().
+// [0, F); O <= S with ceil(S / stride) == O for stride = S / O. iters:
+// the tiles a block walks (ops/roi_crop.roi_crop_plan): 1 where S >
+// kThreads, else at most kMaxRows / R. mean, std: 3 floats each on the
+// host. Returns cudaGetLastError().
 int roi_crop_launch(const void* rgb, int rgb_u8, const void* depth,
                     const float* depth_factor, const float* cam,
                     const long long* frame_idx, const float* center,
                     const float* scale, const float* lx, const float* ly,
                     float* roi_img, float* roi_coord, int B, int F, int H,
-                    int W, int S, int O, const float* mean, const float* std,
-                    int normalize, void* stream) {
+                    int W, int S, int O, int iters, const float* mean,
+                    const float* std, int normalize, void* stream) {
   if (B <= 0) return 0;
   if (F <= 0 || H <= 0 || W <= 0 || S <= 0 || O <= 0 || O > S)
     return (int)cudaErrorInvalidValue;
   const int stride = S / O;
   if ((S + stride - 1) / stride != O) return (int)cudaErrorInvalidValue;
   if ((long long)H * W * 3 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // whole rows of S <= kThreads pixels a block, else kThreads-wide segments
+  // whole rows of S <= kThreads pixels, R of them an iteration and R iters
+  // a block; else a kThreads-wide segment of a row a block
   const int nseg = (S + kThreads - 1) / kThreads;
-  const dim3 block(nseg == 1 ? S : kThreads, nseg == 1 ? kThreads / S : 1);
-  const dim3 grid(nseg == 1 ? (S + block.y - 1) / block.y : S * nseg, B);
+  const int R = nseg == 1 ? kThreads / S : 1;
+  if (iters < 1 || R * iters > kMaxRows || (nseg > 1 && iters != 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(nseg == 1 ? S : kThreads, R);
+  const dim3 grid(nseg == 1 ? (S + R * iters - 1) / (R * iters) : S * nseg,
+                  B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool raw = depth_factor != nullptr;
   if (rgb_u8 && raw)
     launch<unsigned char, true>(grid, block, s, rgb, depth, depth_factor, cam,
                                 frame_idx, center, scale, lx, ly, roi_img,
-                                roi_coord, F, H, W, S, O, stride, mean, std,
-                                normalize);
+                                roi_coord, F, H, W, S, O, stride, iters, mean,
+                                std, normalize);
   else if (rgb_u8)
-    launch<unsigned char, false>(grid, block, s, rgb, depth, depth_factor, cam,
-                                 frame_idx, center, scale, lx, ly, roi_img,
-                                 roi_coord, F, H, W, S, O, stride, mean, std,
-                                 normalize);
+    launch<unsigned char, false>(grid, block, s, rgb, depth, depth_factor,
+                                 cam, frame_idx, center, scale, lx, ly,
+                                 roi_img, roi_coord, F, H, W, S, O, stride,
+                                 iters, mean, std, normalize);
   else if (raw)
-    launch<float, true>(grid, block, s, rgb, depth, depth_factor, cam, frame_idx,
-                        center, scale, lx, ly, roi_img, roi_coord, F, H, W, S,
-                        O, stride, mean, std, normalize);
+    launch<float, true>(grid, block, s, rgb, depth, depth_factor, cam,
+                        frame_idx, center, scale, lx, ly, roi_img, roi_coord,
+                        F, H, W, S, O, stride, iters, mean, std, normalize);
   else
-    launch<float, false>(grid, block, s, rgb, depth, depth_factor, cam, frame_idx,
-                         center, scale, lx, ly, roi_img, roi_coord, F, H, W,
-                         S, O, stride, mean, std, normalize);
+    launch<float, false>(grid, block, s, rgb, depth, depth_factor, cam,
+                         frame_idx, center, scale, lx, ly, roi_img, roi_coord,
+                         F, H, W, S, O, stride, iters, mean, std, normalize);
   return (int)cudaGetLastError();
 }
 

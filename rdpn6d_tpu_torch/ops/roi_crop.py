@@ -12,8 +12,10 @@ runs.
 version, CUDA tensors launch the kernel of ``csrc/roi_crop.cu`` (built
 with nvcc at first use) or raise. The plain version gathers the four
 bilinear taps of the whole frames (``ops/warp.crop_resize_frames``) three
-times; the kernel reads each tap once and rounds every op as the plain
-version does, so the two agree bit for bit.
+times; the kernel reads each tap once, rounds every op as the plain
+version does and takes each division by a per-ROI constant as the
+correctly rounded quotient from the divisor's reciprocal, so the two agree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from .warp import crop_resize_frames
 
 LIBRARY = "roi_crop"           # csrc/roi_crop.cu
 KERNEL = "roi_crop"            # the name its launches are counted under
+THREADS = 256                  # the kernel's threads a block (kThreads)
+MAX_ROWS = 256                 # S-grid rows a block at most (kMaxRows)
+BLOCKS_PER_SM = 4              # resident blocks an SM (__launch_bounds__)
 
 _AXES: dict[tuple[int, int, str], tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -56,6 +61,24 @@ def crop_intrinsics(K: torch.Tensor, center: torch.Tensor,
     t = input_res / 2.0 - r[:, None] * center
     top = r[:, None, None] * K[:, :2] + t[:, :, None] * K[:, 2:3]
     return torch.cat([top, K[:, 2:3]], dim=1)
+
+
+def roi_crop_plan(B: int, S: int, sms: int) -> tuple[int, int]:
+    """The kernel's launch for B ROIs at input_res S on ``sms`` SMs: the
+    iterations a block walks and the blocks of the grid. A block of
+    ``THREADS`` threads computes R = THREADS // S whole rows an iteration
+    where S <= THREADS, and walks enough iterations that the grid is about
+    one wave of ``BLOCKS_PER_SM`` blocks an SM (at most ``MAX_ROWS`` rows
+    and one ROI a block), so that the per-block set-up is paid a few
+    hundred times, not once a tile; where S > THREADS a block is one
+    THREADS-wide segment of a row."""
+    if S > THREADS:
+        return 1, B * S * -(-S // THREADS)
+    R = THREADS // S
+    tiles = -(-S // R)                         # iterations a ROI needs
+    iters = max(1, min(MAX_ROWS // R, tiles,
+                       -(-B * tiles // (sms * BLOCKS_PER_SM))))
+    return iters, B * -(-tiles // iters)
 
 
 def roi_crop_plain(rgb: torch.Tensor, depth: torch.Tensor,
@@ -153,6 +176,9 @@ def roi_crop_cuda(rgb: torch.Tensor, depth: torch.Tensor,
     B = frame_idx.shape[0]
     if B > 65535:
         raise ValueError(f"roi_crop: B={B} exceeds the grid's y limit")
+    if 3 * H * W >= 2 ** 31:
+        raise ValueError(f"roi_crop: {H}x{W} frames exceed the kernel's "
+                         "32-bit offsets (3 H W < 2^31)")
     rgb, depth, K, frame_idx, center, scale = (
         t.contiguous() for t in (rgb, depth, K, frame_idx, center, scale))
     if depth_factor is not None:
@@ -170,15 +196,16 @@ def roi_crop_cuda(rgb: torch.Tensor, depth: torch.Tensor,
 
     fn = lib.roi_crop_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10 \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2 + [ctypes.c_int,
                                                         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    iters, _ = roi_crop_plan(B, S, cuda_build.sm_count(dev.index))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(rgb), int(rgb.dtype == torch.uint8), ptr(depth),
                  ptr(depth_factor), ptr(K), ptr(frame_idx), ptr(center),
                  ptr(scale), ptr(lx), ptr(ly), ptr(roi_img), ptr(roi_coord),
-                 B, F, H, W, S, O, consts(*mean), consts(*std),
+                 B, F, H, W, S, O, iters, consts(*mean), consts(*std),
                  int(normalize), stream)
     if err != 0:
         lib.roi_crop_error_string.restype = ctypes.c_char_p

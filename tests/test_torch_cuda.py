@@ -1174,6 +1174,11 @@ def test_roi_crop_kernel_refuses_bad_input(card):
         roi_crop(*inp[:4], inp[4].cpu(), *inp[5:], 32, 8, mean, std)
     with pytest.raises(ValueError):                     # no O grid stride
         roi_crop(*inp, 30, 8, mean, std)
+    # frames past the kernel's 32-bit offsets (3 H W >= 2^31), never filled
+    big = (torch.empty(1, 26755, 26755, 3, dtype=torch.uint8, device=card),
+           torch.empty(1, 26755, 26755, device=card))
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        roi_crop(*big, None, *inp[3:], 32, 8, mean, std)
 
 
 @pytest.mark.cuda

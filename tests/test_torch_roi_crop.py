@@ -424,35 +424,58 @@ SRC = os.path.join(os.path.dirname(rc.__file__), os.pardir, "csrc",
 
 
 def _tile_consts():
-    """``csrc/roi_crop.cu``'s block size, and the lines of its launch
-    shape, tile map and shared-memory layout that ``_emulate_tiles``
-    follows."""
+    """``csrc/roi_crop.cu``'s block size and row limit (checked against
+    the wrapper's plan), and the lines of its launch shape, tile map and
+    shared-memory layout that ``_emulate_tiles`` follows."""
     with open(SRC) as f:
         text = f.read()
-    m = re.search(r"constexpr int kThreads = (\d+);", text)
-    assert m, f"kThreads not found in {SRC}"
+    consts = {}
+    for name in ("kThreads", "kMaxRows"):
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert m, f"{name} not found in {SRC}"
+        consts[name] = int(m.group(1))
+    assert (consts["kThreads"], consts["kMaxRows"]) == (rc.THREADS,
+                                                        rc.MAX_ROWS)
+    assert re.search(r"__launch_bounds__\(kThreads, (\d+)\)",
+                     text).group(1) == str(rc.BLOCKS_PER_SM)
+    flat = " ".join(text.split())
     for line in (
             "const int nseg = (S + kThreads - 1) / kThreads;",
-            "const dim3 block(nseg == 1 ? S : kThreads, nseg == 1 ? "
-            "kThreads / S : 1);",
-            "const dim3 grid(nseg == 1 ? (S + block.y - 1) / block.y : "
-            "S * nseg, B);",
+            "const int R = nseg == 1 ? kThreads / S : 1;",
+            "const dim3 block(nseg == 1 ? S : kThreads, R);",
+            "const dim3 grid(nseg == 1 ? (S + R * iters - 1) / (R * iters) "
+            ": S * nseg, B);",
             "const int t = threadIdx.y * blockDim.x + threadIdx.x;",
-            "const int row0 = nseg == 1 ? blockIdx.x * blockDim.y : "
+            "const int row0 = nseg == 1 ? blockIdx.x * R * iters : "
             "blockIdx.x / nseg;",
             "const int col0 = nseg == 1 ? 0 : (blockIdx.x - row0 * nseg) * "
             "kThreads;",
-            "const int i = row0 + threadIdx.y, j = col0 + threadIdx.x;",
-            "float2* o = reinterpret_cast<float2*>(img_tile + mis_img + "
-            "6 * t);",
-            "5 * ((i / stride) * O + j / stride - g0);",
-            "float* row = coord_tile + mis_coord + 5 * t;",
-            "store_span(img_dst, img_tile, mis_img, 6 * npx, t, nt);",
-            "store_span(coord_dst, coord_tile, mis_coord, 5 * ng, t, nt);",
+            "const int rows = min(R * iters, S - row0);",
+            "const int ncol = nseg == 1 ? S : min(kThreads, S - col0);",
+            "const int pa = nseg == 1 ? min(row0 + R * k, S) * S : "
+            "row0 * S + col0;",
+            "const int pb = nseg == 1 ? min(row0 + R * k + R, S) * S : "
+            "pa + ncol;",
+            "r.io = i % stride == 0 ? i / stride : -1;",
+            "const int j = col0 + threadIdx.x;",
+            "const int jo = j % stride == 0 ? j / stride : -1;",
+            "for (int it = 0; R * it < rows; ++it) {",
+            "const int lr = R * it + threadIdx.y;",
+            "float* itile = img_tile[it & 1];",
+            "float* ctile = coord_tile[it & 1];",
+            "const int pa = (row0 + R * it) * S + col0;",
+            "const int npx = nseg == 1 ? (min(R * it + R, rows) - R * it) * S "
+            ": ncol;",
+            "if (lr < rows && (int)threadIdx.x < ncol) {",
+            "float2* o = reinterpret_cast<float2*>(itile + mis_img + 6 * t);",
+            "float* row = ctile + mis_coord + 5 * (r.io * O + jo - g0);",
+            "float* row = ctile + mis_coord + 5 * t;",
+            "store_span(img_dst, itile, mis_img, 6 * npx, t, nt);",
+            "store_span(coord_dst, ctile, mis_coord, 5 * ng, t, nt);",
             "for (int c = t; 4 * c < end; c += nt) {",
             "if (lo >= mis && lo + 4 <= end) {"):
-        assert line in " ".join(text.split()), line
-    return int(m.group(1))
+        assert line in flat, line
+    return consts
 
 
 def _grid_before(P, S, O, stride):
@@ -482,17 +505,21 @@ def _conflicts(addrs, width):
     return extra
 
 
-def _emulate_tiles(B, S, O):
-    """Every block of the kernel's grid over B ROIs: its threads' pixels,
-    their shared-tile slots and the coalesced stores, with each element's
+def _emulate_tiles(B, S, O, sms):
+    """Every block of the kernel's grid over B ROIs on ``sms`` SMs
+    (``roi_crop_plan``): each iteration's pixels, their slots in that
+    iteration's shared tiles and the coalesced stores, with each element's
     flat index standing for its value. Returns (roi_img ids, write counts,
     roi_coord ids, write counts, bank conflicts by access)."""
-    nthreads = _tile_consts()
+    nthreads = _tile_consts()["kThreads"]
+    iters, n_blocks = rc.roi_crop_plan(B, S, sms)
     stride = S // O
     nseg = -(-S // nthreads)
-    bdx, bdy = (S, nthreads // S) if nseg == 1 else (nthreads, 1)
-    blocks = -(-S // bdy) if nseg == 1 else S * nseg
-    nt = bdx * bdy
+    R = nthreads // S if nseg == 1 else 1
+    bdx = S if nseg == 1 else nthreads
+    blocks = -(-S // (R * iters)) if nseg == 1 else S * nseg
+    assert blocks * B == n_blocks
+    nt = bdx * R
     img = np.full(B * S * S * 6, -1, np.int64)
     n_img = np.zeros(B * S * S * 6, np.int64)
     coord = np.full(B * O * O * 5, -1, np.int64)
@@ -500,81 +527,101 @@ def _emulate_tiles(B, S, O):
     conflicts = {"img STS.64": 0, "coord STS.32": 0, "LDS.128": 0}
     t = np.arange(nt)
     tx, ty = t % bdx, t // bdx
+    jo = np.where(tx % stride == 0, tx // stride, -1)
     for b in range(B):
         for bx in range(blocks):
-            row0 = bx * bdy if nseg == 1 else bx // nseg
+            row0 = bx * R * iters if nseg == 1 else bx // nseg
             col0 = 0 if nseg == 1 else (bx - row0 * nseg) * nthreads
-            p0 = row0 * S + col0
-            npx = min(bdy, S - row0) * S if nseg == 1 \
-                else min(nthreads, S - col0)
-            g0 = _grid_before(p0, S, O, stride)
-            ng = _grid_before(p0 + npx, S, O, stride) - g0
-            img_at, coord_at = (b * S * S + p0) * 6, (b * O * O + g0) * 5
-            mis_i, mis_c = img_at % 4, coord_at % 4   # 16-byte aligned bases
-            i, j = row0 + ty, col0 + tx
-            live = t < npx
-            assert ((i * S + j == p0 + t) & (i < S) & (j < S))[live].all()
-            assert not ((i < S) & (j < S) & (j >= col0) & ~live
-                        & (i * S + j < p0 + npx)).any()
-            itile = np.full(nt * 6 + 4, -1, np.int64)
-            ctile = np.full(nt * 5 + 4, -1, np.int64)
-            for tt in t[live]:
-                slots = mis_i + 6 * tt + np.arange(6)
-                assert (itile[slots] == -1).all()
-                itile[slots] = (b * S * S + p0 + tt) * 6 + np.arange(6)
-            on_grid = live & (i % stride == 0) & (j % stride == 0)
-            gl = (i // stride) * O + j // stride - g0
-            assert (np.sort(gl[on_grid]) == np.arange(ng)).all()
-            for tt in t[on_grid]:
-                slots = mis_c + 5 * gl[tt] + np.arange(3)
-                assert (ctile[slots] == -1).all()
-                ctile[slots] = (b * O * O + g0 + gl[tt]) * 5 + np.arange(3)
-            for tt in range(ng):
-                slots = mis_c + 5 * tt + np.arange(3, 5)
-                assert (ctile[slots] == -1).all()
-                ctile[slots] = (b * O * O + g0 + tt) * 5 + np.arange(3, 5)
-            for w0 in range(0, nt, 32):
-                lanes = [(tt - w0, tt) for tt in range(w0, min(w0 + 32, nt))]
-                for k in range(3):
-                    conflicts["img STS.64"] += _conflicts(
-                        [(ln, 4 * (mis_i + 6 * tt + 2 * k))
-                         for ln, tt in lanes if live[tt]], 8)
-                for c in range(5):
-                    conflicts["coord STS.32"] += _conflicts(
-                        [(ln, 4 * (mis_c + 5 * gl[tt] + c))
-                         for ln, tt in lanes if c < 3 and on_grid[tt]]
-                        + [(ln, 4 * (mis_c + 5 * tt + c))
-                           for ln, tt in lanes if c >= 3 and tt < ng], 4)
-            # store_span: chunk c to thread c % nt, vector where whole
-            for out, n_out, tile, at, mis, n in (
-                    (img, n_img, itile, img_at, mis_i, 6 * npx),
-                    (coord, n_coord, ctile, coord_at, mis_c, 5 * ng)):
-                end = mis + n
-                chunks = -(-end // 4)
-                for k0 in range(0, chunks, nt):
-                    for w0 in range(0, nt, 32):
-                        vec = [(ln, 16 * (k0 + w0 + ln)) for ln in range(32)
-                               if k0 + w0 + ln < chunks
-                               and 4 * (k0 + w0 + ln) >= mis
-                               and 4 * (k0 + w0 + ln) + 4 <= end]
-                        conflicts["LDS.128"] += _conflicts(vec, 16)
-                for c in range(chunks):
-                    for e in range(max(4 * c, mis), min(4 * c + 4, end)):
-                        out[at - mis + e] = tile[e]
-                        n_out[at - mis + e] += 1
+            rows = min(R * iters, S - row0)
+            ncol = S if nseg == 1 else min(nthreads, S - col0)
+            j = col0 + tx
+            jo = np.where(j % stride == 0, j // stride, -1)
+            it = 0
+            while R * it < rows:
+                pa = (row0 + R * it) * S + col0
+                pb = min(row0 + R * it + R, S) * S if nseg == 1 \
+                    else pa + ncol
+                npx = (min(R * it + R, rows) - R * it) * S if nseg == 1 \
+                    else ncol
+                assert pb - pa == npx
+                g0 = _grid_before(pa, S, O, stride)
+                ng = _grid_before(pb, S, O, stride) - g0
+                img_at, coord_at = (b * S * S + pa) * 6, (b * O * O + g0) * 5
+                mis_i, mis_c = img_at % 4, coord_at % 4   # aligned bases
+                lr = R * it + ty
+                i = row0 + lr
+                live = (lr < rows) & (tx < ncol)
+                assert live.sum() == npx
+                assert (i * S + j - pa == t)[live].all()
+                io = np.where(i % stride == 0, i // stride, -1)
+                itile = np.full(nt * 6 + 4, -1, np.int64)
+                ctile = np.full(nt * 5 + 4, -1, np.int64)
+                for tt in t[live]:
+                    slots = mis_i + 6 * tt + np.arange(6)
+                    assert (itile[slots] == -1).all()
+                    itile[slots] = (b * S * S + pa + tt) * 6 + np.arange(6)
+                on_grid = live & (io >= 0) & (jo >= 0)
+                gl = io * O + jo - g0
+                assert (np.sort(gl[on_grid]) == np.arange(ng)).all()
+                for tt in t[on_grid]:
+                    slots = mis_c + 5 * gl[tt] + np.arange(3)
+                    assert (ctile[slots] == -1).all()
+                    ctile[slots] = (b * O * O + g0 + gl[tt]) * 5 \
+                        + np.arange(3)
+                for tt in range(ng):
+                    slots = mis_c + 5 * tt + np.arange(3, 5)
+                    assert (ctile[slots] == -1).all()
+                    ctile[slots] = (b * O * O + g0 + tt) * 5 + np.arange(3, 5)
+                for w0 in range(0, nt, 32):
+                    lanes = [(tt - w0, tt)
+                             for tt in range(w0, min(w0 + 32, nt))]
+                    for k in range(3):
+                        conflicts["img STS.64"] += _conflicts(
+                            [(ln, 4 * (mis_i + 6 * tt + 2 * k))
+                             for ln, tt in lanes if live[tt]], 8)
+                    for c in range(5):
+                        conflicts["coord STS.32"] += _conflicts(
+                            [(ln, 4 * (mis_c + 5 * gl[tt] + c))
+                             for ln, tt in lanes if c < 3 and on_grid[tt]]
+                            + [(ln, 4 * (mis_c + 5 * tt + c))
+                               for ln, tt in lanes if c >= 3 and tt < ng], 4)
+                # store_span: chunk c to thread c % nt, vector where whole
+                for out, n_out, tile, at, mis, n in (
+                        (img, n_img, itile, img_at, mis_i, 6 * npx),
+                        (coord, n_coord, ctile, coord_at, mis_c, 5 * ng)):
+                    end = mis + n
+                    chunks = -(-end // 4)
+                    for k0 in range(0, chunks, nt):
+                        for w0 in range(0, nt, 32):
+                            vec = [(ln, 16 * (k0 + w0 + ln))
+                                   for ln in range(32)
+                                   if k0 + w0 + ln < chunks
+                                   and 4 * (k0 + w0 + ln) >= mis
+                                   and 4 * (k0 + w0 + ln) + 4 <= end]
+                            conflicts["LDS.128"] += _conflicts(vec, 16)
+                    for c in range(chunks):
+                        for e in range(max(4 * c, mis), min(4 * c + 4, end)):
+                            out[at - mis + e] = tile[e]
+                            n_out[at - mis + e] += 1
+                it += 1
+            assert it <= iters
     return img, n_img, coord, n_coord, conflicts
 
 
-@pytest.mark.parametrize("S,O", [(256, 64), (128, 32), (33, 11), (300, 75),
-                                 (7, 7), (1, 1)])
-def test_tile_map_writes_each_element_once(S, O):
-    """The kernel's blocks (whole rows of S <= kThreads pixels, a ragged
-    last block of rows at 33 / 11; kThreads-wide row segments, the last one
-    ragged, at 300 / 75) write every roi_img and roi_coord element exactly
-    once, with its own value, through shared tiles whose every access is
-    free of bank conflicts; 2 ROIs, so that odd S puts the second ROI's
-    span off the 16-byte grid."""
-    img, n_img, coord, n_coord, conflicts = _emulate_tiles(2, S, O)
+@pytest.mark.parametrize("S,O,sms", [(256, 64, 132), (256, 64, 3),
+                                     (128, 32, 132), (128, 32, 5),
+                                     (33, 11, 132), (33, 11, 1),
+                                     (300, 75, 132), (7, 7, 1), (1, 1, 1)])
+def test_tile_map_writes_each_element_once(S, O, sms):
+    """The kernel's blocks (whole rows of S <= kThreads pixels, R of them an
+    iteration, as many iterations as ``roi_crop_plan`` gives on ``sms``
+    SMs, up to kMaxRows rows: a ragged last iteration and a ragged last
+    block at 33 / 11; kThreads-wide row segments, the last one ragged, at
+    300 / 75) write every roi_img and roi_coord element exactly once, with
+    its own value, through shared tiles whose every access is free of bank
+    conflicts; 2 ROIs, so that odd S puts the second ROI's span off the
+    16-byte grid."""
+    img, n_img, coord, n_coord, conflicts = _emulate_tiles(2, S, O, sms)
     assert (n_img == 1).all() and (n_coord == 1).all()
     assert (img == np.arange(img.size)).all()
     assert (coord == np.arange(coord.size)).all()
