@@ -26,22 +26,30 @@
 // coordinate map, the intrinsics' composition and a dozen elementwise ops:
 // ~300 launches for a served batch of 16.
 //
-// Design for Hopper:
-//  * A block of 256 threads computes a tile of up to 256 S x S pixels of
-//    one ROI (the ROI on grid.y): whole rows where S <= 256, blockDim
-//    (S, 256 / S), the last block of rows ragged; else a 256-wide segment
-//    of a row. A tile is a contiguous span of roi_img, and the O-grid
-//    pixels inside it a contiguous span of roi_coord (grid_before). The
-//    ROI's scalars (centre, the two grids' steps scale / S and scale / O,
-//    resize_ratio, the four entries of Kc that the back-projection reads,
-//    the frame, the depth factor, the reciprocals of the divisors) are
-//    computed by a few threads and staged once per block in shared memory.
+// Design for Hopper. What bounds it on the card is instruction issue and
+// latency, not bytes: the gather's taps mostly hit L1 and L2, the stores are
+// 26.5 MB, and each pixel needs ~100 float ops, six to ten divisions and
+// the address and axis work around them. So the design spends few
+// instructions a pixel:
+//  * A block of 256 threads walks `iters` tiles of one ROI (the ROI on
+//    grid.y), one pixel a thread a tile: where S <= 256, R = 256 / S whole
+//    rows a tile (blockDim (S, R)), so a thread keeps one column and its x
+//    axis (taps, validities, fraction, offsets, O-grid column) is computed
+//    once; else one 256-wide segment of a row a block. The grid is about
+//    one wave of 4 blocks an SM (ops/roi_crop.roi_crop_plan), so the
+//    block's set-up is paid a few hundred times, not once a tile.
+//  * The set-up: the ROI's scalars (centre, the two grids' steps scale / S
+//    and scale / O, resize_ratio, the four entries of Kc that the
+//    back-projection reads, the frame, the depth factor, the reciprocals
+//    of the divisors), each row's y axis (Row) and each tile's span of
+//    O-grid pixels, computed once a block and staged in shared memory.
 //  * Each thread writes its pixel's 6 floats into a shared tile (three
 //    8-byte stores, free of bank conflicts), each O-grid pixel its xyz and
 //    the first ng threads the coordinate map of the tile's ng grid pixels;
 //    then the block stores both tiles as 16-byte vectors, contiguous across
-//    the warp (store_span), rather than 6 floats a thread 24 bytes apart
-//    and 5-float rows as scalars.
+//    the warp (store_span). A tile is a contiguous span of roi_img, and the
+//    O-grid pixels in it a contiguous span of roi_coord (grid_before). Two
+//    tiles alternate, so one barrier an iteration suffices.
 //  * Every float op is an _rn intrinsic in ops/roi_crop.roi_crop_plain's
 //    order, so that nvcc contracts nothing into an FMA, and the kernel
 //    equals the plain version bit for bit: the source coordinate
@@ -63,7 +71,8 @@
 //    linspace entry (passed in, computed by torch.linspace, which is not
 //    i / (n - 1)) times the tap's validity.
 //  * Offsets within a frame are 32-bit (3 H W < 2^31); a uint8 row's two
-//    RGB taps come from the 1-3 aligned words that hold their 6 bytes.
+//    RGB taps come from the 1-3 aligned words that hold their 6 bytes, and
+//    become floats by a byte permute and an add, not a conversion.
 //  * Bound: bytes. The writes are B (S^2 6 + O^2 5) 4 bytes (26.5 MB at a
 //    served batch of 16, 256 / 64); the reads at least each source pixel
 //    of each ROI's window once, min(scale^2, H W) (3 + 4) bytes: ~8.5 us at
@@ -73,6 +82,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -127,6 +137,51 @@ __device__ __forceinline__ float blend(float v00, float v01, float v10,
                __fsub_rn(1.f, fx));
 }
 
+// One pixel's taps as loaded, before any arithmetic, so that a thread
+// can load the next iteration's while it computes this one's. uint8 RGB:
+// for each of the two source rows, the 1-3 aligned 32-bit words that hold
+// the 6 bytes of its taps x0 and x1 (3 where x1 = x0; each word holds a
+// byte of the frame, so no load leaves its allocation) and their shift;
+// float32 RGB: the 6 values of each row's taps. Depth: the 4 taps, float32
+// metres or int32 raw units.
+struct TapsU8 {
+  unsigned w[2][3];
+  int sh[2];
+};
+struct TapsF32 {
+  float v[2][6];
+};
+template <typename RgbT, bool kRaw>
+struct Taps {
+  typename std::conditional<std::is_same<RgbT, float>::value, TapsF32,
+                            TapsU8>::type rgb;
+  typename std::conditional<kRaw, int, float>::type d[4];
+};
+
+// The RGB taps of source row k at element offset a = (y W + x0) 3 of the
+// frame p; x1 is x0 + 1, or x0 where the axis clamped it (two false).
+__device__ __forceinline__ void load_rgb(TapsU8& t, int k,
+                                         const unsigned char* p, int a,
+                                         bool two) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p + a);
+  const unsigned* w = reinterpret_cast<const unsigned*>(addr & ~uintptr_t{3});
+  const int off = (int)(addr & 3), last = off + (two ? 5 : 2);
+  t.sh[k] = 8 * off;
+  t.w[k][0] = __ldg(w);
+  t.w[k][1] = last >= 4 ? __ldg(w + 1) : 0u;
+  t.w[k][2] = last >= 8 ? __ldg(w + 2) : 0u;
+}
+
+__device__ __forceinline__ void load_rgb(TapsF32& t, int k, const float* p,
+                                         int a, bool two) {
+  const int a1 = two ? a + 3 : a;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    t.v[k][c] = __ldg(p + a + c);
+    t.v[k][3 + c] = __ldg(p + a1 + c);
+  }
+}
+
 // Byte k of w as a float, exactly: the byte under the exponent of 2^23,
 // less 2^23 (a byte permute and an add, where a conversion would take the
 // slower conversion pipe).
@@ -135,22 +190,11 @@ __device__ __forceinline__ float byte_f(unsigned w, unsigned k) {
                    8388608.f);
 }
 
-// The RGB of one source row's two taps, x0 and x1, at element offset
-// a = (y W + x0) 3 of the frame p; x1 is x0 + 1, or x0 where the axis
-// clamped it (two false). uint8: the 6 (or 3) bytes come from the 1-3
-// aligned 32-bit words that hold them, through two funnel shifts (each
-// word holds a byte of the frame, so no load leaves its allocation);
-// float32: one load an element.
-__device__ __forceinline__ void rgb_row(const unsigned char* p, int a,
-                                        bool two, float* v0, float* v1) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(p + a);
-  const unsigned* w = reinterpret_cast<const unsigned*>(addr & ~uintptr_t{3});
-  const int off = (int)(addr & 3), last = off + (two ? 5 : 2);
-  const unsigned w0 = __ldg(w);
-  const unsigned w1 = last >= 4 ? __ldg(w + 1) : 0u;
-  const unsigned w2 = last >= 8 ? __ldg(w + 2) : 0u;
-  const unsigned lo = __funnelshift_r(w0, w1, 8 * off);   // bytes a..a+3
-  const unsigned hi = __funnelshift_r(w1, w2, 8 * off);   // a+4..a+7
+// Row k's RGB as floats: taps x0 (v0) and x1 (v1)
+__device__ __forceinline__ void rgb_values(const TapsU8& t, int k, bool two,
+                                           float* v0, float* v1) {
+  const unsigned lo = __funnelshift_r(t.w[k][0], t.w[k][1], t.sh[k]);
+  const unsigned hi = __funnelshift_r(t.w[k][1], t.w[k][2], t.sh[k]);
   v0[0] = byte_f(lo, 0);
   v0[1] = byte_f(lo, 1);
   v0[2] = byte_f(lo, 2);
@@ -159,13 +203,12 @@ __device__ __forceinline__ void rgb_row(const unsigned char* p, int a,
   v1[2] = two ? byte_f(hi, 1) : v0[2];
 }
 
-__device__ __forceinline__ void rgb_row(const float* p, int a, bool two,
-                                        float* v0, float* v1) {
-  const int a1 = two ? a + 3 : a;
+__device__ __forceinline__ void rgb_values(const TapsF32& t, int k, bool,
+                                           float* v0, float* v1) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    v0[c] = __ldg(p + a + c);
-    v1[c] = __ldg(p + a1 + c);
+    v0[c] = t.v[k][c];
+    v1[c] = t.v[k][3 + c];
   }
 }
 
@@ -197,15 +240,28 @@ __device__ __forceinline__ float div_rn(float a, float d, float r) {
   return __fdiv_rn(a, d);
 }
 
-// kRaw: depth is int32 raw units, divided by the frame's factor per tap
-// (r its reciprocal)
-template <bool kRaw>
-__device__ __forceinline__ float depth_at(const void* depth, int i,
-                                          float factor, float r) {
-  if (kRaw)
-    return div_rn((float)__ldg(static_cast<const int*>(depth) + i), factor,
-                  r);
-  return __ldg(static_cast<const float*>(depth) + i);
+// A depth tap in metres: float32 as it is, int32 raw units divided by the
+// frame's factor (r its reciprocal)
+__device__ __forceinline__ float metres(float d, float, float) { return d; }
+__device__ __forceinline__ float metres(int d, float factor, float r) {
+  return div_rn((float)d, factor, r);
+}
+
+// Load the taps of the pixel in row r's axis (y0 W, y1 W) and the
+// thread's column (x0, x1, two)
+template <typename RgbT, bool kRaw>
+__device__ __forceinline__ void load_taps(Taps<RgbT, kRaw>& t,
+                                          const RgbT* rgbf,
+                                          const void* dframe, int y0w,
+                                          int y1w, int x0, int x1, bool two) {
+  load_rgb(t.rgb, 0, rgbf, (y0w + x0) * 3, two);
+  load_rgb(t.rgb, 1, rgbf, (y1w + x0) * 3, two);
+  using D = typename std::conditional<kRaw, int, float>::type;
+  const D* dp = static_cast<const D*>(dframe);
+  t.d[0] = __ldg(dp + y0w + x0);
+  t.d[1] = __ldg(dp + y0w + x1);
+  t.d[2] = __ldg(dp + y1w + x0);
+  t.d[3] = __ldg(dp + y1w + x1);
 }
 
 // The grid pixels (io, jo) of the O grid, at (io stride, jo stride) of the
@@ -380,8 +436,19 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   const float kfy = sc[kFy], rkfy = sc[kRFy], kky = sc[kKy];
   const float rsd[3] = {sc[kRStd], sc[kRStd + 1], sc[kRStd + 2]};
 
+  const bool col_live = (int)threadIdx.x < ncol;
+  Taps<RgbT, kRaw> next;                 // the taps of the next iteration
+  if ((int)threadIdx.y < rows && col_live) {
+    const int2 yw = *reinterpret_cast<const int2*>(&srow[threadIdx.y]);
+    load_taps(next, rgbf, dframe, yw.x, yw.y, ax.i0, ax.i1, two);
+  }
   for (int it = 0; R * it < rows; ++it) {
     const int lr = R * it + threadIdx.y;             // the block's row
+    const Taps<RgbT, kRaw> cur = next;
+    if (lr + R < rows && col_live) {
+      const int2 yw = *reinterpret_cast<const int2*>(&srow[lr + R]);
+      load_taps(next, rgbf, dframe, yw.x, yw.y, ax.i0, ax.i1, two);
+    }
     const int2 gs = sgrid[it];
     const int g0 = gs.x, ng = gs.y;
     float* itile = img_tile[it & 1];
@@ -391,16 +458,14 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     float* coord_dst = roi_coord + ((size_t)b * O * O + g0) * 5;
     const int mis_img = misalign(img_dst), mis_coord = misalign(coord_dst);
     const int npx = nseg == 1 ? (min(R * it + R, rows) - R * it) * S : ncol;
-    if (lr < rows && (int)threadIdx.x < ncol) {
+    if (lr < rows && col_live) {
       const Row r = srow[lr];
       const float w00 = __fmul_rn(r.wy0, wx0), w01 = __fmul_rn(r.wy0, wx1);
       const float w10 = __fmul_rn(r.wy1, wx0), w11 = __fmul_rn(r.wy1, wx1);
-      const int o00 = r.y0w + ax.i0, o10 = r.y1w + ax.i0;
-      const int o01 = r.y0w + ax.i1, o11 = r.y1w + ax.i1;
 
       float px[6], v00[3], v01[3], v10[3], v11[3];
-      rgb_row(rgbf, o00 * 3, two, v00, v01);
-      rgb_row(rgbf, o10 * 3, two, v10, v11);
+      rgb_values(cur.rgb, 0, two, v00, v01);
+      rgb_values(cur.rgb, 1, two, v10, v11);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const float v = blend(__fmul_rn(v00[c], w00), __fmul_rn(v01[c], w01),
@@ -409,11 +474,11 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
         px[c] = normalize ? div_rn(__fsub_rn(v, mean[c]), sd[c], rsd[c]) : v;
       }
       const float d =
-          blend(__fmul_rn(depth_at<kRaw>(dframe, o00, fac, rfac), w00),
-                __fmul_rn(depth_at<kRaw>(dframe, o01, fac, rfac), w01),
-                __fmul_rn(depth_at<kRaw>(dframe, o10, fac, rfac), w10),
-                __fmul_rn(depth_at<kRaw>(dframe, o11, fac, rfac), w11), r.fy,
-                ax.f, r.gy, gx);
+          blend(__fmul_rn(metres(cur.d[0], fac, rfac), w00),
+                __fmul_rn(metres(cur.d[1], fac, rfac), w01),
+                __fmul_rn(metres(cur.d[2], fac, rfac), w10),
+                __fmul_rn(metres(cur.d[3], fac, rfac), w11), r.fy, ax.f, r.gy,
+                gx);
       const float z = div_rn(d, ratio, rratio);
       px[3] = div_rn(__fmul_rn(jk, z), kfx, rkfx);
       px[4] = div_rn(__fmul_rn(__fsub_rn(r.fi, kky), z), kfy, rkfy);

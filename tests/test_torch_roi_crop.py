@@ -466,7 +466,8 @@ def _tile_consts():
             "const int pa = (row0 + R * it) * S + col0;",
             "const int npx = nseg == 1 ? (min(R * it + R, rows) - R * it) * S "
             ": ncol;",
-            "if (lr < rows && (int)threadIdx.x < ncol) {",
+            "const bool col_live = (int)threadIdx.x < ncol;",
+            "if (lr < rows && col_live) {",
             "float2* o = reinterpret_cast<float2*>(itile + mis_img + 6 * t);",
             "float* row = ctile + mis_coord + 5 * (r.io * O + jo - g0);",
             "float* row = ctile + mis_coord + 5 * t;",
