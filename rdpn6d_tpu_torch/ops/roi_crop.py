@@ -33,7 +33,7 @@ LIBRARY = "roi_crop"           # csrc/roi_crop.cu
 KERNEL = "roi_crop"            # the name its launches are counted under
 THREADS = 256                  # the kernel's threads a block (kThreads)
 MAX_ROWS = 256                 # S-grid rows a block at most (kMaxRows)
-BLOCKS_PER_SM = 4              # resident blocks an SM (__launch_bounds__)
+BLOCKS_PER_SM = 3              # resident blocks an SM (__launch_bounds__)
 
 _AXES: dict[tuple[int, int, str], tuple[torch.Tensor, torch.Tensor]] = {}
 
