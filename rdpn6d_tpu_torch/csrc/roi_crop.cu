@@ -27,29 +27,30 @@
 // ~300 launches for a served batch of 16.
 //
 // Design for Hopper. What bounds it on the card is instruction issue and
-// latency, not bytes: the gather's taps mostly hit L1 and L2, the stores are
-// 26.5 MB, and each pixel needs ~100 float ops, six to ten divisions and
-// the address and axis work around them. So the design spends few
-// instructions a pixel:
+// latency, not bytes: the gather's taps mostly hit L1 and L2, and each
+// pixel needs ~100 float ops, six to ten divisions and the address and
+// axis work around them. So the design spends few instructions a pixel and
+// keeps loads in flight:
 //  * A block of 256 threads walks `iters` tiles of one ROI (the ROI on
 //    grid.y), one pixel a thread a tile: where S <= 256, R = 256 / S whole
 //    rows a tile (blockDim (S, R)), so a thread keeps one column and its x
-//    axis (taps, validities, fraction, offsets, O-grid column) is computed
-//    once; else one 256-wide segment of a row a block. The grid is about
-//    one wave of 4 blocks an SM (ops/roi_crop.roi_crop_plan), so the
-//    block's set-up is paid a few hundred times, not once a tile.
+//    axis (taps, validities, fraction, O-grid column) is computed once;
+//    else one 256-wide segment of a row a block. The grid is about one
+//    wave of 3 blocks an SM (ops/roi_crop.roi_crop_plan), so the block's
+//    set-up is paid a few hundred times, not once a tile.
 //  * The set-up: the ROI's scalars (centre, the two grids' steps scale / S
 //    and scale / O, resize_ratio, the four entries of Kc that the
 //    back-projection reads, the frame, the depth factor, the reciprocals
 //    of the divisors), each row's y axis (Row) and each tile's span of
 //    O-grid pixels, computed once a block and staged in shared memory.
-//  * Each thread writes its pixel's 6 floats into a shared tile (three
-//    8-byte stores, free of bank conflicts), each O-grid pixel its xyz and
-//    the first ng threads the coordinate map of the tile's ng grid pixels;
-//    then the block stores both tiles as 16-byte vectors, contiguous across
-//    the warp (store_span). A tile is a contiguous span of roi_img, and the
-//    O-grid pixels in it a contiguous span of roi_coord (grid_before). Two
-//    tiles alternate, so one barrier an iteration suffices.
+//  * A thread loads the next tile's taps (Taps) before it computes this
+//    one's, so their latency hides behind the arithmetic.
+//  * Each thread stores its pixel's 6 floats straight to roi_img (three
+//    8-byte stores, 24 bytes apart across a warp, which L2 merges into
+//    whole sectors), each O-grid pixel its xyz and the tile's first ng
+//    threads the coordinate map of its ng grid pixels to roi_coord. Staging
+//    the tile in shared memory for 16-byte stores cost more (a barrier a
+//    tile) than the scattered stores did: slower at every shape measured.
 //  * Every float op is an _rn intrinsic in ops/roi_crop.roi_crop_plain's
 //    order, so that nvcc contracts nothing into an FMA, and the kernel
 //    equals the plain version bit for bit: the source coordinate
@@ -89,9 +90,9 @@ namespace {
 // A block of kThreads threads walks `iters` tiles of up to kThreads S-grid
 // pixels of one ROI, one pixel a thread a tile: where S <= kThreads a tile
 // is R = kThreads / S whole rows (blockDim (S, R)) and a thread keeps its
-// column through the block's R iters rows; else a block is one
-// kThreads-wide segment of a row (blockDim (kThreads, 1), iters 1). The
-// block's rows (at most kMaxRows) are contiguous in roi_img.
+// column through the block's R iters rows (at most kMaxRows); else a
+// block is one kThreads-wide segment of a row (blockDim (kThreads, 1),
+// iters 1).
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 256;
 
@@ -212,139 +213,56 @@ __device__ __forceinline__ void rgb_values(const TapsF32& t, int k, bool,
   }
 }
 
-// Staged per ROI beside Roi: centre x, y; scale / S; scale / O; cx'
-enum { kCx, kCy, kStepS, kStepO, kKx, kN };
-
-// Staged per S-grid row of a block: the row axis' tap offsets y0 W and
-// y1 W, its validities and fraction as floats, 1 - fy, the row index as
-// a float, and its O-grid row (-1 off the grid); two 16-byte reads.
-struct __align__(16) Row {
-  int y0w, y1w;
-  float wy0, wy1, fy, gy, fi;
-  int io;
-};
-
-// A divisor d of a per-ROI (or per-launch) constant, with r = RN(1 / d)
-// and lo, the least |q0| at which DivFast's FMA path is exact for it.
-struct Divisor {
-  float d, r, lo;
-};
-
-// |d| in [2^-125, 2^125]: r is normal, and DivFast may take the FMA path
-__device__ __forceinline__ bool in_range(float d) {
+// RN(1 / d) for a divisor whose quotients may take div_rn's FMA path:
+// |d| in [2^-125, 2^125], so the reciprocal is normal. NaN elsewhere,
+// which sends every quotient by d to __fdiv_rn.
+__device__ __forceinline__ float recip(float d) {
   const float m = fabsf(d);
-  return m >= 0x1p-125f && m <= 0x1p125f;
+  return m >= 0x1p-125f && m <= 0x1p125f ? __frcp_rn(d)
+                                         : __int_as_float(0x7fc00000);
 }
 
-__device__ __forceinline__ Divisor divisor(float d) {
-  return {d, __frcp_rn(d), fmaxf(0x1p-125f, __fdiv_rn(0x1p-99f, fabsf(d)))};
-}
-
-// a / d correctly rounded, as __fdiv_rn gives it, from r = RN(1 / d): q0 =
+// a / d correctly rounded, as __fdiv_rn gives it, from r = recip(d): q0 =
 // RN(a r) is within an ulp of a / d, the FMA gives the remainder a - q0 d
 // exactly, and RN(q0 + rem r) is the correctly rounded quotient
-// (Markstein's theorem), where nothing overflows or underflows. ok stays
-// true only where that is so: r normal (in_range(d), checked once a
-// block); lo <= |q0| <= 2^125, so q0 and the quotient are normal, q0 d
-// stays finite and, with lo >= 2^-99 / |d|, |a| >= 2^-100, which puts the
-// remainder, a multiple of min(ulp(a), ulp(q0) ulp(d)) >= 2^-148, on the
-// float grid; or a = 0, whose quotient q0 = +-0 is exact. Where ok turns
-// false the caller recomputes the pixel with IeeeDiv. Raw depth below 2^23
-// becomes a float by byte_f's exponent trick, not a conversion.
-struct DivFast {
-  bool ok;
-  __device__ __forceinline__ float operator()(float a, const Divisor& v) {
-    const float q0 = __fmul_rn(a, v.r);
-    const float q = __fmaf_rn(__fmaf_rn(-q0, v.d, a), v.r, q0);
-    const float m = fabsf(q0);
-    ok = ok && ((m >= v.lo && m <= 0x1p125f) || a == 0.f);
-    return a == 0.f ? q0 : q;
-  }
-  __device__ __forceinline__ float raw(int v) {
-    ok = ok && (unsigned)v < 0x800000u;
-    return __fsub_rn(__uint_as_float(0x4b000000u | (unsigned)v), 8388608.f);
-  }
-};
-
-// The IEEE division and conversion, for the pixels DivFast cannot take
-struct IeeeDiv {
-  __device__ __forceinline__ float operator()(float a, const Divisor& v) {
-    return __fdiv_rn(a, v.d);
-  }
-  __device__ __forceinline__ float raw(int v) { return (float)v; }
-};
-
-// A depth tap in metres: float32 as it is; int32 raw units divided by the
-// frame's factor
-template <typename Div>
-__device__ __forceinline__ float metres(Div&, float d, const Divisor&) {
-  return d;
-}
-template <typename Div>
-__device__ __forceinline__ float metres(Div& div, int d, const Divisor& f) {
-  return div(div.raw(d), f);
+// (Markstein's theorem), where nothing overflows or underflows. The FMA
+// path is taken only where that is so: r normal (recip); 2^-125 <= |q0| <=
+// 2^125, so q0 and the quotient are normal and q0 d stays finite; |a| >=
+// 2^-100, so the remainder, a multiple of min(ulp(a), ulp(q0) ulp(d)) >=
+// 2^-148, lies on the float grid and is exact. a = 0 gives q0 = +-0, the
+// exact quotient. Anything else (a subnormal or huge quotient, a tiny
+// numerator, NaN, an infinity, d out of range) takes __fdiv_rn.
+__device__ __forceinline__ float div_rn(float a, float d, float r) {
+  const float q0 = __fmul_rn(a, r);
+  const float m = fabsf(q0);
+  if (m >= 0x1p-125f && m <= 0x1p125f && fabsf(a) >= 0x1p-100f)
+    return __fmaf_rn(__fmaf_rn(-q0, d, a), r, q0);
+  if (a == 0.f && q0 == 0.f) return q0;
+  return __fdiv_rn(a, d);
 }
 
-// The thread's column of the S grid: its x axis, and its taps' pointers
-// into the frame (x0, and x1 in the depth plane)
-template <typename RgbT, bool kRaw>
-struct Col {
-  const RgbT* rgb;                    // frame + 3 x0
-  const typename std::conditional<kRaw, int, float>::type *d0, *d1;
-  float wx0, wx1, fx, gx, jk;         // jk = j - cx'
-  bool two;
-  int jo;                             // O-grid column, -1 off the grid
-};
+// A depth tap in metres: float32 as it is, int32 raw units divided by the
+// frame's factor (r its reciprocal)
+__device__ __forceinline__ float metres(float d, float, float) { return d; }
+__device__ __forceinline__ float metres(int d, float factor, float r) {
+  return div_rn((float)d, factor, r);
+}
 
-// Load the taps of the pixel in row (y0 W, y1 W) and column c
+// Load the taps of the pixel in row r's axis (y0 W, y1 W) and the
+// thread's column (x0, x1, two)
 template <typename RgbT, bool kRaw>
 __device__ __forceinline__ void load_taps(Taps<RgbT, kRaw>& t,
-                                          const Col<RgbT, kRaw>& c, int y0w,
-                                          int y1w) {
-  load_rgb(t.rgb, 0, c.rgb, 3 * y0w, c.two);
-  load_rgb(t.rgb, 1, c.rgb, 3 * y1w, c.two);
-  t.d[0] = __ldg(c.d0 + y0w);
-  t.d[1] = __ldg(c.d1 + y0w);
-  t.d[2] = __ldg(c.d0 + y1w);
-  t.d[3] = __ldg(c.d1 + y1w);
-}
-
-// Per ROI: the divisors of the back-projection and of raw depth, and cy'
-struct Roi {
-  Divisor ratio, fx, fy, factor;
-  float ky;
-};
-
-// A pixel's 6 outputs from its taps, in roi_crop_plain's order: the RGB
-// blends, normalised by std (std[c].d 0 where normalize is off), the depth
-// blend over resize_ratio, and the back-projection
-template <typename Div, typename RgbT, bool kRaw>
-__device__ __forceinline__ void pixel(Div& div, const Taps<RgbT, kRaw>& t,
-                                      const Row& r, const Col<RgbT, kRaw>& c,
-                                      const Roi& roi, const float* mean,
-                                      const Divisor* sd, bool normalize,
-                                      float* px) {
-  const float w00 = __fmul_rn(r.wy0, c.wx0), w01 = __fmul_rn(r.wy0, c.wx1);
-  const float w10 = __fmul_rn(r.wy1, c.wx0), w11 = __fmul_rn(r.wy1, c.wx1);
-  float v00[3], v01[3], v10[3], v11[3];
-  rgb_values(t.rgb, 0, c.two, v00, v01);
-  rgb_values(t.rgb, 1, c.two, v10, v11);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float v = blend(__fmul_rn(v00[k], w00), __fmul_rn(v01[k], w01),
-                          __fmul_rn(v10[k], w10), __fmul_rn(v11[k], w11),
-                          r.fy, c.fx, r.gy, c.gx);
-    px[k] = normalize ? div(__fsub_rn(v, mean[k]), sd[k]) : v;
-  }
-  const float d = blend(__fmul_rn(metres(div, t.d[0], roi.factor), w00),
-                        __fmul_rn(metres(div, t.d[1], roi.factor), w01),
-                        __fmul_rn(metres(div, t.d[2], roi.factor), w10),
-                        __fmul_rn(metres(div, t.d[3], roi.factor), w11),
-                        r.fy, c.fx, r.gy, c.gx);
-  const float z = div(d, roi.ratio);
-  px[3] = div(__fmul_rn(c.jk, z), roi.fx);
-  px[4] = div(__fmul_rn(__fsub_rn(r.fi, roi.ky), z), roi.fy);
-  px[5] = z;
+                                          const RgbT* rgbf,
+                                          const void* dframe, int y0w,
+                                          int y1w, int x0, int x1, bool two) {
+  load_rgb(t.rgb, 0, rgbf, (y0w + x0) * 3, two);
+  load_rgb(t.rgb, 1, rgbf, (y1w + x0) * 3, two);
+  using D = typename std::conditional<kRaw, int, float>::type;
+  const D* dp = static_cast<const D*>(dframe);
+  t.d[0] = __ldg(dp + y0w + x0);
+  t.d[1] = __ldg(dp + y0w + x1);
+  t.d[2] = __ldg(dp + y1w + x0);
+  t.d[3] = __ldg(dp + y1w + x1);
 }
 
 // The grid pixels (io, jo) of the O grid, at (io stride, jo stride) of the
@@ -359,31 +277,22 @@ __device__ __forceinline__ int grid_before(int P, int S, int O, int stride) {
   return n;
 }
 
-// Store n floats of a shared tile to dst, in 16-byte vectors where both
-// line up: the tile holds dst[k] at tile[mis + k], mis = dst's offset in
-// floats from the 16-byte boundary below it, so the vector chunks of the
-// two coincide; the partial chunks at either end go as scalars. Chunks
-// are dealt to the block's nt threads in turn, so a warp stores 512
-// contiguous bytes.
-__device__ __forceinline__ void store_span(float* __restrict__ dst,
-                                           const float* tile, int mis, int n,
-                                           int t, int nt) {
-  float* base = dst - mis;
-  const int end = mis + n;
-  for (int c = t; 4 * c < end; c += nt) {
-    const int lo = 4 * c;
-    if (lo >= mis && lo + 4 <= end) {
-      reinterpret_cast<float4*>(base)[c] =
-          reinterpret_cast<const float4*>(tile)[c];
-    } else {
-      for (int e = max(lo, mis); e < min(lo + 4, end); ++e) base[e] = tile[e];
-    }
-  }
-}
+// Staged per ROI: centre x, y; scale / S; scale / O; resize_ratio; Kc's
+// fx, fy, cx, cy; the depth factor; the reciprocals (recip) of
+// resize_ratio, fx', fy', the factor and the three stds
+enum {
+  kCx, kCy, kStepS, kStepO, kRatio, kFx, kFy, kKx, kKy, kFactor,
+  kRRatio, kRFx, kRFy, kRFactor, kRStd, kN = kRStd + 3
+};
 
-__device__ __forceinline__ int misalign(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
+// Staged per S-grid row of a block: the row axis' tap offsets y0 W and
+// y1 W, its validities and fraction as floats, 1 - fy, the row index as
+// a float, and its O-grid row (-1 off the grid); two 16-byte reads.
+struct __align__(16) Row {
+  int y0w, y1w;
+  float wy0, wy1, fy, gy, fi;
+  int io;
+};
 
 template <typename RgbT, bool kRaw>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -398,16 +307,9 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
                 int F, int H, int W, int S, int O, int stride, int iters,
                 float mean0, float mean1, float mean2, float std0,
                 float std1, float std2, int normalize) {
-  // two tiles of each kind, a tile an iteration in turn: 6 floats a pixel,
-  // 5 a grid pixel, each laid out as its span of roi_img / roi_coord lies
-  // against 16-byte boundaries
-  __shared__ __align__(16) float img_tile[2][kThreads * 6 + 4];
-  __shared__ __align__(16) float coord_tile[2][kThreads * 5 + 4];
   __shared__ Row srow[kMaxRows];
   __shared__ int2 sgrid[kMaxRows];          // an iteration's g0 and ng
   __shared__ float sc[kN];
-  __shared__ Roi sroi;
-  __shared__ Divisor ssd[3];
   __shared__ long long sfr;
   const int b = blockIdx.y;
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
@@ -424,9 +326,15 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   if (t < 2) sc[kCx + t] = center[(size_t)b * 2 + t];
   if (t == 2) sc[kStepS] = __fdiv_rn(scale[b], (float)S);
   if (t == 3) sc[kStepO] = __fdiv_rn(scale[b], (float)O);
-  if (t == 4) sroi.ratio = divisor(__fmul_rn(__frcp_rn(scale[b]), (float)O));
-  if (t >= 11 && t < 14) ssd[t - 11] = divisor(t == 11 ? std0
-                                               : t == 12 ? std1 : std2);
+  if (t == 4) {
+    const float ratio = __fmul_rn(__frcp_rn(scale[b]), (float)O);
+    sc[kRatio] = ratio;
+    sc[kRRatio] = recip(ratio);
+  }
+  if (t >= 11 && t < 14) {
+    const float sd = t == 11 ? std0 : t == 12 ? std1 : std2;
+    sc[kRStd + t - 11] = recip(sd);
+  }
   for (int k = t; k < iters; k += nt) {
     // iteration k's span of S-grid pixels and the grid pixels inside it
     const int pa = nseg == 1 ? min(row0 + R * k, S) * S : row0 * S + col0;
@@ -446,12 +354,14 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
     const float ti = __fsub_rn(0.5f * (float)S, __fmul_rn(r, sc[kCx + row]));
     const float kc = __fadd_rn(__fmul_rn(r, k[row * 3 + col]),
                                __fmul_rn(ti, k[6 + col]));
-    if (t == 5) sroi.fx = divisor(kc);
-    if (t == 6) sroi.fy = divisor(kc);
-    if (t == 7) sc[kKx] = kc;
-    if (t == 8) sroi.ky = kc;
+    sc[kFx + (t - 5)] = kc;
+    if (t < 7) sc[kRFx + (t - 5)] = recip(kc);
   }
-  if (t == 9) sroi.factor = divisor(kRaw ? depth_factor[f] : 1.f);
+  if (t == 9) {
+    const float fac = kRaw ? depth_factor[f] : 1.f;
+    sc[kFactor] = fac;
+    sc[kRFactor] = recip(fac);
+  }
   const float half = 0.5f * (float)S;
   for (int k = t; k < rows; k += nt) {
     // the S-grid row's taps, as ops/warp._src_coords takes them
@@ -472,71 +382,82 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
   }
   __syncthreads();
 
-  const Roi roi = sroi;
-  const Divisor sd[3] = {ssd[0], ssd[1], ssd[2]};
-  const float mean[3] = {mean0, mean1, mean2};
-  // every divisor's reciprocal normal: else each pixel takes IeeeDiv
-  const bool divs_ok = in_range(roi.ratio.d) && in_range(roi.fx.d) &&
-                       in_range(roi.fy.d) && in_range(roi.factor.d) &&
-                       (!normalize || (in_range(sd[0].d) &&
-                                       in_range(sd[1].d) && in_range(sd[2].d)));
   // the thread's column, the same through every iteration; offsets within
   // the frame in 32 bits (the launcher admits H W 3 < 2^31)
   const int j = col0 + threadIdx.x;
   const Axis ax = axis(__fadd_rn(sc[kCx], __fmul_rn(__fsub_rn((float)j, half),
                                                     sc[kStepS])), W);
-  using D = typename std::conditional<kRaw, int, float>::type;
+  const float wx0 = ax.v0 ? 1.f : 0.f, wx1 = ax.v1 ? 1.f : 0.f;
+  const float gx = __fsub_rn(1.f, ax.f);
+  const bool two = ax.i1 != ax.i0;
+  const int jo = j % stride == 0 ? j / stride : -1;
+  const float jk = __fsub_rn((float)j, sc[kKx]);
   const size_t frame = (size_t)f * H * W;
-  const D* dframe = static_cast<const D*>(depth) + frame;
-  Col<RgbT, kRaw> c;
-  c.rgb = rgb + (frame + ax.i0) * 3;
-  c.d0 = dframe + ax.i0;
-  c.d1 = dframe + ax.i1;
-  c.wx0 = ax.v0 ? 1.f : 0.f;
-  c.wx1 = ax.v1 ? 1.f : 0.f;
-  c.fx = ax.f;
-  c.gx = __fsub_rn(1.f, ax.f);
-  c.jk = __fsub_rn((float)j, sc[kKx]);
-  c.two = ax.i1 != ax.i0;
-  c.jo = j % stride == 0 ? j / stride : -1;
-  const bool col_live = (int)threadIdx.x < ncol;
+  const RgbT* rgbf = rgb + frame * 3;
+  const void* dframe =
+      kRaw ? static_cast<const void*>(static_cast<const int*>(depth) + frame)
+           : static_cast<const void*>(static_cast<const float*>(depth) +
+                                      frame);
+  const float mean[3] = {mean0, mean1, mean2};
+  const float sd[3] = {std0, std1, std2};
+  const float fac = sc[kFactor], rfac = sc[kRFactor];
+  const float ratio = sc[kRatio], rratio = sc[kRRatio];
+  const float kfx = sc[kFx], rkfx = sc[kRFx];
+  const float kfy = sc[kFy], rkfy = sc[kRFy], kky = sc[kKy];
+  const float rsd[3] = {sc[kRStd], sc[kRStd + 1], sc[kRStd + 2]};
 
-  // one iteration: load the taps of the next into nxt, compute this one's
-  // pixel from cur into the tiles, then store the tiles
-  auto step = [&](const Taps<RgbT, kRaw>& cur, Taps<RgbT, kRaw>& nxt,
-                  int it) {
+  const bool col_live = (int)threadIdx.x < ncol;
+  Taps<RgbT, kRaw> next;                 // the taps of the next iteration
+  if ((int)threadIdx.y < rows && col_live) {
+    const int2 yw = *reinterpret_cast<const int2*>(&srow[threadIdx.y]);
+    load_taps(next, rgbf, dframe, yw.x, yw.y, ax.i0, ax.i1, two);
+  }
+  for (int it = 0; R * it < rows; ++it) {
     const int lr = R * it + threadIdx.y;             // the block's row
+    const Taps<RgbT, kRaw> cur = next;
     if (lr + R < rows && col_live) {
       const int2 yw = *reinterpret_cast<const int2*>(&srow[lr + R]);
-      load_taps(nxt, c, yw.x, yw.y);
+      load_taps(next, rgbf, dframe, yw.x, yw.y, ax.i0, ax.i1, two);
     }
     const int2 gs = sgrid[it];
     const int g0 = gs.x, ng = gs.y;
-    float* itile = img_tile[it & 1];
-    float* ctile = coord_tile[it & 1];
     const int pa = (row0 + R * it) * S + col0;
     float* img_dst = roi_img + ((size_t)b * S * S + pa) * 6;
     float* coord_dst = roi_coord + ((size_t)b * O * O + g0) * 5;
-    const int mis_img = misalign(img_dst), mis_coord = misalign(coord_dst);
-    const int npx = nseg == 1 ? (min(R * it + R, rows) - R * it) * S : ncol;
     if (lr < rows && col_live) {
       const Row r = srow[lr];
-      float px[6];
-      DivFast fast{divs_ok};
-      pixel(fast, cur, r, c, roi, mean, sd, normalize, px);
-      if (!fast.ok) {
-        IeeeDiv ieee;
-        pixel(ieee, cur, r, c, roi, mean, sd, normalize, px);
+      const float w00 = __fmul_rn(r.wy0, wx0), w01 = __fmul_rn(r.wy0, wx1);
+      const float w10 = __fmul_rn(r.wy1, wx0), w11 = __fmul_rn(r.wy1, wx1);
+
+      float px[6], v00[3], v01[3], v10[3], v11[3];
+      rgb_values(cur.rgb, 0, two, v00, v01);
+      rgb_values(cur.rgb, 1, two, v10, v11);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = blend(__fmul_rn(v00[c], w00), __fmul_rn(v01[c], w01),
+                              __fmul_rn(v10[c], w10), __fmul_rn(v11[c], w11),
+                              r.fy, ax.f, r.gy, gx);
+        px[c] = normalize ? div_rn(__fsub_rn(v, mean[c]), sd[c], rsd[c]) : v;
       }
-      // 8-byte shared stores (mis_img is even): a half-warp's 16 land on
-      // 32 distinct banks
-      float2* o = reinterpret_cast<float2*>(itile + mis_img + 6 * t);
+      const float d =
+          blend(__fmul_rn(metres(cur.d[0], fac, rfac), w00),
+                __fmul_rn(metres(cur.d[1], fac, rfac), w01),
+                __fmul_rn(metres(cur.d[2], fac, rfac), w10),
+                __fmul_rn(metres(cur.d[3], fac, rfac), w11), r.fy, ax.f, r.gy,
+                gx);
+      const float z = div_rn(d, ratio, rratio);
+      px[3] = div_rn(__fmul_rn(jk, z), kfx, rkfx);
+      px[4] = div_rn(__fmul_rn(__fsub_rn(r.fi, kky), z), kfy, rkfy);
+      px[5] = z;
+      // straight to roi_img, three 8-byte stores 24 bytes apart across the
+      // warp, which L2 merges into whole sectors
+      float2* o = reinterpret_cast<float2*>(img_dst + 6 * t);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         o[k] = make_float2(px[2 * k], px[2 * k + 1]);
-      if (r.io >= 0 && c.jo >= 0) {
+      if (r.io >= 0 && jo >= 0) {
         // the strided xyz of the O grid: this pixel's own
-        float* row = ctile + mis_coord + 5 * (r.io * O + c.jo - g0);
+        float* row = coord_dst + 5 * (r.io * O + jo - g0);
         row[0] = px[3];
         row[1] = px[4];
         row[2] = px[5];
@@ -558,29 +479,12 @@ roi_crop_kernel(const RgbT* __restrict__ rgb, const void* __restrict__ depth,
       const float u10 = valid(by.v1, bx.v0), u11 = valid(by.v1, bx.v1);
       const float x0 = __ldg(lx + bx.i0), x1 = __ldg(lx + bx.i1);
       const float y0 = __ldg(ly + by.i0), y1 = __ldg(ly + by.i1);
-      float* row = ctile + mis_coord + 5 * t;
+      float* row = coord_dst + 5 * t;
       row[3] = blend(__fmul_rn(x0, u00), __fmul_rn(x1, u01),
                      __fmul_rn(x0, u10), __fmul_rn(x1, u11), by.f, bx.f);
       row[4] = blend(__fmul_rn(y0, u00), __fmul_rn(y0, u01),
                      __fmul_rn(y1, u10), __fmul_rn(y1, u11), by.f, bx.f);
     }
-    // one barrier an iteration: the next one fills the other tiles, whose
-    // stores (two iterations back) every thread has passed
-    __syncthreads();
-    store_span(img_dst, itile, mis_img, 6 * npx, t, nt);
-    store_span(coord_dst, ctile, mis_coord, 5 * ng, t, nt);
-  };
-
-  // two sets of taps in turn: one computed while the other loads
-  Taps<RgbT, kRaw> ta, tb;
-  if ((int)threadIdx.y < rows && col_live) {
-    const int2 yw = *reinterpret_cast<const int2*>(&srow[threadIdx.y]);
-    load_taps(ta, c, yw.x, yw.y);
-  }
-  for (int it = 0; R * it < rows; it += 2) {
-    step(ta, tb, it);
-    if (R * (it + 1) >= rows) break;
-    step(tb, ta, it + 1);
   }
 }
 
