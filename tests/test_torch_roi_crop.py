@@ -1,6 +1,9 @@
 """The ROI crop (``ops/roi_crop``): its plain version against the JAX
 package's eval-half preprocessing, the kernel's op sequence emulated in
-numpy float32 against the plain version, and its routing and refusals.
+numpy float32 against the plain version (at the division edges too), the
+kernel's reciprocal division against IEEE division, its tile map (launch
+plan, blocks, rows, every output element stored once) with the constants
+and lines read from ``csrc/roi_crop.cu``, and its routing and refusals.
 
 Inputs are seeded numpy frames (a smooth RGB pattern, a depth surface with
 holes) at small sizes. Tolerances:
@@ -14,8 +17,12 @@ holes) at small sizes. Tolerances:
   in an order of its own);
 * the numpy emulation of the kernel against the plain version: bit for bit,
   NaN where the plain version has NaN. The kernel rounds every op with an
-  ``_rn`` intrinsic in the order emulated here, so this catches an op out
-  of order before the card does.
+  ``_rn`` intrinsic in the order emulated here, and divides by each per-ROI
+  constant through its reciprocal and two FMAs, each rounded once
+  (``ops/int8_conv.fma_f32``), so this catches an op out of order before
+  the card does;
+* that division against numpy's IEEE float32 division: bit for bit, for
+  every significand of the numerator at several divisors.
 """
 
 import os
