@@ -161,12 +161,33 @@ Phases, each fatal on failure:
               kernel's output), and ``quantize_act``'s beside its bound;
               the conv kernel's registers, spills and shared memory from
               the build log, and its launch plan at the head.
+ 13. data parallelism — (a) two ranks of one process group over gloo
+              on the one card (NCCL refuses two ranks of one device),
+              spawned by ``parallel.spawn``: lm13 at full width, f32 with
+              TF32 off, 24 global ROIs (12 a rank, the ROIs of 4 of each
+              batch's 8 frames), card-resident raw batches preprocessed
+              (``train=True``, no DZI jitter) on each rank, 3 steps of
+              ``make_sharded_train_step`` against one process taking
+              ``make_train_step`` on the global batch on the same card:
+              every loss, ``grad_norm``, parameter and BatchNorm statistic
+              within the tolerances of ``run_dist_ranks`` (phase 7's kind),
+              the ranks bit-equal, each rank's own ``roi_crop`` (one a
+              preprocessed batch) and ``gt_labels`` (one a step) launches
+              counted in its process and sent back; then 3 bf16 steps
+              timed on each side (two ranks time-share one card: not a
+              scaling number) and the gradient all-reduce's ms; (b)
+              ``main --multihost --num-processes 1 --process-id 0`` over
+              NCCL, a group of one whose collectives run, on phase 10's
+              trees: one epoch, a checkpoint, eval of ``lm_13_test``
+              during training (the predictions gathered over NCCL,
+              ``min_dist2`` on rank 0), then ``--resume`` to a second.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
-11's ``main``, each int8 served pass and the int8 ``main`` of phase 12)
-and read right after it. In phases 3, 6, 9, 10, 11 and 12(c) the batches
-the entry points preprocess are counted too (``PreprocessCalls``), and
-``roi_crop`` must have launched once for each.
+11's ``main``, each int8 served pass and the int8 ``main`` of phase 12,
+each rank's steps and each ``main`` of phase 13) and read right after it.
+In phases 3, 6, 9, 10, 11, 12(c) and 13 the batches the entry points
+preprocess are counted too (``PreprocessCalls``), and ``roi_crop`` must
+have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -2869,6 +2890,320 @@ def run_int8_eval(dev, card, work, bf16_mean):
     return got
 
 
+# phase 13(a): the data-parallel step on two gloo ranks of the one card
+DIST_RANKS = 2
+DIST_STEPS = 3
+# conv biases right before a batch-statistics BatchNorm: their gradient is
+# zero in exact arithmetic, so their values are rounding
+BN_CANCELLED = ("backbone.spatial_net.xyz_emb.bias",
+                "backbone.spatial_net.conv1.bias",
+                "backbone.spatial_net.conv2.bias",
+                "backbone.spatial_net.conv3.bias")
+
+
+def dist_config(amp: bool):
+    """Phase 13(a)'s lm13 at full width, 24 global ROIs, no DZI jitter: the
+    train preprocessing is then the same function of each ROI on a rank
+    and in one process, so both take the same batches."""
+    return train_config(amp, out_dir="").apply_opts(['data.dzi_type="none"'])
+
+
+def rank_share(batch: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s equal share of a raw grouped batch whose ROIs are
+    ordered by frame: its rows of the ROIs and the frames they read."""
+    rois = batch["rois"]
+    per = rois["frame_idx"].shape[0] // world
+    mine = {k: v[rank * per:(rank + 1) * per] for k, v in rois.items()}
+    lo = int(mine["frame_idx"].min())
+    hi = int(mine["frame_idx"].max()) + 1
+    mine["frame_idx"] = mine["frame_idx"] - lo
+    return {"frames": {k: v[lo:hi] for k, v in batch["frames"].items()},
+            "rois": mine}
+
+
+def dist_steps(dev, sd_path: str, raw: list, scale: float = 1.0,
+               timed: bool = True) -> dict:
+    """Phase 13(a) in one process: the f32 steps (TF32 off) on ``raw``,
+    preprocessed here (``train=True``) and, with ``scale`` != 1, the
+    network input scaled by it; then, with ``timed``, as many bf16 steps
+    from the same weights, each timed to a synchronize, and the gradient
+    all-reduce's time. In a process group this is one rank on its share of
+    each global batch (``make_sharded_train_step``); in none, the one
+    process on the global batch (``make_train_step``). Returns the
+    metrics, the final state, the kernels' launches and the preprocessed
+    batches of the f32 steps, and the times."""
+    import torch
+
+    from rdpn6d_tpu_torch.data import pipeline
+    from rdpn6d_tpu_torch.models import RDPN
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.parallel import (
+        create_train_state,
+        make_sharded_train_step,
+        make_train_step,
+        mesh,
+    )
+    from rdpn6d_tpu_torch.parallel.train_step import all_reduce_grads
+    from rdpn6d_tpu_torch.solver import build_schedule
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = torch.load(sd_path, map_location="cpu", weights_only=True)
+    batches = [{part: {k: torch.from_numpy(v).to(dev)
+                       for k, v in b[part].items()} for part in b}
+               for b in raw]
+    if mesh.in_group():
+        batches = [rank_share(b, mesh.rank(), mesh.world())
+                   for b in batches]
+
+    def run(amp: bool, hook):
+        cfg = dist_config(amp)
+        model = RDPN(cfg)
+        model.load_state_dict(sd)
+        model = mesh.replicate(model.to(dev))
+        schedule = build_schedule(cfg, 1000)
+        state = create_train_state(cfg, model, lr=schedule(0))
+        step = (make_sharded_train_step if mesh.in_group()
+                else make_train_step)(cfg, schedule)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # through the module, where PreprocessCalls counts it
+            batch = pipeline.preprocess_rois_grouped(
+                cfg, b["frames"], b["rois"], train=True, generator=gen)
+            if scale != 1.0:
+                batch["roi_img"] = batch["roi_img"] * scale
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            hook(m, time.perf_counter() - t0)
+        return model
+
+    metrics: list = []
+    cuda_build.reset_launches()
+    with PreprocessCalls() as calls:
+        model = run(False, lambda m, _: metrics.append(
+            {k: float(v) for k, v in m.items()}))
+    out = {"metrics": metrics, "launches": dict(cuda_build.LAUNCHES),
+           "batches": calls.n,
+           "state": {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}}
+    del model
+    if timed:
+        ms: list = []
+        model = run(True, lambda m, s: ms.append(1e3 * s))
+        out["bf16_ms"] = ms
+        if mesh.in_group():
+            params = list(model.parameters())
+            reps = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_grads(params)
+                torch.cuda.synchronize()
+                reps.append(1e3 * (time.perf_counter() - t0))
+            out["all_reduce_ms"] = reps
+            out["grad_mb"] = sum(p.grad.numel() * p.grad.element_size()
+                                 for p in params if p.grad is not None) / 2**20
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dist_ranks(dev, card, work) -> dict:
+    """Phase 13(a): two gloo ranks on the one card (NCCL refuses two ranks
+    of one device) against one process on the global batch, lm13 at full
+    width, f32, TF32 off, 24 ROIs (12 a rank), 3 steps from one seeded
+    init, card-resident batches preprocessed on each side. Tolerances, of
+    phase 7's kind: every loss and ``grad_norm`` at every step within
+    1e-3 relative, or twice what the one process's own value moves when
+    its input moves by 1e-6 relative, the larger; every parameter and
+    BatchNorm statistic within 0.1 of its leaf's change over the run,
+    twice its own movement under that input change, or 4 float32 ulps of
+    its largest value, the largest (the biases that feed a
+    batch-statistics BatchNorm are rounding, and are not compared). In
+    lm13's warm-up 3 steps move some leaves by a few ulps, which float32
+    reorderings change by one; a wrong reduction moves the first step's
+    losses, taken from equal weights, and every update by their whole
+    size. The two ranks end bit-equal. Each rank launches
+    ``roi_crop`` once a preprocessed batch and ``gt_labels`` once a step,
+    counted in its own process. Then 3 bf16 steps timed on each side, and
+    the gradient all-reduce. Returns the ranks' summed launches."""
+    import torch
+
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.parallel import spawn
+
+    cfg = dist_config(amp=False)
+    raw = []
+    for s in range(DIST_STEPS):
+        frames, rois = train_inputs(cfg, 40 + s, 8, TRAIN_ROIS // 8)
+        raw.append({"frames": frames, "rois": rois})
+    sd_path = os.path.join(work, "dist_init.pt")
+    torch.save(init_weights(RDPN(cfg), torch.Generator().manual_seed(5))
+               .state_dict(), sd_path)
+    init = torch.load(sd_path, weights_only=True)
+    one = dist_steps(dev, sd_path, raw)
+    moved = dist_steps(dev, sd_path, raw, scale=1.0 + 1e-6, timed=False)
+    t0 = time.perf_counter()
+    # both ranks on this card: an indexed device pins every rank to it
+    ranks = spawn(dist_steps, DIST_RANKS, args=(sd_path, raw),
+                  device=f"cuda:{torch.cuda.current_device()}",
+                  backend="gloo")
+    spawn_s = time.perf_counter() - t0
+
+    worst = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}
+    for i, (m, ref, mv) in enumerate(zip(ranks[0]["metrics"],
+                                         one["metrics"], moved["metrics"])):
+        check(m == ranks[1]["metrics"][i], f"dist step {i + 1}: the ranks' "
+              "metrics differ")
+        for k, v in ref.items():
+            err = abs(m[k] - v)
+            tol = max(1e-3 * abs(v), 2 * abs(mv[k] - v))
+            check(bool(np.isfinite(m[k])) and err <= tol,
+                  f"dist step {i + 1}: {k} two ranks {m[k]:.6g} vs one "
+                  f"process {v:.6g} (tol {tol:.3g})")
+            key = "grad_norm" if k == "grad_norm" else "loss"
+            worst[key] = max(worst[key], err / max(tol, 1e-30))
+    n_cmp = 0
+    for k, v in one["state"].items():
+        check(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]),
+              f"dist: the ranks' {k} differ")
+        if k in BN_CANCELLED:
+            continue
+        if not v.is_floating_point():
+            check(torch.equal(ranks[0]["state"][k], v), f"dist: {k} differs")
+            continue
+        change = float((v - init[k]).abs().max())
+        sens = float((moved["state"][k] - v).abs().max())
+        err = float((ranks[0]["state"][k] - v).abs().max())
+        ulp = float(v.abs().max()) * 2.0 ** -23
+        tol = max(0.1 * change, 2 * sens, 4 * ulp)
+        check(err <= tol, f"dist: {k} two ranks vs one process {err:.3g} "
+              f"(change {change:.3g}, own movement {sens:.3g})")
+        worst["param"] = max(worst["param"], err / max(tol, 1e-30))
+        n_cmp += 1
+    for r, got in enumerate(ranks):
+        la = got["launches"]
+        check(la.get("roi_crop", 0) == got["batches"] == DIST_STEPS,
+              f"dist rank {r}: roi_crop launched {la.get('roi_crop', 0)} "
+              f"times for {got['batches']} preprocessed batches")
+        check(la.get("gt_labels", 0) == DIST_STEPS,
+              f"dist rank {r}: gt_labels launched {la.get('gt_labels', 0)}"
+              f" times in {DIST_STEPS} steps")
+    print(f"dist: two gloo ranks on one card vs one process on the global "
+          f"batch, lm13 full width f32 (TF32 off), {TRAIN_ROIS} ROIs "
+          f"({TRAIN_ROIS // DIST_RANKS} a rank), {DIST_STEPS} steps: worst "
+          f"error / tolerance: losses {worst['loss']:.3f}, grad_norm "
+          f"{worst['grad_norm']:.3f}, {n_cmp} parameters and BN statistics "
+          f"{worst['param']:.3f}; total_loss "
+          f"{[round(m['total_loss'], 6) for m in ranks[0]['metrics']]} vs "
+          f"{[round(m['total_loss'], 6) for m in one['metrics']]}; ranks "
+          f"bit-equal; launches a rank "
+          f"{[g['launches'] for g in ranks]} for "
+          f"{[g['batches'] for g in ranks]} batches; spawn and both runs "
+          f"{spawn_s:.1f} s [{card}]")
+
+    def fmt(ms):
+        return ", ".join(f"{x:.2f}" for x in ms)
+
+    print(f"dist: bf16 ms/step (preprocessing + step, to a synchronize), "
+          f"one process on {TRAIN_ROIS} ROIs: {fmt(one['bf16_ms'])}; two "
+          f"ranks of {TRAIN_ROIS // DIST_RANKS} ROIs (two ranks time-share "
+          f"one card; not a scaling number): rank 0 "
+          f"{fmt(ranks[0]['bf16_ms'])}, rank 1 {fmt(ranks[1]['bf16_ms'])}"
+          f"; gradient all-reduce over gloo ({ranks[0]['grad_mb']:.1f} MB "
+          f"a rank) ms a step: rank 0 {fmt(ranks[0]['all_reduce_ms'])}, "
+          f"rank 1 {fmt(ranks[1]['all_reduce_ms'])} [{card}]")
+    launches: dict = {}
+    for got in ranks:
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_multihost_cli(dev, card, work) -> dict:
+    """Phase 13(b): ``main --multihost`` as the one process of a group of
+    one over NCCL, on phase 10's trees and settings (lm13, 24 ROIs a step,
+    the seeded .pth trunk): one epoch (6 iterations) with a checkpoint and
+    eval on ``lm_13_test`` at its end (the predictions gathered over NCCL,
+    ADI on ``min_dist2``), then ``--resume`` to a second epoch, evaluated
+    again. Checks the steps, checkpoints, ``metrics.json``, the CSV and
+    the launches; returns them summed over both runs."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py")
+    out = os.path.join(work, "multihost")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1",
+            f"train.eval_period={ITERS_PER_EPOCH}",
+            f'train.output_dir="{out}"']
+    launches: dict = {}
+    for epochs, resume in ((1, False), (2, True)):
+        rec: dict = {}
+        undo = instrument_trainer(rec)
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with PreprocessCalls() as calls:
+                state = port_main.main(
+                    ["--config-file", config, "--multihost",
+                     "--dist-coordinator", f"127.0.0.1:{free_port()}",
+                     "--num-processes", "1", "--process-id", "0"]
+                    + ["--resume"] * resume
+                    + ["--opts", *opts, f"solver.total_epochs={epochs}"])
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+        got = dict(cuda_build.LAUNCHES)
+        n = ITERS_PER_EPOCH
+        check(state.step == epochs * n, f"multihost: step {state.step}")
+        check(not torch.distributed.is_initialized(),
+              "multihost: the process group outlived main")
+        check(got.get("gt_labels", 0) == n,
+              f"multihost: gt_labels launched {got.get('gt_labels', 0)} "
+              f"times in {n} iterations")
+        check(got.get("roi_crop", 0) == calls.n > n,
+              f"multihost: roi_crop launched {got.get('roi_crop', 0)} times "
+              f"for {calls.n} preprocessed batches")
+        check(got.get("min_dist2", 0) == 13,
+              f"multihost: min_dist2 launched {got.get('min_dist2', 0)} "
+              "times for 13 evaluated objects")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"multihost: main --multihost, group of one over NCCL, "
+              f"{'resumed to ' if resume else ''}{epochs} epoch(s) of {n} "
+              f"iterations with eval of lm_13_test: {wall:.2f} s of main, "
+              f"ms/step {', '.join(f'{x:.2f}' for x in step_ms)} (median "
+              f"{np.median(step_ms):.2f}), launches {got} for {calls.n} "
+              f"preprocessed batches [{card}]")
+    lines = [json.loads(ln) for ln in open(os.path.join(out,
+                                                        "metrics.json"))]
+    check([ln["iteration"] for ln in lines]
+          == list(range(1, 2 * ITERS_PER_EPOCH + 1))
+          and all(np.isfinite(ln["total_loss"]) for ln in lines),
+          f"multihost: metrics.json {[ln['iteration'] for ln in lines]}")
+    steps = sorted(int(d) for d in os.listdir(os.path.join(out, "ckpt")))
+    check(steps == [ITERS_PER_EPOCH, 2 * ITERS_PER_EPOCH],
+          f"multihost: checkpoints {steps}")
+    ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
+    check(len(ident) == 13 * EVAL_FRAMES_PER_OBJ
+          and bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          f"multihost: {len(ident)} CSV rows")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3097,6 +3432,10 @@ def main(argv=None) -> int:
         serve8 = run_int8_serving(dev, card, cfg, assets, frames,
                                   preds["bf16"], args.profile)
         eval8 = run_int8_eval(dev, card, work, bf16_mean)
+
+        # 13. data parallelism -------------------------------------------
+        dist_launches = run_dist_ranks(dev, card, work)
+        mh_launches = run_multihost_cli(dev, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3107,7 +3446,8 @@ def main(argv=None) -> int:
         "launches": launches.get("min_dist2", 0)
         + eval_launches.get("min_dist2", 0)
         + disk_launches.get("min_dist2", 0)
-        + lmo_launches.get("min_dist2", 0),
+        + lmo_launches.get("min_dist2", 0)
+        + mh_launches.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}, {
@@ -3123,7 +3463,9 @@ def main(argv=None) -> int:
         "replaces": "rdpn6d_tpu/data/pipeline.py:197",
         "launches": train_launches.get("gt_labels", 0)
         + disk_launches.get("gt_labels", 0)
-        + lmo_launches.get("gt_labels", 0),
+        + lmo_launches.get("gt_labels", 0)
+        + dist_launches.get("gt_labels", 0)
+        + mh_launches.get("gt_labels", 0),
         "max_abs_err": gt_err, **gt_times}, {
         "name": "surface_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
@@ -3154,7 +3496,8 @@ def main(argv=None) -> int:
         "launches": crop_launches + train_launches.get("roi_crop", 0)
         + eval_launches.get("roi_crop", 0)
         + disk_launches.get("roi_crop", 0)
-        + lmo_launches.get("roi_crop", 0) + eval8.get("roi_crop", 0),
+        + lmo_launches.get("roi_crop", 0) + eval8.get("roi_crop", 0)
+        + dist_launches.get("roi_crop", 0) + mh_launches.get("roi_crop", 0),
         "max_abs_err": crop_err, **crop_times}], "card": card}
     print(card)
     print(json.dumps(result))

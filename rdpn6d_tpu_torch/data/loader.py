@@ -34,6 +34,7 @@ from typing import Any, Iterator
 import numpy as np
 
 from ..config import Config
+from ..parallel import mesh
 from .bop import build_split_records, get_split
 from .image import imread_rgb, resize_linear
 from .png import imread_mask, imread_unchanged
@@ -456,9 +457,16 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
                          num_prefetch: int = 2,
                          num_workers: int | None = None,
                          frame_bucket: int | None = None,
-                         yield_keys: bool = False) -> Iterator[dict]:
+                         yield_keys: bool = False,
+                         shard_id: int | None = None,
+                         num_shards: int | None = None) -> Iterator[dict]:
     """Infinite iterator of frame-deduplicated compact train batches for
     ``preprocess_rois_grouped(train=True)``.
+
+    Under data parallelism each rank streams its own shard: the sampler's
+    stream sliced ``shard_id::num_shards`` (default this process's rank
+    and world, ``parallel/mesh.py``) and batches of ``ims_per_batch //
+    num_shards`` ROIs by default, the JAX package's multi-host stream.
 
     Yields ``{"frames": {...}, "rois": {...}}``: frames carry uint8 RGB,
     raw uint16 depth, its factor and K, one slot per distinct frame
@@ -489,7 +497,11 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
             cfg.loss.num_pm_points,
             objs=list(split.objs) if split.objs else None)
         decoder = RecordDecoder(cfg, assets, train=True)
-    bs = batch_size or cfg.solver.ims_per_batch
+    if shard_id is None:
+        shard_id = mesh.rank()
+    if num_shards is None:
+        num_shards = mesh.world()
+    bs = batch_size or cfg.solver.ims_per_batch // num_shards
 
     # a frame is an image file: lm_13_train's and lm_imgn's records share
     # scene_id = obj_id and overlapping im_ids, so the JAX package's
@@ -514,10 +526,12 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
         reps = frame_repeat_factors(
             [[records[i]["cls_idx"] for i in g] for g in frame_groups],
             cfg.data.repeat_factor_thresh)
-        sampler: InfiniteSampler = RepeatFactorSampler(repeat_factors=reps,
-                                                       seed=seed)
+        sampler: InfiniteSampler = RepeatFactorSampler(
+            repeat_factors=reps, seed=seed, shard_id=shard_id,
+            num_shards=num_shards)
     else:
-        sampler = InfiniteSampler(len(frame_groups), seed=seed)
+        sampler = InfiniteSampler(len(frame_groups), seed=seed,
+                                  shard_id=shard_id, num_shards=num_shards)
 
     if num_workers is None:
         num_workers = default_num_workers()

@@ -4,7 +4,8 @@ The port's own copy of ``rdpn6d_tpu/data/sampler.py`` (``InfiniteSampler``,
 ``frame_repeat_factors``, ``RepeatFactorSampler``): with the same seed the
 index streams are the JAX package's, draw for draw (numpy's
 ``RandomState``). ``shard_id``/``num_shards`` slice the stream for
-multi-process runs; the port runs one process, so the loaders pass 0 / 1.
+multi-process runs: ``loader.train_group_iterator`` passes its rank and
+world.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ metadata beside it in ``extra.json``; the newest ``max_to_keep`` steps are
 kept. Only directories that hold ``state.pt`` count as steps, so an orbax
 step directory of the JAX package in a shared output directory is never
 taken for one. JAX weights reach this format through
-``utils/flax_params.checkpoint_from_params_pkl``.
+``utils/flax_params.checkpoint_from_params_pkl``. In a process group
+(``parallel/mesh.py``) rank 0 writes each step and every rank waits for it
+at a barrier; every rank restores.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any
 
 import torch
 
+from ..parallel import mesh
 from ..parallel.train_step import TrainState
 
 STATE_FILE = "state.pt"
@@ -39,7 +42,14 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState,
              extra: dict[str, Any] | None = None) -> None:
         """Write step ``step`` (synchronously; the directory appears
-        whole, by rename) and drop the oldest steps past ``max_to_keep``."""
+        whole, by rename) and drop the oldest steps past ``max_to_keep``.
+        In a process group rank 0 writes; every rank returns once it has."""
+        if mesh.is_main():
+            self._write(step, state, extra)
+        mesh.barrier()
+
+    def _write(self, step: int, state: TrainState,
+               extra: dict[str, Any] | None) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = f"{final}.tmp.{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)

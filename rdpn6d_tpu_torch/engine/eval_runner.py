@@ -12,8 +12,12 @@ per image; eager PyTorch needs no fixed shape, so batches are not padded
 ``test.int8_static`` its scales are calibrated on the first eval batch. A
 live trainer model is evaluated in int8 through a serving copy built at
 every call with its current weights.
+In a process group (``parallel/mesh.py``) each rank infers its frame shard
+of the split (``shard_records_by_frame``), the predictions are gathered,
+and rank 0 scores them over the whole split; the other ranks return
+``{"stats": ...}``.
 Not ported, and refused: the RANSAC-Kabsch refinement (``test.use_pnp``),
-multi-process sharding, VSD.
+VSD.
 """
 
 from __future__ import annotations
@@ -26,9 +30,35 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..parallel import mesh
 from ..utils.device import resolve_device
 
 logger = logging.getLogger("rdpn6d")
+
+
+def shard_records_by_frame(records: list[dict], process_index: int,
+                           process_count: int) -> list[dict]:
+    """This rank's test shard at frame granularity: every instance of a
+    (scene_id, im_id) lands on one rank, so a frame still crosses to the
+    device once; the shards partition the split."""
+    fkeys = sorted({(r["scene_id"], r["im_id"]) for r in records})
+    mine = set(fkeys[process_index::process_count])
+    return [r for r in records if (r["scene_id"], r["im_id"]) in mine]
+
+
+def _in_frame_order(chunks: list[dict], records: list[dict]) -> dict:
+    """Pooled prediction chunks as one, its rows in the order of the
+    frames' first records (stable within a frame): the order one process
+    appends them in, whatever the shards."""
+    order: dict[tuple[int, int], int] = {}
+    for r in records:
+        order.setdefault((r["scene_id"], r["im_id"]), len(order))
+    allp = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    key = np.array([order[(s, i)] for s, i in
+                    zip(allp["scene_id"].tolist(), allp["im_id"].tolist())])
+    idx = np.argsort(key, kind="stable")
+    return {k: v[idx] for k, v in allp.items()}
+
 
 _EVAL_MEMO: dict = {}
 
@@ -176,11 +206,6 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
         raise NotImplementedError("test.use_pnp: the RANSAC-Kabsch "
                                   "refinement is not ported (ROADMAP queue "
                                   "1 item 12)")
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("multi-process eval sharding is not "
-                                  "ported (ROADMAP queue 1 item 16)")
     device = next(model.parameters()).device if model is not None \
         else resolve_device(device)
     split = get_split(split_name)
@@ -199,6 +224,12 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
         _EVAL_MEMO[memo_key] = cached
     records, targets, n_gts, id2name, assets, eval_assets = cached
     n_gts = dict(n_gts)  # the evaluator may hold it; never share the memo's
+    # rank 0 scores the pooled predictions against the whole split
+    all_records = records
+    if mesh.in_group():
+        records = shard_records_by_frame(records, mesh.rank(), mesh.world())
+        logger.info(f"rank {mesh.rank()}/{mesh.world()}: {len(records)} "
+                    "instances in this rank's frame shard")
 
     from ..models.quant import serving_mode
 
@@ -338,6 +369,14 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     finally:
         model.train(was_training)
 
+    if mesh.in_group():
+        pooled = mesh.gather_predictions(evaluator.chunks)
+        evaluator.reset()
+        if pooled:
+            evaluator.merge_chunks([_in_frame_order(pooled, all_records)])
+        if not mesh.is_main():
+            return {"stats": stats}
+
     csv = csv_path or os.path.join(cfg.train.output_dir,
                                    f"{split_name}_bop19.csv")
     result = evaluate_and_report(evaluator, obj2id=ref.obj2id, csv_path=csv)
@@ -359,8 +398,8 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
             raise NotImplementedError(
                 "test.error_types has vsd: VSD needs the depth rasterizer, "
                 "which is not ported (ROADMAP queue 1 item 9)")
-        result["bop19"] = _bop19_scores(ref, records, targets, evaluator,
-                                        eval_assets)
+        result["bop19"] = _bop19_scores(ref, all_records, targets,
+                                        evaluator, eval_assets)
         logger.info(f"BOP19 AR: {result['bop19']}")
 
     result["stats"] = stats

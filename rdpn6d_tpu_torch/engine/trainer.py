@@ -1,7 +1,7 @@
 """Training loop.
 
-Counterpart of ``rdpn6d_tpu/engine/trainer.py:Trainer``, on one device:
-the iteration loop over a batch iterator with TRAIN2 stochastic mixing,
+Counterpart of ``rdpn6d_tpu/engine/trainer.py:Trainer``: the iteration
+loop over a batch iterator with TRAIN2 stochastic mixing,
 one schedule shared by the optimizer and the logged lr, the lag-1 NaN
 guard, the metric writers (console, ``metrics.json``, TensorBoard where it
 imports) at every log period, checkpoints (``engine/checkpoint.py``) every
@@ -9,7 +9,14 @@ imports) at every log period, checkpoints (``engine/checkpoint.py``) every
 eval every ``train.eval_period`` iterations. A raw grouped batch
 (``{"frames", "rois"}``) is preprocessed with ``train=True`` on the device
 first, the DZI draws coming from the trainer's seeded generator.
-Multi-process training (DDP) is not ported.
+
+In a process group (``parallel/mesh.py``) every rank runs this loop on its
+own shard of each global batch through ``make_sharded_train_step``: the
+weights start from rank 0's (``replicate``, also after ``resume``), the
+DZI and colour-aug generator's seed is folded with the rank, the TRAIN2
+draws stay the same on every rank (they pick the loader every rank
+takes), the metrics and so the NaN guard are the global batch's, rank 0
+alone writes the metrics and the checkpoints, and every rank evaluates.
 """
 
 from __future__ import annotations
@@ -23,7 +30,13 @@ import torch
 from ..config import Config
 from ..data.pipeline import preprocess_rois_grouped
 from ..models import RDPN
-from ..parallel import TrainState, create_train_state, make_train_step
+from ..parallel import (
+    TrainState,
+    create_train_state,
+    make_sharded_train_step,
+    make_train_step,
+    mesh,
+)
 from ..solver import build_schedule
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
@@ -47,15 +60,17 @@ class Trainer:
                  device: str | torch.device | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = mesh.replicate(model.to(self.device))
         self.total_iters = total_iters
         # ONE schedule drives both the optimizer and the logged lr
         self.schedule = build_schedule(cfg, total_iters)
         self.state: TrainState = create_train_state(
             cfg, self.model, lr=self.schedule(0))
-        self.step_fn = make_train_step(cfg, self.schedule)
+        self.step_fn = (make_sharded_train_step if mesh.in_group()
+                        else make_train_step)(cfg, self.schedule)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.train.seed)
+        self.generator.manual_seed(cfg.train.seed
+                                   + 1_000_003 * mesh.rank())
         out_dir = cfg.train.output_dir
         self.ckpt = CheckpointManager(f"{out_dir}/ckpt",
                                       cfg.train.max_to_keep)
@@ -68,6 +83,7 @@ class Trainer:
         """Restore the latest checkpoint (model, optimizer, step), if any;
         returns the iteration to start at."""
         self.state, start = self.ckpt.resume_or_load(self.state, resume=True)
+        mesh.replicate(self.model)
         if start:
             logger.info(f"resumed from iteration {start}")
         return start

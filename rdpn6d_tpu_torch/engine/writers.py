@@ -7,7 +7,9 @@ metric, ``ConsoleWriter`` logs ETA, s/it, lr and the losses,
 (``iteration`` and the metrics), ``TensorboardWriter`` writes scalars,
 histograms and image panels through ``torch.utils.tensorboard`` where that
 imports (it needs the ``tensorboard`` package), and nothing elsewhere, as
-the JAX package writes only where ``tensorflow`` imports.
+the JAX package writes only where ``tensorflow`` imports. In a process
+group the writers of ranks other than 0 write nothing (the JAX package's
+``is_main``): every rank holds the same global metrics.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import time
 from typing import Any
 
 import numpy as np
+
+from ..parallel.mesh import is_main
 
 logger = logging.getLogger("rdpn6d")
 
@@ -45,11 +49,14 @@ class ConsoleWriter:
     """ETA / s/it / lr / losses line, timed from the first write."""
 
     def __init__(self, max_iter: int):
+        self.enabled = is_main()
         self.max_iter = max_iter
         self._start = time.time()
         self._start_iter: int | None = None
 
     def write(self, step: int, buf: MetricBuffer, lr: float) -> None:
+        if not self.enabled:
+            return
         if self._start_iter is None:
             self._start_iter = step
             self._start = time.time()
@@ -69,17 +76,23 @@ class JsonWriter:
     event to ``path``."""
 
     def __init__(self, path: str):
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._f = open(path, "a")
+        self._f = None
+        if is_main():
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            self._f = open(path, "a")
 
     def write(self, step: int, metrics: dict[str, Any]) -> None:
+        if self._f is None:
+            return
         row = {"iteration": step}
         row.update({k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(row) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class TensorboardWriter:
@@ -88,10 +101,12 @@ class TensorboardWriter:
     import."""
 
     def __init__(self, logdir: str):
+        self._writer = None
+        if not is_main():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
-            self._writer = None
             return
         self._writer = SummaryWriter(logdir)
 

@@ -89,6 +89,11 @@ class PoseEvaluator:
             else np.asarray(times, np.float32),
         })
 
+    def merge_chunks(self, chunks: list[dict[str, np.ndarray]]) -> None:
+        """Fold in prediction chunks of other ranks
+        (``parallel.gather_predictions``)."""
+        self._chunks.extend(chunks)
+
     @property
     def chunks(self) -> list[dict[str, np.ndarray]]:
         return self._chunks

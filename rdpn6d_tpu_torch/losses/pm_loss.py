@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry import closest_rot, transform_pts
+from .dense import batch_mean
 
 
 def _elem_loss(diff: torch.Tensor, kind: str,
@@ -44,8 +45,11 @@ def point_matching_loss(
     disentangle_z: bool = False,
     t_use_points: bool = False,
     loss_weight: float = 1.0,
+    world: int = 1,
 ) -> dict[str, torch.Tensor]:
-    """pred/gt rots [B,3,3]; points [B,N,3]; sym_rots [B,S,3,3]."""
+    """pred/gt rots [B,3,3]; points [B,N,3]; sym_rots [B,S,3,3]. With
+    ``world`` > 1, this shard's share of the global batch's means
+    (``dense.batch_mean``)."""
     if symmetric:
         if sym_rots is None:
             raise ValueError("symmetric PM loss needs sym_rots")
@@ -62,7 +66,7 @@ def point_matching_loss(
         w = 1.0
 
     def red(diff):
-        return _elem_loss(diff, loss_type, beta).mean()
+        return batch_mean(_elem_loss(diff, loss_type, beta), world)
 
     def weighted(diff):
         return 3.0 * red(w * diff) * loss_weight

@@ -1,10 +1,26 @@
 """CLI entry: train a config, or evaluate its checkpoint.
 
     python -m rdpn6d_tpu_torch.main --config-file CFG [--eval-only]
-        [--resume] [--profile] [--device cuda|cpu] [--opts k=v ...]
+        [--resume] [--profile] [--device cuda|cpu] [--num-devices N]
+        [--multihost --dist-coordinator HOST:PORT --num-processes P
+         --process-id R] [--opts k=v ...]
 
-Counterpart of ``rdpn6d_tpu/main.py`` on one device. Both branches dump the
-config to ``<output_dir>/config.json`` and log to ``<output_dir>/log.txt``.
+Counterpart of ``rdpn6d_tpu/main.py``. Both branches dump the config to
+``<output_dir>/config.json`` and log to ``<output_dir>/log.txt``.
+
+Data parallelism (``parallel/mesh.py``): ``--num-devices N`` runs N
+processes on this host, rank i on ``cuda:i`` over NCCL (0, the default,
+takes every visible card; more than are visible raises), or with
+``--device cpu`` N gloo processes on the CPU; where
+``solver.ims_per_batch`` does not divide by N, gcd(N, ims_per_batch)
+processes run. ``--multihost`` instead joins this process, as rank R of
+P, to a group through the coordinator's address; it drives one card
+(``cuda:<R mod visible cards>``), and ``ims_per_batch`` must divide by P.
+``ims_per_batch`` is the global batch: each rank trains on its share,
+evaluates its frame shard, and rank 0 writes the metrics, checkpoints,
+tables and CSV (rank r > 0 logs to ``log.txt.rank<r>``). A run of N > 1
+spawned processes returns rank 0's eval results for ``--eval-only`` and
+None for training.
 
 Training (no ``--eval-only``): the records of ``data.train_datasets`` give
 the iterations (``solver.total_epochs`` x records // ``ims_per_batch``);
@@ -27,8 +43,7 @@ latest checkpoint in ``<output_dir>/ckpt`` (the port's format,
 a targets file and mssd/mspd asked for, the BOP19 AR.
 
 Everything runs on ``cuda`` unless ``--device`` names another device.
-``--debug``, ``--multihost`` and ``data.grouped_train=false`` are not
-ported and raise.
+``--debug`` and ``data.grouped_train=false`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -50,10 +65,14 @@ def parse_args(argv=None):
     p.add_argument("--num-devices", type=int, default=0,
                    help="0 = all visible devices")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process run (not ported)")
-    p.add_argument("--dist-coordinator", default="")
-    p.add_argument("--num-processes", type=int, default=0)
-    p.add_argument("--process-id", type=int, default=-1)
+                   help="join a process group of --num-processes ranks "
+                        "as --process-id through --dist-coordinator")
+    p.add_argument("--dist-coordinator", default="",
+                   help="host:port of rank 0 (with --multihost)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="total process count (with --multihost)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="this process's rank (with --multihost)")
     p.add_argument("--profile", action="store_true",
                    help="trace the training loop with torch.profiler into "
                         "<output_dir>/profile")
@@ -64,12 +83,22 @@ def parse_args(argv=None):
 
 
 def setup_logging(output_dir: str) -> None:
+    """INFO to the console and ``<output_dir>/log.txt``; a rank r > 0 of a
+    process group logs to ``log.txt.rank<r>`` and only warnings to the
+    console."""
+    from .parallel import mesh
+
     os.makedirs(output_dir, exist_ok=True)
+    r = mesh.rank()
+    console = logging.StreamHandler()
+    if r:
+        console.setLevel(logging.WARNING)
+    name = f"log.txt.rank{r}" if r else "log.txt"
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
-        handlers=[logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(output_dir, "log.txt"))],
+        handlers=[console,
+                  logging.FileHandler(os.path.join(output_dir, name))],
         force=True,
     )
 
@@ -91,7 +120,8 @@ def auto_output_dir(config_file: str) -> str:
 @contextlib.contextmanager
 def _profiled(enabled: bool, trace_dir: str):
     """A torch.profiler trace of the block into ``trace_dir`` (a Chrome
-    trace, ``trace.json``), or nothing."""
+    trace, ``trace.json``; rank r > 0's ``trace.rank<r>.json``), or
+    nothing."""
     if not enabled:
         yield
         return
@@ -101,25 +131,106 @@ def _profiled(enabled: bool, trace_dir: str):
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if torch.cuda.is_available() else [])
     os.makedirs(trace_dir, exist_ok=True)
+    from .parallel import mesh
+
     with profile(activities=acts) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    r = mesh.rank()
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"trace.rank{r}.json" if r else "trace.json"))
 
 
 def main(argv=None):
     """Training returns the final ``TrainState``; ``--eval-only`` returns
-    {split: run_eval's result} for each test split."""
+    {split: run_eval's result} for each test split (rank 0's full result,
+    another rank's ``{"stats"}``). N > 1 spawned processes: the module
+    docstring."""
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost: multi-process runs are not "
-                                  "ported (ROADMAP queue 1 item 16)")
     if args.debug:
         raise NotImplementedError("--debug: the coordinate-regression eval "
                                   "is not ported (ROADMAP queue 1 item 11)")
-    from .config import load_config
+    from .parallel import mesh
     from .utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.multihost:
+        device = _join_group(args, device)
+        try:
+            return run(args, device)
+        finally:
+            mesh.close_group()
+    n = _local_processes(args, device)
+    if n > 1:
+        return mesh.spawn(_spawned_rank, n, args=(args,),
+                          device=device.type)[0]
+    return run(args, device)
+
+
+def _spawned_rank(device, args):
+    out = run(args, device)
+    return out if args.eval_only else None
+
+
+def _local_processes(args, device) -> int:
+    """The processes of a single-host run: ``--num-devices`` (0: every
+    visible card, one process on the CPU), cut to gcd(N, ims_per_batch)
+    where ``ims_per_batch`` does not divide by N."""
+    import math
+
+    import torch
+
+    from .config import load_config
+
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = args.num_devices or visible
+    if device.type == "cuda" and n > visible:
+        raise ValueError(f"--num-devices={n} but {visible} CUDA "
+                         "device(s) are visible")
+    if n > 1 and device.index is not None:
+        raise ValueError(f"--num-devices={n} with one named card "
+                         f"{str(device)!r}: pass --device cuda")
+    ims = load_config(args.config_file, args.opts).solver.ims_per_batch
+    if ims % n:
+        m = math.gcd(n, ims)
+        logging.getLogger("rdpn6d").warning(
+            f"ims_per_batch={ims} not divisible by {n} processes; "
+            f"running {m}")
+        n = m
+    return n
+
+
+def _join_group(args, device):
+    """``--multihost``: join the group as ``--process-id`` and return this
+    process's device."""
+    import torch
+
+    from .config import load_config
+    from .parallel import mesh
+
+    if not args.dist_coordinator or args.num_processes < 1 \
+            or not 0 <= args.process_id < args.num_processes:
+        raise ValueError("--multihost needs --dist-coordinator host:port, "
+                         "--num-processes P and --process-id in [0, P)")
+    if args.num_devices > 1:
+        raise ValueError("--num-devices with --multihost: each process "
+                         "drives one card")
+    ims = load_config(args.config_file, args.opts).solver.ims_per_batch
+    if ims % args.num_processes:
+        raise ValueError(f"ims_per_batch={ims} must be divisible by the "
+                         f"{args.num_processes} processes of a multi-host "
+                         "run")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device(
+            "cuda", args.process_id % torch.cuda.device_count())
+    return mesh.init_distributed(args.process_id, args.num_processes,
+                                 f"tcp://{args.dist_coordinator}", device)
+
+
+def run(args, device):
+    """The run of one process (of a group or alone) on ``device``."""
+    from .config import load_config
+    from .parallel import mesh
+
     cfg = load_config(args.config_file, args.opts)
     if cfg.train.output_dir == "auto":
         cfg = cfg.apply_opts(
@@ -130,8 +241,9 @@ def main(argv=None):
             "(ROADMAP queue 1 item 10)")
     setup_logging(cfg.train.output_dir)
     logger = logging.getLogger("rdpn6d")
-    cfg.dump(os.path.join(cfg.train.output_dir, "config.json"))
-    logger.info(f"device: {device}")
+    if mesh.is_main():
+        cfg.dump(os.path.join(cfg.train.output_dir, "config.json"))
+    logger.info(f"device: {device}, rank {mesh.rank()} of {mesh.world()}")
     if args.eval_only:
         from .engine.eval_runner import run_eval
 
@@ -151,8 +263,12 @@ def train(cfg, args, device, logger):
     from .engine.checkpoint import CheckpointManager
     from .engine.trainer import Trainer
     from .models import RDPN, init_weights
+    from .parallel import mesh
 
     out_dir = cfg.train.output_dir
+    if cfg.solver.ims_per_batch % mesh.world():
+        raise ValueError(f"ims_per_batch={cfg.solver.ims_per_batch} not "
+                         f"divisible by {mesh.world()} processes")
     model = init_weights(RDPN(cfg),
                          torch.Generator().manual_seed(cfg.train.seed))
     if cfg.backbone.pretrained:

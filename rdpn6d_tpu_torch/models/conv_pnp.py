@@ -20,22 +20,27 @@ from .norm import make_norm
 
 def dropblock(x: torch.Tensor, drop_prob: float, block_size: int = 5,
               generator: torch.Generator | None = None,
-              seeds: torch.Tensor | None = None) -> torch.Tensor:
+              seeds: torch.Tensor | None = None,
+              shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """DropBlock on x [B, C, H, W]: zero block_size² patches around seed
     pixels drawn with rate gamma = drop_prob / block_size² (the vendored
     variant: no edge correction), then rescale by the keep rate taken over
     the WHOLE batch. ``seeds`` [B, 1, H, W] (0/1) replaces the draw from
-    ``generator``."""
+    ``generator``. ``shard`` (rank, world): x is that rank's equal shard
+    of a global batch; the draw and the keep rate are the global batch's,
+    and the rank keeps its rows."""
     B, _, H, W = x.shape
+    r, n = shard
     if seeds is None:
         gamma = drop_prob / block_size ** 2
-        u = torch.rand((B, 1, H, W), generator=generator, device=x.device)
+        u = torch.rand((B * n, 1, H, W), generator=generator,
+                       device=x.device)
         seeds = (u < gamma).to(x.dtype)
     block = F.max_pool2d(seeds.to(x.dtype), block_size, stride=1,
                          padding=block_size // 2)
     mask = 1.0 - block
     keep = mask.mean()                      # batch-global keep rate
-    return x * mask / keep.clamp_min(1e-6)
+    return x * mask[r * B:(r + 1) * B] / keep.clamp_min(1e-6)
 
 
 class ConvPnPNet(nn.Module):
@@ -66,12 +71,13 @@ class ConvPnPNet(nn.Module):
                 mask_attention: torch.Tensor | None = None,
                 mask_concat: torch.Tensor | None = None,
                 drop_scale: float = 1.0,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                drop_shard: tuple[int, int] = (0, 1)):
         """coord_feat [B, C, 64, 64]; region [B, K, 64, 64] softmax;
         extents [B, 3]; mask_attention / mask_concat [B, 1, 64, 64];
         drop_scale ramps DropBlock's rate, whose draw comes from
-        ``generator``. Returns float32 (rot_param [B, rot_dim],
-        trans_param [B, 3])."""
+        ``generator``, over the global batch of ``drop_shard``. Returns
+        float32 (rot_param [B, rot_dim], trans_param [B, 3])."""
         x = coord_feat
         # the reference denormalizes only bare coordinate assemblies
         # (3, 5, 6 or 8 channels, judged before region/mask concat)
@@ -89,7 +95,8 @@ class ConvPnPNet(nn.Module):
             x = torch.cat([x, mask_concat], dim=1)
         if self.training and self.drop_prob > 0:
             x = dropblock(x, self.drop_prob * drop_scale,
-                          self.drop_block_size, generator)
+                          self.drop_block_size, generator,
+                          shard=drop_shard)
         x = self.features(x.to(self.fc1.weight.dtype))
         x = x.flatten(1)
         x = F.leaky_relu(self.fc1(x), 0.1)

@@ -14,6 +14,11 @@ leaves them float32 (``_apply``), and they normalise in float32 and round
 once to the input's dtype, as flax's ``_normalize`` does. Rounding the
 statistics to bfloat16 instead moved ~36% of a 256-channel BN's bfloat16
 outputs, by up to 0.5 (``tests/test_torch_norm_dtype.py``).
+
+In train mode inside a process group (``parallel/mesh.py``),
+``BatchNorm2d`` normalises by the mean and variance of the GLOBAL batch,
+as flax's BatchNorm does inside the JAX package's one program over a
+batch-sharded array.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum, in_group, rank, world
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -99,6 +106,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if in_group():
+            return self._forward_global(x)
         # the op updates a copy: autograd keeps the running variance it
         # was given, which must not change under it
         var = self.running_var.clone()
@@ -112,6 +121,36 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(keep + (var - keep) * ((n - 1) / n))
             self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode in a process group. Each rank's float32 mean, biased
+        variance and count of its own batch go into its row of a [world,
+        2C + 1] table, summed over the ranks by one differentiable
+        all-reduce; the global mean and biased variance combine the rows
+        (Chan et al.: no E[x²] - E[x]² cancellation). The running
+        statistics move with the global batch's, so every rank holds the
+        same. Normalised in float32 (float64 for a float64 input) in flax's
+        order, rounded once to the input's dtype."""
+        C = x.shape[1]
+        xf = x.float() if x.dtype in _LOW else x
+        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        n_r = mean_r.new_full((1,), float(xf.numel() // C))
+        mine = mean_r.new_zeros(world(), 1)
+        mine[rank()] = 1.0
+        table = all_reduce_sum(mine * torch.cat([mean_r, var_r, n_r])[None])
+        means, vars_, ns = table[:, :C], table[:, C:2 * C], table[:, 2 * C:]
+        n = ns.sum()
+        mean = (ns * means).sum(0) / n
+        var = (ns * (vars_ + (means - mean).square())).sum(0) / n
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

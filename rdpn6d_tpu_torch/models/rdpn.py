@@ -112,12 +112,14 @@ class RDPN(nn.Module):
 
     def forward(self, batch: dict[str, torch.Tensor],
                 drop_scale: float = 1.0,
-                generator: torch.Generator | None = None
+                generator: torch.Generator | None = None,
+                drop_shard: tuple[int, int] = (0, 1)
                 ) -> dict[str, torch.Tensor]:
         """batch: roi_img [B,S,S,6] (rgb + depth xyz), roi_coord_2d
         [B,O,O,5], fps [B,K,3], roi_extent [B,3], roi_cam [B,3,3],
         bbox_center [B,2], roi_wh [B,2], resize_ratio [B], roi_cls [B].
-        ``drop_scale`` and ``generator`` drive DropBlock in train mode."""
+        ``drop_scale``, ``generator`` and ``drop_shard`` (rank, world)
+        drive DropBlock in train mode."""
         cfg = self.cfg
         h, pnp = cfg.head, cfg.pnp
         img = batch["roi_img"].permute(0, 3, 1, 2)
@@ -183,7 +185,8 @@ class RDPN(nn.Module):
         rot_param, t_param = self.pnp_net(
             coord_feat, region=region_atten, extents=batch["roi_extent"],
             mask_attention=mask_atten, mask_concat=mask_concat,
-            drop_scale=drop_scale, generator=generator)
+            drop_scale=drop_scale, generator=generator,
+            drop_shard=drop_shard)
 
         if "rot6d" in pnp.rot_type:
             rot_m = ortho6d_to_mat(rot_param)

@@ -23,6 +23,7 @@ everything compared is equal.
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 
@@ -352,8 +353,43 @@ def test_cli_train_refusals(data_root, tmp_path):
                                "data.color_aug_prob=0.8",
                                "solver.total_epochs=0"] + cpu)
     assert state.step == 0
-    with pytest.raises(NotImplementedError, match="--multihost"):
-        tmain.main(base[:2] + ["--multihost"] + cpu)
+    # --multihost, once refused, joins a group; here a group of one on
+    # the CPU (gloo), whose collectives run (test_torch_dist_cli.py runs
+    # two processes)
+    port = _free_port()
+    state = tmain.main(base + ["solver.total_epochs=0"] + cpu + [
+        "--multihost", "--dist-coordinator", f"127.0.0.1:{port}",
+        "--num-processes", "1", "--process-id", "0"])
+    assert state.step == 0
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="--multihost needs"):
+        tmain.main(base + cpu + ["--multihost", "--num-processes", "2"])
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_num_devices_refusals(data_root, tmp_path, monkeypatch):
+    """More processes than visible cards, one named card for several
+    processes, and a multi-host batch that does not divide, all raise
+    before any work."""
+    base = ["--config-file", CONFIG, "--opts", *OPTS,
+            f'train.output_dir="{tmp_path}"']
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 CUDA device"):
+        tmain.main(base[:2] + ["--num-devices", "2"] + base[2:])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="one named card"):
+        tmain.main(base[:2] + ["--device", "cuda:0"] + base[2:])
+    with pytest.raises(ValueError, match="divisible by the 3"):
+        tmain.main(base[:2] + ["--multihost", "--dist-coordinator",
+                               "127.0.0.1:1", "--num-processes", "3",
+                               "--process-id", "0"] + base[2:])
+    assert not os.path.exists(tmp_path / "config.json")
 
 
 LMO_CONFIG = "rdpn6d_tpu_torch/configs/lmo.py"

@@ -1,7 +1,7 @@
 """The port stands alone: importing it pulls in neither jax nor the JAX
-package, and no source of the port or of ``chip_smoke.py`` imports them,
-nor OpenCV or Pillow (the GPU machine has neither; the port reads PNG
-itself)."""
+package, and no source of the port, of ``chip_smoke.py`` or of the
+data-parallel tests' rank functions imports them, nor OpenCV or Pillow
+(the GPU machine has neither; the port reads PNG itself)."""
 
 import ast
 import os
@@ -39,7 +39,8 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.ops.surface_labels",
             "rdpn6d_tpu_torch.ops.int8_conv",
             "rdpn6d_tpu_torch.ops.roi_crop",
-            "rdpn6d_tpu_torch.models.quant"} <= set(mods)
+            "rdpn6d_tpu_torch.models.quant",
+            "rdpn6d_tpu_torch.parallel.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -65,6 +66,9 @@ def _sources():
     yield os.path.join(ROOT, "time_int8.py")
     yield os.path.join(ROOT, "time_labels.py")
     yield os.path.join(ROOT, "time_crop.py")
+    # the data-parallel tests' rank functions: a spawned rank must not
+    # load jax
+    yield os.path.join(ROOT, "tests", "torch_dist_workers.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
