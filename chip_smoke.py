@@ -2922,16 +2922,17 @@ def rank_share(batch: dict, rank: int, world: int) -> dict:
 
 
 def dist_steps(dev, sd_path: str, raw: list, scale: float = 1.0,
-               timed: bool = True) -> dict:
+               full: bool = True) -> dict:
     """Phase 13(a) in one process: the f32 steps (TF32 off) on ``raw``,
     preprocessed here (``train=True``) and, with ``scale`` != 1, the
-    network input scaled by it; then, with ``timed``, as many bf16 steps
-    from the same weights, each timed to a synchronize, and the gradient
-    all-reduce's time. In a process group this is one rank on its share of
-    each global batch (``make_sharded_train_step``); in none, the one
-    process on the global batch (``make_train_step``). Returns the
-    metrics, the final state, the kernels' launches and the preprocessed
-    batches of the f32 steps, and the times."""
+    network input scaled by it; then, with ``full``, the same steps with
+    the model and the network inputs in float64, and as many bf16 steps,
+    each timed to a synchronize, and the gradient all-reduce's time. All
+    from the same weights. In a process group this is one rank on its
+    share of each global batch (``make_sharded_train_step``); in none, the
+    one process on the global batch (``make_train_step``). Returns the
+    metrics and final state of the f32 and float64 runs, the kernels'
+    launches and the preprocessed batches of the f32 run, and the times."""
     import torch
 
     from rdpn6d_tpu_torch.data import pipeline
@@ -2956,11 +2957,11 @@ def dist_steps(dev, sd_path: str, raw: list, scale: float = 1.0,
         batches = [rank_share(b, mesh.rank(), mesh.world())
                    for b in batches]
 
-    def run(amp: bool, hook):
+    def run(amp: bool, dtype, hook):
         cfg = dist_config(amp)
         model = RDPN(cfg)
         model.load_state_dict(sd)
-        model = mesh.replicate(model.to(dev))
+        model = mesh.replicate(model.to(dev, dtype))
         schedule = build_schedule(cfg, 1000)
         state = create_train_state(cfg, model, lr=schedule(0))
         step = (make_sharded_train_step if mesh.in_group()
@@ -2974,24 +2975,29 @@ def dist_steps(dev, sd_path: str, raw: list, scale: float = 1.0,
                 cfg, b["frames"], b["rois"], train=True, generator=gen)
             if scale != 1.0:
                 batch["roi_img"] = batch["roi_img"] * scale
+            batch = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in batch.items()}
             state, m = step(state, batch)
             torch.cuda.synchronize()
             hook(m, time.perf_counter() - t0)
         return model
 
-    metrics: list = []
+    def parity(dtype):
+        metrics: list = []
+        model = run(False, dtype, lambda m, _: metrics.append(
+            {k: float(v) for k, v in m.items()}))
+        return {"metrics": metrics,
+                "state": {k: v.detach().cpu() for k, v in
+                          model.state_dict().items()}}
+
     cuda_build.reset_launches()
     with PreprocessCalls() as calls:
-        model = run(False, lambda m, _: metrics.append(
-            {k: float(v) for k, v in m.items()}))
-    out = {"metrics": metrics, "launches": dict(cuda_build.LAUNCHES),
-           "batches": calls.n,
-           "state": {k: v.detach().cpu() for k, v in
-                     model.state_dict().items()}}
-    del model
-    if timed:
+        out = parity(torch.float32)
+    out.update(launches=dict(cuda_build.LAUNCHES), batches=calls.n)
+    if full:
+        out["f64"] = parity(torch.float64)
         ms: list = []
-        model = run(True, lambda m, s: ms.append(1e3 * s))
+        model = run(True, torch.float32, lambda m, s: ms.append(1e3 * s))
         out["bf16_ms"] = ms
         if mesh.in_group():
             params = list(model.parameters())
@@ -3009,25 +3015,43 @@ def dist_steps(dev, sd_path: str, raw: list, scale: float = 1.0,
     return out
 
 
+def _state_errors(ref: dict, got: dict, init: dict):
+    """Per floating leaf (the BN-cancelled biases aside): (name, max
+    |got - ref|, max |ref|, max |ref - init|)."""
+    for k, v in ref.items():
+        if k in BN_CANCELLED or not v.is_floating_point():
+            continue
+        yield (k, float((got[k].double() - v.double()).abs().max()),
+               float(v.abs().max()),
+               float((v.double() - init[k].double()).abs().max()))
+
+
 def run_dist_ranks(dev, card, work) -> dict:
     """Phase 13(a): two gloo ranks on the one card (NCCL refuses two ranks
     of one device) against one process on the global batch, lm13 at full
-    width, f32, TF32 off, 24 ROIs (12 a rank), 3 steps from one seeded
-    init, card-resident batches preprocessed on each side. Tolerances, of
-    phase 7's kind: every loss and ``grad_norm`` at every step within
-    1e-3 relative, or twice what the one process's own value moves when
-    its input moves by 1e-6 relative, the larger; every parameter and
-    BatchNorm statistic within 0.1 of its leaf's change over the run,
-    twice its own movement under that input change, or 4 float32 ulps of
-    its largest value, the largest (the biases that feed a
-    batch-statistics BatchNorm are rounding, and are not compared). In
-    lm13's warm-up 3 steps move some leaves by a few ulps, which float32
-    reorderings change by one; a wrong reduction moves the first step's
-    losses, taken from equal weights, and every update by their whole
-    size. The two ranks end bit-equal. Each rank launches
-    ``roi_crop`` once a preprocessed batch and ``gt_labels`` once a step,
-    counted in its own process. Then 3 bf16 steps timed on each side, and
-    the gradient all-reduce. Returns the ranks' summed launches."""
+    width, 24 ROIs (12 a rank), 3 steps from one seeded init on
+    card-resident batches preprocessed on each side, TF32 off.
+
+    Tolerances. In float64 (the model and its inputs; the preprocessing
+    and the points where the model rounds to float32 stay float32), the
+    step the CPU tests hold the 2-rank step to at 1e-5 (measured ~1e-13
+    there): every loss and ``grad_norm`` at every step within 1e-5
+    relative, every parameter and BatchNorm statistic within 1e-5 of its
+    leaf's largest value (the biases that feed a batch-statistics
+    BatchNorm are rounding and are not compared). In f32, of phase 7's
+    kind: every loss at every step, and ``grad_norm`` at the first step
+    (equal weights), within 1e-3 relative or twice what the one
+    process's own value moves when its input moves by 1e-6 relative, the
+    larger. The f32 ``grad_norm`` of later steps and the f32 parameters
+    are reported, not gated: at this init a float32 reordering, or the
+    card's run-to-run rounding, parts them by up to a few per cent by the
+    third step (a run of this tree passed within 0.41 of the tolerance
+    above, the next missed it by 2.4x on step 3's ``grad_norm``, 289.3
+    against 282.9). The ranks end bit-equal in both runs. Each rank
+    launches ``roi_crop`` once a preprocessed batch and ``gt_labels`` once
+    a step, counted in its own process. Then 3 bf16 steps timed on each
+    side, and the gradient all-reduce. Returns the ranks' summed
+    launches."""
     import torch
 
     from rdpn6d_tpu_torch.models import RDPN, init_weights
@@ -3043,7 +3067,7 @@ def run_dist_ranks(dev, card, work) -> dict:
                .state_dict(), sd_path)
     init = torch.load(sd_path, weights_only=True)
     one = dist_steps(dev, sd_path, raw)
-    moved = dist_steps(dev, sd_path, raw, scale=1.0 + 1e-6, timed=False)
+    moved = dist_steps(dev, sd_path, raw, scale=1.0 + 1e-6, full=False)
     t0 = time.perf_counter()
     # both ranks on this card: an indexed device pins every rank to it
     ranks = spawn(dist_steps, DIST_RANKS, args=(sd_path, raw),
@@ -3051,37 +3075,50 @@ def run_dist_ranks(dev, card, work) -> dict:
                   backend="gloo")
     spawn_s = time.perf_counter() - t0
 
-    worst = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}
+    for run in ("f32", "f64"):
+        a, b = (r if run == "f32" else r["f64"] for r in ranks)
+        check(a["metrics"] == b["metrics"], f"dist {run}: the ranks' "
+              "metrics differ")
+        for k, v in a["state"].items():
+            check(torch.equal(v, b["state"][k]), f"dist {run}: the ranks' "
+                  f"{k} differ")
+
+    # float64: the trajectory
+    worst64 = 0.0
+    for i, (m, ref) in enumerate(zip(ranks[0]["f64"]["metrics"],
+                                     one["f64"]["metrics"])):
+        for k, v in ref.items():
+            err = abs(m[k] - v) / max(abs(v), 1e-3)
+            check(err <= 1e-5, f"dist f64 step {i + 1}: {k} two ranks "
+                  f"{m[k]:.12g} vs one process {v:.12g}")
+            worst64 = max(worst64, err)
+    worst64_p, n_cmp = 0.0, 0
+    for k, err, top, change in _state_errors(
+            one["f64"]["state"], ranks[0]["f64"]["state"], init):
+        check(err <= 1e-5 * top, f"dist f64: {k} two ranks vs one process "
+              f"{err:.3g} (largest {top:.3g})")
+        worst64_p = max(worst64_p, err / max(top, 1e-30))
+        n_cmp += 1
+
+    # f32: the first step and every loss, then what the run shows
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    later_gn = []
     for i, (m, ref, mv) in enumerate(zip(ranks[0]["metrics"],
                                          one["metrics"], moved["metrics"])):
-        check(m == ranks[1]["metrics"][i], f"dist step {i + 1}: the ranks' "
-              "metrics differ")
         for k, v in ref.items():
             err = abs(m[k] - v)
             tol = max(1e-3 * abs(v), 2 * abs(mv[k] - v))
+            if k == "grad_norm" and i > 0:
+                later_gn.append(err / abs(v))
+                continue
             check(bool(np.isfinite(m[k])) and err <= tol,
-                  f"dist step {i + 1}: {k} two ranks {m[k]:.6g} vs one "
+                  f"dist f32 step {i + 1}: {k} two ranks {m[k]:.6g} vs one "
                   f"process {v:.6g} (tol {tol:.3g})")
             key = "grad_norm" if k == "grad_norm" else "loss"
             worst[key] = max(worst[key], err / max(tol, 1e-30))
-    n_cmp = 0
-    for k, v in one["state"].items():
-        check(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]),
-              f"dist: the ranks' {k} differ")
-        if k in BN_CANCELLED:
-            continue
-        if not v.is_floating_point():
-            check(torch.equal(ranks[0]["state"][k], v), f"dist: {k} differs")
-            continue
-        change = float((v - init[k]).abs().max())
-        sens = float((moved["state"][k] - v).abs().max())
-        err = float((ranks[0]["state"][k] - v).abs().max())
-        ulp = float(v.abs().max()) * 2.0 ** -23
-        tol = max(0.1 * change, 2 * sens, 4 * ulp)
-        check(err <= tol, f"dist: {k} two ranks vs one process {err:.3g} "
-              f"(change {change:.3g}, own movement {sens:.3g})")
-        worst["param"] = max(worst["param"], err / max(tol, 1e-30))
-        n_cmp += 1
+    p32 = max((err / max(change, top * 2.0 ** -23), k) for k, err, top,
+              change in _state_errors(one["state"], ranks[0]["state"],
+                                      init))
     for r, got in enumerate(ranks):
         la = got["launches"]
         check(la.get("roi_crop", 0) == got["batches"] == DIST_STEPS,
@@ -3090,18 +3127,22 @@ def run_dist_ranks(dev, card, work) -> dict:
         check(la.get("gt_labels", 0) == DIST_STEPS,
               f"dist rank {r}: gt_labels launched {la.get('gt_labels', 0)}"
               f" times in {DIST_STEPS} steps")
+    per = TRAIN_ROIS // DIST_RANKS
     print(f"dist: two gloo ranks on one card vs one process on the global "
-          f"batch, lm13 full width f32 (TF32 off), {TRAIN_ROIS} ROIs "
-          f"({TRAIN_ROIS // DIST_RANKS} a rank), {DIST_STEPS} steps: worst "
-          f"error / tolerance: losses {worst['loss']:.3f}, grad_norm "
-          f"{worst['grad_norm']:.3f}, {n_cmp} parameters and BN statistics "
-          f"{worst['param']:.3f}; total_loss "
-          f"{[round(m['total_loss'], 6) for m in ranks[0]['metrics']]} vs "
-          f"{[round(m['total_loss'], 6) for m in one['metrics']]}; ranks "
-          f"bit-equal; launches a rank "
-          f"{[g['launches'] for g in ranks]} for "
-          f"{[g['batches'] for g in ranks]} batches; spawn and both runs "
-          f"{spawn_s:.1f} s [{card}]")
+          f"batch, lm13 full width, {TRAIN_ROIS} ROIs ({per} a rank), "
+          f"{DIST_STEPS} steps, TF32 off: float64 "
+          f"worst relative error of the losses and grad_norm {worst64:.3e}, "
+          f"of {n_cmp} parameters and BN statistics {worst64_p:.3e} (tol "
+          f"1e-5); f32 worst error / tolerance: losses {worst['loss']:.3f}, "
+          f"step-1 grad_norm {worst['grad_norm']:.3f}; f32 reported: "
+          f"grad_norm relative difference at steps 2-{DIST_STEPS} "
+          f"{', '.join(f'{x:.3e}' for x in later_gn)}, the largest "
+          f"parameter difference / its change {p32[0]:.3f} ({p32[1]}); "
+          f"total_loss {[round(m['total_loss'], 6) for m in ranks[0]['metrics']]}"
+          f" vs {[round(m['total_loss'], 6) for m in one['metrics']]}; ranks "
+          f"bit-equal; launches a rank {[g['launches'] for g in ranks]} "
+          f"for {[g['batches'] for g in ranks]} batches; spawn and the "
+          f"ranks' runs {spawn_s:.1f} s [{card}]")
 
     def fmt(ms):
         return ", ".join(f"{x:.2f}" for x in ms)
