@@ -3044,10 +3044,9 @@ def run_dist_ranks(dev, card, work) -> dict:
     process's own value moves when its input moves by 1e-6 relative, the
     larger. The f32 ``grad_norm`` of later steps and the f32 parameters
     are reported, not gated: at this init a float32 reordering, or the
-    card's run-to-run rounding, parts them by up to a few per cent by the
-    third step (a run of this tree passed within 0.41 of the tolerance
-    above, the next missed it by 2.4x on step 3's ``grad_norm``, 289.3
-    against 282.9). The ranks end bit-equal in both runs. Each rank
+    card's run-to-run rounding, parts them by a few per cent by the third
+    step (one run missed the tolerance above by 2.4x on step 3's
+    ``grad_norm``, 289.3 against 282.9). The ranks end bit-equal in both runs. Each rank
     launches ``roi_crop`` once a preprocessed batch and ``gt_labels`` once
     a step, counted in its own process. Then 3 bf16 steps timed on each
     side, and the gradient all-reduce. Returns the ranks' summed
@@ -3176,8 +3175,11 @@ def run_multihost_cli(dev, card, work) -> dict:
     the seeded .pth trunk): one epoch (6 iterations) with a checkpoint and
     eval on ``lm_13_test`` at its end (the predictions gathered over NCCL,
     ADI on ``min_dist2``), then ``--resume`` to a second epoch, evaluated
-    again. Checks the steps, checkpoints, ``metrics.json``, the CSV and
-    the launches; returns them summed over both runs."""
+    again. Each ``main`` decodes its frames anew (its own host LRU and
+    device cache), as phase 10's first epoch does. Checks the steps,
+    checkpoints, ``metrics.json``, the CSV and the launches; prints ms/step
+    and the loader's wait (``instrument_trainer``); returns the launches
+    summed over both runs."""
     import torch
 
     from rdpn6d_tpu_torch import main as port_main
@@ -3227,8 +3229,9 @@ def run_multihost_cli(dev, card, work) -> dict:
               f"{'resumed to ' if resume else ''}{epochs} epoch(s) of {n} "
               f"iterations with eval of lm_13_test: {wall:.2f} s of main, "
               f"ms/step {', '.join(f'{x:.2f}' for x in step_ms)} (median "
-              f"{np.median(step_ms):.2f}), launches {got} for {calls.n} "
-              f"preprocessed batches [{card}]")
+              f"{np.median(step_ms):.2f}; loader wait median "
+              f"{1e3 * np.median(rec['waits']):.2f}), launches {got} for "
+              f"{calls.n} preprocessed batches [{card}]")
     lines = [json.loads(ln) for ln in open(os.path.join(out,
                                                         "metrics.json"))]
     check([ln["iteration"] for ln in lines]

@@ -5,7 +5,7 @@ train-mode preprocessing of 24 ROIs alone, then a whole step
 (preprocessing, forward, losses, backward, Ranger); before them, the
 wall time of untraced steps.
 
-    python3 profile_step.py [--root DIR]
+    python3 profile_step.py [--root DIR] [--group]
 
 ``--root`` names the directory whose ``rdpn6d_tpu_torch`` is profiled
 (default: the one beside this script), so that two trees, such as a
@@ -16,7 +16,11 @@ cubes with per-ROI float16 xyz maps and packed masks), the same whatever
 the tree. After 3 warm-up steps, prints the median, lowest and highest ms
 of 10 untraced steps (each synchronized), then for each traced pass its wall
 ms, device busy ms, kernel launches and the largest kernels, beside the
-card's name and power limit. Exits non-zero without a CUDA device.
+card's name and power limit. ``--group`` runs the same steps as the one
+rank of an NCCL process group (``parallel.mesh``), so through the
+data-parallel step (global BatchNorm, loss normalisers, the gradient
+all-reduce), to compare with the step of a process in no group. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE,
                     help="directory holding the rdpn6d_tpu_torch to profile")
+    ap.add_argument("--group", action="store_true",
+                    help="run as the one rank of an NCCL process group")
     args = ap.parse_args(argv)
 
     import torch
@@ -61,7 +67,17 @@ def main(argv=None) -> int:
     card = cs.nvidia_smi("name,power.limit")
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="profile_step_") as out:
-        return profile(cs, root, card, dev, out)
+        if not args.group:
+            return profile(cs, root, card, dev, out)
+        from rdpn6d_tpu_torch.parallel import mesh
+
+        mesh.init_distributed(0, 1, f"tcp://127.0.0.1:{cs.free_port()}",
+                              torch.device("cuda", 0))
+        try:
+            return profile(cs, root, card + "; a process group of one, "
+                           "NCCL", dev, out)
+        finally:
+            mesh.close_group()
 
 
 def profile(cs, root, card, dev, out) -> int:

@@ -123,34 +123,70 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
     def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode in a process group. Each rank's float32 mean, biased
-        variance and count of its own batch go into its row of a [world,
-        2C + 1] table, summed over the ranks by one differentiable
-        all-reduce; the global mean and biased variance combine the rows
-        (Chan et al.: no E[x²] - E[x]² cancellation). The running
-        statistics move with the global batch's, so every rank holds the
-        same. Normalised in float32 (float64 for a float64 input) in flax's
-        order, rounded once to the input's dtype."""
-        C = x.shape[1]
-        xf = x.float() if x.dtype in _LOW else x
-        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
-        n_r = mean_r.new_full((1,), float(xf.numel() // C))
-        mine = mean_r.new_zeros(world(), 1)
-        mine[rank()] = 1.0
-        table = all_reduce_sum(mine * torch.cat([mean_r, var_r, n_r])[None])
-        means, vars_, ns = table[:, :C], table[:, C:2 * C], table[:, 2 * C:]
-        n = ns.sum()
-        mean = (ns * means).sum(0) / n
-        var = (ns * (vars_ + (means - mean).square())).sum(0) / n
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+        """Train mode in a process group: ``_GlobalBatchNorm``, then the
+        running statistics moved with the global batch's, so every rank
+        holds the same."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)
             self.running_var.mul_(1.0 - m).add_(m * var)
             self.num_batches_tracked.add_(1)
-        return y.to(x.dtype)
+        return y
+
+
+def _moments(x: torch.Tensor) -> torch.Tensor:
+    return x.float() if x.dtype in _LOW else x
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalisation over the GLOBAL batch of a process group, each
+    rank holding its rows: (y, mean, biased var) of this rank's x.
+
+    Forward: each rank's mean, biased variance and count of its own batch
+    (float32, or float64 for a float64 input) go into its row of a
+    [world, 2C + 1] table, summed over the ranks by one all-reduce; the
+    global moments combine the rows (Chan et al.: no E[x²] - E[x]²
+    cancellation); torch's fused kernel normalises with them, in float32,
+    and writes the input's dtype. Backward, the analytic BN gradient with
+    the global sums of dy and dy (x - mean) (one all-reduce) and the
+    global count; the weight and bias gradients are this rank's shares,
+    which the train step's gradient all-reduce sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        C = x.shape[1]
+        xm = _moments(x)
+        var_r, mean_r = torch.var_mean(xm, dim=(0, 2, 3), correction=0)
+        row = torch.cat([mean_r, var_r, mean_r.new_full(
+            (1,), float(xm.numel() // C))])
+        table = row.new_zeros(world(), 2 * C + 1)
+        table[rank()] = row
+        table = all_reduce_sum(table)
+        means, vars_, ns = table[:, :C], table[:, C:2 * C], table[:, 2 * C:]
+        n = ns.sum()
+        mean = (ns * means).sum(0) / n
+        var = (ns * (vars_ + (means - mean).square())).sum(0) / n
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        C = x.shape[1]
+        dyf = _moments(dy)
+        xmu = _moments(x) - mean[:, None, None]
+        sum_dy = dyf.sum((0, 2, 3))
+        sum_dy_xmu = (dyf * xmu).sum((0, 2, 3))
+        g = all_reduce_sum(torch.cat([sum_dy, sum_dy_xmu]))
+        mean_dy = (g[:C] / n)[:, None, None]
+        proj = (invstd * invstd * g[C:] / n)[:, None, None]
+        dx = (dyf - mean_dy - xmu * proj) * (invstd * weight)[:, None, None]
+        return dx.to(x.dtype), sum_dy_xmu * invstd, sum_dy, None
 
 
 class GroupNorm(nn.GroupNorm):
