@@ -26,7 +26,7 @@ def _is_jpeg(path: str) -> bool:
     if head == png.SIGNATURE:
         return False
     raise ValueError(f"neither PNG nor JPEG (TIF frames, as itodd's, are "
-                     f"not read: ROADMAP queue 1 item 7): {path}")
+                     f"not read: ROADMAP queue 1 item 10): {path}")
 
 
 def _linear_taps(n_out: int, n_in: int, clamp: bool

@@ -153,6 +153,6 @@ def test_imread_rgb_dispatches_by_signature(tmp_path):
     other = str(tmp_path / "c.tif")
     with open(other, "wb") as f:
         f.write(b"II*\x00" + bytes(60))
-    with pytest.raises(ValueError, match="neither PNG nor JPEG.*item 7"):
+    with pytest.raises(ValueError, match="neither PNG nor JPEG.*item 10"):
         image.imread_rgb(other)
     assert os.path.getsize(jpg_as_png) < os.path.getsize(png_as_jpg)
