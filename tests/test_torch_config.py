@@ -118,3 +118,74 @@ def test_lmo_matches():
     d = t_lmo.get_config().data
     assert (d.color_aug_prob, d.color_aug_type, d.change_bg_prob,
             d.truncate_fg) == (0.8, "code", 0.5, True)
+
+
+COPIES = ["base", "lm13", "lmo", "ycbv", "tless", "tudl", "hb", "icbin",
+          "itodd", "mp6d", "mini"]
+
+
+def _jax_config(name, variant=None):
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", os.path.join(ROOT, "configs", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.get_config() if variant is None else mod.get_config(variant)
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_config_copy_matches(name):
+    """Each config copy of the port equals the JAX package's field for
+    field, through the port's loader as ``main`` reads it."""
+    path = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", f"{name}.py")
+    assert dataclasses.asdict(tcfg.load_config(path)) == \
+        dataclasses.asdict(_jax_config(name))
+
+
+SO_VARIANTS = ["lm/ape", "lmo/ape", "ycbv/002_master_chef_can",
+               "mp6d/obj_03", "tless/obj_07", "tudl/can", "itodd/obj_05",
+               "icbin/juice_carton", "hb/obj_02"]
+
+
+@pytest.mark.parametrize("variant", SO_VARIANTS)
+def test_so_variant_matches(variant):
+    """Every SO family resolves through the port's split registry and
+    refs, and equals the JAX package's config for the same variant."""
+    path = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "so.py")
+    t = tcfg.load_config(f"{path}:{variant}")
+    assert dataclasses.asdict(t) == \
+        dataclasses.asdict(_jax_config("so", variant))
+    assert t.head.num_classes == 1 and t.exp_name == \
+        "{}SO_{}".format(*variant.split("/"))
+
+
+@pytest.mark.parametrize("variant", ["tudl", "nope/can", "tudl/nope"])
+def test_so_refuses_unknown_variant_like_jax(variant):
+    from rdpn6d_tpu_torch.configs import so
+
+    with pytest.raises(ValueError) as t:
+        so.get_config(variant)
+    with pytest.raises(ValueError) as j:
+        _jax_config("so", variant)
+    assert str(t.value) == str(j.value)
+
+
+def test_itodd_and_mp6d_load_then_refuse(tmp_path, monkeypatch):
+    """itodd and mp6d load; what they need is refused with ROADMAP queue 1
+    item 10: itodd's gray TIF frames at the image reader, mp6d's
+    ``ycb_style`` records at the record builder."""
+    import rdpn6d_tpu_torch.data.refs as trefs
+    from rdpn6d_tpu_torch.data import bop, image
+    from rdpn6d_tpu_torch.configs import itodd, mp6d
+
+    cfg = itodd.get_config()
+    assert (cfg.head.num_classes, cfg.data.train_datasets) == \
+        (28, ("itodd_pbr_train",))
+    tif = tmp_path / "000000.tif"
+    tif.write_bytes(b"II*\x00" + bytes(60))
+    with pytest.raises(ValueError, match="TIF.*item 10"):
+        image.imread_rgb(str(tif))
+    cfg = mp6d.get_config()
+    assert cfg.test.error_types == "AUCadd,AUCadi,AUCad,vsd"
+    monkeypatch.setattr(trefs, "DATA_ROOT", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ycb_style.*item 10"):
+        bop.build_split_records(bop.get_split(cfg.data.train_datasets[0]))

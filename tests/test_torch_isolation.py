@@ -36,6 +36,12 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.data.augment", "rdpn6d_tpu_torch.data.jpeg",
             "rdpn6d_tpu_torch.data.image",
             "rdpn6d_tpu_torch.configs.lmo",
+            "rdpn6d_tpu_torch.configs.base", "rdpn6d_tpu_torch.configs.ycbv",
+            "rdpn6d_tpu_torch.configs.tless", "rdpn6d_tpu_torch.configs.tudl",
+            "rdpn6d_tpu_torch.configs.hb", "rdpn6d_tpu_torch.configs.icbin",
+            "rdpn6d_tpu_torch.configs.itodd", "rdpn6d_tpu_torch.configs.mp6d",
+            "rdpn6d_tpu_torch.configs.mini", "rdpn6d_tpu_torch.configs.so",
+            "rdpn6d_tpu_torch.ops.rasterizer",
             "rdpn6d_tpu_torch.ops.surface_labels",
             "rdpn6d_tpu_torch.ops.int8_conv",
             "rdpn6d_tpu_torch.ops.roi_crop",
@@ -89,3 +95,14 @@ def test_source_imports_no_jax(path):
             names = [str(node.args[0].value)]
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, (path, n)
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_loads_no_jax_package_file(path):
+    """The port builds and loads its own host library: no source names the
+    JAX package's rasterizer directory or its checked-in library."""
+    with open(path) as f:
+        text = f.read()
+    for needle in ("librasterizer", "csrc/rasterizer/"):
+        assert needle not in text, (path, needle)
