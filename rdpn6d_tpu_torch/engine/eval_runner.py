@@ -16,8 +16,10 @@ In a process group (``parallel/mesh.py``) each rank infers its frame shard
 of the split (``shard_records_by_frame``), the predictions are gathered,
 and rank 0 scores them over the whole split; the other ranks return
 ``{"stats": ...}``.
-Not ported, and refused: the RANSAC-Kabsch refinement (``test.use_pnp``),
-VSD.
+The BOP19 AR takes VSD when ``test.error_types`` asks for ``vsd``: the
+eval meshes' faces rendered on the host (``ops/rasterizer.py``) against
+the scene depth.
+Not ported, and refused: the RANSAC-Kabsch refinement (``test.use_pnp``).
 """
 
 from __future__ import annotations
@@ -394,12 +396,9 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     # BOP19 localization AR when the config asks for toolkit error types
     err_types = {t.strip() for t in cfg.test.error_types.split(",")}
     if targets is not None and err_types & {"vsd", "mssd", "mspd"}:
-        if "vsd" in err_types:
-            raise NotImplementedError(
-                "test.error_types has vsd: VSD needs the depth rasterizer, "
-                "which is not ported (ROADMAP queue 1 item 9)")
         result["bop19"] = _bop19_scores(ref, all_records, targets,
-                                        evaluator, eval_assets)
+                                        evaluator, eval_assets,
+                                        with_vsd="vsd" in err_types)
         logger.info(f"BOP19 AR: {result['bop19']}")
 
     result["stats"] = stats
@@ -407,14 +406,26 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
 
 
 def _bop19_scores(ref: Any, records: list[dict], targets: list[dict],
-                  evaluator: Any, eval_assets: Any) -> dict[str, float]:
-    """MSSD/MSPD average recalls over the BOP19 target list."""
-    from ..evaluation.bop_score import bop19_average_recalls
+                  evaluator: Any, eval_assets: Any,
+                  with_vsd: bool = False) -> dict[str, float]:
+    """MSSD/MSPD (and VSD) average recalls over the BOP19 target list.
+    VSD renders the eval meshes' faces; a mesh without faces skips VSD
+    with a warning, as the JAX package does."""
+    from functools import lru_cache
+
+    from ..data.loader import _imread_depth
+    from ..evaluation.bop_score import (
+        bop19_average_recalls,
+        make_vsd_error_fn,
+    )
 
     gts: dict[tuple[int, int], list[dict]] = {}
+    depth_info: dict[tuple[int, int], tuple[str, float]] = {}
     for r in records:
-        gts.setdefault((r["scene_id"], r["im_id"]), []).append(
+        key = (r["scene_id"], r["im_id"])
+        gts.setdefault(key, []).append(
             {"obj_id": r["obj_id"], "R": r["R"], "t": r["t"], "K": r["K"]})
+        depth_info[key] = (r["depth_path"], r["depth_factor"])
 
     def bank(key):
         return {oid: eval_assets.for_obj(oid)[key]
@@ -422,7 +433,35 @@ def _bop19_scores(ref: Any, records: list[dict], targets: list[dict],
 
     diameters = {oid: float(eval_assets.for_obj(oid)["diameter"])
                  or ref.diameter_m(oid) for oid in eval_assets.obj_ids}
+
+    vsd_fn = None
+    if with_vsd:
+        from ..data.inout import load_ply
+
+        meshes: dict | None = {}
+        for oid in eval_assets.obj_ids:
+            ply = load_ply(os.path.join(ref.eval_model_dir,
+                                        f"obj_{oid:06d}.ply"),
+                           vertex_scale=ref.vertex_scale)
+            if ply.get("faces") is None or not len(ply["faces"]):
+                logger.warning(f"obj {oid}: eval mesh has no faces; "
+                               "skipping VSD")
+                meshes = None
+                break
+            meshes[oid] = (ply["pts"].astype(np.float32),
+                           np.asarray(ply["faces"], np.int32))
+        if meshes is not None:
+            # ~1.2 MB a 480x640 float32 depth frame: 64 hold ~80 MB, and
+            # the scorer walks targets frame by frame, so a few frames'
+            # interleaving is all the cache has to absorb
+            @lru_cache(maxsize=64)
+            def _depth(scene_id: int, im_id: int) -> np.ndarray:
+                path, factor = depth_info[(scene_id, im_id)]
+                return _imread_depth(path, factor)
+
+            vsd_fn = make_vsd_error_fn(meshes, _depth, diameters)
+
     return bop19_average_recalls(
         evaluator.bop_rows(ref.obj2id), gts, targets, bank("points"),
-        bank("sym_rots"), diameters, im_width=ref.width,
+        bank("sym_rots"), diameters, im_width=ref.width, with_vsd=vsd_fn,
         sym_trans=bank("sym_trans"))

@@ -7,10 +7,11 @@ threshold, and the recalls averaged:
 
     AR_mssd = mean over thresholds 0.05..0.5 of the diameter
     AR_mspd = mean over thresholds 5..50 px (scaled by image width / 640)
+    AR_vsd  = mean over taus 0.05..0.5 and thresholds 0.05..0.5
     AR      = (AR_mssd + AR_mspd) / 2, or with AR_vsd the mean of three
 
-VSD needs the depth rasterizer, which is not ported: ``make_vsd_error_fn``
-raises (ROADMAP queue 1 item 9).
+``make_vsd_error_fn`` renders depth with the port's host rasterizer
+(``ops/rasterizer.py``), each pose once a pass through an LRU cache.
 """
 
 from __future__ import annotations
@@ -135,11 +136,55 @@ def score_error_recalls(
     return out
 
 
-def make_vsd_error_fn(*args, **kwargs):
-    """VSD error_fn: needs the depth rasterizer (``ops/rasterizer.py`` and
-    ``csrc/rasterizer``), which is not ported."""
-    raise NotImplementedError("VSD needs the depth rasterizer, which is not "
-                              "ported (ROADMAP queue 1 item 9)")
+def make_vsd_error_fn(meshes: dict[int, tuple[np.ndarray, np.ndarray]],
+                      depth_loader: Callable[[int, int], np.ndarray],
+                      diameters: dict[int, float],
+                      delta: float = 15.0 / 1000.0,
+                      taus: tuple[float, ...] = tuple(
+                          float(t) for t in np.arange(0.05, 0.51, 0.05)),
+                      render_cache: int = 64,
+                      ) -> Callable[[dict, dict], np.ndarray]:
+    """VSD error_fn for ``score_error_recalls`` / ``bop19_average_recalls``.
+
+    meshes: {obj_id: (verts [V,3], faces [F,3])}; depth_loader returns the
+    scene's test depth (m) for (scene_id, im_id). Renders are memoized on
+    (object, pose, camera, size): a GT's render serves every estimate of
+    its target, and an estimate's every GT instance, so a pass renders
+    each pose once. Returns the error vector over the BOP19 taus
+    0.05..0.5; ``score_error_recalls`` averages recalls over taus x
+    thresholds. ``err.render_cache_info`` reads the cache's counters.
+    """
+    from functools import lru_cache
+
+    from ..ops.rasterizer import render_mesh
+    from .bop_errors import vsd_from_depths
+
+    @lru_cache(maxsize=render_cache)
+    def _render(oid: int, R_b: bytes, t_b: bytes, K_b: bytes,
+                H: int, W: int) -> np.ndarray:
+        v, f = meshes[oid]
+        d, _ = render_mesh(
+            v, f, np.frombuffer(K_b, np.float64).reshape(3, 3),
+            np.frombuffer(R_b, np.float64).reshape(3, 3),
+            np.frombuffer(t_b, np.float64), H, W)
+        return d
+
+    def key(a) -> bytes:
+        return np.ascontiguousarray(a, np.float64).tobytes()
+
+    def err(est: dict, gt: dict) -> np.ndarray:
+        depth = depth_loader(est["scene_id"], est["im_id"])
+        H, W = depth.shape
+        oid = int(gt["obj_id"])
+        K_b = key(gt["K"])
+        d_est = _render(oid, key(est["R"]), key(est["t"]), K_b, H, W)
+        d_gt = _render(oid, key(gt["R"]), key(gt["t"]), K_b, H, W)
+        return np.asarray(vsd_from_depths(
+            d_est, d_gt, depth, delta=delta, taus=taus,
+            diameter=diameters[oid]))
+
+    err.render_cache_info = _render.cache_info
+    return err
 
 
 def bop19_average_recalls(

@@ -6,7 +6,10 @@ interface, loaded with ctypes. Nothing is built when a module is imported.
 The library lands in ``rdpn6d_tpu_torch/_build/`` (git-ignored) under a
 name keyed by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once. ``nvcc`` comes from
-``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
+``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``. ``build_host``
+does the same for a host C++ source (``csrc/<name>.cpp``, the VSD
+rasterizer) with ``c++`` or ``g++`` at fixed flags: no ``-march=native``
+and no contraction to FMAs, so its output does not depend on the machine.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run that
 must show a path went through a kernel zeroes it with ``reset_launches``
@@ -30,6 +33,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 
 LAUNCHES: dict[str, int] = {}
 
@@ -63,12 +67,20 @@ def _nvcc() -> str:
                        "cannot be built")
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` into ``_build/`` unless the library for
-    this exact source and these flags is already there."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def _cxx() -> str:
+    for c in ("c++", "g++"):
+        path = shutil.which(c)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ or g++ on PATH): the "
+                       "host libraries cannot be built")
+
+
+def _compile(name: str, src: str, compiler, flags: tuple[str, ...]) -> Built:
+    """Compile ``src`` with ``flags`` into ``_build/`` unless the library
+    for this exact source and these flags is already there."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     stem = f"{name}-{digest.hexdigest()[:16]}"
     lib = os.path.join(BUILD_DIR, stem + ".so")
     log_path = os.path.join(BUILD_DIR, stem + ".log")
@@ -78,17 +90,31 @@ def build(name: str) -> Built:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+    cc = compiler()
+    proc = subprocess.run([cc, *flags, "-o", tmp, src],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {src} "
+        raise RuntimeError(f"{os.path.basename(cc)} failed on {src} "
                            f"(rc={proc.returncode}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     return Built(lib, log)
+
+
+def build(name: str) -> Built:
+    """Compile the kernel source ``csrc/<name>.cu`` with nvcc for sm_90a."""
+    return _compile(name, os.path.join(CSRC_DIR, f"{name}.cu"), _nvcc,
+                    NVCC_FLAGS)
+
+
+def build_host(name: str) -> Built:
+    """Compile the host source ``csrc/<name>.cpp`` with the host compiler
+    at ``HOST_FLAGS``; a failed build raises."""
+    return _compile(name, os.path.join(CSRC_DIR, f"{name}.cpp"), _cxx,
+                    HOST_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,3 +161,12 @@ def load(name: str) -> tuple[ctypes.CDLL, Built]:
         _LOADED[name] = (ctypes.CDLL(built.path), built)
         LAUNCHES.setdefault(name, 0)
     return _LOADED[name]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name``, built first if needed."""
+    key = "host:" + name
+    if key not in _LOADED:
+        built = build_host(name)
+        _LOADED[key] = (ctypes.CDLL(built.path), built)
+    return _LOADED[key][0]
