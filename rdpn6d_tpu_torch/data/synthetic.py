@@ -13,8 +13,13 @@ LineMOD-layout BOP tree of rendered cubes to disk (PNGs through
 ``write_lm_imgn_tree`` the lm_imgn synthetic layout beside it; either
 package trains and evaluates on them. ``write_lmo_tree`` writes a
 LineMOD-Occluded tree (real frames of occluding cubes with GT xyz crops,
-BOP-PBR frames as JPEG without crops, a test scene with BOP19 targets) and
-``write_bg_pool`` a VOC-like background pool of JPEG and PNG files.
+BOP-PBR frames as JPEG without crops, a test scene with BOP19 targets),
+``write_bop_tree`` the same for ycbv, tless, tudl, hb or icbin at the
+dataset's frame size, camera and split directories (cubes rendered with
+the port's rasterizer, eval meshes with faces, a symmetric object, some
+instances under 20% visible, ycbv's keyframe list), ``write_mini_tree``
+the mini rehearsal dataset (LM scenes 91 and 92) and ``write_bg_pool`` a
+VOC-like background pool of JPEG and PNG files.
 ``encode_jpeg`` / ``write_jpeg`` are a baseline JPEG encoder with the
 standard tables, for these fixtures: the card's machine has no other JPEG
 writer. ``write_resnet_pth`` writes a seeded ResNet ``state_dict`` with
@@ -232,10 +237,17 @@ def _rodrigues(rvec: np.ndarray) -> np.ndarray:
     return np.eye(3) + np.sin(theta) * Kx + (1 - np.cos(theta)) * Kx @ Kx
 
 
-def _write_points_ply(path: str, pts_mm: np.ndarray) -> None:
+def _write_points_ply(path: str, pts_mm: np.ndarray,
+                      faces: np.ndarray | None = None) -> None:
     lines = ["ply", "format ascii 1.0", f"element vertex {len(pts_mm)}",
-             "property float x", "property float y", "property float z",
-             "end_header"] + [f"{x:.4f} {y:.4f} {z:.4f}" for x, y, z in pts_mm]
+             "property float x", "property float y", "property float z"]
+    if faces is not None:
+        lines += [f"element face {len(faces)}",
+                  "property list uchar int vertex_indices"]
+    lines += ["end_header"] + [f"{x:.4f} {y:.4f} {z:.4f}"
+                               for x, y, z in pts_mm]
+    if faces is not None:
+        lines += [f"3 {a} {b} {c}" for a, b, c in faces]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -389,12 +401,45 @@ LMO_OBJS = {"ape": 1, "can": 5, "cat": 6, "driller": 8, "duck": 9,
             "eggbox": 10, "glue": 11, "holepuncher": 12}
 
 
+def cube_faces(pts: np.ndarray) -> np.ndarray:
+    """The 12 triangles [12, 3] of the cube whose surface samples are
+    ``pts`` (``cube_points``), as indices of its 8 corners in ``pts``."""
+    half = np.abs(pts).max()
+    corner = {tuple(np.sign(p).astype(int)): i for i, p in enumerate(pts)
+              if np.all(np.isclose(np.abs(p), half))}
+    faces = []
+    for axis in range(3):
+        u, v = [a for a in range(3) if a != axis]
+        for side in (-1, 1):
+            quad = []
+            for su, sv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                key = [0, 0, 0]
+                key[axis], key[u], key[v] = side, su, sv
+                quad.append(corner[tuple(key)])
+            faces += [(quad[0], quad[1], quad[2]), (quad[0], quad[2], quad[3])]
+    return np.asarray(faces, np.int32)
+
+
+# a cube's 4-fold discrete symmetry about z, as ``symmetries_discrete``
+# stores it (row-major 4x4, translation in mm)
+CUBE_Z_SYMMETRIES = [
+    np.block([[np.array([[np.cos(a), -np.sin(a), 0.0],
+                         [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]]),
+               np.zeros((3, 1))], [np.zeros((1, 3)), np.ones((1, 1))]]
+             ).reshape(-1).round(12).tolist()
+    for a in (np.pi / 2, np.pi, 3 * np.pi / 2)]
+
+
 def _write_models(ds: str, objs: dict[str, int], rng: np.random.RandomState,
-                  fps_counts: tuple[int, ...] = ()) -> dict[int, float]:
+                  fps_counts: tuple[int, ...] = (), faces: bool = False,
+                  symmetric: tuple[int, ...] = ()) -> dict[int, float]:
     """Each object a cube of seeded half side: ``models/`` and
     ``models_eval/`` point meshes (mm) with ``models_info.json``, and with
     ``fps_counts`` a ``models/fps_points.pkl`` (metres, the BOP tools'
-    ``fps{n}_and_center`` entries). Returns {obj_id: half side in m}."""
+    ``fps{n}_and_center`` entries). With ``faces`` the eval meshes carry
+    the cube's 12 triangles (VSD renders them); the objects in
+    ``symmetric`` declare the cube's 4-fold z symmetry. Returns {obj_id:
+    half side in m}."""
     from .assets import get_fps_and_center
 
     halves: dict[int, float] = {}
@@ -405,12 +450,16 @@ def _write_models(ds: str, objs: dict[str, int], rng: np.random.RandomState,
         size = 2000.0 * half
         for sub, n_edge, table in (("models", 25, info),
                                    ("models_eval", 15, info_eval)):
+            pts = cube_points(n_edge, half)
             _write_points_ply(os.path.join(ds, sub, f"obj_{oid:06d}.ply"),
-                              cube_points(n_edge, half) * 1000.0)
+                              pts * 1000.0, cube_faces(pts)
+                              if faces and sub == "models_eval" else None)
             table[str(oid)] = {
                 "diameter": size * np.sqrt(3), "min_x": -size / 2,
                 "min_y": -size / 2, "min_z": -size / 2, "size_x": size,
                 "size_y": size, "size_z": size}
+            if oid in symmetric:
+                table[str(oid)]["symmetries_discrete"] = CUBE_Z_SYMMETRIES
     for sub, table in (("models", info), ("models_eval", info_eval)):
         with open(os.path.join(ds, sub, "models_info.json"), "w") as f:
             json.dump(table, f)
@@ -449,16 +498,17 @@ def _render_scene(rng: np.random.RandomState, K: np.ndarray, H: int, W: int,
 
 def _write_bop_scene(sdir: str, frames: list[list[dict]], K: np.ndarray,
                      rng: np.random.RandomState, jpeg: bool,
-                     depth_scale: float, xyz_crops: bool) -> None:
+                     depth_scale: float, xyz_crops: bool,
+                     plane: float = 1.3) -> None:
     """One BOP scene directory: per frame the RGB (PNG, or JPEG as BOP-PBR
     stores it), 16-bit depth in units of ``depth_scale`` mm over a plane at
-    1.3 m, each instance's visible mask (and GT xyz crop), and
+    ``plane`` m, each instance's visible mask (and GT xyz crop), and
     scene_gt / scene_camera / scene_gt_info."""
     H, W = frames[0][0]["depth"].shape
     scene_gt, scene_cam, scene_info = {}, {}, {}
     for im_id, objs in enumerate(frames):
         rgb = _backdrop(rng, H, W)
-        depth = np.full((H, W), 1.3)
+        depth = np.full((H, W), plane)
         for o in objs:
             rgb = np.where(o["visib"][..., None], 128 + 1000.0 * o["xyz"],
                            rgb)
@@ -552,6 +602,340 @@ def write_lmo_tree(root: str, train_frames: int, pbr_scenes: int,
                if o["visib"].any()]
     with open(os.path.join(ds, "test_targets_bop19.json"), "w") as f:
         json.dump(targets, f)
+
+
+# the BOP datasets ``write_bop_tree`` writes: (the real train subdir and
+# scene | None, the PBR train scene | None, the test subdir and scene,
+# whether the test split has BOP19 targets, depth_scale), from
+# ``data/bop.py``'s splits
+BOP_TREES = {
+    "ycbv": (("train_real", 0), 0, ("test", 48), True, 0.1),
+    "tless": (("train_primesense", 1), None, ("test_primesense", 1), True,
+              0.1),
+    "tudl": (("train_real", 1), None, ("test", 1), True, 1.0),
+    "hb": (None, 0, ("val_primesense", 3), False, 0.1),
+    "icbin": (None, 0, ("test", 1), True, 0.1),
+}
+
+
+def _cube_mesh(half: float) -> tuple[np.ndarray, np.ndarray]:
+    pts = cube_points(2, half)
+    return pts, cube_faces(pts)
+
+
+def _render_mesh_scene(rng: np.random.RandomState, K: np.ndarray, H: int,
+                       W: int, insts: list[tuple[int, float]],
+                       hidden: bool) -> list[dict]:
+    """Cubes rendered with the port's rasterizer on a 4 x 2 grid of the
+    view, as ``_render_scene`` places them, with the scene scaled by
+    fx / 572 so they cover as many pixels as at LineMOD's focal length;
+    with ``hidden`` one more cube sits 15 cm behind the first, shifted so
+    that a sliver of it shows. For each its pose, amodal depth and xyz,
+    and its visible mask after the z-buffer of all."""
+    from ..ops.rasterizer import render_mesh
+
+    s = float(K[0, 0]) / 572.0
+    poses = []
+    for i, (oid, half) in enumerate(insts):
+        R = _rodrigues(rng.randn(3) * 0.8)
+        t = np.array([-0.18 + 0.12 * (i % 4) + rng.uniform(-0.02, 0.02),
+                      -0.07 + 0.14 * (i // 4 % 2) + rng.uniform(-0.02, 0.02),
+                      rng.uniform(0.85, 1.15)]) * s
+        poses.append((oid, half, R, t))
+    if hidden:
+        oid, half, _, t0 = poses[0]
+        t = t0 * (t0[2] + 0.15 * s) / t0[2] \
+            + np.array([0.5 * half, 0.0, 0.0])
+        poses.append((oid, half, _rodrigues(rng.randn(3) * 0.8), t))
+    out = []
+    for oid, half, R, t in poses:
+        v, f = _cube_mesh(half)
+        depth, xyz = render_mesh(v, f, K, R, t, H, W)
+        out.append({"obj_id": oid, "R": R, "t": t, "depth": depth,
+                    "xyz": xyz})
+    stack = np.stack([np.where(o["depth"] > 0, o["depth"], np.inf)
+                      for o in out])
+    winner = np.where(np.isfinite(stack.min(0)), stack.argmin(0), -1)
+    for i, o in enumerate(out):
+        o["visib"] = winner == i
+    return out
+
+
+def _write_targets(path: str, scene_id: int, frames: list[list[dict]],
+                   im_ids: list[int]) -> None:
+    """A BOP19 targets file: every visible instance of the frames in
+    ``im_ids``, counted by (image, object)."""
+    counts: dict[tuple[int, int], int] = {}
+    for im_id in im_ids:
+        for o in frames[im_id]:
+            if o["visib"].any():
+                k = (im_id, o["obj_id"])
+                counts[k] = counts.get(k, 0) + 1
+    with open(path, "w") as f:
+        json.dump([{"scene_id": scene_id, "im_id": im_id, "obj_id": oid,
+                    "inst_count": n}
+                   for (im_id, oid), n in sorted(counts.items())], f)
+
+
+def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
+                   train_frames: int = 2, pbr_frames: int = 2,
+                   test_frames: int = 2, insts_per_frame: int = 4,
+                   seed: int = 0) -> dict[str, int]:
+    """A BOP tree of ``dataset`` (ycbv, tless, tudl, hb or icbin) under
+    ``root/<dataset>``: the dataset's frame size and camera (``data/refs``)
+    and its splits' directories (``data/bop.py``), every frame
+    ``insts_per_frame`` occluding cubes of ``objs`` (name -> obj id,
+    default the dataset's first four objects) taken in turn, rendered with
+    the port's rasterizer, plus one mostly hidden cube a frame
+    (``visib_fract`` under 0.2, which ycbv's filter drops):
+
+    - ``models/`` and ``models_eval/`` of every object of the dataset, each
+      a cube of its own seeded size, with ``models_info.json`` (the first
+      of ``objs`` declares the cube's 4-fold z symmetry), the eval meshes
+      with faces, and ``models/fps_points.pkl`` (4, 8, 16 and 32
+      keypoints);
+    - the real train scene, where the dataset has one (PNG RGB, GT xyz
+      crops), and the ``train_pbr`` scene 0 where it has PBR training
+      (JPEG RGB, no xyz crops);
+    - the test scene (PNG, no crops) and, where the split scores BOP19,
+      ``test_targets_bop19.json``; for ycbv ``image_sets/keyframe.txt``
+      listing all test frames but the last, and ``image_sets/train.txt``
+      listing every real train frame.
+
+    Returns {obj_id: half side in m}."""
+    from .refs import get_ref
+
+    real, pbr, (test_sub, test_scene), has_targets, dscale = \
+        BOP_TREES[dataset]
+    ref = get_ref(dataset)
+    if objs is None:
+        objs = {name: ref.obj2id[name] for name in ref.objects[:4]}
+    rng = np.random.RandomState(seed)
+    H, W = ref.height, ref.width
+    K = ref.K()
+    ds = os.path.join(root, dataset)
+    ids = list(objs.values())
+    halves = _write_models(ds, ref.obj2id, rng, fps_counts=(4, 8, 16, 32),
+                           faces=True, symmetric=(ids[0],))
+    plane = 1.3 * float(K[0, 0]) / 572.0
+
+    def scene(n_frames, offset):
+        return [_render_mesh_scene(rng, K, H, W, [
+            (ids[(offset + f + i) % len(ids)],
+             halves[ids[(offset + f + i) % len(ids)]])
+            for i in range(insts_per_frame)], hidden=True)
+            for f in range(n_frames)]
+
+    if real is not None:
+        sub, sid = real
+        _write_bop_scene(os.path.join(ds, sub, f"{sid:06d}"),
+                         scene(train_frames, 0), K, rng, jpeg=False,
+                         depth_scale=dscale, xyz_crops=True, plane=plane)
+    if pbr is not None:
+        _write_bop_scene(os.path.join(ds, "train_pbr", f"{pbr:06d}"),
+                         scene(pbr_frames, 1), K, rng, jpeg=True,
+                         depth_scale=0.1, xyz_crops=False, plane=plane)
+    test = scene(test_frames, 2)
+    _write_bop_scene(os.path.join(ds, test_sub, f"{test_scene:06d}"), test,
+                     K, rng, jpeg=False, depth_scale=dscale, xyz_crops=False,
+                     plane=plane)
+    keyframes = list(range(test_frames))
+    if dataset == "ycbv":
+        keyframes = keyframes[:-1] or keyframes
+        os.makedirs(os.path.join(ds, "image_sets"), exist_ok=True)
+        with open(os.path.join(ds, "image_sets", "keyframe.txt"), "w") as f:
+            f.write("".join(f"{test_scene:04d}/{i:06d}\n" for i in keyframes))
+        with open(os.path.join(ds, "image_sets", "train.txt"), "w") as f:
+            f.write("".join(f"{real[1]:04d}/{i:06d}\n"
+                            for i in range(train_frames)))
+    if has_targets:
+        _write_targets(os.path.join(ds, "test_targets_bop19.json"),
+                       test_scene, test, keyframes)
+    return halves
+
+
+MINI_OBJS = {"ape": 1, "can": 5, "driller": 8}
+
+
+def _subdivide(verts: np.ndarray, faces: np.ndarray,
+               n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Midpoint subdivision, n times: each triangle into four."""
+    for _ in range(n):
+        vl = [tuple(v) for v in verts]
+        mids: dict[tuple[int, int], int] = {}
+
+        def mid(a, b):
+            k = (min(a, b), max(a, b))
+            if k not in mids:
+                mids[k] = len(vl)
+                vl.append(tuple((np.asarray(vl[a]) + np.asarray(vl[b]))
+                                / 2.0))
+            return mids[k]
+
+        out = []
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            out += [(a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca)]
+        verts, faces = np.asarray(vl, np.float64), np.asarray(out, np.int32)
+    return verts, faces
+
+
+def _box_mesh(c, h) -> tuple[np.ndarray, np.ndarray]:
+    v = np.array([(c[0] + sx * h[0], c[1] + sy * h[1], c[2] + sz * h[2])
+                  for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)])
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    return v, np.array([t for a, b, c_, d in quads
+                        for t in ((a, b, c_), (a, c_, d))], np.int32)
+
+
+def mini_meshes() -> dict[int, tuple[np.ndarray, np.ndarray]]:
+    """The mini dataset's three meshes {obj_id: (verts in mm, faces)}: an
+    irregular tetrahedron (ape, asymmetric, ~90 mm), an 80 mm cube (can,
+    4-fold z symmetry) and an L-prism of two boxes (driller,
+    asymmetric), subdivided for denser vertex sets."""
+    ape = _subdivide(np.array([[0, 0, 55], [50, -30, -35], [-45, -35, -30],
+                               [5, 60, -30]], np.float64),
+                     np.array([[0, 1, 2], [0, 3, 1], [0, 2, 3], [1, 3, 2]]),
+                     3)
+    can = _subdivide(*_box_mesh((0, 0, 0), (40, 40, 40)), 2)
+    a, fa = _box_mesh((10, -27.5, 0), (50, 12.5, 20))
+    b, fb = _box_mesh((-27.5, 12.5, 0), (12.5, 27.5, 20))
+    driller = _subdivide(np.concatenate([a, b]),
+                         np.concatenate([fa, fb + len(a)]), 2)
+    return {1: ape, 5: can, 8: driller}
+
+
+def _random_rotation(rng: np.random.RandomState) -> np.ndarray:
+    q, r = np.linalg.qr(rng.randn(3, 3))
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q
+
+
+def write_mini_tree(root: str, n_train: int = 4, n_test: int = 2,
+                    seed: int = 0) -> None:
+    """The mini rehearsal dataset under ``root/lm`` in the layout of the
+    JAX package's ``tools/make_mini_bop.py``: ``mini_meshes`` as
+    ``models/`` and ``models_eval/`` PLY meshes with faces and
+    ``models_info.json`` (the cube declares its z symmetry), the train
+    scene 91 (``lm_mini_train``) and the test scene 92
+    (``lm_mini_test``) of 480x640 frames with LineMOD's camera, each frame
+    2-3 of the objects clustered so that they occlude (fully hidden ones
+    kept, as BOP keeps them), rendered with the port's rasterizer (RGB by
+    model coordinate, depth in mm, visible masks; no xyz crops), and
+    ``test_targets_mini.json`` (every instance over 5% visible) and
+    ``detections_mini.json`` (jittered boxes, every ninth instance
+    missed)."""
+    from ..ops.rasterizer import render_mesh
+
+    rng = np.random.RandomState(seed)
+    H, W = 480, 640
+    K = LM_K
+    meshes = mini_meshes()
+    ds = os.path.join(root, "lm")
+    info = {}
+    for oid, (v, f) in meshes.items():
+        for sub in ("models", "models_eval"):
+            _write_points_ply(os.path.join(ds, sub, f"obj_{oid:06d}.ply"),
+                              v, f)
+        lo, hi = v.min(0), v.max(0)
+        d2 = ((v[:, None] - v[None]) ** 2).sum(-1)
+        info[str(oid)] = {
+            "diameter": float(np.sqrt(d2.max())), "min_x": float(lo[0]),
+            "min_y": float(lo[1]), "min_z": float(lo[2]),
+            "size_x": float(hi[0] - lo[0]), "size_y": float(hi[1] - lo[1]),
+            "size_z": float(hi[2] - lo[2])}
+        if oid == 5:
+            info[str(oid)]["symmetries_discrete"] = CUBE_Z_SYMMETRIES
+    for sub in ("models", "models_eval"):
+        with open(os.path.join(ds, sub, "models_info.json"), "w") as f:
+            json.dump(info, f)
+    meshes_m = {oid: (v / 1000.0, f) for oid, (v, f) in meshes.items()}
+    obj_ids = sorted(meshes_m)
+    targets: list[dict] = []
+    dets: list[dict] = []
+    for sub, scene_id, n_images in (("train", 91, n_train),
+                                    ("test", 92, n_test)):
+        sdir = os.path.join(ds, sub, f"{scene_id:06d}")
+        scene_gt, scene_cam, scene_info = {}, {}, {}
+        n_rois = 0
+        for im_id in range(n_images):
+            chosen = rng.choice(obj_ids, size=rng.randint(2, 4),
+                                replace=False)
+            base = rng.uniform(-0.06, 0.06, 2)
+            insts, renders = [], []
+            for oid in chosen:
+                R = _random_rotation(rng)
+                t = np.array([base[0] + rng.uniform(-0.07, 0.07),
+                              base[1] + rng.uniform(-0.06, 0.06),
+                              rng.uniform(0.55, 0.85)])
+                insts.append((int(oid), R, t))
+                renders.append(render_mesh(*meshes_m[int(oid)], K, R, t,
+                                           H, W))
+            depth = np.zeros((H, W), np.float32)
+            owner = np.full((H, W), -1)
+            for i, (d, _) in enumerate(renders):
+                m = (d > 0) & ((depth <= 0) | (d < depth))
+                depth = np.where(m, d, depth)
+                owner = np.where(m, i, owner)
+            rgb = rng.randint(30, 70, (H, W, 3)).astype(np.float64)
+            for i, ((oid, _, _), (_, xyz)) in enumerate(zip(insts, renders)):
+                v = meshes_m[oid][0]
+                albedo = (xyz / (v.max(0) - v.min(0)) + 0.5) * 175.0 + 40.0
+                rgb = np.where((owner == i)[..., None], albedo, rgb)
+            write_png(os.path.join(sdir, "rgb", f"{im_id:06d}.png"),
+                      np.clip(rgb, 0, 255).astype(np.uint8))
+            write_png(os.path.join(sdir, "depth", f"{im_id:06d}.png"),
+                      np.round(depth * 1000.0).astype(np.uint16))
+            gts, infos, counts = [], [], {}
+            for j, ((oid, R, t), (d, _)) in enumerate(zip(insts, renders)):
+                vis = owner == j
+                vf = float(vis.sum()) / max(float((d > 0).sum()), 1.0)
+                ys, xs = np.nonzero(vis)
+                bbox = [0, 0, 0, 0] if not xs.size else [
+                    int(xs.min()), int(ys.min()),
+                    int(xs.max() - xs.min() + 1),
+                    int(ys.max() - ys.min() + 1)]
+                write_png(os.path.join(sdir, "mask_visib",
+                                       f"{im_id:06d}_{j:06d}.png"),
+                          vis.astype(np.uint8) * 255)
+                gts.append({"cam_R_m2c": R.reshape(-1).tolist(),
+                            "cam_t_m2c": (t * 1000.0).tolist(),
+                            "obj_id": oid})
+                infos.append({"bbox_visib": bbox, "visib_fract": vf})
+                if sub != "test" or vf <= 0.05:
+                    continue
+                counts[oid] = counts.get(oid, 0) + 1
+                n_rois += 1
+                if n_rois % 9 == 0:
+                    continue
+                jit = rng.randint(-3, 4, 4)
+                dets.append({"scene_id": scene_id, "im_id": im_id,
+                             "obj_id": oid,
+                             "bbox_est": [float(bbox[0] + jit[0]),
+                                          float(bbox[1] + jit[1]),
+                                          float(max(bbox[2] + jit[2], 8)),
+                                          float(max(bbox[3] + jit[3], 8))],
+                             "score": float(rng.uniform(0.5, 1.0)),
+                             "time": 0.05})
+            targets += [{"im_id": im_id, "inst_count": n, "obj_id": oid,
+                         "scene_id": scene_id}
+                        for oid, n in sorted(counts.items())]
+            scene_gt[str(im_id)] = gts
+            scene_cam[str(im_id)] = {"cam_K": K.reshape(-1).tolist(),
+                                     "depth_scale": 1.0}
+            scene_info[str(im_id)] = infos
+        for fname, table in (("scene_gt.json", scene_gt),
+                             ("scene_camera.json", scene_cam),
+                             ("scene_gt_info.json", scene_info)):
+            with open(os.path.join(sdir, fname), "w") as f:
+                json.dump(table, f)
+    with open(os.path.join(ds, "test_targets_mini.json"), "w") as f:
+        json.dump(targets, f)
+    with open(os.path.join(ds, "detections_mini.json"), "w") as f:
+        json.dump(dets, f)
 
 
 def write_bg_pool(root: str, seed: int = 0) -> str:

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against
-their plain versions on the card, one lm13 train step on the card, the
+their plain versions on the card (the ROI crop and the label kernels also
+at T-LESS's 540x720 frames), one lm13 train step on the card, the
 entry points' default device, colour aug and lmo's two label paths card
 against CPU, and the image codecs on the card's machine.
 
@@ -285,6 +286,7 @@ def _gt_inputs(B, h, w, K, seed, masks, half):
                                          (3, 33, 31, 17, 17),
                                          (2, 100, 90, 33, 64),
                                          (24, 480, 640, 64, 32),
+                                         (24, 540, 720, 64, 32),
                                          (2, 40, 30, 9, 1),
                                          (3, 50, 60, 17, 65),
                                          (2, 100, 90, 33, 96),
@@ -390,6 +392,7 @@ def _surface_inputs(B, F, h, w, K, seed, masks):
                                            (3, 2, 33, 31, 17, 17),
                                            (2, 1, 100, 90, 33, 64),
                                            (24, 8, 480, 640, 64, 32),
+                                           (24, 8, 540, 720, 64, 32),
                                            (2, 2, 40, 30, 9, 1),
                                            (3, 2, 50, 60, 17, 65),
                                            (2, 1, 100, 90, 33, 96),
@@ -1107,6 +1110,27 @@ def test_roi_crop_kernel_matches_plain(card, normalize, B, F, rgb_dtype, raw,
     ref_img, ref_coord = roi_crop_plain(*inp, S, O, mean, std,
                                         normalize=normalize)
     assert img.shape == (B, S, S, 6) and coord.shape == (B, O, O, 5)
+    assert _same(img, ref_img) and _same(coord, ref_coord)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("B,F,rgb_dtype,raw", [
+    (24, 8, "uint8", True), (32, 8, "uint8", True), (16, 1, "uint8", False),
+    (24, 8, "float32", False)])
+def test_roi_crop_kernel_matches_plain_at_540x720(card, normalize, B, F,
+                                                  rgb_dtype, raw):
+    """T-LESS's 540x720 frames: the train and eval batches' shapes, bit for
+    bit as at 480x640."""
+    inp = [None if t is None else t.to(card) for t in
+           _crop_inputs(B, F, 540, 720, B + 7, rgb_dtype, raw, 256)]
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    before = cuda_build.LAUNCHES.get("roi_crop", 0)
+    img, coord = roi_crop(*inp, 256, 64, mean, std, normalize=normalize)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["roi_crop"] == before + 1
+    ref_img, ref_coord = roi_crop_plain(*inp, 256, 64, mean, std,
+                                        normalize=normalize)
     assert _same(img, ref_img) and _same(coord, ref_coord)
 
 
