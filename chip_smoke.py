@@ -7,7 +7,8 @@ card.
 
 Phases, each fatal on failure:
   1. build  — every CUDA kernel of the paths, from ``rdpn6d_tpu_torch/csrc``
-              with nvcc for sm_90a (in parallel, one nvcc per source);
+              with nvcc for sm_90a (in parallel, one nvcc per source), and
+              beside them VSD's host rasterizer with the host compiler;
   2. kernel — each kernel against its plain PyTorch version on the card, at
               ragged shapes and at the shape its path gives it (scoring for
               ``min_dist2``, the train step for ``gt_labels`` and
@@ -181,13 +182,38 @@ Phases, each fatal on failure:
               trees: one epoch, a checkpoint, eval of ``lm_13_test``
               during training (the predictions gathered over NCCL,
               ``min_dist2`` on rank 0), then ``--resume`` to a second.
+ 14. the other configs and VSD — (a) ``main`` on ``configs/ycbv.py`` at
+              full width (21 classes, the symmetric PM loss, the visib20
+              filter, TRAIN2 0.5, the trunk from phase 10's .pth) over a
+              ycbv tree written here (12 real PNG frames of 8 cubes with GT
+              xyz crops and a mostly hidden ninth, 6 PBR JPEG frames, 4
+              test frames, ``image_sets/keyframe.txt``): the filtered
+              record count equal to the tree's instances at visib_fract >=
+              0.2 (and fewer than all), 8 iterations, eval on the 3
+              keyframes, the AUCadd, AUCadi, AUCad, ad and ABSad columns
+              finite, ``gt_labels`` once a real iteration,
+              ``surface_labels`` once a PBR one, ``min_dist2`` once an
+              object; (b) ``roi_crop`` (train and eval shapes) and
+              ``surface_labels`` bit-equal to their plain versions at
+              T-LESS's 540x720 frames, ``gt_labels`` as phase 2 holds it,
+              then ``main`` on ``configs/tless.py`` (30 classes) for 4
+              iterations and its eval: every preprocessed frame 540x720,
+              the device cache's bytes those of 540x720 frames, the MSPD
+              thresholds scaled to width 720, AR_mssd, AR_mspd and AR
+              reported and equal to the AR recomputed on the host from the
+              written CSV and the tree; (c) ``main --eval-only`` on
+              ``configs/mini.py`` over a mini tree (meshes with faces) with
+              a seeded checkpoint: AR_vsd in [0, 1], AR the mean of three,
+              each pose rendered once on the host (the render cache's
+              misses, every target's GT pose among them), the VSD host
+              seconds and ms a render.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12,
-each rank's steps and each ``main`` of phase 13) and read right after it.
-In phases 3, 6, 9, 10, 11, 12(c) and 13 the batches the entry points
-preprocess are counted too (``PreprocessCalls``), and ``roi_crop`` must
-have launched once for each.
+each rank's steps and each ``main`` of phases 13 and 14) and read right
+after it. In phases 3, 6, 9, 10, 11, 12(c), 13 and 14 the batches the
+entry points preprocess are counted too (``PreprocessCalls``), and
+``roi_crop`` must have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -250,6 +276,14 @@ LMO_PBR_FRAMES = 6           # one train_pbr scene: 48 records, 2 batches
 LMO_TEST_FRAMES = 4          # 32 BOP19 targets, every object 4 times
 LMO_TRAIN2_RATIO = 0.5       # cut from lmo's 0.1: PBR steps within 12
 COLOR_AUG_TOL = 1e-3         # card vs CPU on the 0..255 scale
+BOP_INSTS = 8                # cubes a frame of phase 14's trees
+YCBV_TRAIN_FRAMES = 12       # x 8 cubes (and a hidden ninth under 20%
+YCBV_EPOCHS = 2              # visible): 96 records, 4 iterations an epoch
+YCBV_PBR_FRAMES = 6          # one train_pbr scene, JPEG
+YCBV_TEST_FRAMES = 4         # 3 keyframes
+TLESS_TRAIN_FRAMES = 6       # 48 records: 2 iterations an epoch, 2 epochs
+TLESS_TEST_FRAMES = 3
+MINI_TEST_FRAMES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -1132,6 +1166,7 @@ class PreprocessCalls:
 
     def __init__(self):
         self.n = 0
+        self.sizes: set[tuple[int, int]] = set()   # (H, W) of the frames
 
     def __enter__(self):
         from rdpn6d_tpu_torch.data import pipeline
@@ -1140,9 +1175,10 @@ class PreprocessCalls:
         self._mods = (pipeline, predictor, trainer)
         self._orig = pipeline.preprocess_rois_grouped
 
-        def counted(*a, **kw):
+        def counted(cfg, frames, *a, **kw):
             self.n += 1
-            return self._orig(*a, **kw)
+            self.sizes.add(tuple(frames["rgb"].shape[1:3]))
+            return self._orig(cfg, frames, *a, **kw)
 
         for m in self._mods:
             m.preprocess_rois_grouped = counted
@@ -3248,6 +3284,456 @@ def run_multihost_cli(dev, card, work) -> dict:
     return launches
 
 
+# phase 14: the other experiment configs and VSD --------------------------
+
+def capture_evals():
+    """Wraps ``eval_runner.run_eval`` to keep each result (``main``'s train
+    branch drops them); returns (the results, a function that undoes it)."""
+    from rdpn6d_tpu_torch.engine import eval_runner
+
+    results: list = []
+    orig = eval_runner.run_eval
+
+    def recording(*a, **kw):
+        results.append(orig(*a, **kw))
+        return results[-1]
+
+    eval_runner.run_eval = recording
+    return results, lambda: setattr(eval_runner, "run_eval", orig)
+
+
+def tree_visib(root: str, subdir: str) -> list[float]:
+    """Every instance's ``visib_fract`` in the scenes under ``root/subdir``."""
+    out = []
+    for dirpath, _, files in sorted(os.walk(os.path.join(root, subdir))):
+        if "scene_gt_info.json" in files:
+            info = json.load(open(os.path.join(dirpath,
+                                               "scene_gt_info.json")))
+            out += [i["visib_fract"] for v in info.values() for i in v]
+    return out
+
+
+def train_bop(config, out, opts, pool):
+    """``main`` (no ``--eval-only``) on one of the port's config files with
+    the trainer instrumented, launches zeroed right before; returns (train
+    state, launches, preprocessed batches, their frame sizes, the trainer's
+    record, the eval results, wall s)."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    rec: dict = {}
+    undo = instrument_trainer(rec)
+    results, undo_eval = capture_evals()
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with PreprocessCalls() as calls:
+            state = port_main.main(["--config-file", config, "--opts",
+                                    *opts, f'data.bg_images_dir="{pool}"',
+                                    f'train.output_dir="{out}"'])
+    finally:
+        undo()
+        undo_eval()
+    torch.cuda.synchronize()
+    return (state, dict(cuda_build.LAUNCHES), calls, rec, results,
+            time.perf_counter() - t0)
+
+
+def check_train_lines(out: str, iters: int, label: str) -> None:
+    lines = [json.loads(ln) for ln in open(os.path.join(out,
+                                                        "metrics.json"))]
+    check([ln["iteration"] for ln in lines] == list(range(1, iters + 1)),
+          f"{label}: metrics.json iterations "
+          f"{[ln['iteration'] for ln in lines]}")
+    bad = [(ln["iteration"], k) for ln in lines for k, v in ln.items()
+           if (k.startswith("loss") or k in ("total_loss", "grad_norm"))
+           and not np.isfinite(v)]
+    check(not bad, f"{label}: non-finite logged losses {bad[:5]}")
+
+
+def run_bop_ycbv(dev, card, work):
+    """Phase 14(a): ``main`` trains ``configs/ycbv.py`` at full width on a
+    ycbv tree written under ``work/data14`` (real PNG frames with GT xyz
+    crops, PBR JPEG frames, TRAIN2 0.5, the visib20 filter, the symmetric
+    PM loss), then evaluates on ``ycbv_test``'s keyframes; returns the
+    launches."""
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data.loader import load_train_records
+    from rdpn6d_tpu_torch.data.refs import YCBV
+    from rdpn6d_tpu_torch.data.synthetic import write_bg_pool, write_bop_tree
+
+    data = os.environ["RDPN6D_DATA_ROOT"]
+    objs = {o: YCBV.obj2id[o] for o in YCBV.objects[:BOP_INSTS]}
+    t0 = time.perf_counter()
+    write_bop_tree(data, "ycbv", objs, YCBV_TRAIN_FRAMES, YCBV_PBR_FRAMES,
+                   YCBV_TEST_FRAMES, BOP_INSTS, seed=14)
+    pool = os.path.join(work, "VOC")
+    if not os.path.isdir(pool):
+        write_bg_pool(pool, seed=13)
+    print(f"ycbv: wrote a YCB-V tree ({YCBV_TRAIN_FRAMES} real, "
+          f"{YCBV_PBR_FRAMES} PBR JPEG and {YCBV_TEST_FRAMES} test frames of "
+          f"{BOP_INSTS} occluding cubes and a hidden one, 21 models) in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "ycbv.py")
+    out = os.path.join(work, "ycbv")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1e9",
+            f"solver.total_epochs={YCBV_EPOCHS}"]
+    cfg = load_config(config, opts)
+    d = cfg.data
+    check(cfg.backbone.depth == 34 and cfg.head.num_regions == 32
+          and cfg.data.input_res == 256 and cfg.head.out_res == 64
+          and cfg.head.num_classes == 21 and cfg.loss.pm_loss_sym
+          and d.filter_visib_thr == 0.2 and d.train2_ratio == 0.5
+          and d.train2_datasets == ("ycbv_train_pbr",)
+          and cfg.solver.ims_per_batch == TRAIN_ROIS,
+          "phase 14(a) does not run ycbv's own settings")
+    vf = tree_visib(os.path.join(data, "ycbv"), "train_real")
+    n_records = len(load_train_records(cfg, list(d.train_datasets)))
+    want = sum(v >= 0.2 for v in vf)
+    check(n_records == want and want < len(vf),
+          f"ycbv: {n_records} filtered records, {want} of the tree's "
+          f"{len(vf)} instances at visib_fract >= 0.2")
+    iters = n_records // TRAIN_ROIS * YCBV_EPOCHS
+    rng = np.random.RandomState(cfg.train.seed)
+    n_pbr = sum(rng.rand() < d.train2_ratio for _ in range(iters))
+    opts.append(f"train.eval_period={iters}")
+    state, launches, calls, rec, results, wall = train_bop(config, out,
+                                                           opts, pool)
+    check(state.step == iters and len(rec["stamps"]) == iters,
+          f"ycbv: {len(rec['stamps'])} iterations to step {state.step}, "
+          f"expected {iters}")
+    check_train_lines(out, iters, "ycbv")
+    check(0 < n_pbr < iters and launches.get("gt_labels", 0) == iters - n_pbr
+          and launches.get("surface_labels", 0) == n_pbr,
+          f"ycbv: label launches {launches} for {iters - n_pbr} real and "
+          f"{n_pbr} PBR iterations")
+    check(len(results) == 1, f"ycbv: {len(results)} evals")
+    res = results[0]
+    for row in [*res["per_obj"].values(), res["mean"]]:
+        for k in ("AUCadd", "AUCadi", "AUCad", "ad_2", "ad_5", "ad_10",
+                  "ABSad_2cm"):
+            check(k in row and bool(np.isfinite(row[k])),
+                  f"ycbv: column {k} missing or non-finite")
+    targets = json.load(open(os.path.join(data, "ycbv",
+                                          "test_targets_bop19.json")))
+    n_objs = len({t["obj_id"] for t in targets})
+    check(launches.get("min_dist2", 0) == n_objs == len(res["per_obj"]),
+          f"ycbv: min_dist2 launched {launches.get('min_dist2', 0)} times "
+          f"for {n_objs} evaluated objects")
+    check(launches.get("roi_crop", 0) == calls.n > iters,
+          f"ycbv: roi_crop launched {launches.get('roi_crop', 0)} times for "
+          f"{calls.n} preprocessed batches")
+    ident, R, t = read_csv(os.path.join(out, "ycbv_test_bop19.csv"))
+    check(len(ident) == sum(x["inst_count"] for x in targets)
+          and bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          f"ycbv: {len(ident)} CSV rows for {len(targets)} targets")
+    step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+    m = res["mean"]
+    print(f"ycbv: ycbv full width bf16 autocast (21 classes, symmetric PM "
+          f"loss, visib20: {n_records} of {len(vf)} real instances), "
+          f"{iters} iterations ({n_pbr} on ycbv_train_pbr) and the eval of "
+          f"{len(ident)} keyframe targets in {wall:.2f} s of main; ms/step "
+          f"median {np.median(step_ms):.2f}; MEAN AUCadd {m['AUCadd']:.2f} "
+          f"AUCadi {m['AUCadi']:.2f} AUCad {m['AUCad']:.2f} ad_10 "
+          f"{m['ad_10']:.2f} ABSad_2cm {m['ABSad_2cm']:.2f} (seeded "
+          f"weights); launches {launches} [{card}]")
+    return launches
+
+
+def labels_at_540x720(dev, card):
+    """Phase 14(b)'s kernel checks at T-LESS's 540x720 frames, as phase 2
+    holds them at 480x640: ``roi_crop`` bit-equal at the train shape (24
+    ROIs of 8 frames, raw depth, not normalised) and an eval batch (32
+    ROIs, normalised), ``surface_labels`` bit-equal and ``gt_labels``
+    (masks equal, ids away from near-ties, coords within 1e-5) at 24 ROIs
+    -> 64², K = 32. Returns each kernel's worst error."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
+    from rdpn6d_tpu_torch.ops.roi_crop import (
+        roi_crop,
+        roi_crop_plain,
+        roi_crop_plan,
+    )
+    from rdpn6d_tpu_torch.ops.surface_labels import (
+        surface_labels,
+        surface_labels_plain,
+    )
+    from rdpn6d_tpu_torch.ops.warp import crop_resize_frames
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    H, W, o, K = 540, 720, GT_LABELS_OUT_RES, 32
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    worst = {"roi_crop": 0.0, "gt_labels": 0.0, "surface_labels": 0.0}
+    for B, F, normalize in ((TRAIN_ROIS, 8, False), (32, 8, True)):
+        args = roi_crop_inputs(B, F, H, W, B + 5, dev, "uint8", True, 256)
+        got = roi_crop(*args, 256, 64, mean, std, normalize=normalize)
+        ref = roi_crop_plain(*args, 256, 64, mean, std, normalize=normalize)
+        torch.cuda.synchronize()
+        check(same_bits(got[0], ref[0]) and same_bits(got[1], ref[1]),
+              f"roi_crop differs from plain at {B} ROIs of {F} {H}x{W}")
+        iters, blocks = roi_crop_plan(B, 256, cuda_build.sm_count(None))
+        print(f"540x720: roi_crop {B} ROIs of {F} frames, raw depth, "
+              f"normalize={normalize}: bit-equal to plain (plan {iters} "
+              f"iterations x {blocks} blocks)")
+    for masks in ("packed", "trunc"):
+        inp = surface_label_inputs(TRAIN_ROIS, 8, H, W, K, 5, dev, masks)
+        got = surface_labels(*inp, o)
+        ref = surface_labels_plain(*inp, o)
+        torch.cuda.synchronize()
+        for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc",
+                  "roi_region"):
+            check(torch.equal(got[k], ref[k]),
+                  f"surface_labels {k} differs at {H}x{W} {masks}")
+        err = float((got["roi_xyz"] - ref["roi_xyz"]).abs().max())
+        check(err <= 1e-6, f"surface_labels coords {err:.3e} at {H}x{W}")
+        worst["surface_labels"] = max(worst["surface_labels"], err)
+        inp = gt_label_inputs(TRAIN_ROIS, H, W, K, 6, dev, masks, True)
+        got = gt_labels(*inp, o)
+        ref = gt_labels_plain(*inp, o)
+        torch.cuda.synchronize()
+        for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+            check(torch.equal(got[k], ref[k]),
+                  f"gt_labels {k} differs at {H}x{W} {masks}")
+        xyz_c = crop_resize_frames(inp[2].float(),
+                                   torch.arange(TRAIN_ROIS, device=dev),
+                                   inp[3], inp[4], o, interp="nearest")
+        differ = got["roi_region"] != ref["roi_region"]
+        check(not bool((differ & ~near_ties(xyz_c, inp[5])).any()),
+              f"gt_labels ids disagree away from ties at {H}x{W}")
+        err = float((got["roi_xyz"] - ref["roi_xyz"]).abs()[~differ].max())
+        check(err <= 1e-5, f"gt_labels coords {err:.3e} at {H}x{W}")
+        worst["gt_labels"] = max(worst["gt_labels"], err)
+        print(f"540x720: surface_labels and gt_labels {TRAIN_ROIS} ROIs "
+              f"->{o} K={K} {masks} masks: masks and ids equal to plain "
+              f"(gt_labels ids: {int(differ.sum())} px at near-ties), coord "
+              f"max_abs_err {err:.3e}")
+    return worst
+
+
+def host_ar(data, out, split, ref, cfg, targets):
+    """The BOP19 AR recomputed on the host from the written CSV and the
+    tree (records, eval meshes, targets), as ``run_eval`` scores it."""
+    from rdpn6d_tpu_torch.data.assets import load_class_assets
+    from rdpn6d_tpu_torch.data.bop import build_split_records, get_split
+    from rdpn6d_tpu_torch.evaluation.bop_score import bop19_average_recalls
+
+    ident, R, t = read_csv(os.path.join(out, f"{split}_bop19.csv"))
+    ests = [{"scene_id": int(a), "im_id": int(b), "obj_id": int(c),
+             "score": float(sc), "R": R[n].reshape(3, 3),
+             "t": t[n] / 1000.0} for n, (a, b, c, sc) in enumerate(ident)]
+    gts: dict = {}
+    for r in build_split_records(get_split(split)):
+        gts.setdefault((r["scene_id"], r["im_id"]), []).append(
+            {"obj_id": r["obj_id"], "R": r["R"], "t": r["t"], "K": r["K"]})
+    objs = sorted({ref.id2obj[x["obj_id"]] for x in targets})
+    assets = load_class_assets(ref, cfg.head.num_regions,
+                               cfg.loss.num_pm_points, objs=objs,
+                               use_eval_models=True)
+
+    def bank(k):
+        return {o: assets.for_obj(o)[k] for o in assets.obj_ids}
+
+    return bop19_average_recalls(
+        ests, gts, targets, bank("points"), bank("sym_rots"),
+        {o: float(assets.for_obj(o)["diameter"]) for o in assets.obj_ids},
+        im_width=ref.width, sym_trans=bank("sym_trans"))
+
+
+def run_bop_tless(dev, card, work):
+    """Phase 14(b): the kernels at 540x720, then ``main`` trains
+    ``configs/tless.py`` at full width on a T-LESS tree and evaluates on
+    ``tless_bop_test``; returns (launches, each kernel's worst error at
+    540x720)."""
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data.loader import load_train_records
+    from rdpn6d_tpu_torch.data.refs import TLESS
+    from rdpn6d_tpu_torch.data.synthetic import write_bop_tree
+    from rdpn6d_tpu_torch.evaluation import bop_score
+
+    worst = labels_at_540x720(dev, card)
+    data = os.environ["RDPN6D_DATA_ROOT"]
+    objs = {o: TLESS.obj2id[o] for o in TLESS.objects[:BOP_INSTS]}
+    t0 = time.perf_counter()
+    write_bop_tree(data, "tless", objs, TLESS_TRAIN_FRAMES, 0,
+                   TLESS_TEST_FRAMES, BOP_INSTS, seed=15)
+    print(f"tless: wrote a T-LESS tree ({TLESS_TRAIN_FRAMES} train and "
+          f"{TLESS_TEST_FRAMES} test 540x720 frames, 30 models) in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "tless.py")
+    out = os.path.join(work, "tless")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1e9",
+            "solver.total_epochs=2"]
+    cfg = load_config(config, opts)
+    check(cfg.head.num_classes == 30 and cfg.backbone.depth == 34
+          and cfg.head.num_regions == 32 and cfg.loss.pm_loss_sym
+          and "mspd" in cfg.test.error_types,
+          "phase 14(b) does not run tless's own settings")
+    iters = len(load_train_records(cfg, list(cfg.data.train_datasets))) \
+        // TRAIN_ROIS * 2
+    opts.append(f"train.eval_period={iters}")
+    widths: list = []
+    ar = bop_score.bop19_average_recalls
+
+    def ar_spy(*a, **kw):
+        widths.append(kw.get("im_width"))
+        return ar(*a, **kw)
+
+    bop_score.bop19_average_recalls = ar_spy
+    try:
+        state, launches, calls, rec, results, wall = train_bop(
+            config, out, opts, os.path.join(work, "VOC"))
+    finally:
+        bop_score.bop19_average_recalls = ar
+    check(state.step == iters, f"tless: step {state.step}, expected {iters}")
+    check_train_lines(out, iters, "tless")
+    check(calls.sizes == {(540, 720)}, f"tless: frames of {calls.sizes}")
+    check(launches.get("roi_crop", 0) == calls.n > iters
+          and launches.get("gt_labels", 0) == iters
+          and launches.get("surface_labels", 0) == 0,
+          f"tless: launches {launches} for {iters} iterations and "
+          f"{calls.n} preprocessed batches")
+    cache = rec["cache"]
+    per_frame = 540 * 720 * 5          # uint8 RGB and 16-bit raw depth
+    check(cache is not None and len(cache) > 0
+          and 0 <= cache.resident_bytes - len(cache) * per_frame
+          < 256 * len(cache),
+          f"tless: device cache {cache.resident_bytes if cache else 0} B "
+          f"for {len(cache) if cache else 0} frames of 540x720")
+    check(widths == [720], f"tless: MSPD scaled for widths {widths}")
+    res = results[0]
+    got = res["bop19"]
+    check(set(got) == {"AR_mssd", "AR_mspd", "AR"}
+          and got["AR"] == (got["AR_mssd"] + got["AR_mspd"]) / 2.0,
+          f"tless: BOP19 AR {got}")
+    targets = json.load(open(os.path.join(data, "tless",
+                                          "test_targets_bop19.json")))
+    again = host_ar(data, out, "tless_bop_test", TLESS, cfg, targets)
+    check(all(abs(again[k] - got[k]) <= 1e-12 for k in got),
+          f"tless: AR from the CSV {again} against the run's {got}")
+    check(launches.get("min_dist2", 0) == len(res["per_obj"]),
+          f"tless: min_dist2 launched {launches.get('min_dist2', 0)} times "
+          f"for {len(res['per_obj'])} objects")
+    step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+    print(f"tless: tless full width bf16 autocast at 540x720 (30 classes), "
+          f"{iters} iterations and the eval in {wall:.2f} s of main; "
+          f"ms/step median {np.median(step_ms):.2f}; device cache "
+          f"{len(cache)} frames, {cache.resident_bytes} B; MSPD thresholds "
+          f"x720/640; BOP19 {got} (seeded weights), equal to the AR "
+          f"recomputed from the CSV; launches {launches} [{card}]")
+    return launches, worst
+
+
+def run_mini_vsd(dev, card, work):
+    """Phase 14(c): ``main --eval-only`` on ``configs/mini.py`` at full
+    width over a mini tree (meshes with faces) with a seeded checkpoint:
+    the BOP19 AR with VSD rendered on the host; returns the launches."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data.bop import build_split_records, get_split
+    from rdpn6d_tpu_torch.data.synthetic import write_mini_tree
+    from rdpn6d_tpu_torch.engine.checkpoint import CheckpointManager
+    from rdpn6d_tpu_torch.evaluation import bop_score
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.ops import cuda_build, rasterizer
+    from rdpn6d_tpu_torch.parallel import create_train_state
+
+    data = os.environ["RDPN6D_DATA_ROOT"]
+    t0 = time.perf_counter()
+    write_mini_tree(data, n_train=2, n_test=MINI_TEST_FRAMES, seed=16)
+    print(f"mini: wrote the mini tree ({MINI_TEST_FRAMES} test frames) in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "mini.py")
+    out = os.path.join(work, "mini")
+    cfg = load_config(config)
+    check(cfg.backbone.depth == 34 and cfg.head.num_regions == 32
+          and "vsd" in cfg.test.error_types.split(","),
+          "phase 14(c) does not run mini's own settings")
+    model = init_weights(RDPN(cfg), torch.Generator().manual_seed(17))
+    with torch.no_grad():      # poses ~1 m away, as physical_z does
+        model.pnp_net.fc_t.bias[2] = 2.0
+    CheckpointManager(os.path.join(out, "ckpt")).save(
+        0, create_train_state(cfg, model))
+
+    renders, fns, vsd_s = [], [], [0.0]
+    render, make = rasterizer.render_mesh, bop_score.make_vsd_error_fn
+
+    def render_spy(v, f, K, R, t, H, W):
+        t1 = time.perf_counter()
+        d = render(v, f, K, R, t, H, W)
+        renders.append(((np.asarray(R, np.float64).tobytes(),
+                         np.asarray(t, np.float64).tobytes()),
+                        time.perf_counter() - t1))
+        return d
+
+    def make_spy(*a, **kw):
+        fn = make(*a, **kw)
+
+        def timed(est, gt):
+            t1 = time.perf_counter()
+            e = fn(est, gt)
+            vsd_s[0] += time.perf_counter() - t1
+            return e
+
+        timed.render_cache_info = fn.render_cache_info
+        fns.append(timed)
+        return timed
+
+    rasterizer.render_mesh, bop_score.make_vsd_error_fn = render_spy, \
+        make_spy
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with PreprocessCalls() as calls:
+            res = port_main.main(["--config-file", config, "--eval-only",
+                                  "--opts", f'train.output_dir="{out}"'])
+    finally:
+        rasterizer.render_mesh, bop_score.make_vsd_error_fn = render, make
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    res = res["lm_mini_test"]
+    ar = res["bop19"]
+    check(set(ar) == {"AR_mssd", "AR_mspd", "AR_vsd", "AR"}
+          and 0.0 <= ar["AR_vsd"] <= 1.0
+          and abs(ar["AR"] - (ar["AR_vsd"] + ar["AR_mssd"]
+                              + ar["AR_mspd"]) / 3.0) <= 1e-12,
+          f"mini: BOP19 AR {ar}")
+    check(len(fns) == 1, f"mini: {len(fns)} VSD error functions")
+    info = fns[0].render_cache_info()
+    poses = [p for p, _ in renders]
+    targets = json.load(open(os.path.join(data, "lm",
+                                          "test_targets_mini.json")))
+    tset = {(x["scene_id"], x["im_id"], x["obj_id"]) for x in targets}
+    gt_poses = {(np.asarray(r["R"], np.float64).tobytes(),
+                 np.asarray(r["t"], np.float64).tobytes())
+                for r in build_split_records(get_split("lm_mini_test"))
+                if (r["scene_id"], r["im_id"], r["obj_id"]) in tset}
+    check(info.misses == len(renders) and len(set(poses)) == len(poses)
+          and gt_poses <= set(poses),
+          f"mini: {len(renders)} renders ({len(set(poses))} distinct), "
+          f"cache {info}, {len(gt_poses)} GT poses of targets")
+    check(launches.get("min_dist2", 0) == len(res["per_obj"])
+          and launches.get("roi_crop", 0) == calls.n > 0,
+          f"mini: launches {launches} for {len(res['per_obj'])} objects and "
+          f"{calls.n} batches")
+    render_ms = 1e3 * np.array([s for _, s in renders])
+    print(f"mini: mini full width bf16 main --eval-only on lm_mini_test "
+          f"({len(targets)} targets) in {wall:.2f} s; BOP19 {ar} (seeded "
+          f"weights); VSD on the host {vsd_s[0]:.3f} s: {len(renders)} "
+          f"renders of 480x640 ({len(gt_poses)} GT poses, each once), "
+          f"{np.median(render_ms):.3f} ms a render median, "
+          f"{render_ms.max():.3f} max, cache {info}; launches {launches} "
+          f"[{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3284,7 +3770,11 @@ def main(argv=None) -> int:
         [sys.executable, "-c", "import sys; from rdpn6d_tpu_torch.ops "
          f"import cuda_build; cuda_build.build({k!r})"], cwd=ROOT)
         for k in kernels]
-    for k, p in zip(kernels, procs):
+    # VSD's host rasterizer (host C++, not a kernel), beside them
+    host = subprocess.Popen(
+        [sys.executable, "-c", "from rdpn6d_tpu_torch.ops import "
+         "cuda_build; cuda_build.build_host('rasterizer')"], cwd=ROOT)
+    for k, p in zip(kernels + ["rasterizer"], procs + [host]):
         check(p.wait(timeout=900) == 0, f"build of {k} failed")
     for k in kernels:
         _, built = cuda_build.load(k)
@@ -3293,7 +3783,9 @@ def main(argv=None) -> int:
         print(f"build: {k} -> {os.path.relpath(built.path, ROOT)}; "
               + " | ".join(ptxas))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(kernels)} "
-          "kernel(s)")
+          "kernel(s) and the host rasterizer ("
+          f"{os.path.relpath(cuda_build.build_host('rasterizer').path, ROOT)}"
+          ")")
 
     # 2. kernel vs plain ------------------------------------------------------
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -3480,6 +3972,14 @@ def main(argv=None) -> int:
         # 13. data parallelism -------------------------------------------
         dist_launches = run_dist_ranks(dev, card, work)
         mh_launches = run_multihost_cli(dev, card, work)
+
+        # 14. the other configs and VSD ----------------------------------
+        os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data14")
+        t14 = time.perf_counter()
+        ycbv_launches = run_bop_ycbv(dev, card, work)
+        tless_launches, tless_err = run_bop_tless(dev, card, work)
+        mini_launches = run_mini_vsd(dev, card, work)
+        print(f"phase 14: {time.perf_counter() - t14:.1f} s [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3491,7 +3991,10 @@ def main(argv=None) -> int:
         + eval_launches.get("min_dist2", 0)
         + disk_launches.get("min_dist2", 0)
         + lmo_launches.get("min_dist2", 0)
-        + mh_launches.get("min_dist2", 0),
+        + mh_launches.get("min_dist2", 0)
+        + ycbv_launches.get("min_dist2", 0)
+        + tless_launches.get("min_dist2", 0)
+        + mini_launches.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}, {
@@ -3509,15 +4012,19 @@ def main(argv=None) -> int:
         + disk_launches.get("gt_labels", 0)
         + lmo_launches.get("gt_labels", 0)
         + dist_launches.get("gt_labels", 0)
-        + mh_launches.get("gt_labels", 0),
-        "max_abs_err": gt_err, **gt_times}, {
+        + mh_launches.get("gt_labels", 0)
+        + ycbv_launches.get("gt_labels", 0)
+        + tless_launches.get("gt_labels", 0),
+        "max_abs_err": max(gt_err, tless_err["gt_labels"]), **gt_times}, {
         "name": "surface_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/data/pipeline.py:222",
         "launches": label_launches["surface_labels"]
         + disk_launches.get("surface_labels", 0)
-        + lmo_launches.get("surface_labels", 0),
-        "max_abs_err": surface_err, **surface_times}, {
+        + lmo_launches.get("surface_labels", 0)
+        + ycbv_launches.get("surface_labels", 0),
+        "max_abs_err": max(surface_err, tless_err["surface_labels"]),
+        **surface_times}, {
         "name": "int8_conv", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
         "replaces": "rdpn6d_tpu/models/quant.py:42",
@@ -3541,7 +4048,10 @@ def main(argv=None) -> int:
         + eval_launches.get("roi_crop", 0)
         + disk_launches.get("roi_crop", 0)
         + lmo_launches.get("roi_crop", 0) + eval8.get("roi_crop", 0)
-        + dist_launches.get("roi_crop", 0) + mh_launches.get("roi_crop", 0),
+        + dist_launches.get("roi_crop", 0) + mh_launches.get("roi_crop", 0)
+        + ycbv_launches.get("roi_crop", 0)
+        + tless_launches.get("roi_crop", 0)
+        + mini_launches.get("roi_crop", 0),
         "max_abs_err": crop_err, **crop_times}], "card": card}
     print(card)
     print(json.dumps(result))
