@@ -420,14 +420,11 @@ def cube_faces(pts: np.ndarray) -> np.ndarray:
     return np.asarray(faces, np.int32)
 
 
-# a cube's 4-fold discrete symmetry about z, as ``symmetries_discrete``
-# stores it (row-major 4x4, translation in mm)
-CUBE_Z_SYMMETRIES = [
-    np.block([[np.array([[np.cos(a), -np.sin(a), 0.0],
-                         [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]]),
-               np.zeros((3, 1))], [np.zeros((1, 3)), np.ones((1, 1))]]
-             ).reshape(-1).round(12).tolist()
-    for a in (np.pi / 2, np.pi, 3 * np.pi / 2)]
+# a cube's 4-fold discrete symmetry about z (90, 180 and 270 degrees), as
+# ``symmetries_discrete`` stores it (row-major 4x4, translation in mm)
+CUBE_Z_SYMMETRIES = [[c, -s, 0.0, 0.0, s, c, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0,
+                      0.0, 0.0, 0.0, 1.0]
+                     for c, s in ((0.0, 1.0), (-1.0, 0.0), (0.0, -1.0))]
 
 
 def _write_models(ds: str, objs: dict[str, int], rng: np.random.RandomState,
@@ -618,11 +615,6 @@ BOP_TREES = {
 }
 
 
-def _cube_mesh(half: float) -> tuple[np.ndarray, np.ndarray]:
-    pts = cube_points(2, half)
-    return pts, cube_faces(pts)
-
-
 def _render_mesh_scene(rng: np.random.RandomState, K: np.ndarray, H: int,
                        W: int, insts: list[tuple[int, float]],
                        hidden: bool) -> list[dict]:
@@ -649,8 +641,8 @@ def _render_mesh_scene(rng: np.random.RandomState, K: np.ndarray, H: int,
         poses.append((oid, half, _rodrigues(rng.randn(3) * 0.8), t))
     out = []
     for oid, half, R, t in poses:
-        v, f = _cube_mesh(half)
-        depth, xyz = render_mesh(v, f, K, R, t, H, W)
+        corners = cube_points(2, half)
+        depth, xyz = render_mesh(corners, cube_faces(corners), K, R, t, H, W)
         out.append({"obj_id": oid, "R": R, "t": t, "depth": depth,
                     "xyz": xyz})
     stack = np.stack([np.where(o["depth"] > 0, o["depth"], np.inf)
@@ -680,7 +672,7 @@ def _write_targets(path: str, scene_id: int, frames: list[list[dict]],
 def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
                    train_frames: int = 2, pbr_frames: int = 2,
                    test_frames: int = 2, insts_per_frame: int = 4,
-                   seed: int = 0) -> dict[str, int]:
+                   seed: int = 0) -> None:
     """A BOP tree of ``dataset`` (ycbv, tless, tudl, hb or icbin) under
     ``root/<dataset>``: the dataset's frame size and camera (``data/refs``)
     and its splits' directories (``data/bop.py``), every frame
@@ -700,9 +692,7 @@ def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
     - the test scene (PNG, no crops) and, where the split scores BOP19,
       ``test_targets_bop19.json``; for ycbv ``image_sets/keyframe.txt``
       listing all test frames but the last, and ``image_sets/train.txt``
-      listing every real train frame.
-
-    Returns {obj_id: half side in m}."""
+      listing every real train frame."""
     from .refs import get_ref
 
     real, pbr, (test_sub, test_scene), has_targets, dscale = \
@@ -751,7 +741,6 @@ def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
     if has_targets:
         _write_targets(os.path.join(ds, "test_targets_bop19.json"),
                        test_scene, test, keyframes)
-    return halves
 
 
 MINI_OBJS = {"ape": 1, "can": 5, "driller": 8}

@@ -407,7 +407,7 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
 
 def _bop19_scores(ref: Any, records: list[dict], targets: list[dict],
                   evaluator: Any, eval_assets: Any,
-                  with_vsd: bool = False) -> dict[str, float]:
+                  with_vsd: bool) -> dict[str, float]:
     """MSSD/MSPD (and VSD) average recalls over the BOP19 target list.
     VSD renders the eval meshes' faces; a mesh without faces skips VSD
     with a warning, as the JAX package does."""

@@ -29,7 +29,6 @@ import torch
 
 import rdpn6d_tpu.data.refs as jrefs
 import rdpn6d_tpu_torch.data.refs as trefs
-from rdpn6d_tpu.config import Config as JConfig
 from rdpn6d_tpu.data.loader import load_train_records as j_records
 from rdpn6d_tpu.engine.eval_runner import run_eval as j_run_eval
 from rdpn6d_tpu.models import RDPN as JRDPN
@@ -263,7 +262,6 @@ def test_cli_trains_and_scores_tless_at_540x720(data_root, tmp_path,
     thresholds are scaled by 720 / 640, the BOP19 AR has AR_mssd, AR_mspd
     and their mean, and recomputing it from the written CSV and the tree
     gives the same numbers."""
-    from rdpn6d_tpu_torch.data.bop import build_split_records, get_split
     from rdpn6d_tpu_torch.data.refs import TLESS
     from rdpn6d_tpu_torch.evaluation import bop_score
 
@@ -295,34 +293,15 @@ def test_cli_trains_and_scores_tless_at_540x720(data_root, tmp_path,
     assert set(ar19) == {"AR_mssd", "AR_mspd", "AR"}
     assert ar19["AR"] == (ar19["AR_mssd"] + ar19["AR_mspd"]) / 2.0
 
-    # the same AR from the CSV and the tree, on the host
-    cfg = load_config(config_path("tless"), OPTS)
-    from rdpn6d_tpu_torch.data.assets import load_class_assets
+    # the same AR from the CSV and the tree, on the host, as the smoke's
+    # phase 14(b) recomputes it
+    from chip_smoke import host_ar
 
-    ident, R, t = read_csv(os.path.join(out, "tless_bop_test_bop19.csv"))
-    ests = [{"scene_id": int(s), "im_id": int(i), "obj_id": int(o),
-             "score": float(sc), "R": R[n], "t": t[n] / 1000.0}
-            for n, (s, i, o, sc) in enumerate(ident)]
-    recs = build_split_records(get_split("tless_bop_test"))
-    gts = {}
-    for r in recs:
-        gts.setdefault((r["scene_id"], r["im_id"]), []).append(
-            {"obj_id": r["obj_id"], "R": r["R"], "t": r["t"], "K": r["K"]})
     targets = json.load(open(os.path.join(root, "tless",
                                           "test_targets_bop19.json")))
-    objs = sorted({TLESS.id2obj[x["obj_id"]] for x in targets})
-    assets = load_class_assets(TLESS, cfg.head.num_regions,
-                               cfg.loss.num_pm_points, objs=objs,
-                               use_eval_models=True)
-
-    def bank(k):
-        return {o: assets.for_obj(o)[k] for o in assets.obj_ids}
-
-    again = ar(ests, gts, targets, bank("points"), bank("sym_rots"),
-               {o: float(assets.for_obj(o)["diameter"])
-                for o in assets.obj_ids}, im_width=TLESS.width,
-               sym_trans=bank("sym_trans"))
-    assert again == pytest.approx(ar19, abs=1e-9)
+    again = host_ar(root, out, "tless_bop_test", TLESS,
+                    load_config(config_path("tless"), OPTS), targets)
+    assert again == pytest.approx(ar19, abs=1e-12)
 
 
 def test_cli_trains_and_scores_tudl(data_root, tmp_path, monkeypatch):
