@@ -1,7 +1,7 @@
 """The port's evaluator and scoring against the JAX package on seeded poses:
 ``PoseEvaluator.compute_errors`` / ``evaluate`` / ``bop_rows``,
 ``format_table``, ``score.py``, ``dump_recall_curves``, ``mssd`` /
-``mspd`` and the BOP19 matching and average recalls.
+``mspd``, the BOP19 matching and average recalls and VSD's error fn.
 
 Tolerances: ADD / ADI / te within 1e-6 m and re within 1e-4 degrees
 (float32 on both sides: an ulp of the cosine moves a rotation error of
@@ -276,8 +276,24 @@ def test_bop19_scoring_matches_jax():
     j = jbs.bop19_average_recalls(*args, sym_trans=trans)
     assert t == j and set(t) == {"AR_mssd", "AR_mspd", "AR"}
     assert 0 < t["AR"] < 1
-    with pytest.raises(NotImplementedError, match="rasterizer"):
-        tbs.make_vsd_error_fn({}, None, {})
+    # VSD's error fn renders on the port's host rasterizer, the JAX
+    # package's on its own build: zero for the GT pose, within 1e-3 a tau
+    # of each other for the estimates (tests/test_torch_vsd.py states why)
+    from rdpn6d_tpu_torch.data.synthetic import cube_faces
+    from rdpn6d_tpu_torch.ops.rasterizer import render_mesh
+
+    v = np.array([[x, y, z] for x in (-0.05, 0.05) for y in (-0.05, 0.05)
+                  for z in (-0.05, 0.05)], np.float32)
+    mesh = {5: (v, cube_faces(v))}
+    depth, _ = render_mesh(*mesh[5], K, R_gt[0], t_gt[0], 480, 640)
+    fns = [m.make_vsd_error_fn(mesh, lambda s, i: depth, {5: 0.17})
+           for m in (tbs, jbs)]
+    gt = {"obj_id": 5, "R": R_gt[0], "t": t_gt[0], "K": K}
+    exact = {"scene_id": 1, "im_id": 0, "R": R_gt[0], "t": t_gt[0]}
+    assert fns[0](exact, gt).max() == 0.0
+    for e in [exact] + ests[:3]:
+        np.testing.assert_allclose(fns[0](e, gt), fns[1](e, gt), rtol=0,
+                                   atol=1e-3)
 
 
 def test_evaluator_runs_on_cuda_by_default(poses):
