@@ -207,11 +207,40 @@ Phases, each fatal on failure:
               each pose rendered once on the host (the render cache's
               misses, every target's GT pose among them), the VSD host
               seconds and ms a render.
+ 15. MP6D, ITODD and the flat path — (a) ``main`` on ``configs/mp6d.py``
+              at full width (20 classes, the "code" colour aug,
+              background replacement with truncation) one epoch over a
+              ``ycb_style`` tree written here (6 train and 3 test frames
+              of 8 cubes: ``-color``/``-depth``/``-label`` PNGs and
+              ``-meta.mat``; no xyz crops, so ``surface_labels`` once an
+              iteration), then ``main --eval-only`` on ``mp6d_test``
+              (AUCadd, AUCadi, AUCad asked with VSD; ``min_dist2`` once
+              an object); (b) ``roi_crop``, ``surface_labels`` and
+              ``gt_labels`` against their plain versions at ITODD's
+              960x1280 frames, as phase 14(b) holds them at 540x720, the
+              host decode ms of a 960x1280 gray TIFF, JPEG and PNG frame,
+              then ``main`` on ``configs/itodd.py`` (28 classes) one
+              epoch of PBR frames (scenes 0 and 49) and its eval of the
+              val scene read from gray TIFFs: every preprocessed frame
+              960x1280, the device cache's bytes a frame; (c) lm13 with
+              ``data.grouped_train=false``: the flat path's preprocessing
+              of 4 samples card vs CPU (crops bit-equal, masks equal) and
+              phase 7's step on each side's batch to phase 7's bounds,
+              ``gt_labels`` on a 24-sample flat batch's float32 visib,
+              trunc and xyz planes against its plain version and timed,
+              ``main`` one epoch from the flat loader (``gt_labels`` and
+              ``roi_crop`` once an iteration, no device cache), ``main
+              --eval-only --debug`` on its checkpoint (the masked coord L1
+              of lm_ape_test's 8 instances), and ``Predictor(ckpt_dir=...)``
+              serving phase 3's frames from that checkpoint: its weights
+              the trained model's, its poses (z moved to ~1 m, as phase 3
+              does) within phase 5's bounds of the trained model's.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12,
-each rank's steps and each ``main`` of phases 13 and 14) and read right
-after it. In phases 3, 6, 9, 10, 11, 12(c), 13 and 14 the batches the
+each rank's steps and each ``main`` of phases 13, 14 and 15, and phase
+15's served pass) and read right after it. In phases 3, 6, 9, 10, 11,
+12(c), 13, 14 and 15 the batches the
 entry points preprocess are counted too (``PreprocessCalls``), and
 ``roi_crop`` must have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
@@ -1304,14 +1333,15 @@ def run_train(dev, card, profile: bool, work: str):
     return launches
 
 
-def train_parity(dev, work):
+def train_parity(dev, work, batches=None, label="train parity"):
     """Phase 7: one float32 step on the card and on the CPU from the same
-    weights and the same (CPU-preprocessed) batch. Every loss within 1e-3
-    relative. ``grad_norm`` within 1e-3 relative or twice what the CPU's
-    own ``grad_norm`` moves when the input moves by 1e-6 relative, the
-    larger: at this seeded init the gradient is ill-conditioned (BatchNorm
-    on batch statistics of 4 ROIs), and a float32 reordering is a
-    perturbation of that size."""
+    weights and the same (CPU-preprocessed) batch, or each side's own of
+    ``batches`` ({"card", "cpu"}, preprocessed; phase 15(c)'s flat
+    batches). Every loss within 1e-3 relative. ``grad_norm`` within 1e-3
+    relative or twice what the CPU's own ``grad_norm`` moves when the
+    input moves by 1e-6 relative, the larger: at this seeded init the
+    gradient is ill-conditioned (BatchNorm on batch statistics of 4 ROIs),
+    and a float32 reordering is a perturbation of that size."""
     import torch
 
     from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
@@ -1320,20 +1350,23 @@ def train_parity(dev, work):
     from rdpn6d_tpu_torch.solver import build_schedule
 
     cfg = train_config(amp=False, out_dir=os.path.join(work, "phase7"))
-    frames, rois = train_inputs(cfg, 30, 2, 2)
-    batch = preprocess_rois_grouped(
-        cfg, {k: torch.from_numpy(v) for k, v in frames.items()},
-        {k: torch.from_numpy(v) for k, v in rois.items()}, train=True,
-        generator=torch.Generator().manual_seed(0))
+    if batches is None:
+        frames, rois = train_inputs(cfg, 30, 2, 2)
+        batch = preprocess_rois_grouped(
+            cfg, {k: torch.from_numpy(v) for k, v in frames.items()},
+            {k: torch.from_numpy(v) for k, v in rois.items()}, train=True,
+            generator=torch.Generator().manual_seed(0))
+        batches = {"card": batch, "cpu": batch}
     schedule = build_schedule(cfg, 1000)
     model = init_weights(RDPN(cfg), torch.Generator().manual_seed(1))
     cpu = torch.device("cpu")
     out = {}
-    for name, d, scale in (("card", dev, 1.0), ("cpu", cpu, 1.0),
-                           ("cpu_moved", cpu, 1.0 + 1e-6)):
+    for name, d, src, scale in (("card", dev, "card", 1.0),
+                                ("cpu", cpu, "cpu", 1.0),
+                                ("cpu_moved", cpu, "cpu", 1.0 + 1e-6)):
         m = copy.deepcopy(model).to(d)
         state = create_train_state(cfg, m, lr=schedule(0))
-        b = {k: v.to(d) for k, v in batch.items()}
+        b = {k: v.to(d) for k, v in batches[src].items()}
         b["roi_img"] = b["roi_img"] * scale
         _, metrics = make_train_step(cfg, schedule)(state, b)
         out[name] = {k: float(v) for k, v in metrics.items()}
@@ -1349,11 +1382,11 @@ def train_parity(dev, work):
         # float32 both sides, TF32 off; cuDNN and oneDNN sum in other
         # orders through ~40 layers and their backward passes
         tol = gn_tol if k == "grad_norm" else 1e-3
-        check(rel("card", k) <= tol, f"train parity: {k} card "
+        check(rel("card", k) <= tol, f"{label}: {k} card "
               f"{out['card'][k]:.6g} vs CPU {out['cpu'][k]:.6g} (tol {tol})")
         if k != "grad_norm":
             worst = max(worst, rel("card", k))
-    print(f"train parity: f32 step, 4 ROIs, card vs CPU: total_loss "
+    print(f"{label}: f32 step, 4 ROIs, card vs CPU: total_loss "
           f"{out['card']['total_loss']:.6f} vs {out['cpu']['total_loss']:.6f}"
           f"; max relative difference over {len(out['cpu']) - 1} losses "
           f"{worst:.3e} (tol 1e-3); grad_norm {out['card']['grad_norm']:.6f}"
@@ -3443,13 +3476,14 @@ def run_bop_ycbv(dev, card, work):
     return launches
 
 
-def labels_at_540x720(dev, card):
-    """Phase 14(b)'s kernel checks at T-LESS's 540x720 frames, as phase 2
-    holds them at 480x640: ``roi_crop`` bit-equal at the train shape (24
-    ROIs of 8 frames, raw depth, not normalised) and an eval batch (32
-    ROIs, normalised), ``surface_labels`` bit-equal and ``gt_labels``
-    (masks equal, ids away from near-ties, coords within 1e-5) at 24 ROIs
-    -> 64², K = 32. Returns each kernel's worst error."""
+def labels_at(dev, card, H, W):
+    """Phase 14(b)'s and 15(b)'s kernel checks at T-LESS's 540x720 and
+    ITODD's 960x1280 frames, as phase 2 holds them at 480x640:
+    ``roi_crop`` bit-equal at the train shape (24 ROIs of 8 frames, raw
+    depth, not normalised) and an eval batch (32 ROIs, normalised),
+    ``surface_labels`` bit-equal and ``gt_labels`` (masks equal, ids away
+    from near-ties, coords within 1e-5) at 24 ROIs -> 64², K = 32.
+    Returns each kernel's worst error."""
     import torch
 
     from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
@@ -3465,7 +3499,7 @@ def labels_at_540x720(dev, card):
     from rdpn6d_tpu_torch.ops.warp import crop_resize_frames
     from rdpn6d_tpu_torch.ops import cuda_build
 
-    H, W, o, K = 540, 720, GT_LABELS_OUT_RES, 32
+    o, K = GT_LABELS_OUT_RES, 32
     mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
     worst = {"roi_crop": 0.0, "gt_labels": 0.0, "surface_labels": 0.0}
     for B, F, normalize in ((TRAIN_ROIS, 8, False), (32, 8, True)):
@@ -3476,7 +3510,7 @@ def labels_at_540x720(dev, card):
         check(same_bits(got[0], ref[0]) and same_bits(got[1], ref[1]),
               f"roi_crop differs from plain at {B} ROIs of {F} {H}x{W}")
         iters, blocks = roi_crop_plan(B, 256, cuda_build.sm_count(None))
-        print(f"540x720: roi_crop {B} ROIs of {F} frames, raw depth, "
+        print(f"{H}x{W}: roi_crop {B} ROIs of {F} frames, raw depth, "
               f"normalize={normalize}: bit-equal to plain (plan {iters} "
               f"iterations x {blocks} blocks)")
     for masks in ("packed", "trunc"):
@@ -3507,7 +3541,7 @@ def labels_at_540x720(dev, card):
         err = float((got["roi_xyz"] - ref["roi_xyz"]).abs()[~differ].max())
         check(err <= 1e-5, f"gt_labels coords {err:.3e} at {H}x{W}")
         worst["gt_labels"] = max(worst["gt_labels"], err)
-        print(f"540x720: surface_labels and gt_labels {TRAIN_ROIS} ROIs "
+        print(f"{H}x{W}: surface_labels and gt_labels {TRAIN_ROIS} ROIs "
               f"->{o} K={K} {masks} masks: masks and ids equal to plain "
               f"(gt_labels ids: {int(differ.sum())} px at near-ties), coord "
               f"max_abs_err {err:.3e}")
@@ -3554,7 +3588,7 @@ def run_bop_tless(dev, card, work):
     from rdpn6d_tpu_torch.data.synthetic import write_bop_tree
     from rdpn6d_tpu_torch.evaluation import bop_score
 
-    worst = labels_at_540x720(dev, card)
+    worst = labels_at(dev, card, 540, 720)
     data = os.environ["RDPN6D_DATA_ROOT"]
     objs = {o: TLESS.obj2id[o] for o in TLESS.objects[:BOP_INSTS]}
     t0 = time.perf_counter()
@@ -3732,6 +3766,425 @@ def run_mini_vsd(dev, card, work):
           f"{render_ms.max():.3f} max, cache {info}; launches {launches} "
           f"[{card}]")
     return launches
+
+
+# phase 15: MP6D's ycb_style records, ITODD's TIFF frames, the flat path -----
+
+MP6D_TRAIN_FRAMES = 6        # x 8 cubes: 48 records, 2 iterations
+MP6D_TEST_FRAMES = 3
+ITODD_PBR_FRAMES = 3         # in each of PBR scenes 0 and 49 (scene 0's
+                             # first a JPEG, the rest PNG), 8 cubes and a
+                             # hidden ninth: 54 records, 2 iterations
+ITODD_VAL_FRAMES = 2         # gray TIFF (LZW, horizontal predictor)
+FLAT_PARITY_ROIS = 4         # phase 15(c)'s card-vs-CPU step, as phase 7's
+
+
+def train_and_score(config, out, opts, pool, label, iters):
+    """``train_bop`` with phase 15's checks of a train run: the step, the
+    metrics lines, the preprocessed batches (``roi_crop`` once each);
+    returns train_bop's results."""
+    got = train_bop(config, out, opts, pool)
+    state, launches, calls, rec = got[:4]
+    check(state.step == iters and len(rec["stamps"]) == iters,
+          f"{label}: {len(rec['stamps'])} iterations to step {state.step}, "
+          f"expected {iters}")
+    check_train_lines(out, iters, label)
+    check(launches.get("roi_crop", 0) == calls.n >= iters,
+          f"{label}: roi_crop launched {launches.get('roi_crop', 0)} times "
+          f"for {calls.n} preprocessed batches")
+    return got
+
+
+def eval_only(config, out, opts, split, debug=False):
+    """``main --eval-only`` (``--debug``) with launches zeroed right
+    before; returns (the split's result, launches, batches, wall s)."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with PreprocessCalls() as calls:
+        res = port_main.main(["--config-file", config, "--eval-only"]
+                             + ["--debug"] * debug
+                             + ["--opts", *opts, f'train.output_dir="{out}"'])
+    torch.cuda.synchronize()
+    return (res[split], dict(cuda_build.LAUNCHES), calls.n,
+            time.perf_counter() - t0)
+
+
+def check_scores(res, columns, label):
+    for row in [*res["per_obj"].values(), res["mean"]]:
+        for k in columns:
+            check(k in row and bool(np.isfinite(row[k])),
+                  f"{label}: column {k} missing or non-finite")
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def run_mp6d(dev, card, work):
+    """Phase 15(a): ``main`` trains ``configs/mp6d.py`` at full width (20
+    classes) one epoch on a ``ycb_style`` tree written under the data root
+    (no xyz crops: labels from the depth surface under the label image's
+    masks), then ``main --eval-only`` scores ``mp6d_test`` with
+    AUCadd, AUCadi, AUCad and VSD asked for; returns the launches."""
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data.loader import load_train_records
+    from rdpn6d_tpu_torch.data.refs import MP6D
+    from rdpn6d_tpu_torch.data.synthetic import write_mp6d_tree
+
+    data = os.environ["RDPN6D_DATA_ROOT"]
+    objs = {o: MP6D.obj2id[o] for o in MP6D.objects[:BOP_INSTS]}
+    t0 = time.perf_counter()
+    write_mp6d_tree(data, objs, MP6D_TRAIN_FRAMES, MP6D_TEST_FRAMES,
+                    BOP_INSTS, seed=18)
+    print(f"mp6d: wrote a ycb_style MP6D tree ({MP6D_TRAIN_FRAMES} train "
+          f"and {MP6D_TEST_FRAMES} test frames of {BOP_INSTS} occluding "
+          f"cubes, -meta.mat by scipy, 20 models) in "
+          f"{time.perf_counter() - t0:.1f} s (host, set-up)")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "mp6d.py")
+    out = os.path.join(work, "mp6d")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1",
+            "solver.total_epochs=1", "train.eval_period=0"]
+    cfg = load_config(config, opts)
+    check(cfg.head.num_classes == 20 and cfg.backbone.depth == 34
+          and cfg.head.num_regions == 32 and cfg.data.change_bg_prob == 0.5
+          and cfg.data.truncate_fg and cfg.data.color_aug_prob == 0.8
+          and cfg.test.error_types == "AUCadd,AUCadi,AUCad,vsd"
+          and cfg.solver.ims_per_batch == TRAIN_ROIS,
+          "phase 15(a) does not run mp6d's own settings")
+    records = load_train_records(cfg, list(cfg.data.train_datasets))
+    check(all(r["label_path"].endswith("-label.png") for r in records),
+          "mp6d: records without their label image")
+    iters = len(records) // TRAIN_ROIS
+    state, launches, calls, rec, _, wall = train_and_score(
+        config, out, opts, os.path.join(work, "VOC"), "mp6d", iters)
+    check(launches.get("surface_labels", 0) == iters
+          and launches.get("gt_labels", 0) == 0,
+          f"mp6d: label launches {launches} in {iters} iterations")
+    step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+    print(f"mp6d: mp6d full width bf16 autocast (20 classes, label-image "
+          f"masks, depth-surface labels), {len(records)} records, {iters} "
+          f"iterations in {wall:.2f} s of main; ms/step median "
+          f"{np.median(step_ms):.2f}; launches {launches} [{card}]")
+    res, elaunch, batches, wall = eval_only(config, out, opts, "mp6d_test")
+    check_scores(res, ("AUCadd", "AUCadi", "AUCad", "ad_10"), "mp6d")
+    check(elaunch.get("min_dist2", 0) == len(res["per_obj"]) > 0
+          and elaunch.get("roi_crop", 0) == batches > 0,
+          f"mp6d eval: launches {elaunch} for {len(res['per_obj'])} "
+          f"objects and {batches} batches")
+    ident, R, t = read_csv(os.path.join(out, "mp6d_test_bop19.csv"))
+    check(len(ident) == res["stats"]["n_rois"] > 0
+          and bool(np.isfinite(R).all() and np.isfinite(t).all()),
+          f"mp6d eval: {len(ident)} CSV rows for {res['stats']['n_rois']} "
+          "ROIs")
+    m = res["mean"]
+    print(f"mp6d: main --eval-only on mp6d_test ({len(ident)} ROIs) in "
+          f"{wall:.2f} s; MEAN AUCadd {m['AUCadd']:.2f} AUCadi "
+          f"{m['AUCadi']:.2f} AUCad {m['AUCad']:.2f} (seeded weights; no "
+          f"BOP19 targets, so no VSD AR); launches {elaunch} [{card}]")
+    add_launches(launches, elaunch)
+    return launches
+
+
+def decode_ms(paths) -> float:
+    """Median host ms of the port's ``imread_rgb`` over ``paths``."""
+    from rdpn6d_tpu_torch.data.image import imread_rgb
+
+    times = []
+    for p in paths:
+        t0 = time.perf_counter()
+        imread_rgb(p)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def run_itodd(dev, card, work):
+    """Phase 15(b): the kernels at ITODD's 960x1280 frames, then ``main``
+    trains ``configs/itodd.py`` at full width (28 classes) one epoch on
+    PBR frames and evaluates the val scene read from gray TIFFs; returns
+    (launches, each kernel's worst error at 960x1280)."""
+    import glob
+
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.data.loader import load_train_records
+    from rdpn6d_tpu_torch.data.refs import ITODD
+    from rdpn6d_tpu_torch.data.synthetic import write_bop_tree
+
+    worst = labels_at(dev, card, 960, 1280)
+    data = os.environ["RDPN6D_DATA_ROOT"]
+    objs = {o: ITODD.obj2id[o] for o in ITODD.objects[:BOP_INSTS]}
+    t0 = time.perf_counter()
+    write_bop_tree(data, "itodd", objs, 0, ITODD_PBR_FRAMES,
+                   ITODD_VAL_FRAMES, BOP_INSTS, seed=19)
+    ds = os.path.join(data, "itodd")
+    tifs = sorted(glob.glob(os.path.join(ds, "val", "*", "gray", "*.tif")))
+    jpgs = sorted(glob.glob(os.path.join(ds, "train_pbr", "*", "rgb",
+                                         "*.jpg")))
+    pngs = sorted(glob.glob(os.path.join(ds, "train_pbr", "*", "rgb",
+                                         "*.png")))
+    print(f"itodd: wrote an ITODD tree (PBR scenes 0 and 49 of "
+          f"{ITODD_PBR_FRAMES} 960x1280 frames, {len(jpgs)} JPEG and "
+          f"{len(pngs)} PNG; {len(tifs)} gray TIFF val frames; 28 models) "
+          f"in {time.perf_counter() - t0:.1f} s (host, set-up)")
+    check(len(tifs) == ITODD_VAL_FRAMES and len(jpgs) == 1 and pngs,
+          f"itodd: {len(tifs)} TIFF, {len(jpgs)} JPEG, {len(pngs)} PNG")
+    tif_ms, jpg_ms, png_ms = decode_ms(tifs), decode_ms(jpgs), \
+        decode_ms(pngs)
+    print(f"itodd: host decode of a 960x1280 frame, median: gray TIFF (LZW "
+          f"+ predictor) {tif_ms:.2f} ms, JPEG {jpg_ms:.2f} ms, PNG "
+          f"{png_ms:.2f} ms (one thread) [{card}]")
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "itodd.py")
+    out = os.path.join(work, "itodd")
+    opts = ["train.log_period=1", "train.checkpoint_period_epochs=1e9",
+            "solver.total_epochs=1"]
+    cfg = load_config(config, opts)
+    check(cfg.head.num_classes == 28 and cfg.backbone.depth == 34
+          and cfg.loss.pm_loss_sym and "adi" in cfg.test.error_types
+          and cfg.data.train_datasets == ("itodd_pbr_train",),
+          "phase 15(b) does not run itodd's own settings")
+    iters = len(load_train_records(cfg, ["itodd_pbr_train"])) // TRAIN_ROIS
+    opts.append(f"train.eval_period={iters}")
+    state, launches, calls, rec, results, wall = train_and_score(
+        config, out, opts, os.path.join(work, "VOC"), "itodd", iters)
+    check(calls.sizes == {(960, 1280)}, f"itodd: frames of {calls.sizes}")
+    check(launches.get("surface_labels", 0) == iters
+          and launches.get("gt_labels", 0) == 0,
+          f"itodd: label launches {launches} in {iters} iterations")
+    cache = rec["cache"]
+    per_frame = 960 * 1280 * 5         # uint8 RGB and 16-bit raw depth
+    check(cache is not None and len(cache) > 0
+          and 0 <= cache.resident_bytes - len(cache) * per_frame
+          < 256 * len(cache),
+          f"itodd: device cache {cache.resident_bytes if cache else 0} B "
+          f"for {len(cache) if cache else 0} frames of 960x1280")
+    check(len(results) == 1, f"itodd: {len(results)} evals")
+    res = results[0]
+    check_scores(res, ("ad_10", "adi_10", "AUCad", "re_2", "te_2"), "itodd")
+    check(launches.get("min_dist2", 0) == len(res["per_obj"]) > 0,
+          f"itodd: min_dist2 launched {launches.get('min_dist2', 0)} times "
+          f"for {len(res['per_obj'])} objects")
+    step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+    wait_ms = 1e3 * np.asarray(rec["waits"])
+    print(f"itodd: itodd full width bf16 autocast at 960x1280 (28 classes), "
+          f"{iters} PBR iterations and the eval of {res['stats']['n_rois']} "
+          f"val ROIs from gray TIFFs in {wall:.2f} s of main; ms/step "
+          f"median {np.median(step_ms):.2f}, loader wait ms/step median "
+          f"{np.median(wait_ms):.2f}; device cache {len(cache)} frames, "
+          f"{cache.resident_bytes} B, "
+          f"{cache.resident_bytes / len(cache):.0f} B a frame; launches "
+          f"{launches} [{card}]")
+    return launches, worst
+
+
+def flat_config(amp: bool, out_dir: str, *extra):
+    """lm13 at full width (``train_config``) on the flat path."""
+    return train_config(amp, out_dir).apply_opts(
+        ["data.grouped_train=false", *extra])
+
+
+def flat_samples(cfg, n: int, seed: int) -> dict:
+    """The flat loader's first batch of ``n`` samples of lm13's train
+    splits (phases 9 and 10's trees)."""
+    from rdpn6d_tpu_torch.data.loader import train_frame_iterator
+
+    it = train_frame_iterator(cfg, list(cfg.data.train_datasets),
+                              batch_size=n, seed=seed)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def flat_card_vs_cpu(dev, card, work):
+    """Phase 15(c)'s first half: (i) the flat path's preprocessing
+    (``preprocess_batch``, train mode, the test-time box) of 4 samples on
+    the card and on the CPU, the crops bit-equal, the masks equal, ids
+    away from near-ties and coordinates within 1e-5, then phase 7's step
+    on each side's batch, to phase 7's bounds; (ii) ``gt_labels`` on a
+    24-sample flat batch's float32 visib and trunc planes and float32
+    full-frame xyz against its plain version, and its time there. Returns
+    the worst coord error."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_batch
+    from rdpn6d_tpu_torch.ops.gt_labels import gt_labels, gt_labels_plain
+    from rdpn6d_tpu_torch.ops.warp import crop_resize_frames
+
+    cfg = flat_config(False, os.path.join(work, "flat_parity"),
+                      'data.dzi_type="none"', "data.color_aug_prob=0.0",
+                      "data.change_bg_prob=0.0")
+    samples = flat_samples(cfg, FLAT_PARITY_ROIS, seed=20)
+    batches = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        b = preprocess_batch(cfg, {k: torch.from_numpy(v).to(d)
+                                   for k, v in samples.items()}, train=True)
+        batches[name] = {k: v.to("cpu") for k, v in b.items()}
+    c, p = batches["card"], batches["cpu"]
+    check(same_bits(c["roi_img"], p["roi_img"])
+          and same_bits(c["roi_coord_2d"], p["roi_coord_2d"]),
+          "flat: roi_crop card vs CPU not bit-equal")
+    for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+        check(torch.equal(c[k], p[k]), f"flat: {k} card vs CPU")
+    differ = c["roi_region"] != p["roi_region"]
+    check(float(differ.float().mean()) <= 1e-3,
+          f"flat: region ids differ at {int(differ.sum())} px")
+    err = float((c["roi_xyz"] - p["roi_xyz"]).abs()[~differ].max())
+    check(err <= 1e-5, f"flat: coords card vs CPU {err:.3e}")
+    print(f"flat: preprocess_batch of {FLAT_PARITY_ROIS} flat samples card "
+          f"vs CPU: crops bit-equal, masks equal, ids differ at "
+          f"{int(differ.sum())} px, coords max_abs_err {err:.3e}")
+    train_parity(dev, work, batches={"card": c, "cpu": p},
+                 label="flat train parity")
+
+    cfg = flat_config(True, os.path.join(work, "flat_labels"),
+                      'data.dzi_type="none"')
+    s = flat_samples(cfg, TRAIN_ROIS, seed=21)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in s.items()}
+    from rdpn6d_tpu_torch.data.pipeline import dzi_jitter
+
+    center, scale = dzi_jitter(t["bbox"], (480, 640), "none",
+                               cfg.data.dzi_pad_scale)
+    o = GT_LABELS_OUT_RES
+    inp = [t["mask_visib"], t["mask_trunc"], t["xyz"], center, scale,
+           t["fps"], t["gt_rot"], t["extent"]]
+    check(all(x.dtype == torch.float32 for x in inp[:3]),
+          f"flat: the planes are {[x.dtype for x in inp[:3]]}")
+    got = gt_labels(*inp, o)
+    ref = gt_labels_plain(*inp, o)
+    torch.cuda.synchronize()
+    for k in ("roi_mask_visib", "roi_mask_obj", "roi_mask_trunc"):
+        check(torch.equal(got[k], ref[k]), f"flat: gt_labels {k} differs")
+    xyz_c = crop_resize_frames(inp[2], torch.arange(TRAIN_ROIS, device=dev),
+                               center, scale, o, interp="nearest")
+    differ = got["roi_region"] != ref["roi_region"]
+    check(not bool((differ & ~near_ties(xyz_c, inp[5])).any()),
+          "flat: gt_labels ids disagree away from ties")
+    lerr = float((got["roi_xyz"] - ref["roi_xyz"]).abs()[~differ].max())
+    check(lerr <= 1e-5, f"flat: gt_labels coords {lerr:.3e}")
+    ms = device_ms(lambda: gt_labels(*inp, o), iters=100)
+    # CUDA events: the profiler drops records of the plain version's
+    # larger kernels here (PR 5 saw it drop a 2.3 ms kernel)
+    plain_ms = cuda_ms(lambda: gt_labels_plain(*inp, o), iters=5, warmup=1)
+    pixels = TRAIN_ROIS * o * o
+    # per output pixel its taps of two float32 masks and float32 xyz in,
+    # 3 float32 masks, region and coord out
+    bytes_ms = 1e3 * pixels * (4 + 4 + 12 + 3 * 4 + 4 + 12) \
+        / HBM_BYTES_PER_S
+    print(f"flat: gt_labels on the flat batch's float32 planes "
+          f"({TRAIN_ROIS}x480x640 visib, trunc and xyz ->{o}, K=32): masks "
+          f"equal to plain, ids differ at {int(differ.sum())} px (near-ties)"
+          f", coord max_abs_err {lerr:.3e}; kernel {ms:.5f} ms device time, "
+          f"plain {plain_ms:.4f} ms by CUDA events, bytes bound "
+          f"{bytes_ms:.5f} ms [{card}]")
+    return max(err, lerr)
+
+
+def run_flat(dev, card, work, frames):
+    """Phase 15(c): lm13 with ``data.grouped_train=false`` through
+    ``main`` on phases 9 and 10's trees (one epoch from the flat loader,
+    a checkpoint), ``main --eval-only --debug`` on that checkpoint, and
+    ``Predictor(ckpt_dir=...)`` serving phase 3's frames from it; returns
+    (launches, worst coord error of the checks)."""
+    import torch
+
+    from rdpn6d_tpu_torch.config import load_config
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.engine.predictor import Predictor
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
+    worst = flat_card_vs_cpu(dev, card, work)
+    config = os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py")
+    out = os.path.join(work, "flat")
+    opts = ["data.grouped_train=false", "train.log_period=1",
+            "train.checkpoint_period_epochs=1", "solver.total_epochs=1",
+            "train.eval_period=0"]
+    cfg = load_config(config, opts)
+    check(not cfg.data.grouped_train and cfg.solver.amp
+          and cfg.solver.ims_per_batch == TRAIN_ROIS,
+          "phase 15(c) does not run lm13's flat settings")
+    state, launches, calls, rec, _, wall = train_and_score(
+        config, out, opts, os.path.join(work, "VOC"), "flat",
+        ITERS_PER_EPOCH)
+    check(rec["cache"] is None, "flat: a device frame cache on the flat path")
+    check(launches.get("gt_labels", 0) == ITERS_PER_EPOCH
+          and launches.get("surface_labels", 0) == 0,
+          f"flat: label launches {launches}")
+    check(calls.sizes == {(480, 640)}, f"flat: frames of {calls.sizes}")
+    step_ms = 1e3 * np.diff([rec["t0"]] + rec["stamps"])
+    wait_ms = 1e3 * np.asarray(rec["waits"])
+    print(f"flat: lm13 full width bf16 autocast on the flat path "
+          f"(data.grouped_train=false, {TRAIN_ROIS} full float32 frames a "
+          f"step, no device cache): {ITERS_PER_EPOCH} iterations in "
+          f"{wall:.2f} s of main; ms/step median {np.median(step_ms):.2f}, "
+          f"loader wait ms/step median {np.median(wait_ms):.2f}; launches "
+          f"{launches} [{card}]")
+    # one object's test split: the debug eval decodes on one host thread
+    res, dlaunch, batches, dwall = eval_only(
+        config, out, opts + ['data.test_datasets=["lm_ape_test"]'],
+        "lm_ape_test", debug=True)
+    n_test = EVAL_FRAMES_PER_OBJ
+    check(res["n"] == n_test and bool(np.isfinite(res["coord_l1"])),
+          f"flat: --debug scored {res['n']} of {n_test}, L1 "
+          f"{res['coord_l1']}")
+    check(dlaunch.get("roi_crop", 0) == dlaunch.get("gt_labels", 0)
+          == batches == -(-n_test // 16),
+          f"flat: --debug launches {dlaunch} for {batches} batches")
+    print(f"flat: main --eval-only --debug on lm_ape_test: masked coord L1 "
+          f"{res['coord_l1']:.5f} over {res['n']} instances in {dwall:.2f} "
+          f"s; launches {dlaunch} [{card}]")
+    add_launches(launches, dlaunch)
+
+    cfg = lm13.get_config().apply_opts(['head.init="fan_in"'])
+    assets = lm_assets(cfg.head.num_regions, 4096, seed=1)
+    served = Predictor(cfg, assets, ckpt_dir=os.path.join(out, "ckpt"),
+                       batch_size=16, dtype=torch.float32, device="cuda")
+    trained = state.model.state_dict()
+    check(all(torch.equal(v, trained[k].float())
+              for k, v in served.model.state_dict().items()),
+          "flat: Predictor(ckpt_dir) holds other weights than the trained "
+          "model's")
+    ref = Predictor(cfg, assets, batch_size=16, dtype=torch.float32,
+                    device="cuda", allow_random_init=True)
+    ref.model.load_state_dict(trained)
+    # 6 steps from a seeded init leave objects millimetres away, where t's
+    # relative error means nothing: both at ~1 m, as phase 5 compares
+    physical_z(served)
+    physical_z(ref)
+    cuda_build.reset_launches()
+    with PreprocessCalls() as pcalls:
+        outs, secs = serve(served, frames)
+    plaunch = dict(cuda_build.LAUNCHES)
+    ref_outs, _ = serve(ref, frames)
+    flat_out = [r for o in outs for r in o]
+    flat_ref = [r for o in ref_outs for r in o]
+    n_det = sum(len(f[2]) for f in frames)
+    dR = max(float(np.abs(a["R"] - b["R"]).max())
+             for a, b in zip(flat_out, flat_ref))
+    dt = max(float(np.abs(a["t"] - b["t"]).max() / np.abs(b["t"]).max())
+             for a, b in zip(flat_out, flat_ref))
+    # the same weights on the same card, but not bit for bit (run C:
+    # |dR| 2.6e-06): the bound is phase 5's
+    check(len(flat_out) == n_det == len(flat_ref) and dR <= 1e-3
+          and dt <= 1e-3, f"flat: Predictor(ckpt_dir) poses differ from "
+          f"the trained model's: max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e}")
+    check(plaunch.get("roi_crop", 0) == pcalls.n > 0,
+          f"flat: Predictor launches {plaunch} for {pcalls.n} batches")
+    print(f"flat: Predictor(ckpt_dir=...) served {n_det} poses of "
+          f"{len(frames)} frames from main's checkpoint in "
+          f"{secs * 1e3:.1f} ms (f32), its weights the trained model's, "
+          f"tensor for tensor; poses (z moved to ~1 m on both) against the "
+          f"trained model's on the card: max |dR| {dR:.3e}, max |dt|/|t| "
+          f"{dt:.3e}; launches "
+          f"{plaunch} [{card}]")
+    add_launches(launches, plaunch)
+    return launches, worst
 
 
 def main(argv=None) -> int:
@@ -3980,6 +4433,14 @@ def main(argv=None) -> int:
         tless_launches, tless_err = run_bop_tless(dev, card, work)
         mini_launches = run_mini_vsd(dev, card, work)
         print(f"phase 14: {time.perf_counter() - t14:.1f} s [{card}]")
+
+        # 15. MP6D, ITODD and the flat path -------------------------------
+        os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data15")
+        t15 = time.perf_counter()
+        mp6d_launches = run_mp6d(dev, card, work)
+        itodd_launches, itodd_err = run_itodd(dev, card, work)
+        flat_launches, flat_err = run_flat(dev, card, work, frames)
+        print(f"phase 15: {time.perf_counter() - t15:.1f} s [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3994,7 +4455,10 @@ def main(argv=None) -> int:
         + mh_launches.get("min_dist2", 0)
         + ycbv_launches.get("min_dist2", 0)
         + tless_launches.get("min_dist2", 0)
-        + mini_launches.get("min_dist2", 0),
+        + mini_launches.get("min_dist2", 0)
+        + mp6d_launches.get("min_dist2", 0)
+        + itodd_launches.get("min_dist2", 0)
+        + flat_launches.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}, {
@@ -4014,16 +4478,24 @@ def main(argv=None) -> int:
         + dist_launches.get("gt_labels", 0)
         + mh_launches.get("gt_labels", 0)
         + ycbv_launches.get("gt_labels", 0)
-        + tless_launches.get("gt_labels", 0),
-        "max_abs_err": max(gt_err, tless_err["gt_labels"]), **gt_times}, {
+        + tless_launches.get("gt_labels", 0)
+        + mp6d_launches.get("gt_labels", 0)
+        + itodd_launches.get("gt_labels", 0)
+        + flat_launches.get("gt_labels", 0),
+        "max_abs_err": max(gt_err, tless_err["gt_labels"],
+                           itodd_err["gt_labels"], flat_err),
+        **gt_times}, {
         "name": "surface_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/data/pipeline.py:222",
         "launches": label_launches["surface_labels"]
         + disk_launches.get("surface_labels", 0)
         + lmo_launches.get("surface_labels", 0)
-        + ycbv_launches.get("surface_labels", 0),
-        "max_abs_err": max(surface_err, tless_err["surface_labels"]),
+        + ycbv_launches.get("surface_labels", 0)
+        + mp6d_launches.get("surface_labels", 0)
+        + itodd_launches.get("surface_labels", 0),
+        "max_abs_err": max(surface_err, tless_err["surface_labels"],
+                           itodd_err["surface_labels"]),
         **surface_times}, {
         "name": "int8_conv", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
@@ -4051,7 +4523,10 @@ def main(argv=None) -> int:
         + dist_launches.get("roi_crop", 0) + mh_launches.get("roi_crop", 0)
         + ycbv_launches.get("roi_crop", 0)
         + tless_launches.get("roi_crop", 0)
-        + mini_launches.get("roi_crop", 0),
+        + mini_launches.get("roi_crop", 0)
+        + mp6d_launches.get("roi_crop", 0)
+        + itodd_launches.get("roi_crop", 0)
+        + flat_launches.get("roi_crop", 0),
         "max_abs_err": crop_err, **crop_times}], "card": card}
     print(card)
     print(json.dumps(result))

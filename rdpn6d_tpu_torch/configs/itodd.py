@@ -2,9 +2,10 @@
 
 The port's own copy of the JAX package's ``configs/itodd.py`` opts (BOP
 withholds the test GT, so ``itodd_bop_test`` is the val scene; symmetric
-PM loss, 40 epochs), with ``backbone.rot_concat`` on. It loads, but
-ITODD's frames are gray TIF files, which the port does not read yet
-(``data/image.py`` refuses them: ROADMAP queue 1 item 10).
+PM loss, 40 epochs), with ``backbone.rot_concat`` on. ITODD's val frames
+are gray TIFF files (``gray/*.tif``), read by ``data/tif.py`` as OpenCV
+reads them in colour; its 960x1280 frames are the largest of the
+configs.
 """
 
 from rdpn6d_tpu_torch.config import Config

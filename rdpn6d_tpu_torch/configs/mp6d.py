@@ -3,10 +3,10 @@
 The port's own copy of the JAX package's ``configs/mp6d.py`` opts
 (reference configs/gdrn/mp6d/a.py: 25 epochs, the "code" colour aug,
 truncated foregrounds with background replacement at 0.5, the ADD(-S) AUC
-columns and VSD), with ``backbone.rot_concat`` on. It loads, but MP6D's
-``ycb_style`` records are not read yet (``data/bop.py`` refuses them:
-ROADMAP queue 1 item 10). The published MP6D table trains one model an
-object: ``configs/so.py:mp6d/<obj>``.
+columns and VSD), with ``backbone.rot_concat`` on. MP6D's ``ycb_style``
+records (``-color``/``-depth``/``-label`` PNGs and ``-meta.mat``) are built
+by ``data/bop.py``. The published MP6D table trains one model an object:
+``configs/so.py:mp6d/<obj>``.
 """
 
 from rdpn6d_tpu_torch.config import Config

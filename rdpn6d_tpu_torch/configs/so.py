@@ -17,8 +17,7 @@ Splits per family, as the reference SO configs have them:
   itodd/icbin/hb  PBR-only train, the last two PBR scenes held out as the
          validation split
 Splits are resolved through the port's ``data/bop`` registry and objects
-through ``data/refs``. MP6D's ``ycb_style`` records and ITODD's TIF
-frames are not read yet (ROADMAP queue 1 item 10).
+through ``data/refs``.
 """
 
 from __future__ import annotations

@@ -3,14 +3,17 @@
 The port's own copy of ``rdpn6d_tpu/data/bop.py``: a split is a ``Split``
 dataclass, built into a list of plain dicts by ``build_split_records``
 (cached as a pickle keyed by the split and the dataset root), registered
-by name in the same default registry. The BOP and ``imgn`` (lm_imgn's
-synthetic renders) layouts are ported; the ``ycb_style`` (MP6D) and
-``blender`` record builders raise.
+by name in the same default registry. Four layouts: BOP scenes,
+``ycb_style`` (MP6D: ``-color``/``-depth``/``-label`` PNGs and a
+``-meta.mat`` a frame, read with ``scipy.io.loadmat``), ``imgn`` (lm_imgn's
+synthetic renders) and ``blender`` (the BB8 renders of LineMOD).
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
+import json
 import logging
 import os
 import pickle
@@ -61,7 +64,9 @@ def _scene_dir(ref: DatasetRef, subdir: str, scene_id: int) -> str:
     return os.path.join(ref.root, subdir, f"{scene_id:06d}")
 
 
-def _rgb_path(sdir: str, im_id: int) -> str:
+def _rgb_path(ref: DatasetRef, sdir: str, im_id: int) -> str:
+    if ref.layout == "ycb_style":
+        return os.path.join(sdir, f"{im_id:06d}-color.png")
     for sub, ext in (("rgb", "png"), ("rgb", "jpg"), ("gray", "tif")):
         p = os.path.join(sdir, sub, f"{im_id:06d}.{ext}")
         if os.path.exists(p):
@@ -69,7 +74,9 @@ def _rgb_path(sdir: str, im_id: int) -> str:
     return os.path.join(sdir, "rgb", f"{im_id:06d}.png")
 
 
-def _depth_path(sdir: str, im_id: int) -> str:
+def _depth_path(ref: DatasetRef, sdir: str, im_id: int) -> str:
+    if ref.layout == "ycb_style":
+        return os.path.join(sdir, f"{im_id:06d}-depth.png")
     return os.path.join(sdir, "depth", f"{im_id:06d}.png")
 
 
@@ -136,6 +143,110 @@ def _scene_plan(split: Split,
     return [(sid, None, None) for sid in split.scene_ids]
 
 
+def _ycb_style_plan(split: Split,
+                    ref: DatasetRef) -> list[tuple[str, int, int | None]]:
+    """(base path without suffix, scene_id, im_id) of each frame.
+
+    With ``index_file``: lines ``data/0000/000000`` (real scenes) and
+    ``data_syn_1/000000`` / ``data_syn_2/000000`` (the flat synthetic
+    dirs, scene ids 78 and 79). Without: every ``-color.png`` of every
+    ``split.scene_ids`` dir, sorted.
+    """
+    if split.index_file:
+        idx = os.path.join(ref.root, split.index_file)
+        if not os.path.exists(idx):
+            logger.warning(
+                f"{split.name}: declared index_file {idx} is missing — "
+                f"falling back to ALL images of scenes {split.scene_ids}; "
+                f"results will NOT follow the benchmark protocol")
+        else:
+            plan = []
+            for ln in _read_index_lines(idx):
+                parts = ln.split("/")
+                if parts[0] == "data":
+                    scene_id, im_id = int(parts[1]), int(parts[2])
+                    base = os.path.join(ref.root, "data",
+                                        f"{scene_id:04d}", f"{im_id:06d}")
+                elif parts[0] in ("data_syn_1", "data_syn_2"):
+                    scene_id = 78 if parts[0].endswith("1") else 79
+                    im_id = int(parts[1])
+                    base = os.path.join(ref.root, parts[0], f"{im_id:06d}")
+                else:
+                    continue
+                plan.append((base, scene_id, im_id))
+            return plan
+    plan = []
+    for scene_id in split.scene_ids:
+        sdir = os.path.join(ref.root, split.subdir, f"{scene_id:04d}")
+        if not os.path.isdir(sdir):
+            continue
+        for rgb_path in sorted(glob.glob(os.path.join(sdir,
+                                                      "*-color.png"))):
+            im_id = int(os.path.basename(rgb_path).split("-")[0])
+            plan.append((rgb_path[:-len("-color.png")], scene_id, im_id))
+    return plan
+
+
+def _build_ycb_style_records(split: Split, ref: DatasetRef,
+                             sel_ids: set[int],
+                             obj_ids_sorted: list[int]) -> list[dict]:
+    """The YCB-Video/MP6D layout: ``data/{scene:04d}/{im:06d}-{color,depth,
+    label}.png`` and ``-meta.mat`` (PoseCNN's convention).
+
+    The meta.mat keys: ``cls_indexes`` [n], ``poses`` [3, 4, n] with the
+    translation in mm, ``intrinsic_matrix``, ``factor_depth`` in mm per
+    raw unit: the raw-per-metre divisor is 1000 / factor_depth and the
+    translations are divided by 1000. One record an instance, its visible
+    mask the label image's pixels equal to its object id.
+    """
+    from scipy.io import loadmat
+
+    records = []
+    for base, scene_id, im_id in _ycb_style_plan(split, ref):
+        rgb_path = base + "-color.png"
+        meta = loadmat(base + "-meta.mat")
+        K = np.asarray(meta["intrinsic_matrix"], np.float64)
+        if "factor_depth" in meta:
+            factor = 1000.0 / float(np.squeeze(meta["factor_depth"]))
+        else:
+            factor = ref.depth_factor
+        cls = np.atleast_1d(np.squeeze(
+            meta["cls_indexes"])).astype(int)
+        poses = np.asarray(meta["poses"], np.float64)
+        if poses.ndim == 2:
+            poses = poses[..., None]
+        sdir = os.path.dirname(base)
+        for j, obj_id in enumerate(cls):
+            if obj_id not in sel_ids:
+                continue
+            P = poses[:, :, j]
+            records.append({
+                "dataset_name": split.name,
+                "ref_name": split.ref_name,
+                "scene_id": scene_id,
+                "im_id": im_id,
+                "rgb_path": rgb_path,
+                "depth_path": base + "-depth.png",
+                "label_path": base + "-label.png",
+                "label_obj_id": int(obj_id),
+                "depth_factor": factor,
+                "K": K.astype(np.float32),
+                "height": ref.height,
+                "width": ref.width,
+                "obj_id": int(obj_id),
+                "cls_idx": obj_ids_sorted.index(int(obj_id)),
+                "R": P[:3, :3].astype(np.float32),
+                "t": (P[:3, 3] / 1000.0).astype(np.float32),
+                "visib_fract": 1.0,
+                "bbox_visib": None,
+                "mask_visib_path": "",
+                "xyz_path": _xyz_path(ref, split.subdir, sdir, scene_id,
+                                      im_id, j),
+                "inst_idx": j,
+            })
+    return records
+
+
 def _depth_factor(ref: DatasetRef, cam: dict) -> float:
     """Raw-depth divisor giving meters: BOP raw*depth_scale = mm, so the
     factor is 1000/depth_scale (reference ycbv_d2.py:128,
@@ -167,16 +278,21 @@ def build_split_records(split: Split, cache_dir: str | None = None,
                 pass
 
     sel_objs = set(split.objs) if split.objs else set(ref.objects)
-    if ref.layout == "imgn":
+    if ref.layout == "ycb_style":
+        records = _build_ycb_style_records(
+            split, ref, {ref.obj2id[o] for o in sel_objs}, ref.obj_ids)
+    elif ref.layout == "imgn":
         records = _build_imgn_records(split, ref, sel_objs)
-        if not flatten:
-            records = _group_per_image(records)
+    elif ref.layout == "blender":
+        records = _build_blender_records(split, ref, sel_objs)
     elif ref.layout == "bop":
         records = _build_bop_records(split, ref, sel_objs, flatten)
     else:
-        raise NotImplementedError(
-            f"{split.name}: the {ref.layout!r} record layout is not ported "
-            "(ROADMAP queue 1 item 10); the BOP and imgn layouts are")
+        raise ValueError(f"{split.name}: unknown record layout "
+                         f"{ref.layout!r}")
+    if not flatten and ref.layout != "bop":
+        # the other builders give flat per-instance records
+        records = _group_per_image(records)
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         # atomic publish: every process of a multi-host run points at the
@@ -240,8 +356,8 @@ def _build_bop_records(split: Split, ref: DatasetRef, sel_objs: set[str],
                 "ref_name": split.ref_name,
                 "scene_id": scene_id,
                 "im_id": im_id,
-                "rgb_path": _rgb_path(sdir, im_id),
-                "depth_path": _depth_path(sdir, im_id),
+                "rgb_path": _rgb_path(ref, sdir, im_id),
+                "depth_path": _depth_path(ref, sdir, im_id),
                 "depth_factor": _depth_factor(ref, cam),
                 "K": cam["K"].astype(np.float32),
                 "height": ref.height,
@@ -337,6 +453,66 @@ def _build_imgn_records(split: Split, ref: DatasetRef,
                 "mask_visib_path": "",
                 "xyz_path": os.path.join(ref.root, "xyz_crop_imgn",
                                          im_id + "-xyz.pkl"),
+                "inst_idx": 0,
+            })
+    return records
+
+
+def _build_blender_records(split: Split, ref: DatasetRef,
+                           sel_objs: set[str]) -> list[dict]:
+    """Blender-rendered synthetic LineMOD (BB8's training renders): a GT
+    json a object, ``renders/{obj}_gt.json``, mapping image id ->
+    [{cam_R_m2c, cam_t_m2c (mm), bbox_visib, visib_fract}]; the images at
+    ``renders/{obj}/{id}.jpg`` with ``_depth_opengl.png`` (mm),
+    ``_mask_opengl.png`` and ``_xyz_bop.pkl`` beside them; LineMOD's
+    camera.
+    """
+    objs = [o for o in (split.objs or tuple(ref.objects)) if o in sel_objs]
+    obj_ids_sorted = ref.obj_ids
+    K = ref.K()
+    records = []
+    for obj in objs:
+        with open(os.path.join(ref.root, "renders",
+                               f"{obj}_gt.json")) as f:
+            gt = json.load(f)
+        ids = list(gt.keys())
+        if split.n_per_obj > 0 and len(ids) > split.n_per_obj:
+            sel = np.linspace(0, len(ids) - 1, split.n_per_obj,
+                              dtype=np.int64)
+            ids = [ids[int(i)] for i in sel]
+        oid = ref.obj2id[obj]
+        sdir = os.path.join(ref.root, "renders", obj)
+        for str_im_id in ids:
+            anno = gt[str_im_id][0]  # one object per render
+            bbox = anno.get("bbox_visib")
+            if split.filter_invalid and bbox is not None \
+                    and (bbox[2] <= 1 or bbox[3] <= 1):
+                continue
+            records.append({
+                "dataset_name": split.name,
+                "ref_name": split.ref_name,
+                "scene_id": oid,
+                "im_id": int(str_im_id),
+                "rgb_path": os.path.join(sdir, f"{str_im_id}.jpg"),
+                "depth_path": os.path.join(
+                    sdir, f"{str_im_id}_depth_opengl.png"),
+                "depth_factor": 1000.0,
+                "K": K.astype(np.float32),
+                "height": ref.height,
+                "width": ref.width,
+                "obj_id": oid,
+                "cls_idx": obj_ids_sorted.index(oid),
+                "R": np.asarray(anno["cam_R_m2c"],
+                                np.float32).reshape(3, 3),
+                "t": np.asarray(anno["cam_t_m2c"],
+                                np.float32).reshape(3) / 1000.0,
+                "visib_fract": anno.get("visib_fract", 1.0),
+                "bbox_visib": np.asarray(bbox, np.float32)
+                if bbox is not None else None,
+                "mask_visib_path": os.path.join(
+                    sdir, f"{str_im_id}_mask_opengl.png"),
+                "xyz_path": os.path.join(sdir,
+                                         f"{str_im_id}_xyz_bop.pkl"),
                 "inst_idx": 0,
             })
     return records

@@ -1,8 +1,9 @@
 """Image files by their signature: PNG through ``data/png.py``, JPEG
-through ``data/jpeg.py``.
+through ``data/jpeg.py``, TIFF (ITODD's gray frames) through
+``data/tif.py``.
 
 ``imread_rgb`` is the port's ``cv2.imread(path, IMREAD_COLOR)`` followed by
-BGR->RGB for either format, as the JAX package reads frames and
+BGR->RGB for any of them, as the JAX package reads frames and
 backgrounds; masks and depth maps stay PNG (``png.imread_mask``,
 ``png.imread_unchanged``), as BOP stores them. ``resize_linear`` is
 ``cv2.resize`` (INTER_LINEAR) of uint8 images, byte for byte, for the
@@ -13,20 +14,21 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import jpeg, png
+from . import jpeg, png, tif
 
 
-def _is_jpeg(path: str) -> bool:
-    """True for a JPEG file, False for a PNG one; other formats raise
+def image_format(path: str) -> str:
+    """"png", "jpeg" or "tif" by the file's signature; other formats raise
     ValueError, a missing file FileNotFoundError."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head.startswith(jpeg.SIGNATURE):
-        return True
+        return "jpeg"
     if head == png.SIGNATURE:
-        return False
-    raise ValueError(f"neither PNG nor JPEG (TIF frames, as itodd's, are "
-                     f"not read: ROADMAP queue 1 item 10): {path}")
+        return "png"
+    if tif.is_tif(head):
+        return "tif"
+    raise ValueError(f"neither PNG, JPEG nor TIFF: {path}")
 
 
 def _linear_taps(n_out: int, n_in: int, clamp: bool
@@ -85,10 +87,13 @@ def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """``cv2.imread(path, IMREAD_COLOR)`` then BGR->RGB, for PNG or JPEG
-    by the file's signature: uint8 [H, W, 3]; gray is copied to three
-    channels (and a PNG's alpha dropped)."""
-    if not _is_jpeg(path):
+    """``cv2.imread(path, IMREAD_COLOR)`` then BGR->RGB, for PNG, JPEG or
+    one-channel TIFF by the file's signature: uint8 [H, W, 3]; gray is
+    copied to three channels (and a PNG's alpha dropped)."""
+    kind = image_format(path)
+    if kind == "png":
         return png.imread_rgb(path)
+    if kind == "tif":
+        return tif.imread_rgb(path)
     img = jpeg.read_jpeg(path)
     return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img

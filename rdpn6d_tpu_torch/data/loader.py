@@ -1,23 +1,25 @@
-"""Host-side decoding of split records: the eval frames and the grouped
-train batches.
+"""Host-side decoding of split records: the eval frames and the train
+batches, frame-grouped or flat.
 
 Counterpart of ``rdpn6d_tpu/data/loader.py``: ``SkipRecord``, the
 ``_BytesLRU`` of decoded frames, the ``RecordDecoder`` (frames for eval;
-in train mode also the per-instance compact GT of ``decode_roi_compact``),
-``load_train_records`` and the frame-grouped ``train_group_iterator``, whose
+in train mode also the per-instance compact GT of ``decode_roi_compact``,
+and the flat path's full-frame sample of ``__call__``),
+``load_train_records``, the frame-grouped ``train_group_iterator``, whose
 batches are byte for byte the JAX package's for the same records and seed
 wherever the JAX package's frame key, (scene_id, im_id), names one image
-file (the port groups by the file; ROADMAP queue 3).
+file (the port groups by the file; ROADMAP queue 3), and the flat
+per-instance ``train_frame_iterator`` (``data.grouped_train=false``),
+whose batches are the JAX package's byte for byte.
 In train mode an instance may get background replacement
 (``data.change_bg_prob``: its visible mask, cut in half at a random line
 with ``data.truncate_fg``, kept over a random image of the
-``data.bg_images_dir`` pool resized to the frame) in a frame of its own,
-drawn from the per-(record, visit) stream in the JAX package's order.
-Images are read with the port's own codecs (``data/image.py``: PNG and
-baseline JPEG), not OpenCV, and backgrounds resized as ``cv2.resize``
-does. Not ported, and refused: the flat, per-instance train path
-(``train_frame_iterator``, ``RecordDecoder.__call__``), ROADMAP queue 1
-item 10.
+``data.bg_images_dir`` pool resized to the frame), drawn from the
+per-(record, visit) stream in the JAX package's order: on the grouped path
+in a frame of its own, on the flat path in the sample's own float32 RGB.
+Images are read with the port's own codecs (``data/image.py``: PNG,
+baseline JPEG and one-channel TIFF), not OpenCV, and backgrounds resized
+as ``cv2.resize`` does.
 """
 
 from __future__ import annotations
@@ -97,10 +99,11 @@ def _imread_mask(path: str) -> np.ndarray:
 
 
 class RecordDecoder:
-    """Record dict -> the frame tensors of the grouped paths, and in train
-    mode each instance's compact GT and background replacement
-    (``decode_roi_compact``). ``assets`` (a ``ClassAssets``) is needed for
-    the train decode only."""
+    """Record dict -> the frame tensors of the grouped paths
+    (``read_frame``), each instance's compact GT and, in train mode,
+    background replacement (``decode_roi_compact``), and the flat path's
+    full-frame sample (``__call__``). ``assets`` (a ``ClassAssets``) is
+    needed for the per-instance decodes only."""
 
     def __init__(self, cfg: Config, assets: Any = None, train: bool = False,
                  seed: int = 0):
@@ -158,6 +161,34 @@ class RecordDecoder:
         except FileNotFoundError:
             return None
         return resize_linear(bg, (W, H))
+
+    def _replace_bg(self, rec: dict[str, Any], visit: int,
+                    mask_visib: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+        """The train-time background replacement of a record's visit, from
+        its stream (``rand`` against ``data.change_bg_prob``, the pool's
+        ``randint``, then the cut and the side): None, or (the pool image,
+        uint8 [H, W, 3]; the kept foreground, the visible mask cut by
+        ``data.truncate_fg`` at ``uniform(0.3, 0.7)`` of the frame on a
+        random side of 4; the cut mask, float32, the trunc mask)."""
+        d = self.cfg.data
+        rng = self._record_rng(rec, visit)
+        if not (self.train and d.change_bg_prob > 0
+                and rng.rand() < d.change_bg_prob):
+            return None
+        H, W = rec["height"], rec["width"]
+        bg = self._random_bg(H, W, rng)
+        if bg is None:
+            return None
+        keep, mask_trunc = mask_visib.copy(), mask_visib
+        if d.truncate_fg:
+            cut = rng.uniform(0.3, 0.7)
+            side = rng.randint(4)
+            uu, vv = np.meshgrid(np.linspace(0, 1, W), np.linspace(0, 1, H))
+            half = [uu < cut, uu > cut, vv < cut, vv > cut][side]
+            keep = keep * half
+            mask_trunc = keep.astype(np.float32)
+        return bg, keep, mask_trunc
 
     @staticmethod
     def _depth_fallback_xyz(depth: np.ndarray, rec: dict[str, Any],
@@ -352,24 +383,11 @@ class RecordDecoder:
         bbox = self._bbox_xyxy(rec, mask_visib)
         mask_trunc = mask_visib
         private = None
-        d = self.cfg.data
-        rng = self._record_rng(rec, visit)
-        if self.train and d.change_bg_prob > 0 \
-                and rng.rand() < d.change_bg_prob:
-            bg = self._random_bg(H, W, rng)
-            if bg is not None:
-                keep = mask_visib.copy()
-                if d.truncate_fg:
-                    cut = rng.uniform(0.3, 0.7)
-                    side = rng.randint(4)
-                    uu, vv = np.meshgrid(np.linspace(0, 1, W),
-                                         np.linspace(0, 1, H))
-                    half = [uu < cut, uu > cut, vv < cut, vv > cut][side]
-                    keep = keep * half
-                    mask_trunc = keep.astype(np.float32)
-                private = dict(frame)
-                private["rgb"] = np.where((keep > 0)[..., None],
-                                          frame["rgb"], bg)
+        replaced = self._replace_bg(rec, visit, mask_visib)
+        if replaced is not None:
+            bg, keep, mask_trunc = replaced
+            private = dict(frame)
+            private["rgb"] = np.where((keep > 0)[..., None], frame["rgb"], bg)
         packed = ((mask_visib > 0).astype(np.uint8)
                   | ((mask_trunc > 0).astype(np.uint8) << 1))
         if xyz_box is not None and ship_crops:
@@ -383,11 +401,48 @@ class RecordDecoder:
                 roi["xyz_offset"] = np.asarray(xyz_box[:2], np.float32)
         return roi, private
 
-    def __call__(self, rec: dict[str, Any], visit: int = 0):
-        raise NotImplementedError(
-            "RecordDecoder(rec): the flat train path's per-instance decode, "
-            "its background replacement included, is not ported (ROADMAP "
-            "queue 1 item 10); the grouped path's decode_roi_compact is")
+    def __call__(self, rec: dict[str, Any],
+                 visit: int = 0) -> dict[str, np.ndarray]:
+        """The flat path's sample of one instance, full-frame and float32:
+        rgb [H, W, 3] (0..255), depth [H, W] in metres, the GT ``xyz``
+        [H, W, 3] (the crop on disk pasted into the frame, else the
+        depth fallback's visible surface), ``mask_visib`` and
+        ``mask_trunc`` [H, W], the box (xyxy) and the instance's pose and
+        assets (``_roi_assets``). In train mode, with probability
+        ``data.change_bg_prob``, the RGB keeps the visible mask (cut by
+        ``data.truncate_fg``, which cut becomes ``mask_trunc``) over a
+        random pool image, blended in float32 as the JAX package blends;
+        ``visit`` numbers the record's visits (its draws' stream)."""
+        H, W = rec["height"], rec["width"]
+        base = self._decoded_frame(rec)
+        rgb = base["rgb"].astype(np.float32)
+        depth = base["depth_stored"].astype(np.float32) \
+            / float(rec["depth_factor"])
+        mask_visib = self._mask_visib(rec)
+        if rec.get("xyz_path") and os.path.exists(rec["xyz_path"]):
+            xyz = self._xyz_full(rec["xyz_path"], H, W)
+        else:
+            xyz = self._depth_fallback_xyz(depth, rec, mask_visib)
+        if mask_visib is None:
+            mask_visib = (np.abs(xyz).sum(-1) > 0).astype(np.float32)
+        bbox = self._bbox_xyxy(rec, mask_visib)
+
+        # the labels keep the visible mask; the cut one is mask_trunc
+        mask_trunc = mask_visib
+        replaced = self._replace_bg(rec, visit, mask_visib)
+        if replaced is not None:
+            bg, keep, mask_trunc = replaced
+            rgb = rgb * keep[..., None] \
+                + bg.astype(np.float32) * (1 - keep[..., None])
+        return {
+            "mask_trunc": mask_trunc,
+            "rgb": rgb,
+            "depth": depth,
+            "xyz": xyz.astype(np.float32),
+            "mask_visib": mask_visib,
+            "bbox": bbox.astype(np.float32),
+            **self._roi_assets(rec),
+        }
 
 
 def _stack(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
@@ -442,11 +497,138 @@ def default_num_workers() -> int:
     return max(1, min(8, n - 1)) if n > 1 else 1
 
 
-def train_frame_iterator(*args, **kwargs):
-    raise NotImplementedError("the flat (per-instance) train path, "
-                              "data.grouped_train=false, and its "
-                              "background replacement are not ported "
-                              "(ROADMAP queue 1 item 10)")
+def _class_decoder(cfg: Config, names: list[str]) -> RecordDecoder:
+    """A train-mode decoder with the assets of the first split's objects
+    (all of its dataset's when the split names none)."""
+    from .assets import load_class_assets
+
+    split = get_split(names[0])
+    assets = load_class_assets(
+        get_ref(split.ref_name), cfg.head.num_regions,
+        cfg.loss.num_pm_points,
+        objs=list(split.objs) if split.objs else None)
+    return RecordDecoder(cfg, assets, train=True)
+
+
+def _ordered_pool(sampler, task, num_workers: int, num_prefetch: int,
+                  consume, name: str) -> Iterator:
+    """Run ``task(index, visit)`` for the sampler's stream on a pool of
+    ``num_workers`` threads, ``2 * num_workers`` ahead, and feed the
+    results to ``consume(result, put)`` in the sampler's order (so the
+    output does not depend on the number of workers); ``put`` queues an
+    item for the consumer, at most ``num_prefetch`` waiting. Yields the
+    queued items. An exception in the producer is raised in the consumer;
+    closing the iterator stops the producer."""
+    q: queue.Queue = queue.Queue(maxsize=num_prefetch)
+    stop = threading.Event()
+
+    def put(item) -> None:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def produce(ex: ThreadPoolExecutor) -> None:
+        idx_iter = iter(sampler)
+        visits: Counter = Counter()
+
+        def submit():
+            i = next(idx_iter)
+            n = visits[i]
+            visits[i] += 1
+            return ex.submit(task, i, n)
+
+        futs: deque = deque(submit() for _ in range(2 * num_workers))
+        while not stop.is_set():
+            fut = futs.popleft()
+            futs.append(submit())
+            consume(fut.result(), put)
+
+    def producer() -> None:
+        ex = ThreadPoolExecutor(max_workers=num_workers,
+                                thread_name_prefix="decode")
+        try:
+            produce(ex)
+        except BaseException as e:  # surface in the consumer, never hang
+            put(e)
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
+
+    th = threading.Thread(target=producer, daemon=True, name=name)
+    th.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, BaseException):
+                raise RuntimeError("data loader producer thread failed") \
+                    from item
+            yield item
+    finally:
+        stop.set()
+        th.join()
+
+
+def train_frame_iterator(cfg: Config, split_name: str | list[str],
+                         decoder: RecordDecoder | None = None,
+                         batch_size: int | None = None,
+                         seed: int = 0,
+                         cache_dir: str | None = None,
+                         num_prefetch: int = 2,
+                         num_workers: int | None = None,
+                         shard_id: int | None = None,
+                         num_shards: int | None = None) -> Iterator[dict]:
+    """Infinite iterator of the flat path's train batches
+    (``data.grouped_train=false``) for ``pipeline.preprocess_batch``: each
+    sampled record's ``RecordDecoder`` sample (full-frame float32 RGB,
+    depth, xyz and masks, the box and the assets) stacked on a leading
+    ROI axis, ``batch_size`` (default ``ims_per_batch // num_shards``) a
+    batch.
+
+    The sampler runs over records, shuffled (``data.repeat_factor_thresh``
+    > 0: oversampling rare classes by record); each rank streams the
+    slice ``shard_id::num_shards`` of its stream (default this process's
+    rank and world, ``parallel/mesh.py``). Records that cannot be read or
+    give no sample are skipped. Decoding runs on ``num_workers`` threads
+    and the batches are the same whatever their number."""
+    names = [split_name] if isinstance(split_name, str) else list(split_name)
+    records = load_train_records(cfg, names, cache_dir=cache_dir)
+    if decoder is None:
+        decoder = _class_decoder(cfg, names)
+    if shard_id is None:
+        shard_id = mesh.rank()
+    if num_shards is None:
+        num_shards = mesh.world()
+    bs = batch_size or cfg.solver.ims_per_batch // num_shards
+    if cfg.data.repeat_factor_thresh > 0:
+        sampler: InfiniteSampler = RepeatFactorSampler(
+            [r["cls_idx"] for r in records], cfg.data.repeat_factor_thresh,
+            seed=seed, shard_id=shard_id, num_shards=num_shards)
+    else:
+        sampler = InfiniteSampler(len(records), seed=seed,
+                                  shard_id=shard_id, num_shards=num_shards)
+    if num_workers is None:
+        num_workers = default_num_workers()
+
+    def decode_one(i, visit):
+        try:
+            return decoder(records[i], visit=visit)
+        except (FileNotFoundError, OSError, SkipRecord):
+            return None
+
+    batch: list[dict] = []
+
+    def consume(sample, put) -> None:
+        if sample is None:
+            return
+        batch.append(sample)
+        if len(batch) == bs:
+            put(_stack(batch))
+            batch.clear()
+
+    return _ordered_pool(sampler, decode_one, num_workers, num_prefetch,
+                         consume, "train_frame_iterator")
 
 
 def train_group_iterator(cfg: Config, split_name: str | list[str],
@@ -489,14 +671,7 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
     names = [split_name] if isinstance(split_name, str) else list(split_name)
     records = load_train_records(cfg, names, cache_dir=cache_dir)
     if decoder is None:
-        from .assets import load_class_assets
-
-        split = get_split(names[0])
-        assets = load_class_assets(
-            get_ref(split.ref_name), cfg.head.num_regions,
-            cfg.loss.num_pm_points,
-            objs=list(split.objs) if split.objs else None)
-        decoder = RecordDecoder(cfg, assets, train=True)
+        decoder = _class_decoder(cfg, names)
     if shard_id is None:
         shard_id = mesh.rank()
     if num_shards is None:
@@ -536,20 +711,10 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
     if num_workers is None:
         num_workers = default_num_workers()
 
-    q: queue.Queue = queue.Queue(maxsize=num_prefetch)
-    stop = threading.Event()
-
-    def put(item) -> None:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return
-            except queue.Full:
-                continue
-
-    def decode_group(rec_idxs, visit):
+    def decode_group(gi, visit):
         """One frame and all its instances -> (key, frame, [(private
         frame or None, roi)])."""
+        rec_idxs = frame_groups[gi]
         base = records[rec_idxs[0]]
         try:
             frame = decoder.read_frame(base)
@@ -567,75 +732,44 @@ def train_group_iterator(cfg: Config, split_name: str | list[str],
             return None
         return base["rgb_path"], frame, inst
 
-    def produce(ex: ThreadPoolExecutor) -> None:
-        idx_iter = iter(sampler)
-        visits: Counter = Counter()
+    frames_l: list[dict] = []
+    keys_l: list[str | None] = []
+    rois_l: list[dict] = []
 
-        def submit():
-            gi = next(idx_iter)
-            n = visits[gi]
-            visits[gi] += 1
-            return ex.submit(decode_group, frame_groups[gi], n)
+    def consume(group, put) -> None:
+        if group is None:
+            return
+        key, frame, inst = group
+        base_idx = None     # the shared frame's slot, claimed when read
+        for private, roi in inst[:bs - len(rois_l)]:
+            if private is not None:
+                fidx = len(frames_l)
+                frames_l.append(private)
+                keys_l.append(None)
+            else:
+                if base_idx is None:
+                    base_idx = len(frames_l)
+                    frames_l.append(frame)
+                    keys_l.append(key)
+                fidx = base_idx
+            rois_l.append({**roi, "frame_idx": np.int32(fidx)})
+        if len(rois_l) < bs:
+            return
+        F = len(frames_l)
+        Fpad = min(-(-F // frame_bucket) * frame_bucket, bs)
+        while len(frames_l) < Fpad:
+            frames_l.append(frames_l[-1])
+            keys_l.append(keys_l[-1])
+        _pad_roi_crops(rois_l, int(cfg.data.crop_pad))
+        batch = {"rois": _stack(rois_l)}
+        if yield_keys:
+            batch["frame_slots"] = list(zip(keys_l, frames_l))
+        else:
+            batch["frames"] = _stack(frames_l)
+        put(batch)
+        frames_l.clear()
+        keys_l.clear()
+        rois_l.clear()
 
-        futs: deque = deque(submit() for _ in range(2 * num_workers))
-        frames_l: list[dict] = []
-        keys_l: list[str | None] = []
-        rois_l: list[dict] = []
-        while not stop.is_set():
-            fut = futs.popleft()
-            futs.append(submit())
-            group = fut.result()
-            if group is None:
-                continue
-            key, frame, inst = group
-            base_idx = None     # the shared frame's slot, claimed when read
-            for private, roi in inst[:bs - len(rois_l)]:
-                if private is not None:
-                    fidx = len(frames_l)
-                    frames_l.append(private)
-                    keys_l.append(None)
-                else:
-                    if base_idx is None:
-                        base_idx = len(frames_l)
-                        frames_l.append(frame)
-                        keys_l.append(key)
-                    fidx = base_idx
-                rois_l.append({**roi, "frame_idx": np.int32(fidx)})
-            if len(rois_l) == bs:
-                F = len(frames_l)
-                Fpad = min(-(-F // frame_bucket) * frame_bucket, bs)
-                while len(frames_l) < Fpad:
-                    frames_l.append(frames_l[-1])
-                    keys_l.append(keys_l[-1])
-                _pad_roi_crops(rois_l, int(cfg.data.crop_pad))
-                batch = {"rois": _stack(rois_l)}
-                if yield_keys:
-                    batch["frame_slots"] = list(zip(keys_l, frames_l))
-                else:
-                    batch["frames"] = _stack(frames_l)
-                put(batch)
-                frames_l, keys_l, rois_l = [], [], []
-
-    def producer() -> None:
-        ex = ThreadPoolExecutor(max_workers=num_workers,
-                                thread_name_prefix="decode")
-        try:
-            produce(ex)
-        except BaseException as e:  # surface in the consumer, never hang
-            put(e)
-        finally:
-            ex.shutdown(wait=True, cancel_futures=True)
-
-    th = threading.Thread(target=producer, daemon=True,
-                          name="train_group_iterator")
-    th.start()
-    try:
-        while True:
-            item = q.get()
-            if isinstance(item, BaseException):
-                raise RuntimeError("data loader producer thread failed") \
-                    from item
-            yield item
-    finally:
-        stop.set()
-        th.join()
+    return _ordered_pool(sampler, decode_group, num_workers, num_prefetch,
+                         consume, "train_group_iterator")

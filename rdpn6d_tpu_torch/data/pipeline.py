@@ -19,11 +19,13 @@ Counterpart of ``rdpn6d_tpu/data/pipeline.py``:
 
 Batched over ROIs, each reading its frame by index, so frames are moved to
 the device once whatever the number of ROIs; per-instance GT maps ride the
-ROI axis. The network inputs (the RGB and depth crops, the normalisation,
-the back-projection and the coordinate map) come from one kernel on the
-card (``ops/roi_crop.roi_crop``), gathers on the CPU (``ops/warp.py``); the
-TPU path writes the crops as matmuls for the MXU. Depth stays float32 end
-to end.
+ROI axis. ``preprocess_batch`` is the flat path's form (each ROI with a
+full frame of its own, the JAX package's ``preprocess_batch``): the same
+batch with ``frame_idx = arange(B)``. The network inputs (the RGB and
+depth crops, the normalisation, the back-projection and the coordinate
+map) come from one kernel on the card (``ops/roi_crop.roi_crop``),
+gathers on the CPU (``ops/warp.py``); the TPU path writes the crops as
+matmuls for the MXU. Depth stays float32 end to end.
 
 The DZI and colour-aug draws cannot match JAX's threefry, so they are
 inputs: pass ``center_scale`` to use given boxes and ``aug_params`` given
@@ -258,6 +260,31 @@ def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],
         out["roi_xyz_bin"] = quantize_coords(
             coord, masks[cfg.head.xyz_loss_mask], cfg.head.xyz_bin)
     return out
+
+
+_FLAT_FRAME_KEYS = ("rgb", "depth", "depth_raw", "depth_factor", "K")
+
+
+def preprocess_batch(
+        cfg: Config, samples: dict[str, torch.Tensor], train: bool = True,
+        generator: torch.Generator | None = None,
+        center_scale: tuple[torch.Tensor, torch.Tensor] | None = None,
+        aug_params: dict | None = None,
+) -> dict[str, torch.Tensor]:
+    """The flat path's preprocessing of B ROIs, each with its own frame:
+    ``samples`` as ``loader.train_frame_iterator`` stacks them (rgb
+    [B,H,W,3], depth [B,H,W] metres, K [B,3,3], and per ROI the box, the
+    pose, the assets and in train mode float32 ``xyz`` [B,H,W,3],
+    ``mask_visib`` and ``mask_trunc`` [B,H,W]). The frames are ROI ``i``'s
+    own (``frame_idx = arange(B)``), so one crop is one ``roi_crop``
+    launch and the labels one ``gt_labels`` launch, fed the float32 planes
+    as they come. The other arguments as ``preprocess_rois_grouped``."""
+    frames = {k: v for k, v in samples.items() if k in _FLAT_FRAME_KEYS}
+    rois = {k: v for k, v in samples.items() if k not in _FLAT_FRAME_KEYS}
+    rois["frame_idx"] = torch.arange(frames["rgb"].shape[0],
+                                     device=frames["rgb"].device)
+    return preprocess_rois_grouped(cfg, frames, rois, train, generator,
+                                   center_scale, aug_params)
 
 
 def preprocess_roi(cfg: Config, sample: dict[str, torch.Tensor],

@@ -14,10 +14,14 @@ LineMOD-layout BOP tree of rendered cubes to disk (PNGs through
 package trains and evaluates on them. ``write_lmo_tree`` writes a
 LineMOD-Occluded tree (real frames of occluding cubes with GT xyz crops,
 BOP-PBR frames as JPEG without crops, a test scene with BOP19 targets),
-``write_bop_tree`` the same for ycbv, tless, tudl, hb or icbin at the
-dataset's frame size, camera and split directories (cubes rendered with
-the port's rasterizer, eval meshes with faces, a symmetric object, some
-instances under 20% visible, ycbv's keyframe list), ``write_mini_tree``
+``write_bop_tree`` the same for ycbv, tless, tudl, hb, icbin or itodd
+(gray TIFF val frames at 960x1280) at the dataset's frame size, camera
+and split directories (cubes rendered with the port's rasterizer, eval
+meshes with faces, a symmetric object, some instances under 20% visible,
+ycbv's keyframe list), ``write_mp6d_tree`` MP6D's ``ycb_style`` layout
+(``-meta.mat`` through ``scipy.io.savemat``), ``write_blender_tree``
+LineMOD's Blender renders beside a ``write_lm_tree`` tree,
+``write_mini_tree``
 the mini rehearsal dataset (LM scenes 91 and 92) and ``write_bg_pool`` a
 VOC-like background pool of JPEG and PNG files.
 ``encode_jpeg`` / ``write_jpeg`` are a baseline JPEG encoder with the
@@ -37,6 +41,7 @@ import numpy as np
 from ..config import Config
 from .assets import cube_points, fps_numpy
 from .png import write_png
+from .tif import write_tif
 
 
 def _np_ego_to_allo(R_ego: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -405,8 +410,9 @@ def cube_faces(pts: np.ndarray) -> np.ndarray:
     """The 12 triangles [12, 3] of the cube whose surface samples are
     ``pts`` (``cube_points``), as indices of its 8 corners in ``pts``."""
     half = np.abs(pts).max()
-    corner = {tuple(np.sign(p).astype(int)): i for i, p in enumerate(pts)
-              if np.all(np.isclose(np.abs(p), half))}
+    at_corner = np.all(np.isclose(np.abs(pts), half), axis=1)
+    corner = {tuple(np.sign(pts[i]).astype(int)): int(i)
+              for i in np.flatnonzero(at_corner)}
     faces = []
     for axis in range(3):
         u, v = [a for a in range(3) if a != axis]
@@ -494,13 +500,15 @@ def _render_scene(rng: np.random.RandomState, K: np.ndarray, H: int, W: int,
 
 
 def _write_bop_scene(sdir: str, frames: list[list[dict]], K: np.ndarray,
-                     rng: np.random.RandomState, jpeg: bool,
+                     rng: np.random.RandomState, rgb_format: str | list[str],
                      depth_scale: float, xyz_crops: bool,
                      plane: float = 1.3) -> None:
-    """One BOP scene directory: per frame the RGB (PNG, or JPEG as BOP-PBR
-    stores it), 16-bit depth in units of ``depth_scale`` mm over a plane at
-    ``plane`` m, each instance's visible mask (and GT xyz crop), and
-    scene_gt / scene_camera / scene_gt_info."""
+    """One BOP scene directory: per frame the RGB (``rgb_format`` "png",
+    "jpeg" as BOP-PBR stores it, or "tif", ITODD's gray frames as
+    ``gray/<im>.tif``, LZW with the horizontal predictor; one format for
+    every frame or a list of one a frame), 16-bit depth in units of
+    ``depth_scale`` mm over a plane at ``plane`` m, each instance's visible
+    mask (and GT xyz crop), and scene_gt / scene_camera / scene_gt_info."""
     H, W = frames[0][0]["depth"].shape
     scene_gt, scene_cam, scene_info = {}, {}, {}
     for im_id, objs in enumerate(frames):
@@ -512,9 +520,14 @@ def _write_bop_scene(sdir: str, frames: list[list[dict]], K: np.ndarray,
             depth = np.where(o["visib"], o["depth"], depth)
         rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255).astype(
             np.uint8)
-        if jpeg:
+        fmt = rgb_format if isinstance(rgb_format, str) \
+            else rgb_format[im_id]
+        if fmt == "jpeg":
             write_jpeg(os.path.join(sdir, "rgb", f"{im_id:06d}.jpg"), rgb,
                        quality=90)
+        elif fmt == "tif":
+            write_tif(os.path.join(sdir, "gray", f"{im_id:06d}.tif"),
+                      np.round(rgb.mean(-1)).astype(np.uint8))
         else:
             write_png(os.path.join(sdir, "rgb", f"{im_id:06d}.png"), rgb)
         write_png(os.path.join(sdir, "depth", f"{im_id:06d}.png"),
@@ -584,15 +597,16 @@ def write_lmo_tree(root: str, train_frames: int, pbr_scenes: int,
             for i in range(insts_per_frame)]) for f in range(n_frames)]
 
     _write_bop_scene(os.path.join(ds, "train", "000002"),
-                     scene(train_frames, 0), LM_K, rng, jpeg=False,
+                     scene(train_frames, 0), LM_K, rng, rgb_format="png",
                      depth_scale=1.0, xyz_crops=True)
     for s in range(pbr_scenes):
         _write_bop_scene(os.path.join(ds, "train_pbr", f"{s:06d}"),
-                         scene(pbr_frames, 3 * s + 1), LM_K, rng, jpeg=True,
+                         scene(pbr_frames, 3 * s + 1), LM_K, rng,
+                         rgb_format="jpeg",
                          depth_scale=0.1, xyz_crops=False)
     test = scene(test_frames, 5)
     _write_bop_scene(os.path.join(ds, "test", "000002"), test, LM_K, rng,
-                     jpeg=False, depth_scale=1.0, xyz_crops=False)
+                     rgb_format="png", depth_scale=1.0, xyz_crops=False)
     targets = [{"scene_id": 2, "im_id": im_id, "obj_id": o["obj_id"],
                 "inst_count": 1}
                for im_id, objs in enumerate(test) for o in objs
@@ -602,16 +616,17 @@ def write_lmo_tree(root: str, train_frames: int, pbr_scenes: int,
 
 
 # the BOP datasets ``write_bop_tree`` writes: (the real train subdir and
-# scene | None, the PBR train scene | None, the test subdir and scene,
-# whether the test split has BOP19 targets, depth_scale), from
-# ``data/bop.py``'s splits
+# scene | None, the PBR train scenes, the test subdir and scene, whether
+# the test split has BOP19 targets, depth_scale), from ``data/bop.py``'s
+# splits; itodd's PBR scene 49 is its SO validation split
 BOP_TREES = {
-    "ycbv": (("train_real", 0), 0, ("test", 48), True, 0.1),
-    "tless": (("train_primesense", 1), None, ("test_primesense", 1), True,
+    "ycbv": (("train_real", 0), (0,), ("test", 48), True, 0.1),
+    "tless": (("train_primesense", 1), (), ("test_primesense", 1), True,
               0.1),
-    "tudl": (("train_real", 1), None, ("test", 1), True, 1.0),
-    "hb": (None, 0, ("val_primesense", 3), False, 0.1),
-    "icbin": (None, 0, ("test", 1), True, 0.1),
+    "tudl": (("train_real", 1), (), ("test", 1), True, 1.0),
+    "hb": (None, (0,), ("val_primesense", 3), False, 0.1),
+    "icbin": (None, (0,), ("test", 1), True, 0.1),
+    "itodd": (None, (0, 49), ("val", 1), False, 0.1),
 }
 
 
@@ -673,7 +688,7 @@ def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
                    train_frames: int = 2, pbr_frames: int = 2,
                    test_frames: int = 2, insts_per_frame: int = 4,
                    seed: int = 0) -> None:
-    """A BOP tree of ``dataset`` (ycbv, tless, tudl, hb or icbin) under
+    """A BOP tree of ``dataset`` (ycbv, tless, tudl, hb, icbin or itodd) under
     ``root/<dataset>``: the dataset's frame size and camera (``data/refs``)
     and its splits' directories (``data/bop.py``), every frame
     ``insts_per_frame`` occluding cubes of ``objs`` (name -> obj id,
@@ -687,9 +702,12 @@ def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
       with faces, and ``models/fps_points.pkl`` (4, 8, 16 and 32
       keypoints);
     - the real train scene, where the dataset has one (PNG RGB, GT xyz
-      crops), and the ``train_pbr`` scene 0 where it has PBR training
-      (JPEG RGB, no xyz crops);
-    - the test scene (PNG, no crops) and, where the split scores BOP19,
+      crops), and the ``train_pbr`` scenes where it has PBR training
+      (JPEG RGB, no xyz crops; for itodd scenes 0 and 49, every frame
+      but scene 0's first PNG, since the JPEG reader is slow at
+      960x1280);
+    - the test scene (PNG, no crops; itodd's val scene gray TIFF frames,
+      ``gray/<im>.tif``) and, where the split scores BOP19,
       ``test_targets_bop19.json``; for ycbv ``image_sets/keyframe.txt``
       listing all test frames but the last, and ``image_sets/train.txt``
       listing every real train frame."""
@@ -716,19 +734,23 @@ def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
             for i in range(insts_per_frame)], hidden=True)
             for f in range(n_frames)]
 
+    itodd = dataset == "itodd"
     if real is not None:
         sub, sid = real
         _write_bop_scene(os.path.join(ds, sub, f"{sid:06d}"),
-                         scene(train_frames, 0), K, rng, jpeg=False,
+                         scene(train_frames, 0), K, rng, rgb_format="png",
                          depth_scale=dscale, xyz_crops=True, plane=plane)
-    if pbr is not None:
-        _write_bop_scene(os.path.join(ds, "train_pbr", f"{pbr:06d}"),
-                         scene(pbr_frames, 1), K, rng, jpeg=True,
+    for n, sid in enumerate(pbr):
+        _write_bop_scene(os.path.join(ds, "train_pbr", f"{sid:06d}"),
+                         scene(pbr_frames, 1), K, rng,
+                         rgb_format=["jpeg" if n == f == 0 else "png"
+                                     for f in range(pbr_frames)]
+                         if itodd else "jpeg",
                          depth_scale=0.1, xyz_crops=False, plane=plane)
     test = scene(test_frames, 2)
     _write_bop_scene(os.path.join(ds, test_sub, f"{test_scene:06d}"), test,
-                     K, rng, jpeg=False, depth_scale=dscale, xyz_crops=False,
-                     plane=plane)
+                     K, rng, rgb_format="tif" if itodd else "png",
+                     depth_scale=dscale, xyz_crops=False, plane=plane)
     keyframes = list(range(test_frames))
     if dataset == "ycbv":
         keyframes = keyframes[:-1] or keyframes
@@ -741,6 +763,119 @@ def write_bop_tree(root: str, dataset: str, objs: dict[str, int] | None = None,
     if has_targets:
         _write_targets(os.path.join(ds, "test_targets_bop19.json"),
                        test_scene, test, keyframes)
+
+
+def write_mp6d_tree(root: str, objs: dict[str, int] | None = None,
+                    train_frames: int = 2, test_frames: int = 2,
+                    insts_per_frame: int = 4, seed: int = 0) -> None:
+    """An MP6D tree in the ``ycb_style`` layout under ``root/mp6d``, at
+    MP6D's frame size and camera, every frame ``insts_per_frame``
+    occluding cubes of ``objs`` (name -> obj id, default the first four
+    of MP6D's 20) taken in turn, point-splat rendered:
+
+    - ``models/`` and ``models_eval/`` of all 20 objects (cubes of seeded
+      sizes, ``models_info.json``, the eval meshes with faces,
+      ``models/fps_points.pkl``);
+    - ``data/0000`` (train) and ``data/0001`` (test): per frame
+      ``<im>-color.png``, ``<im>-depth.png`` (mm), ``<im>-label.png``
+      (each visible pixel its object's id) and ``<im>-meta.mat`` written
+      by ``scipy.io.savemat`` (``cls_indexes``, ``poses`` [3, 4, n] with
+      the translation in mm, ``intrinsic_matrix``, ``factor_depth`` 1 mm a
+      unit); no xyz crops;
+    - ``image_set/train_data_list.txt`` and ``test_data_list.txt`` of
+      ``data/<scene>/<im>`` lines."""
+    from scipy.io import savemat
+
+    from .refs import get_ref
+
+    ref = get_ref("mp6d")
+    if objs is None:
+        objs = {name: ref.obj2id[name] for name in ref.objects[:4]}
+    rng = np.random.RandomState(seed)
+    H, W = ref.height, ref.width
+    K = ref.K().astype(np.float64)
+    ds = os.path.join(root, "mp6d")
+    ids = list(objs.values())
+    halves = _write_models(ds, ref.obj2id, rng, fps_counts=(4, 8, 16, 32),
+                           faces=True)
+    os.makedirs(os.path.join(ds, "image_set"), exist_ok=True)
+    for part, sid, n_frames, offset in (("train", 0, train_frames, 0),
+                                        ("test", 1, test_frames, 2)):
+        lines = []
+        for im_id in range(n_frames):
+            insts = _render_scene(rng, K, H, W, [
+                (ids[(offset + im_id + i) % len(ids)],
+                 halves[ids[(offset + im_id + i) % len(ids)]])
+                for i in range(insts_per_frame)])
+            rgb = _backdrop(rng, H, W)
+            depth = np.full((H, W), 1.3)
+            label = np.zeros((H, W), np.uint8)
+            for o in insts:
+                rgb = np.where(o["visib"][..., None],
+                               128 + 1000.0 * o["xyz"], rgb)
+                depth = np.where(o["visib"], o["depth"], depth)
+                label[o["visib"]] = o["obj_id"]
+            rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0,
+                          255).astype(np.uint8)
+            base = os.path.join(ds, "data", f"{sid:04d}", f"{im_id:06d}")
+            write_png(base + "-color.png", rgb)
+            write_png(base + "-depth.png",
+                      np.round(depth * 1000.0).astype(np.uint16))
+            write_png(base + "-label.png", label)
+            savemat(base + "-meta.mat", {
+                "cls_indexes": np.array([[o["obj_id"]] for o in insts]),
+                "poses": np.stack([np.hstack([o["R"], o["t"][:, None]
+                                              * 1000.0]) for o in insts],
+                                  -1),
+                "intrinsic_matrix": K,
+                "factor_depth": np.array([[1.0]])})
+            lines.append(f"data/{sid:04d}/{im_id:06d}\n")
+        with open(os.path.join(ds, "image_set", f"{part}_data_list.txt"),
+                  "w") as f:
+            f.write("".join(lines))
+
+
+def write_blender_tree(root: str, objs: dict[str, int],
+                       frames_per_obj: int, seed: int = 0) -> None:
+    """LineMOD's Blender renders (BB8's training set) under
+    ``root/lm_renders_blender/renders``, beside a ``write_lm_tree`` tree
+    whose meshes they borrow (each cube's size is read back from
+    ``root/lm/models/models_info.json``): for each object,
+    ``<obj>/<i>.jpg`` (the cube over a synthetic backdrop, JPEG quality
+    95), ``<i>_depth_opengl.png`` (the cube's depth in mm, 0 elsewhere),
+    ``<i>_mask_opengl.png``, the GT xyz crop ``<i>_xyz_bop.pkl``, and
+    ``<obj>_gt.json`` mapping each id to its pose (mm), box and
+    visibility."""
+    rng = np.random.RandomState(seed)
+    H, W = 480, 640
+    with open(os.path.join(root, "lm", "models", "models_info.json")) as f:
+        sizes = {int(k): v["size_x"] for k, v in json.load(f).items()}
+    ds = os.path.join(root, "lm_renders_blender", "renders")
+    for name, oid in objs.items():
+        half = sizes[oid] / 2000.0
+        gt = {}
+        for i in range(frames_per_obj):
+            R = _rodrigues(rng.randn(3) * 0.8)
+            t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.07, 0.07),
+                          rng.uniform(0.7, 1.0)])
+            depth, xyz = render_cube_depth(R, t, LM_K, H, W, half=half)
+            obj = depth > 0
+            base = os.path.join(ds, name, str(i))
+            write_jpeg(base + ".jpg",
+                       _shade(rng, obj, xyz, _backdrop(rng, H, W)))
+            write_png(base + "_depth_opengl.png",
+                      np.round(depth * 1000.0).astype(np.uint16))
+            write_png(base + "_mask_opengl.png", obj.astype(np.uint8) * 255)
+            _write_xyz_crop(base + "_xyz_bop.pkl", xyz)
+            ys, xs = np.nonzero(obj)
+            gt[str(i)] = [{"cam_R_m2c": R.reshape(-1).tolist(),
+                           "cam_t_m2c": (t * 1000.0).tolist(),
+                           "bbox_visib": [int(xs.min()), int(ys.min()),
+                                          int(xs.max() - xs.min()),
+                                          int(ys.max() - ys.min())],
+                           "visib_fract": 1.0}]
+        with open(os.path.join(ds, f"{name}_gt.json"), "w") as f:
+            json.dump(gt, f)
 
 
 MINI_OBJS = {"ape": 1, "can": 5, "driller": 8}

@@ -2,8 +2,10 @@
 -> PoseEvaluator -> tables, BOP19 CSV, recall curves, BOP19 AR.
 
 Counterpart of ``rdpn6d_tpu/engine/eval_runner.py`` (``_eval_setup``,
-``run_eval``, ``_bop19_scores``), as ``main --eval-only`` drives it on a
-checkpoint and the trainer drives it on its live model.
+``run_eval``, ``_bop19_scores``, ``coord_regression_eval``), as ``main
+--eval-only`` drives it on a checkpoint and the trainer drives it on its
+live model; ``main --eval-only --debug`` drives the coordinate-regression
+debug eval.
 Frames are grouped into batches as the JAX package groups them (frames per
 batch from the split's instances per frame) and cross to the device once
 per image; eager PyTorch needs no fixed shape, so batches are not padded
@@ -403,6 +405,88 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
 
     result["stats"] = stats
     return result
+
+
+def coord_regression_eval(cfg: Config, ckpt_dir: str, split_name: str,
+                          batch_size: int = 16, max_batches: int = 0,
+                          allow_random_init: bool = False,
+                          dtype: torch.dtype = torch.bfloat16,
+                          device: str | torch.device | None = None,
+                          model: Any = None) -> dict[str, float]:
+    """Debug eval: the masked L1 of the predicted against the GT
+    normalized coordinates, sum |coord - roi_xyz| * visib over sum 3 *
+    visib of every instance of the split.
+
+    Each instance goes through the flat path's decode
+    (``RecordDecoder.__call__``, eval mode) and ``preprocess_batch`` with
+    the train labels, the DZI box, colour aug and background replacement
+    off, then the model's eval outputs (``parallel.make_eval_step``),
+    ``batch_size`` instances a batch (at most ``max_batches`` batches, 0
+    for all); instances that cannot be decoded are skipped. The model is
+    the latest checkpoint in ``ckpt_dir`` in ``dtype``, or a live
+    ``model`` under autocast to ``dtype`` (handed back in its mode).
+    Every rank of a process group scores the whole split. Returns
+    {coord_l1, n} (n the instances scored)."""
+    from ..data.assets import load_class_assets
+    from ..data.bop import build_split_records, get_split
+    from ..data.loader import RecordDecoder, SkipRecord
+    from ..data.pipeline import preprocess_batch
+    from ..data.refs import get_ref
+    from ..parallel import make_eval_step
+
+    dbg_cfg = cfg.apply_opts([
+        'data.dzi_type="none"', "data.color_aug_prob=0.0",
+        "data.change_bg_prob=0.0"])
+    split = get_split(split_name)
+    ref = get_ref(split.ref_name)
+    records = build_split_records(split, flatten=True)
+    present = sorted({rec["obj_id"] for rec in records})
+    assets = load_class_assets(ref, cfg.head.num_regions,
+                               cfg.loss.num_pm_points,
+                               objs=[ref.id2obj[oid] for oid in present])
+    decoder = RecordDecoder(dbg_cfg, assets, train=False)
+    live = model is not None
+    device = next(model.parameters()).device if live \
+        else resolve_device(device)
+    if not live:
+        model = _load_model(cfg, ckpt_dir, allow_random_init, device, dtype)
+    step = make_eval_step(cfg, model)
+    autocast = live and dtype != torch.float32
+
+    tot_err = tot_cnt = 0.0
+    n = 0
+    was_training = model.training
+    model.eval()
+    try:
+        for i in range(0, len(records), batch_size):
+            if max_batches and i // batch_size >= max_batches:
+                break
+            samples = []
+            for rec in records[i:i + batch_size]:
+                try:
+                    samples.append(decoder(rec))
+                except (FileNotFoundError, OSError, SkipRecord):
+                    continue
+            if not samples:
+                continue
+            stacked = {k: torch.from_numpy(np.stack([s[k] for s in samples])
+                                           ).to(device) for k in samples[0]}
+            with torch.no_grad():
+                batch = preprocess_batch(dbg_cfg, stacked, train=True)
+                with torch.autocast(device.type, dtype=dtype,
+                                    enabled=autocast):
+                    out = step(batch)
+            m = batch["roi_mask_visib"][..., None]
+            err = (out["coord"].float() - batch["roi_xyz"]).abs() * m
+            tot_err += float(err.sum(dim=(1, 2, 3)).sum())
+            tot_cnt += float((m.sum(dim=(1, 2, 3)) * 3.0).sum())
+            n += len(samples)
+    finally:
+        model.train(was_training)
+    l1 = tot_err / max(tot_cnt, 1.0)
+    logger.info(f"coord regression debug [{split_name}]: masked L1 = "
+                f"{l1:.5f} over {n} instances")
+    return {"coord_l1": l1, "n": n}
 
 
 def _bop19_scores(ref: Any, records: list[dict], targets: list[dict],

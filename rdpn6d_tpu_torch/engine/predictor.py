@@ -1,20 +1,25 @@
 """Serving API: RGB-D frames + detections in, 6DoF poses out.
 
 Counterpart of ``rdpn6d_tpu/engine/predictor.py``, with the body of the
-JAX package's ``make_eval_step`` inlined. Weights come from the same
-``params_pkl`` the JAX ``Predictor`` reads (a pickle of the flax
-``params``/``batch_stats`` trees as numpy), carried over by
+JAX package's ``make_eval_step`` inlined. Weights come from the port's
+checkpoint directory (``ckpt_dir``: the latest step that
+``engine/checkpoint.py`` wrote, as ``main``'s train branch writes them
+under ``<output_dir>/ckpt``; where the JAX ``Predictor`` reads orbax),
+or from the same ``params_pkl`` the JAX ``Predictor`` reads (a pickle of
+the flax ``params``/``batch_stats`` trees as numpy), carried over by
 ``utils/flax_params.state_dict_from_flax``; a pickle that does not cover
-the model is refused. Eager PyTorch needs no fixed batch shape, so a
-frame's detections go through in chunks of ``batch_size`` without padding.
+the model is refused, and so is a directory without a checkpoint. With
+both, the checkpoint wins, as in the JAX package. Eager PyTorch needs no
+fixed batch shape, so a frame's detections go through in chunks of
+``batch_size`` without padding.
 
 ``test.int8`` serves the W8A8 model (``models/quant.py``); with
 ``test.int8_static`` its activation scales are calibrated on the first
 served batch and then locked, as the JAX ``Predictor`` does (which keeps
 "per_channel" only as a truthy flag; the port keeps the mode).
 
-Not ported yet, and refused: orbax checkpoints (``ckpt_dir``) and the
-RANSAC-Kabsch refinement (``test.use_pnp``).
+Not ported yet, and refused: the RANSAC-Kabsch refinement
+(``test.use_pnp``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ class Detection:
 
 class Predictor:
     def __init__(self, cfg: Config, assets: ClassAssets,
+                 ckpt_dir: str | None = None,
                  params_pkl: str | None = None,
                  batch_size: int = 16,
                  dtype: torch.dtype = torch.bfloat16,
@@ -63,13 +69,24 @@ class Predictor:
                 loaded = pickle.load(f)
             model.load_state_dict(state_dict_from_flax(
                 cfg, loaded.get("params", {}), loaded.get("batch_stats", {})))
-        elif allow_random_init:
+        if ckpt_dir:
+            from ..parallel import TrainState
+            from .checkpoint import CheckpointManager
+
+            mgr = CheckpointManager(ckpt_dir)
+            if mgr.latest_step() is None:
+                raise FileNotFoundError(
+                    f"no checkpoint found in {ckpt_dir!r} — a Predictor "
+                    "must never silently serve random-init weights")
+            # the model only: serving needs no optimizer state
+            mgr.restore(TrainState(model=model, optimizer=None))
+        elif not params_pkl:
+            if not allow_random_init:
+                raise ValueError(
+                    "Predictor requires ckpt_dir or params_pkl (refusing to "
+                    "serve random-init weights); pass "
+                    "allow_random_init=True for smoke tests")
             init_weights(model, torch.Generator().manual_seed(0))
-        else:
-            raise ValueError(
-                "Predictor requires params_pkl (refusing to serve "
-                "random-init weights); pass allow_random_init=True for "
-                "smoke tests")
         # Int8Conv keeps its weight in float32 under the cast
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self._needs_calibration = bool(int8 and static)

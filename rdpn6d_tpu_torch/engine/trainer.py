@@ -7,8 +7,10 @@ guard, the metric writers (console, ``metrics.json``, TensorBoard where it
 imports) at every log period, checkpoints (``engine/checkpoint.py``) every
 ``train.checkpoint_period_epochs`` after a forced finiteness check, and
 eval every ``train.eval_period`` iterations. A raw grouped batch
-(``{"frames", "rois"}``) is preprocessed with ``train=True`` on the device
-first, the DZI draws coming from the trainer's seeded generator.
+(``{"frames", "rois"}``) or a raw flat one (``{"samples"}``, the
+``data.grouped_train=false`` path) is preprocessed with ``train=True`` on
+the device first, the DZI draws coming from the trainer's seeded
+generator.
 
 In a process group (``parallel/mesh.py``) every rank runs this loop on its
 own shard of each global batch through ``make_sharded_train_step``: the
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.pipeline import preprocess_rois_grouped
+from ..data.pipeline import preprocess_batch, preprocess_rois_grouped
 from ..models import RDPN
 from ..parallel import (
     TrainState,
@@ -96,10 +98,11 @@ class Trainer:
               step_hook: Callable[[int, dict], None] | None = None
               ) -> TrainState:
         """Run iterations start_iter..total_iters-1. Each batch is either
-        preprocessed train tensors or a raw grouped ``{"frames", "rois"}``
-        batch (numpy or tensors). With ``loader2``, each iteration draws
-        from it with probability ``train2_ratio`` (the draws of
-        ``RandomState(train.seed)``). ``aux_metrics_fn()`` adds host
+        preprocessed train tensors, a raw grouped ``{"frames", "rois"}``
+        batch or a raw flat ``{"samples"}`` one (numpy or tensors). With
+        ``loader2``, each iteration draws from it with probability
+        ``train2_ratio`` (the draws of ``RandomState(train.seed)``).
+        ``aux_metrics_fn()`` adds host
         metrics to each log event; ``eval_fn(state, it)`` runs every
         ``train.eval_period`` iterations; ``step_hook(it, metrics)`` after
         each step, with the step's device metrics."""
@@ -118,6 +121,9 @@ class Trainer:
                 batch = preprocess_rois_grouped(
                     cfg, batch["frames"], batch["rois"], train=True,
                     generator=self.generator)
+            elif "samples" in batch:
+                batch = preprocess_batch(cfg, batch["samples"], train=True,
+                                         generator=self.generator)
             self.state, metrics = self.step_fn(self.state, batch)
             if step_hook is not None:
                 step_hook(it, metrics)

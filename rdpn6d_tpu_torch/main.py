@@ -26,7 +26,9 @@ Training (no ``--eval-only``): the records of ``data.train_datasets`` give
 the iterations (``solver.total_epochs`` x records // ``ims_per_batch``);
 the trunk loads ``backbone.pretrained`` (skipped when ``--resume`` finds a
 checkpoint); batches come from the frame-grouped decode pool through one
-shared ``DeviceFrameCache`` (``data.device_frame_cache_mb``), with TRAIN2
+shared ``DeviceFrameCache`` (``data.device_frame_cache_mb``), or with
+``data.grouped_train=false`` from the flat per-instance pool (full float32
+frames a ROI, no device cache, as in the JAX package), with TRAIN2
 mixing (``data.train2_datasets``, ``train2_ratio``); the trainer writes
 ``metrics.json`` and checkpoints under ``<output_dir>/ckpt``, resumes from
 the latest with ``--resume``, and evaluates the live model on
@@ -40,10 +42,12 @@ and restarts the samplers and the DZI draws from their seeds.
 latest checkpoint in ``<output_dir>/ckpt`` (the port's format,
 ``engine/checkpoint.py``), writing the per-object table to the log,
 ``<split>_bop19.csv``, the recall curves under ``plots_<split>/`` and, with
-a targets file and mssd/mspd asked for, the BOP19 AR.
+a targets file and mssd/mspd asked for, the BOP19 AR. With ``--debug`` it
+runs the coordinate-regression debug eval instead
+(``eval_runner.coord_regression_eval``: the masked L1 of the predicted
+against the GT coordinates, logged and returned per split).
 
 Everything runs on ``cuda`` unless ``--device`` names another device.
-``--debug`` and ``data.grouped_train=false`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--debug", action="store_true",
                    help="with --eval-only: coordinate-regression debug eval "
-                        "(not ported)")
+                        "(the masked coordinate L1)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--num-devices", type=int, default=0,
                    help="0 = all visible devices")
@@ -146,9 +150,6 @@ def main(argv=None):
     another rank's ``{"stats"}``). N > 1 spawned processes: the module
     docstring."""
     args = parse_args(argv)
-    if args.debug:
-        raise NotImplementedError("--debug: the coordinate-regression eval "
-                                  "is not ported (ROADMAP queue 1 item 11)")
     from .parallel import mesh
     from .utils.device import resolve_device
 
@@ -235,19 +236,16 @@ def run(args, device):
     if cfg.train.output_dir == "auto":
         cfg = cfg.apply_opts(
             [f'train.output_dir="{auto_output_dir(args.config_file)}"'])
-    if not args.eval_only and not cfg.data.grouped_train:
-        raise NotImplementedError(
-            "data.grouped_train=false: the flat train path is not ported "
-            "(ROADMAP queue 1 item 10)")
     setup_logging(cfg.train.output_dir)
     logger = logging.getLogger("rdpn6d")
     if mesh.is_main():
         cfg.dump(os.path.join(cfg.train.output_dir, "config.json"))
     logger.info(f"device: {device}, rank {mesh.rank()} of {mesh.world()}")
     if args.eval_only:
-        from .engine.eval_runner import run_eval
+        from .engine.eval_runner import coord_regression_eval, run_eval
 
-        return {split: run_eval(cfg, ckpt_dir=f"{cfg.train.output_dir}/ckpt",
+        evaluate = coord_regression_eval if args.debug else run_eval
+        return {split: evaluate(cfg, ckpt_dir=f"{cfg.train.output_dir}/ckpt",
                                 split_name=split, device=device)
                 for split in cfg.data.test_datasets}
     return train(cfg, args, device, logger)
@@ -259,7 +257,8 @@ def train(cfg, args, device, logger):
 
     from .data.device_cache import DeviceFrameCache, upload_frame, \
         widen_depth
-    from .data.loader import load_train_records, train_group_iterator
+    from .data.loader import load_train_records, train_frame_iterator, \
+        train_group_iterator
     from .engine.checkpoint import CheckpointManager
     from .engine.trainer import Trainer
     from .models import RDPN, init_weights
@@ -294,12 +293,18 @@ def train(cfg, args, device, logger):
     start = trainer.resume() if args.resume else 0
 
     # ONE device frame cache for the main and TRAIN2 loaders (keys are rgb
-    # paths, unique across splits)
+    # paths, unique across splits); the flat path has none
+    grouped = cfg.data.grouped_train
     dev_cache = DeviceFrameCache(cfg.data.device_frame_cache_mb << 20,
                                  device) \
-        if cfg.data.device_frame_cache_mb > 0 else None
+        if grouped and cfg.data.device_frame_cache_mb > 0 else None
 
     def device_batches(split_name, seed: int = 0):
+        if not grouped:
+            for samples in train_frame_iterator(cfg, split_name, seed=seed,
+                                                cache_dir=cache_dir):
+                yield {"samples": samples}
+            return
         for gb in train_group_iterator(
                 cfg, split_name, seed=seed, cache_dir=cache_dir,
                 frame_bucket=cfg.data.frame_bucket,

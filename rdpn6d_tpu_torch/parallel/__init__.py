@@ -15,6 +15,7 @@ from .mesh import (
 from .train_step import (
     TrainState,
     create_train_state,
+    make_eval_step,
     make_sharded_train_step,
     make_train_step,
 )
@@ -22,4 +23,4 @@ from .train_step import (
 __all__ = ["all_reduce_sum", "barrier", "gather_predictions", "in_group",
            "init_distributed", "is_main", "rank", "replicate", "spawn",
            "world", "TrainState", "create_train_state",
-           "make_sharded_train_step", "make_train_step"]
+           "make_eval_step", "make_sharded_train_step", "make_train_step"]

@@ -2,7 +2,9 @@
 
 Counterpart of ``rdpn6d_tpu/parallel/train_step.py`` (``TrainState``,
 ``create_train_state``, ``make_train_step`` and
-``make_sharded_train_step`` around ``_make_step_fn``), eager: the model
+``make_sharded_train_step`` around ``_make_step_fn``, and
+``make_eval_step``'s pose outputs without the RANSAC-Kabsch refinement),
+eager: the model
 and the optimizer update in place, so the state is the live objects plus
 the step count. Under ``solver.amp`` the forward runs in bf16 autocast
 over float32 parameters, as the JAX model runs bf16 compute over float32
@@ -96,6 +98,32 @@ def make_train_step(cfg: Config, schedule: Callable[[int], float]
     gradients before clipping) to device scalars, so the step does not
     wait for the device."""
     return _make_step_fn(cfg, schedule, sharded=False)
+
+
+def make_eval_step(cfg: Config, model: RDPN
+                   ) -> Callable[[dict], dict[str, torch.Tensor]]:
+    """(batch) -> the eval outputs of the JAX package's ``make_eval_step``:
+    ``rot_ego``, ``trans``, ``mask_prob`` [B,H,W] (the head's mask as a
+    probability map), ``coord`` [B,H,W,3] and ``region_logits``, from the
+    model in eval mode without gradients. ``test.use_pnp`` (the
+    RANSAC-Kabsch refinement) is refused: ROADMAP queue 1 item 12."""
+    from ..models import mask_prob
+
+    if cfg.test.use_pnp:
+        raise NotImplementedError("test.use_pnp: the RANSAC-Kabsch "
+                                  "refinement is not ported (ROADMAP queue "
+                                  "1 item 12)")
+
+    def eval_fn(batch: dict) -> dict[str, torch.Tensor]:
+        with torch.no_grad():
+            out = model(batch)
+        prob = mask_prob(out["mask_logits"].permute(0, 3, 1, 2),
+                         cfg.head.mask_loss)[:, 0]
+        return {"rot_ego": out["rot_ego"], "trans": out["trans"],
+                "mask_prob": prob, "coord": out["coord"],
+                "region_logits": out["region_logits"]}
+
+    return eval_fn
 
 
 def make_sharded_train_step(cfg: Config, schedule: Callable[[int], float]

@@ -256,8 +256,9 @@ def test_cli_eval_during_training_runs_in_the_models_precision(
 def test_cli_runs_as_a_module(tree, tmp_path):
     """``python -m rdpn6d_tpu_torch.main`` trains, checkpoints, writes
     ``config.json`` and ``metrics.json`` and evaluates, on the tree's
-    per-object splits named by ``RDPN6D_DATA_ROOT``; a refusal exits
-    non-zero."""
+    per-object splits named by ``RDPN6D_DATA_ROOT``; the flat train path
+    (``data.grouped_train=false``), once refused with a non-zero exit,
+    trains and checkpoints as a module too."""
     env = dict(os.environ, RDPN6D_DATA_ROOT=tree, OMP_NUM_THREADS="2",
                PYTHONPATH=ROOT)
     out = str(tmp_path / "run")
@@ -277,11 +278,15 @@ def test_cli_runs_as_a_module(tree, tmp_path):
     assert os.path.isfile(os.path.join(out, "config.json"))
     csv = open(os.path.join(out, "lm_ape_test_bop19.csv")).read()
     assert len(csv.strip().splitlines()) == 1 + 3
-    refused = subprocess.run(argv + ["data.grouped_train=false"], cwd=ROOT,
-                             env=env, capture_output=True, text=True,
-                             timeout=300)
-    assert refused.returncode != 0
-    assert "queue 1 item 10" in refused.stderr
+    flat_out = str(tmp_path / "flat")
+    flat = subprocess.run(argv + ["data.grouped_train=false",
+                                  "train.eval_period=0",
+                                  f'train.output_dir="{flat_out}"'],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert flat.returncode == 0, flat.stderr[-3000:]
+    assert os.listdir(os.path.join(flat_out, "ckpt")) == ["1"]
+    assert [ln["iteration"] for ln in metrics(flat_out)] == [1]
 
 
 def test_train2_mixing_draws_from_the_seeded_stream(tmp_path):
@@ -345,8 +350,10 @@ def test_cli_train_refusals(data_root, tmp_path):
             tmain.main(base)
         assert not os.path.exists(tmp_path / "config.json")
     cpu = ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tmain.main(base + ["data.grouped_train=false"] + cpu)
+    # the flat train path, once refused, trains: 6 + 4 records at 4 ROIs
+    state = tmain.main(base + ["data.grouped_train=false",
+                               "solver.total_epochs=1"] + cpu)
+    assert state.step == 2
     # colour aug and background replacement, once refused, now run
     # (test_cli_trains_lmo trains with them)
     state = tmain.main(base + ["data.change_bg_prob=0.5",

@@ -4,6 +4,7 @@ import dataclasses
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 
 from rdpn6d_tpu import config as jcfg
@@ -170,22 +171,36 @@ def test_so_refuses_unknown_variant_like_jax(variant):
 
 
 def test_itodd_and_mp6d_load_then_refuse(tmp_path, monkeypatch):
-    """itodd and mp6d load; what they need is refused with ROADMAP queue 1
-    item 10: itodd's gray TIF frames at the image reader, mp6d's
-    ``ycb_style`` records at the record builder."""
+    """itodd and mp6d load, and what they need, once refused, now reads:
+    itodd's gray TIF frames through the image reader (as OpenCV reads
+    them in colour), mp6d's ``ycb_style`` records through the record
+    builder (the JAX package's records, field for field)."""
+    import cv2
+
+    import rdpn6d_tpu.data.refs as jrefs
     import rdpn6d_tpu_torch.data.refs as trefs
+    from rdpn6d_tpu.data import bop as jbop
     from rdpn6d_tpu_torch.data import bop, image
+    from rdpn6d_tpu_torch.data.synthetic import write_mp6d_tree
     from rdpn6d_tpu_torch.configs import itodd, mp6d
+    from tests.test_torch_train_data import assert_same
 
     cfg = itodd.get_config()
     assert (cfg.head.num_classes, cfg.data.train_datasets) == \
         (28, ("itodd_pbr_train",))
-    tif = tmp_path / "000000.tif"
-    tif.write_bytes(b"II*\x00" + bytes(60))
-    with pytest.raises(ValueError, match="TIF.*item 10"):
-        image.imread_rgb(str(tif))
+    tif = str(tmp_path / "000000.tif")
+    gray = (np.arange(24 * 32) % 251).astype(np.uint8).reshape(24, 32)
+    assert cv2.imwrite(tif, gray)
+    np.testing.assert_array_equal(
+        image.imread_rgb(tif),
+        cv2.cvtColor(cv2.imread(tif, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
     cfg = mp6d.get_config()
     assert cfg.test.error_types == "AUCadd,AUCadi,AUCad,vsd"
+    write_mp6d_tree(str(tmp_path), train_frames=1, test_frames=1,
+                    insts_per_frame=2, seed=1)
     monkeypatch.setattr(trefs, "DATA_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ycb_style.*item 10"):
-        bop.build_split_records(bop.get_split(cfg.data.train_datasets[0]))
+    monkeypatch.setattr(jrefs, "DATA_ROOT", str(tmp_path))
+    split = cfg.data.train_datasets[0]
+    records = bop.build_split_records(bop.get_split(split))
+    assert len(records) == 2
+    assert_same(records, jbop.build_split_records(jbop.get_split(split)))

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against
 their plain versions on the card (the ROI crop and the label kernels also
-at T-LESS's 540x720 frames), one lm13 train step on the card, the
+at T-LESS's 540x720 and ITODD's 960x1280 frames), one lm13 train step on
+the card, the
 entry points' default device, colour aug and lmo's two label paths card
 against CPU, and the image codecs on the card's machine.
 
@@ -287,6 +288,7 @@ def _gt_inputs(B, h, w, K, seed, masks, half):
                                          (2, 100, 90, 33, 64),
                                          (24, 480, 640, 64, 32),
                                          (24, 540, 720, 64, 32),
+                                         (24, 960, 1280, 64, 32),
                                          (2, 40, 30, 9, 1),
                                          (3, 50, 60, 17, 65),
                                          (2, 100, 90, 33, 96),
@@ -393,6 +395,7 @@ def _surface_inputs(B, F, h, w, K, seed, masks):
                                            (2, 1, 100, 90, 33, 64),
                                            (24, 8, 480, 640, 64, 32),
                                            (24, 8, 540, 720, 64, 32),
+                                           (24, 8, 960, 1280, 64, 32),
                                            (2, 2, 40, 30, 9, 1),
                                            (3, 2, 50, 60, 17, 65),
                                            (2, 1, 100, 90, 33, 96),
@@ -1122,8 +1125,24 @@ def test_roi_crop_kernel_matches_plain_at_540x720(card, normalize, B, F,
                                                   rgb_dtype, raw):
     """T-LESS's 540x720 frames: the train and eval batches' shapes, bit for
     bit as at 480x640."""
+    _crop_matches_plain(card, normalize, B, F, 540, 720, rgb_dtype, raw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("B,F,rgb_dtype,raw", [
+    (24, 8, "uint8", True), (32, 8, "uint8", True), (24, 24, "float32",
+                                                      False)])
+def test_roi_crop_kernel_matches_plain_at_960x1280(card, normalize, B, F,
+                                                   rgb_dtype, raw):
+    """ITODD's 960x1280 frames, also as the flat path ships them (24 ROIs
+    of 24 float32 frames, depth in metres), bit for bit as at 480x640."""
+    _crop_matches_plain(card, normalize, B, F, 960, 1280, rgb_dtype, raw)
+
+
+def _crop_matches_plain(card, normalize, B, F, H, W, rgb_dtype, raw):
     inp = [None if t is None else t.to(card) for t in
-           _crop_inputs(B, F, 540, 720, B + 7, rgb_dtype, raw, 256)]
+           _crop_inputs(B, F, H, W, B + 7, rgb_dtype, raw, 256)]
     mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
     before = cuda_build.LAUNCHES.get("roi_crop", 0)
     img, coord = roi_crop(*inp, 256, 64, mean, std, normalize=normalize)

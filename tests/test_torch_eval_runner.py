@@ -17,6 +17,7 @@ column differs by design (the port does not pad batches).
 import json
 import os
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -142,6 +143,33 @@ def test_run_eval_matches_jax(tree, weights, tmp_path, monkeypatch):
         assert os.path.exists(tmp_path / "plots_two_obj_test" / name)
 
 
+def test_coord_regression_eval_matches_jax(tree, weights, monkeypatch):
+    """``coord_regression_eval`` (the ``--debug`` eval) against the JAX
+    package's on the same weights in float32: the instance count equal,
+    the masked L1 within 1e-4 relative (float32 through the network, and
+    the labels' region ids may flip on 0.1% of the pixels), over whole
+    batches and with a cut at ``max_batches``."""
+    from rdpn6d_tpu.engine.eval_runner import coord_regression_eval as j_dbg
+    from rdpn6d_tpu_torch.engine.eval_runner import \
+        coord_regression_eval as t_dbg
+
+    monkeypatch.setattr(jrefs, "DATA_ROOT", tree)
+    monkeypatch.setattr(trefs, "DATA_ROOT", tree)
+    params, stats, ckpt = weights
+    jcfg, tcfg = JConfig().apply_opts(OPTS), TConfig().apply_opts(OPTS)
+    state = j_train_state(jcfg, {"params": params, "batch_stats": stats},
+                          j_build_optimizer(jcfg, total_iters=1))
+    for bs, cut in ((4, 0), (2, 2)):
+        j = j_dbg(jcfg, ckpt_dir="", split_name="two_obj_test",
+                  batch_size=bs, max_batches=cut, state=state,
+                  model=JRDPN(jcfg, dtype=jnp.float32))
+        t = t_dbg(tcfg, ckpt_dir=ckpt, split_name="two_obj_test",
+                  batch_size=bs, max_batches=cut, dtype=torch.float32,
+                  device="cpu")
+        assert t["n"] == j["n"] == (6 if not cut else 4)
+        np.testing.assert_allclose(t["coord_l1"], j["coord_l1"], rtol=1e-4)
+
+
 def test_run_eval_bop19_targets_match_jax(tree, weights, tmp_path,
                                           monkeypatch):
     j, t = _both(tree, weights, tmp_path, monkeypatch, "two_obj_tgt",
@@ -218,18 +246,30 @@ def test_main_eval_only_cpu(tree, weights, tmp_path, monkeypatch):
     assert cfg["data"]["test_datasets"] == ["two_obj_test"]
 
 
-def test_eval_refusals(tree, tmp_path, monkeypatch):
+def test_eval_refusals(tree, weights, tmp_path, monkeypatch):
     monkeypatch.setattr(trefs, "DATA_ROOT", tree)
     cfg = TConfig().apply_opts(OPTS)
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         t_run_eval(cfg, ckpt_dir=str(tmp_path / "none"),
                    split_name="two_obj_test", device="cpu")
     base = ["--config-file", "rdpn6d_tpu_torch/configs/lm13.py"]
-    with pytest.raises(NotImplementedError, match="flat train path"):
-        tmain.main(base + ["--device", "cpu", "--opts",
-                           "data.grouped_train=false"])
-    with pytest.raises(NotImplementedError, match="--debug"):
-        tmain.main(base + ["--eval-only", "--debug"])
+    # the flat train path and --debug, once refused, run: 6 records at 2
+    # ROIs a step, then the debug eval of the 6 test instances on the
+    # weights' checkpoint (held to the JAX package's below)
+    out = tmp_path / "run"
+    os.makedirs(out)
+    flat = ["--device", "cpu", "--opts", *OPTS, 'backbone.pretrained=""',
+            f'train.output_dir="{out}"', "data.grouped_train=false",
+            'data.train_datasets=["two_obj_test"]', "solver.ims_per_batch=2",
+            "solver.total_epochs=1", "train.eval_period=0"]
+    assert tmain.main(base + flat).step == 3
+    shutil.rmtree(out / "ckpt")
+    os.symlink(weights[2], out / "ckpt")
+    res = tmain.main(base + ["--eval-only", "--debug", "--device", "cpu",
+                             "--opts", *OPTS, f'train.output_dir="{out}"',
+                             'data.test_datasets=["two_obj_test"]'])
+    assert res["two_obj_test"]["n"] == 6
+    assert np.isfinite(res["two_obj_test"]["coord_l1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmain.main(base + ["--eval-only", "--opts",

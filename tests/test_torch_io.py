@@ -298,13 +298,23 @@ def test_build_split_records_match_jax(lm_tree, monkeypatch, tmp_path,
                            flatten=flatten), j)
 
 
-def test_lm13_split_and_non_bop_layouts(lm_tree, monkeypatch):
+def test_lm13_split_and_non_bop_layouts(lm_tree, monkeypatch, tmp_path):
     monkeypatch.setattr(trefs, "DATA_ROOT", lm_tree)
     split = t_get_split("lm_13_test")
     assert split.per_obj_index == "image_set/{obj}_test.txt"
     assert len(split.objs) == 13 and "bowl" not in split.objs
-    with pytest.raises(NotImplementedError, match="ycb_style"):
-        t_records(t_get_split("mp6d_test"))
+    # the ycb_style layout, once refused, builds the JAX package's records
+    from rdpn6d_tpu.data.bop import get_split as j_get_split
+    from rdpn6d_tpu_torch.data.synthetic import write_mp6d_tree
+
+    write_mp6d_tree(str(tmp_path), train_frames=1, test_frames=1,
+                    insts_per_frame=2, seed=2)
+    monkeypatch.setattr(trefs, "DATA_ROOT", str(tmp_path))
+    monkeypatch.setattr(jrefs, "DATA_ROOT", str(tmp_path))
+    for flatten in (True, False):
+        t = t_records(t_get_split("mp6d_test"), flatten=flatten)
+        assert len(t) == (2 if flatten else 1)
+        _assert_same(t, j_records(j_get_split("mp6d_test"), flatten=flatten))
 
 
 def test_detections_match_jax(lm_tree, monkeypatch, tmp_path):
@@ -405,9 +415,16 @@ def test_record_decoder_matches_jax(lm_tree, monkeypatch, tmp_path, cache_mb):
             r = {**rec, **extra}
             _assert_same(t._mask_visib(r), j._mask_visib(r))
     # the train decode is in, background replacement too (held to the JAX
-    # package in test_torch_train_data.py); the flat path's decode, its bg
-    # branch included, is what it refuses
-    bg = tloader.RecordDecoder(TConfig().apply_opts(
-        ["data.change_bg_prob=0.5"]), train=True)
-    with pytest.raises(NotImplementedError, match="background"):
-        bg(recs[0])
+    # package in test_torch_train_data.py); the flat path's decode, once
+    # refused, gives the JAX package's sample (its bg branch is held in
+    # test_torch_layouts.py; without a pool no background replaces)
+    from rdpn6d_tpu_torch.data.assets import synthetic_class_assets as t_syn
+
+    bg_opts = opts + ["data.change_bg_prob=0.5", "head.num_regions=4"]
+    ta, ja = t_syn(4, 64), synthetic_class_assets(4, 64)
+    ta.obj_ids[:] = ja.obj_ids[:] = [recs[0]["obj_id"]]
+    bg = tloader.RecordDecoder(TConfig().apply_opts(bg_opts), ta,
+                               train=True)
+    jbg = jloader.RecordDecoder(JConfig().apply_opts(bg_opts), ja,
+                                num_pm_points=64, train=True)
+    _assert_same(bg(recs[0]), jbg(recs[0]))

@@ -34,7 +34,8 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.engine.writers",
             "rdpn6d_tpu_torch.utils.pretrained",
             "rdpn6d_tpu_torch.data.augment", "rdpn6d_tpu_torch.data.jpeg",
-            "rdpn6d_tpu_torch.data.image",
+            "rdpn6d_tpu_torch.data.image", "rdpn6d_tpu_torch.data.tif",
+            "rdpn6d_tpu_torch.data.custom",
             "rdpn6d_tpu_torch.configs.lmo",
             "rdpn6d_tpu_torch.configs.base", "rdpn6d_tpu_torch.configs.ycbv",
             "rdpn6d_tpu_torch.configs.tless", "rdpn6d_tpu_torch.configs.tudl",

@@ -16,7 +16,7 @@ import cv2
 import numpy as np
 import pytest
 
-from rdpn6d_tpu_torch.data import image, jpeg, png
+from rdpn6d_tpu_torch.data import image, jpeg, png, tif
 from rdpn6d_tpu_torch.data.synthetic import encode_jpeg, write_jpeg
 
 SAMPLING = {"420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
@@ -139,20 +139,23 @@ def test_refusals(tmp_path):
 
 def test_imread_rgb_dispatches_by_signature(tmp_path):
     """``data/image.py`` picks the codec by the file's first bytes, not
-    its name: a PNG named .jpg and a JPEG named .png read as OpenCV reads
+    its name: a PNG named .jpg, a JPEG named .png and a gray TIFF named
+    .png (refused before TIFF frames were read) read as OpenCV reads
     them; other bytes are refused."""
     rgb = _picture(20, 30, seed=5)
     png_as_jpg = str(tmp_path / "a.jpg")
     png.write_png(png_as_jpg, rgb)
     jpg_as_png = str(tmp_path / "b.png")
     write_jpeg(jpg_as_png, rgb)
-    for path in (png_as_jpg, jpg_as_png):
+    tif_as_png = str(tmp_path / "c.png")
+    tif.write_tif(tif_as_png, rgb[..., 1])
+    for path in (png_as_jpg, jpg_as_png, tif_as_png):
         want = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR),
                             cv2.COLOR_BGR2RGB)
         np.testing.assert_array_equal(image.imread_rgb(path), want)
-    other = str(tmp_path / "c.tif")
+    other = str(tmp_path / "d.gif")
     with open(other, "wb") as f:
-        f.write(b"II*\x00" + bytes(60))
-    with pytest.raises(ValueError, match="neither PNG nor JPEG.*item 10"):
+        f.write(b"GIF89a" + bytes(60))
+    with pytest.raises(ValueError, match="neither PNG, JPEG nor TIFF"):
         image.imread_rgb(other)
     assert os.path.getsize(jpg_as_png) < os.path.getsize(png_as_jpg)

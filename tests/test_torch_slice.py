@@ -78,6 +78,31 @@ def test_predictor_poses_match_jax(served):
                                    atol=1e-4 * np.abs(b["t"]).max())
 
 
+def test_predictor_from_ckpt_dir_matches_jax(served, tmp_path):
+    """``Predictor(ckpt_dir=...)``: the port's checkpoint of the same
+    weights (``checkpoint_from_params_pkl``) serves the params_pkl
+    Predictor's poses exactly, and so the JAX Predictor's within the
+    tolerance above; a directory without a checkpoint is refused (the JAX
+    Predictor's FileNotFoundError, ``rdpn6d_tpu/engine/predictor.py:78``)."""
+    from rdpn6d_tpu_torch.utils.flax_params import checkpoint_from_params_pkl
+
+    cfg = TConfig().apply_opts(OPTS)
+    ckpt = str(tmp_path / "ckpt")
+    checkpoint_from_params_pkl(cfg, served["pkl"], ckpt, step=4)
+    tp = TPredictor(cfg, tassets.synthetic_class_assets(num_regions=4),
+                    ckpt_dir=ckpt, batch_size=3, dtype=torch.float32,
+                    device="cpu")
+    out = tp.predict(served["rgb"], served["depth"], K,
+                     [TDet(1, np.array(b), 0.5) for b in BOXES])
+    for a, b in zip(out, served["t"]):
+        np.testing.assert_array_equal(a["R"], b["R"])
+        np.testing.assert_array_equal(a["t"], b["t"])
+    empty = str(tmp_path / "empty")
+    with pytest.raises(FileNotFoundError, match="no checkpoint found"):
+        TPredictor(cfg, tassets.synthetic_class_assets(num_regions=4),
+                   ckpt_dir=empty, device="cpu")
+
+
 def test_preprocess_roi_matches_jax(served):
     """The eval crop of one ROI (uint8 rgb, depth_raw + factor)."""
     raw = (served["depth"] * 1000).astype(np.uint16)

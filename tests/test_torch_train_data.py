@@ -299,17 +299,27 @@ def test_train_group_iterator_surfaces_producer_errors(data_root):
 
 def test_train_refusals(data_root):
     # background replacement, once refused, now builds (held to the JAX
-    # package below); the flat path's decode, its bg branch included, is
-    # still refused
-    dec = tloader.RecordDecoder(TConfig().apply_opts(
-        ["data.change_bg_prob=0.5"]), train=True)
+    # package below); the flat path's decode, its bg branch included, and
+    # its iterator, once refused, now run: the decoder's sample and the
+    # first flat batch are the JAX package's (test_torch_flat_train.py
+    # holds more), and mp6d's records build (none on a tree without mp6d,
+    # as in the JAX package; test_torch_layouts.py holds a tree with it)
+    opts = OPTS + ["data.change_bg_prob=0.5"]
+    tcfg, jcfg = TConfig().apply_opts(opts), JConfig().apply_opts(opts)
+    objs = list(OBJS)
+    dec = tloader.RecordDecoder(tcfg, t_assets(trefs.get_ref("lm"), 4, 500,
+                                               objs=objs), train=True)
+    jdec = jloader.RecordDecoder(jcfg, j_assets(jrefs.get_ref("lm"), 4, 500,
+                                                objs=objs), train=True)
     assert dec.train
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        dec({})
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tloader.train_frame_iterator(TConfig(), SPLITS)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tbop.build_split_records(tbop.get_split("mp6d_train"))
+    rec = tloader.load_train_records(tcfg, SPLITS)[0]
+    assert_same(dec(rec, visit=1), jdec(rec, visit=1))
+    t_it = tloader.train_frame_iterator(tcfg, SPLITS, num_workers=1)
+    j_it = jloader.train_frame_iterator(jcfg, SPLITS, num_workers=1)
+    assert_same(next(t_it), next(j_it))
+    t_it.close()
+    assert tbop.build_split_records(tbop.get_split("mp6d_train")) == \
+        jbop.build_split_records(jbop.get_split("mp6d_train")) == []
 
 
 def _frame(rng, h=6, w=8):
