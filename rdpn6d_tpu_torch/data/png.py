@@ -130,15 +130,23 @@ def _paeth_predict(a, b, c):
 def _filter_rows(rows: np.ndarray, bpp: int, kind: int) -> np.ndarray:
     """Filter every row of [H, stride] uint8 with one filter type, from
     the unfiltered bytes (so no loop: encoding does not chain)."""
+    if kind == 0:
+        return rows.copy()
     x = rows.astype(np.int32)
     a = np.zeros_like(x)
     a[:, bpp:] = x[:, :-bpp]
     b = np.zeros_like(x)
     b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]
-    pred = {0: 0, 1: a, 2: b, 3: (a + b) >> 1,
-            4: _paeth_predict(a, b, c)}[kind]
+    if kind == 1:
+        pred = a
+    elif kind == 2:
+        pred = b
+    elif kind == 3:
+        pred = (a + b) >> 1
+    else:
+        c = np.zeros_like(x)
+        c[1:, bpp:] = x[:-1, :-bpp]
+        pred = _paeth_predict(a, b, c)
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 

@@ -514,10 +514,10 @@ def _write_bop_scene(sdir: str, frames: list[list[dict]], K: np.ndarray,
     for im_id, objs in enumerate(frames):
         rgb = _backdrop(rng, H, W)
         depth = np.full((H, W), plane)
-        for o in objs:
-            rgb = np.where(o["visib"][..., None], 128 + 1000.0 * o["xyz"],
-                           rgb)
-            depth = np.where(o["visib"], o["depth"], depth)
+        for o in objs:      # the visible masks are disjoint
+            m = o["visib"]
+            rgb[m] = 128 + 1000.0 * o["xyz"][m]
+            depth[m] = o["depth"][m]
         rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0, 255).astype(
             np.uint8)
         fmt = rgb_format if isinstance(rgb_format, str) \
@@ -810,11 +810,11 @@ def write_mp6d_tree(root: str, objs: dict[str, int] | None = None,
             rgb = _backdrop(rng, H, W)
             depth = np.full((H, W), 1.3)
             label = np.zeros((H, W), np.uint8)
-            for o in insts:
-                rgb = np.where(o["visib"][..., None],
-                               128 + 1000.0 * o["xyz"], rgb)
-                depth = np.where(o["visib"], o["depth"], depth)
-                label[o["visib"]] = o["obj_id"]
+            for o in insts:  # the visible masks are disjoint
+                m = o["visib"]
+                rgb[m] = 128 + 1000.0 * o["xyz"][m]
+                depth[m] = o["depth"][m]
+                label[m] = o["obj_id"]
             rgb = np.clip(rgb + rng.normal(0, 4, rgb.shape), 0,
                           255).astype(np.uint8)
             base = os.path.join(ds, "data", f"{sid:04d}", f"{im_id:06d}")
