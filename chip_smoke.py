@@ -4444,89 +4444,61 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # each phase's launches on its main path, summed by kernel (the served
+    # pass's roi_crop as counted before the profiled passes)
+    total: dict = {}
+    for got in (dict(launches, roi_crop=crop_launches), train_launches,
+                label_launches, eval_launches, disk_launches, lmo_launches,
+                serve8, eval8, dist_launches, mh_launches, ycbv_launches,
+                tless_launches, mini_launches, mp6d_launches,
+                itodd_launches, flat_launches):
+        add_launches(total, got)
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/min_dist2.cu",
         "replaces": "rdpn6d_tpu/ops/pallas_kernels.py:57",
-        "launches": launches.get("min_dist2", 0)
-        + eval_launches.get("min_dist2", 0)
-        + disk_launches.get("min_dist2", 0)
-        + lmo_launches.get("min_dist2", 0)
-        + mh_launches.get("min_dist2", 0)
-        + ycbv_launches.get("min_dist2", 0)
-        + tless_launches.get("min_dist2", 0)
-        + mini_launches.get("min_dist2", 0)
-        + mp6d_launches.get("min_dist2", 0)
-        + itodd_launches.get("min_dist2", 0)
-        + flat_launches.get("min_dist2", 0),
+        "launches": total.get("min_dist2", 0),
         "max_abs_err": max(errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}, {
         "name": "region_label", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/ops/region.py:21",
-        "launches": label_launches["region_label"]
-        + disk_launches.get("region_label", 0)
-        + lmo_launches.get("region_label", 0),
+        "launches": total.get("region_label", 0),
         "max_abs_err": label_err, **label_times}, {
         "name": "gt_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/data/pipeline.py:197",
-        "launches": train_launches.get("gt_labels", 0)
-        + disk_launches.get("gt_labels", 0)
-        + lmo_launches.get("gt_labels", 0)
-        + dist_launches.get("gt_labels", 0)
-        + mh_launches.get("gt_labels", 0)
-        + ycbv_launches.get("gt_labels", 0)
-        + tless_launches.get("gt_labels", 0)
-        + mp6d_launches.get("gt_labels", 0)
-        + itodd_launches.get("gt_labels", 0)
-        + flat_launches.get("gt_labels", 0),
+        "launches": total.get("gt_labels", 0),
         "max_abs_err": max(gt_err, tless_err["gt_labels"],
                            itodd_err["gt_labels"], flat_err),
         **gt_times}, {
         "name": "surface_labels", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/region_label.cu",
         "replaces": "rdpn6d_tpu/data/pipeline.py:222",
-        "launches": label_launches["surface_labels"]
-        + disk_launches.get("surface_labels", 0)
-        + lmo_launches.get("surface_labels", 0)
-        + ycbv_launches.get("surface_labels", 0)
-        + mp6d_launches.get("surface_labels", 0)
-        + itodd_launches.get("surface_labels", 0),
+        "launches": total.get("surface_labels", 0),
         "max_abs_err": max(surface_err, tless_err["surface_labels"],
                            itodd_err["surface_labels"]),
         **surface_times}, {
         "name": "int8_conv", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
         "replaces": "rdpn6d_tpu/models/quant.py:42",
-        "launches": serve8["int8_conv"] + eval8.get("int8_conv", 0),
+        "launches": total.get("int8_conv", 0),
         "max_abs_err": int8_err, **int8_times}, {
         "name": "quantize_act", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
         "replaces": "rdpn6d_tpu/models/quant.py:32",
-        "launches": serve8["quantize_act"] + eval8.get("quantize_act", 0),
+        "launches": total.get("quantize_act", 0),
         "max_abs_err": quant_err, **quant_times}, {
         "name": "bn_relu_quantize", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/int8_conv.cu",
         "replaces": "rdpn6d_tpu/models/quant.py:140",
-        "launches": serve8["bn_relu_quantize"]
-        + eval8.get("bn_relu_quantize", 0),
+        "launches": total.get("bn_relu_quantize", 0),
         "max_abs_err": fused_err, **fused_times}, {
         "name": "roi_crop", "route": "cuda",
         "source": "rdpn6d_tpu_torch/csrc/roi_crop.cu",
         "replaces": "rdpn6d_tpu/ops/warp.py:130",
-        "launches": crop_launches + train_launches.get("roi_crop", 0)
-        + eval_launches.get("roi_crop", 0)
-        + disk_launches.get("roi_crop", 0)
-        + lmo_launches.get("roi_crop", 0) + eval8.get("roi_crop", 0)
-        + dist_launches.get("roi_crop", 0) + mh_launches.get("roi_crop", 0)
-        + ycbv_launches.get("roi_crop", 0)
-        + tless_launches.get("roi_crop", 0)
-        + mini_launches.get("roi_crop", 0)
-        + mp6d_launches.get("roi_crop", 0)
-        + itodd_launches.get("roi_crop", 0)
-        + flat_launches.get("roi_crop", 0),
+        "launches": total.get("roi_crop", 0),
         "max_abs_err": crop_err, **crop_times}], "card": card}
     print(card)
     print(json.dumps(result))

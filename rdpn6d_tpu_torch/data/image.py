@@ -18,7 +18,8 @@ from . import jpeg, png, tif
 
 
 def image_format(path: str) -> str:
-    """"png", "jpeg" or "tif" by the file's signature; other formats raise
+    """"png", "jpeg" or "tif" by the file's signature (a BigTIFF is "tif",
+    so ``data/tif.py`` refuses it by name); other formats raise
     ValueError, a missing file FileNotFoundError."""
     with open(path, "rb") as f:
         head = f.read(8)
@@ -26,7 +27,7 @@ def image_format(path: str) -> str:
         return "jpeg"
     if head == png.SIGNATURE:
         return "png"
-    if tif.is_tif(head):
+    if tif.is_tif(head) or head[:4] in tif.BIGTIFF_SIGNATURES:
         return "tif"
     raise ValueError(f"neither PNG, JPEG nor TIFF: {path}")
 

@@ -31,6 +31,7 @@ import zlib
 import numpy as np
 
 SIGNATURES = (b"II*\x00", b"MM\x00*")
+BIGTIFF_SIGNATURES = (b"II+\x00", b"MM\x00+")
 
 # tag numbers (TIFF 6.0)
 _WIDTH, _HEIGHT, _BITS, _COMPRESSION, _PHOTOMETRIC = 256, 257, 258, 259, 262
@@ -57,7 +58,7 @@ def is_tif(head: bytes) -> bool:
 
 def _read_ifd(data: bytes, where: str) -> tuple[str, dict[int, tuple]]:
     """(byte order, {tag: values}) of the file's first image."""
-    if data[:4] == b"II+\x00" or data[:4] == b"MM\x00+":
+    if data[:4] in BIGTIFF_SIGNATURES:
         raise ValueError(f"BigTIFF is not read: {where}")
     if not is_tif(data):
         raise ValueError(f"not a TIFF file: {where}")

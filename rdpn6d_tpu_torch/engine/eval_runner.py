@@ -409,10 +409,9 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
 
 def coord_regression_eval(cfg: Config, ckpt_dir: str, split_name: str,
                           batch_size: int = 16, max_batches: int = 0,
-                          allow_random_init: bool = False,
                           dtype: torch.dtype = torch.bfloat16,
-                          device: str | torch.device | None = None,
-                          model: Any = None) -> dict[str, float]:
+                          device: str | torch.device | None = None
+                          ) -> dict[str, float]:
     """Debug eval: the masked L1 of the predicted against the GT
     normalized coordinates, sum |coord - roi_xyz| * visib over sum 3 *
     visib of every instance of the split.
@@ -423,9 +422,7 @@ def coord_regression_eval(cfg: Config, ckpt_dir: str, split_name: str,
     off, then the model's eval outputs (``parallel.make_eval_step``),
     ``batch_size`` instances a batch (at most ``max_batches`` batches, 0
     for all); instances that cannot be decoded are skipped. The model is
-    the latest checkpoint in ``ckpt_dir`` in ``dtype``, or a live
-    ``model`` under autocast to ``dtype`` (handed back in its mode).
-    Every rank of a process group scores the whole split. Returns
+    the latest checkpoint in ``ckpt_dir`` in ``dtype``. Every rank of a process group scores the whole split. Returns
     {coord_l1, n} (n the instances scored)."""
     from ..data.assets import load_class_assets
     from ..data.bop import build_split_records, get_split
@@ -445,44 +442,33 @@ def coord_regression_eval(cfg: Config, ckpt_dir: str, split_name: str,
                                cfg.loss.num_pm_points,
                                objs=[ref.id2obj[oid] for oid in present])
     decoder = RecordDecoder(dbg_cfg, assets, train=False)
-    live = model is not None
-    device = next(model.parameters()).device if live \
-        else resolve_device(device)
-    if not live:
-        model = _load_model(cfg, ckpt_dir, allow_random_init, device, dtype)
-    step = make_eval_step(cfg, model)
-    autocast = live and dtype != torch.float32
+    device = resolve_device(device)
+    step = make_eval_step(cfg, _load_model(cfg, ckpt_dir, False, device,
+                                           dtype))
 
     tot_err = tot_cnt = 0.0
     n = 0
-    was_training = model.training
-    model.eval()
-    try:
-        for i in range(0, len(records), batch_size):
-            if max_batches and i // batch_size >= max_batches:
-                break
-            samples = []
-            for rec in records[i:i + batch_size]:
-                try:
-                    samples.append(decoder(rec))
-                except (FileNotFoundError, OSError, SkipRecord):
-                    continue
-            if not samples:
+    for i in range(0, len(records), batch_size):
+        if max_batches and i // batch_size >= max_batches:
+            break
+        samples = []
+        for rec in records[i:i + batch_size]:
+            try:
+                samples.append(decoder(rec))
+            except (FileNotFoundError, OSError, SkipRecord):
                 continue
-            stacked = {k: torch.from_numpy(np.stack([s[k] for s in samples])
-                                           ).to(device) for k in samples[0]}
-            with torch.no_grad():
-                batch = preprocess_batch(dbg_cfg, stacked, train=True)
-                with torch.autocast(device.type, dtype=dtype,
-                                    enabled=autocast):
-                    out = step(batch)
-            m = batch["roi_mask_visib"][..., None]
-            err = (out["coord"].float() - batch["roi_xyz"]).abs() * m
-            tot_err += float(err.sum(dim=(1, 2, 3)).sum())
-            tot_cnt += float((m.sum(dim=(1, 2, 3)) * 3.0).sum())
-            n += len(samples)
-    finally:
-        model.train(was_training)
+        if not samples:
+            continue
+        stacked = {k: torch.from_numpy(np.stack([s[k] for s in samples])
+                                       ).to(device) for k in samples[0]}
+        with torch.no_grad():
+            batch = preprocess_batch(dbg_cfg, stacked, train=True)
+            out = step(batch)
+        m = batch["roi_mask_visib"][..., None]
+        err = (out["coord"].float() - batch["roi_xyz"]).abs() * m
+        tot_err += float(err.sum(dim=(1, 2, 3)).sum())
+        tot_cnt += float((m.sum(dim=(1, 2, 3)) * 3.0).sum())
+        n += len(samples)
     l1 = tot_err / max(tot_cnt, 1.0)
     logger.info(f"coord regression debug [{split_name}]: masked L1 = "
                 f"{l1:.5f} over {n} instances")

@@ -133,9 +133,12 @@ def test_refusals(tmp_path):
     open(path, "wb").write(bytes(data))
     with pytest.raises(ValueError, match="compression 7"):
         tif.read_tif(path)
-    open(path, "wb").write(b"II+\x00" + bytes(12))
-    with pytest.raises(ValueError, match="BigTIFF"):
-        tif.read_tif(path)
+    for sig in tif.BIGTIFF_SIGNATURES:
+        open(path, "wb").write(sig + bytes(12))
+        with pytest.raises(ValueError, match="BigTIFF"):
+            tif.read_tif(path)
+        with pytest.raises(ValueError, match="BigTIFF"):
+            image.imread_rgb(path)
     open(path, "wb").write(b"GIF89a" + bytes(12))
     with pytest.raises(ValueError, match="neither PNG, JPEG nor TIFF"):
         image.imread_rgb(path)
