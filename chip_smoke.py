@@ -235,14 +235,40 @@ Phases, each fatal on failure:
               serving phase 3's frames from that checkpoint: its weights
               the trained model's, its poses (z moved to ~1 m, as phase 3
               does) within phase 5's bounds of the trained model's.
+ 16. RANSAC-Kabsch and the model variants — (a) ``ransac_kabsch``
+              (``csrc/ransac_kabsch.cu``) against its plain version on the
+              card at (B, N) = (1, 4096), (16, 4096), (64, 4096), (3, 100)
+              and (2, 4097), 128 hypotheses of 4: correspondences of a known
+              pose with 0%, 30% and 60% outliers, a ROI with no valid point,
+              one with 3 and one with a NaN point; where the best hypothesis
+              agrees the score and ratio equal and R, t within 1e-4 (a ROI
+              with no valid point: both R rotations, t equal), where it
+              does not the scores within 1 and the fits within 1e-2; NaN
+              patterns equal; then timed at the served batch (16 x 4096) by
+              ``queued_ms`` and CUDA events beside the plain version and its
+              bound, with registers and spills from the build log; (b) lm13
+              at full width with ``test.use_pnp=true`` through ``Predictor``
+              in bf16 and f32 on phase 3's frames: one ``ransac_kabsch``
+              launch a served batch, finite poses, the ROIs refined (ratio >
+              0.05) counted; the f32 pass's fits against the plain version
+              on the same inputs, and frame 0 card vs CPU (the same weights
+              and draws): the pre-fallback R within phase 5's 1e-3 where the
+              valid masks and the best hypothesis agree; (c) ``main
+              --eval-only`` with ``test.use_pnp=true`` on phase 9's tree and
+              checkpoint: one ``ransac_kabsch`` launch an eval batch,
+              ``min_dist2`` one an object, the MEAN table beside phase 9's;
+              (d) the space-to-depth stem, ``pnp.r_only`` (TransHead),
+              ``SimplePointPnP`` and ``PointPnP`` at lm13 full width: the f32
+              forward of 4 ROIs card vs CPU within phase 5's bounds, and
+              phase 7's f32 train step card vs CPU.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12,
-each rank's steps and each ``main`` of phases 13, 14 and 15, and phase
-15's served pass) and read right after it. In phases 3, 6, 9, 10, 11,
-12(c), 13, 14 and 15 the batches the
-entry points preprocess are counted too (``PreprocessCalls``), and
-``roi_crop`` must have launched once for each.
+each rank's steps and each ``main`` of phases 13, 14 and 15, phase 15's
+served pass, and phase 16's served passes and ``main``) and read right
+after it. In phases 3, 6, 9, 10, 11, 12(c), 13, 14, 15 and 16(b, c) the
+batches the entry points preprocess are counted too
+(``PreprocessCalls``), and ``roi_crop`` must have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON line, then ``{"ok": true, "device": {...}}`` as
 the last line. Exits non-zero, printing no result, without a CUDA device or
@@ -1333,11 +1359,14 @@ def run_train(dev, card, profile: bool, work: str):
     return launches
 
 
-def train_parity(dev, work, batches=None, label="train parity"):
+def train_parity(dev, work, batches=None, label="train parity", opts=(),
+                 prepare=None):
     """Phase 7: one float32 step on the card and on the CPU from the same
     weights and the same (CPU-preprocessed) batch, or each side's own of
     ``batches`` ({"card", "cpu"}, preprocessed; phase 15(c)'s flat
-    batches). Every loss within 1e-3 relative. ``grad_norm`` within 1e-3
+    batches); ``opts`` are config opts on top of lm13's (phase 16(d)'s
+    model variants), ``prepare(model)`` edits the seeded model first.
+    Every loss within 1e-3 relative. ``grad_norm`` within 1e-3
     relative or twice what the CPU's own ``grad_norm`` moves when the
     input moves by 1e-6 relative, the larger: at this seeded init the
     gradient is ill-conditioned (BatchNorm on batch statistics of 4 ROIs),
@@ -1349,7 +1378,8 @@ def train_parity(dev, work, batches=None, label="train parity"):
     from rdpn6d_tpu_torch.parallel import create_train_state, make_train_step
     from rdpn6d_tpu_torch.solver import build_schedule
 
-    cfg = train_config(amp=False, out_dir=os.path.join(work, "phase7"))
+    cfg = train_config(amp=False, out_dir=os.path.join(work, "phase7")
+                       ).apply_opts(list(opts))
     if batches is None:
         frames, rois = train_inputs(cfg, 30, 2, 2)
         batch = preprocess_rois_grouped(
@@ -1359,6 +1389,8 @@ def train_parity(dev, work, batches=None, label="train parity"):
         batches = {"card": batch, "cpu": batch}
     schedule = build_schedule(cfg, 1000)
     model = init_weights(RDPN(cfg), torch.Generator().manual_seed(1))
+    if prepare is not None:
+        prepare(model)
     cpu = torch.device("cpu")
     out = {}
     for name, d, src, scale in (("card", dev, "card", 1.0),
@@ -4187,6 +4219,393 @@ def run_flat(dev, card, work, frames):
     return launches, worst
 
 
+# phase 16: test.use_pnp's RANSAC-Kabsch refinement and the model variants
+RANSAC_SHAPES = [(1, 4096), (16, 4096), (64, 4096), (3, 100), (2, 4097)]
+RANSAC_THR = 0.015          # refine_pose_kabsch's inlier threshold
+RANSAC_TOL = 1e-4           # kernel vs plain, R and t, where the best agrees
+# ~20 FP32 operations a (hypothesis, point) pair: 9 multiply-adds of
+# R m + t - c (an FMA counted as 2, 18), the 3 squares' sum and the compare
+RANSAC_OPS_PER_PAIR = 20
+FP32_FLOP_PER_S = 67e12
+RANSAC_BATCH = 16           # the served batch (phase 3's batch size)
+VARIANTS = {
+    "s2d stem": ["backbone.space_to_depth=true"],
+    "r_only TransHead": ["pnp.r_only=true"],
+    "SimplePointPnP": ['pnp.pnp_head="SimplePointPnP"'],
+    "PointPnP": ['pnp.pnp_head="PointPnP"'],
+}
+
+
+def ransac_bound(B: int, N: int, H: int) -> tuple[float, str]:
+    """Least ms the card could take for the fit of B ROIs of N points and
+    H hypotheses: the scoring's operations, or each input read once (N
+    points of xyz, xyz and mask, the uniforms) and the outputs written
+    once, the larger."""
+    ops_s = B * H * N * RANSAC_OPS_PER_PAIR / FP32_FLOP_PER_S
+    bytes_s = (B * N * 7 + B * H * 4 + B * 15) * 4 / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), \
+        "operations" if ops_s >= bytes_s else "bytes"
+
+
+def ransac_inputs(B, N, seed, dev, special=True):
+    """Correspondences of a known pose per ROI (mm noise), outliers moved
+    by ~10 cm at 0%, 30% and 60% in turn, 85% of the mask set, and the
+    hypotheses' uniforms; with ``special`` and B >= 3 the last ROI is
+    all masked out, the one before has 3 valid points and the one before
+    that a NaN point. Returns the 4 inputs on ``dev``, R and t."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import NUM_HYPS, SAMPLE_SIZE
+
+    rng = np.random.RandomState(seed)
+    q, _ = np.linalg.qr(rng.randn(B, 3, 3))
+    R = q * np.sign(np.linalg.det(q))[:, None, None]
+    t = np.stack([rng.uniform(-0.1, 0.1, B), rng.uniform(-0.1, 0.1, B),
+                  rng.uniform(0.6, 1.2, B)], 1)
+    m = rng.randn(B, N, 3) * 0.05
+    c = np.einsum("bij,bnj->bni", R, m) + t[:, None] \
+        + rng.randn(B, N, 3) * 0.001
+    out = rng.rand(B, N) < np.array([0.0, 0.3, 0.6])[np.arange(B) % 3, None]
+    c[out] += rng.randn(int(out.sum()), 3) * 0.1
+    mask = (rng.rand(B, N) < 0.85).astype(np.float32)
+    if special and B >= 3:
+        mask[-1] = 0.0
+        mask[-2] = 0.0
+        mask[-2, rng.choice(N, 3, replace=False)] = 1.0
+        m[-3, N // 2, 1] = np.nan
+    u = rng.rand(B, NUM_HYPS, SAMPLE_SIZE)
+
+    def to(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    return (to(m), to(c), to(mask), to(u)), R, t
+
+
+def ransac_compare(got, ref, mask, label, tol=RANSAC_TOL):
+    """The kernel's fit against the plain version's: where the best
+    hypothesis agrees, the same score and ratio and R, t within ``tol``
+    (a ROI with no valid point has a zero covariance, whose rotation is
+    any: there both R orthonormal and t equal); where it does not (a d2
+    within rounding of the threshold counted on one side), the scores
+    within 1 and the two refits within 1e-2. NaN patterns equal. Returns
+    (worst error where the best agrees, ROIs whose best differs)."""
+    import torch
+
+    g = [x.cpu() for x in got]
+    r = [x.cpu() for x in ref]
+    check(torch.equal(g[0].isnan(), r[0].isnan())
+          and torch.equal(g[1].isnan(), r[1].isnan()),
+          f"{label}: the kernel's NaN pattern differs from plain's")
+    empty = (mask.cpu().sum(-1) == 0)
+    worst, flips = 0.0, []
+    for i in range(g[0].shape[0]):
+        if int(g[3][i]) != int(r[3][i]):
+            flips.append(i)
+            d = max(float((g[0][i] - r[0][i]).abs().max()),
+                    float((g[1][i] - r[1][i]).abs().max()))
+            check(abs(int(g[4][i]) - int(r[4][i])) <= 1 and d <= 1e-2,
+                  f"{label}: ROI {i}: best {int(g[3][i])} (score "
+                  f"{int(g[4][i])}) vs plain {int(r[3][i])} (score "
+                  f"{int(r[4][i])}), fits {d:.3e} apart")
+            continue
+        check(int(g[4][i]) == int(r[4][i])
+              and float(g[2][i]) == float(r[2][i]),
+              f"{label}: ROI {i}: score/ratio {int(g[4][i])}/"
+              f"{float(g[2][i])} vs plain {int(r[4][i])}/{float(r[2][i])}")
+        if bool(r[0][i].isnan().any()):
+            continue
+        if bool(empty[i]):
+            eye = torch.eye(3)
+            for R in (g[0][i], r[0][i]):
+                check(float((R @ R.T - eye).abs().max()) <= 1e-5
+                      and abs(float(torch.linalg.det(R)) - 1) <= 1e-5,
+                      f"{label}: ROI {i} (no valid point): R not a "
+                      "rotation")
+            check(float((g[1][i] - r[1][i]).abs().max()) <= tol,
+                  f"{label}: ROI {i} (no valid point): t differs")
+            continue
+        d = max(float((g[0][i] - r[0][i]).abs().max()),
+                float((g[1][i] - r[1][i]).abs().max()))
+        check(d <= tol, f"{label}: ROI {i}: R, t {d:.3e} from plain "
+              f"(tol {tol})")
+        worst = max(worst, d)
+    return worst, flips
+
+
+def check_ransac_kabsch(dev, card):
+    """Phase 16(a): ``ransac_kabsch`` against its plain version on the
+    card at every shape of ``RANSAC_SHAPES``, then timed at the served
+    batch beside the plain version and its bound; returns (max error,
+    times)."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import (
+        NUM_HYPS,
+        ransac_kabsch,
+        ransac_kabsch_plain,
+    )
+
+    worst = 0.0
+    for i, (B, N) in enumerate(RANSAC_SHAPES):
+        args, R_true, t_true = ransac_inputs(B, N, 40 + i, dev)
+        got = ransac_kabsch(*args, RANSAC_THR)
+        ref = ransac_kabsch_plain(*args, RANSAC_THR)
+        torch.cuda.synchronize()
+        err, flips = ransac_compare(got, ref, args[2],
+                                    f"ransac_kabsch B={B} N={N}")
+        worst = max(worst, err)
+        R = got.R.cpu().numpy()
+        ok = np.isfinite(R).all((1, 2))
+        dR = np.abs(R - R_true).max((1, 2))
+        good = ok & (dR <= 1e-2)
+        print(f"kernel: ransac_kabsch B={B} N={N} H={NUM_HYPS}: R, t within "
+              f"{err:.3e} of plain where the best hypothesis agrees "
+              f"({B - len(flips)} of {B} ROIs; differing: {flips}), NaN "
+              f"patterns equal; {int(good.sum())} of {B} refits within "
+              f"1e-2 of the true R; ratios "
+              f"{np.round(got.ratio.cpu().numpy()[:6], 4).tolist()}")
+    args, _, _ = ransac_inputs(RANSAC_BATCH, 4096, 50, dev, special=False)
+
+    def kernel():
+        ransac_kabsch(*args, RANSAC_THR)
+
+    def plain():
+        ransac_kabsch_plain(*args, RANSAC_THR)
+
+    ms = queued_ms(kernel, iters=50)
+    events_ms = cuda_ms(kernel, iters=50)
+    plain_ms = cuda_ms(plain, iters=5, warmup=1)
+    bound_ms, bound_by = ransac_bound(RANSAC_BATCH, 4096, NUM_HYPS)
+    _, built = cuda_build.load("ransac_kabsch")
+    usage = {k: v for k, v in cuda_build.ptxas_usage(built.log).items()
+             if "ransac" in k}
+    regs = ", ".join(f"{v['registers']} registers, {v['spill_stores']} B "
+                     f"spill stores, {v['spill_loads']} B spill loads"
+                     for v in usage.values())
+    print(f"kernel: ransac_kabsch served batch, {RANSAC_BATCH} ROIs x 4096 "
+          f"points x {NUM_HYPS} hypotheses: device time (queued) {ms:.4f} "
+          f"ms, {100 * bound_ms / ms:.1f}% of bound (CUDA events over a "
+          f"burst {events_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes "
+          f"it; {regs} [{card}]")
+    return worst, dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+class RansacCalls:
+    """Records each ``ops.ransac_kabsch.ransac_kabsch`` call that
+    ``refine_pose_kabsch`` makes inside a ``with`` block: its inputs and
+    its pre-fallback fit."""
+
+    def __enter__(self):
+        from rdpn6d_tpu_torch.ops import ransac_kabsch as rk
+
+        self.rk, self._orig, self.calls = rk, rk.ransac_kabsch, []
+
+        def spy(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.calls.append((args, out))
+            return out
+
+        rk.ransac_kabsch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.rk.ransac_kabsch = self._orig
+        return False
+
+    def refined(self) -> tuple[int, int]:
+        """(ROIs whose refit stands, ROIs fitted)."""
+        from rdpn6d_tpu_torch.ops.ransac_kabsch import REFINE_MIN_RATIO
+
+        ratios = [float(r) for _, out in self.calls for r in out.ratio]
+        return sum(r > REFINE_MIN_RATIO for r in ratios), len(ratios)
+
+
+def run_ransac_serving(dev, card, cfg, assets, frames):
+    """Phase 16(b): lm13 at full width with ``test.use_pnp=true`` through
+    ``Predictor`` in bf16 and f32 on phase 3's frames: one
+    ``ransac_kabsch`` launch a served batch, finite poses, the refined
+    ROIs counted; the f32 fits against the plain version on the card's
+    own inputs, and the card's served pass against the CPU's on frame 0
+    (the same weights and draws); returns the launches."""
+    import torch
+
+    from rdpn6d_tpu_torch.engine.predictor import Predictor
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import ransac_kabsch_plain
+
+    cfg = cfg.apply_opts(["test.use_pnp=true"])
+    n_det = sum(len(f[2]) for f in frames)
+    batches = sum(-(-len(f[2]) // SERVE_BATCH) for f in frames)
+    total: dict = {}
+    fits = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        pred = physical_z(Predictor(cfg, assets, batch_size=SERVE_BATCH,
+                                    dtype=dt, device="cuda",
+                                    allow_random_init=True))
+        serve(pred, frames)                      # warm-up
+        cuda_build.reset_launches()
+        with RansacCalls() as rc, PreprocessCalls() as calls:
+            outs, secs = serve(pred, frames)
+        got = dict(cuda_build.LAUNCHES)
+        flat = [r for o in outs for r in o]
+        check(len(flat) == n_det and all(
+            np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
+            for r in flat), f"use_pnp {name}: missing or non-finite poses")
+        check(got.get("ransac_kabsch", 0) == batches == calls.n
+              and got.get("roi_crop", 0) == batches,
+              f"use_pnp {name}: launches {got} for {batches} served "
+              "batches")
+        refined, fitted = rc.refined()
+        print(f"serve: lm13 full width {name}, test.use_pnp: {n_det} poses "
+              f"of {len(frames)} frames in {secs * 1e3:.1f} ms = "
+              f"{n_det / secs:.1f} poses/s; ransac_kabsch x"
+              f"{got.get('ransac_kabsch', 0)} in {batches} served batches; "
+              f"{refined} of {fitted} ROIs refined (ratio > 0.05; seeded "
+              f"weights) [{card}]")
+        add_launches(total, got)
+        fits[name] = (pred, rc.calls)
+    # the kernel on the served pass's own inputs against the plain version
+    worst, flips = 0.0, 0
+    for args, out in fits["f32"][1]:
+        ref = ransac_kabsch_plain(*args)
+        torch.cuda.synchronize()
+        err, f = ransac_compare(out, ref, args[2], "use_pnp f32 served fit")
+        worst, flips = max(worst, err), flips + len(f)
+    # the card's served pass against the CPU's, frame 0, the same draws
+    cpu = physical_z(Predictor(cfg, assets, batch_size=SERVE_BATCH,
+                               dtype=torch.float32, device="cpu",
+                               allow_random_init=True))
+    rgb, depth, dets = frames[0]
+    with RansacCalls() as rc_cpu:
+        cpu_out = cpu.predict(rgb, depth, K_LM, dets)
+    with RansacCalls() as rc_card:
+        card_out = fits["f32"][0].predict(rgb, depth, K_LM, dets)
+    (c_args, c_fit), = rc_card.calls
+    (p_args, p_fit), = rc_cpu.calls
+    masks_equal = (c_args[2].cpu() == p_args[2]).all(-1).numpy()
+    same = (c_fit.best.cpu() == p_fit.best).numpy() & masks_equal
+    mask_agree = float((c_args[2].cpu() == p_args[2]).float().mean())
+    dR_fit = max([float((c_fit.R[i].cpu() - p_fit.R[i]).abs().max())
+                  for i in np.flatnonzero(same)] or [0.0])
+    dR = max(float(np.abs(a["R"] - b["R"]).max())
+             for a, b in zip(card_out, cpu_out))
+    dt = max(float(np.abs(a["t"] - b["t"]).max() / np.abs(b["t"]).max())
+             for a, b in zip(card_out, cpu_out))
+    # phase 5's bounds, where the two sides' (float32, differently summed)
+    # network outputs gave the same valid mask and the same best hypothesis
+    check(dR_fit <= 1e-3, f"use_pnp f32: pre-fallback R card vs CPU "
+          f"{dR_fit:.3e} where the best hypothesis agrees")
+    print(f"serve: use_pnp f32 fits: kernel vs plain on the card's inputs "
+          f"within {worst:.3e} where the best hypothesis agrees ({flips} "
+          f"differ); card vs CPU on frame 0's {len(dets)} ROIs: masks agree "
+          f"on {100 * mask_agree:.3f}% of points, masks and best "
+          f"hypothesis equal on {int(same.sum())}, pre-fallback R within "
+          f"{dR_fit:.3e} there; "
+          f"served poses max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e} [{card}]")
+    return total
+
+
+def run_ransac_eval(dev, card, work, bf16_mean):
+    """Phase 16(c): ``main --eval-only`` with ``test.use_pnp=true`` on
+    phase 9's tree and checkpoint: one ``ransac_kabsch`` launch an eval
+    batch, ``min_dist2`` one an object; returns the launches."""
+    import torch
+
+    from rdpn6d_tpu_torch import main as port_main
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
+    out = os.path.join(work, "out_pnp")
+    os.makedirs(out)
+    os.symlink(os.path.join(work, "out", "ckpt"), os.path.join(out, "ckpt"))
+    n_rois = 13 * EVAL_FRAMES_PER_OBJ
+    n_batches = -(-n_rois // 32)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with RansacCalls() as rc, PreprocessCalls() as calls:
+        res = port_main.main([
+            "--config-file",
+            os.path.join(ROOT, "rdpn6d_tpu_torch", "configs", "lm13.py"),
+            "--eval-only", "--opts", f'train.output_dir="{out}"',
+            "test.use_pnp=true"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(cuda_build.LAUNCHES)
+    res = res["lm_13_test"]
+    check(got.get("ransac_kabsch", 0) == n_batches == calls.n
+          and got.get("roi_crop", 0) == n_batches
+          and got.get("min_dist2", 0) == 13,
+          f"use_pnp eval launches {got}, want ransac_kabsch and roi_crop "
+          f"{n_batches}, min_dist2 13")
+    ident, R, t = read_csv(os.path.join(out, "lm_13_test_bop19.csv"))
+    check(len(ident) == n_rois and bool(np.isfinite(R).all()
+                                        and np.isfinite(t).all()),
+          "use_pnp eval: missing or non-finite poses in the CSV")
+    refined, fitted = rc.refined()
+    st = res["stats"]
+    keys = [k for k in ("ad_2", "ad_5", "ad_10", "adi_10", "re_5", "te_5",
+                        "proj_5") if k in res["mean"]]
+    table = ", ".join(f"{k} {res['mean'][k]:.2f} (phase 9 "
+                      f"{bf16_mean[k]:.2f})" for k in keys)
+    rate = st["n_timed"] / st["wall_s"] if st["wall_s"] else 0.0
+    print(f"eval: lm13 full width bf16 main --eval-only test.use_pnp on "
+          f"lm_13_test: {st['n_rois']} ROIs, {rate:.1f} poses/s past "
+          f"warm-up, split "
+          f"wall time {wall:.2f} s; {refined} of {fitted} ROIs refined; "
+          f"MEAN {table} (seeded weights: reported, not gated); launches "
+          f"{got} [{card}]")
+    return got
+
+
+def variant_forward(dev, card, work, name, opts):
+    """Phase 16(d), one variant: its f32 forward on 4 preprocessed ROIs
+    on the card and on the CPU (the same weights, TF32 off) within phase
+    5's bounds, then phase 7's f32 train step card vs CPU."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+
+    cfg = train_config(amp=False, out_dir=os.path.join(work, "phase16")
+                       ).apply_opts(opts)
+
+    def physical(model):     # objects ~1 m away, as physical_z does
+        with torch.no_grad():
+            if cfg.pnp.r_only:
+                model.trans_head_net.linears[4].bias[2] = 2.0
+            else:
+                model.pnp_net.fc_t.bias[2] = 2.0
+
+    frames, rois = train_inputs(cfg, 31, 2, 2)
+    batch = preprocess_rois_grouped(
+        cfg, {k: torch.from_numpy(v) for k, v in frames.items()},
+        {k: torch.from_numpy(v) for k, v in rois.items()})
+    model = init_weights(RDPN(cfg), torch.Generator().manual_seed(2))
+    physical(model)
+    model.eval()
+    outs = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = copy.deepcopy(model).to(d)
+        with torch.no_grad():
+            o = m({k: v.to(d) for k, v in batch.items()})
+        outs[side] = {k: o[k].cpu().numpy() for k in ("rot_ego", "trans")}
+    dR = float(np.abs(outs["card"]["rot_ego"] - outs["cpu"]["rot_ego"]).max())
+    dt = float((np.abs(outs["card"]["trans"] - outs["cpu"]["trans"]).max(1)
+                / np.abs(outs["cpu"]["trans"]).max(1)).max())
+    check(np.isfinite(outs["card"]["rot_ego"]).all() and dR <= 1e-3
+          and dt <= 1e-3, f"{name}: f32 forward card vs CPU |dR| {dR:.3e}, "
+          f"|dt|/|t| {dt:.3e}")
+    print(f"variants: {name} at lm13 full width, f32 forward of 4 ROIs card "
+          f"vs CPU: max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e} (tol 1e-3) "
+          f"[{card}]")
+    train_parity(dev, work, label=f"variants: {name} train step", opts=opts,
+                 prepare=physical)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4217,7 +4636,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     # 1. build --------------------------------------------------------------
-    kernels = ["min_dist2", "region_label", "int8_conv", "roi_crop"]
+    kernels = ["min_dist2", "region_label", "int8_conv", "roi_crop",
+               "ransac_kabsch"]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", "import sys; from rdpn6d_tpu_torch.ops "
@@ -4441,6 +4861,16 @@ def main(argv=None) -> int:
         itodd_launches, itodd_err = run_itodd(dev, card, work)
         flat_launches, flat_err = run_flat(dev, card, work, frames)
         print(f"phase 15: {time.perf_counter() - t15:.1f} s [{card}]")
+
+        # 16. test.use_pnp's refinement and the model variants ------------
+        t16 = time.perf_counter()
+        ransac_err, ransac_times = check_ransac_kabsch(dev, card)
+        pnp_serve_launches = run_ransac_serving(dev, card, cfg, assets,
+                                                frames)
+        pnp_eval_launches = run_ransac_eval(dev, card, work, bf16_mean)
+        for name, opts in VARIANTS.items():
+            variant_forward(dev, card, work, name, opts)
+        print(f"phase 16: {time.perf_counter() - t16:.1f} s [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4451,7 +4881,8 @@ def main(argv=None) -> int:
                 label_launches, eval_launches, disk_launches, lmo_launches,
                 serve8, eval8, dist_launches, mh_launches, ycbv_launches,
                 tless_launches, mini_launches, mp6d_launches,
-                itodd_launches, flat_launches):
+                itodd_launches, flat_launches, pnp_serve_launches,
+                pnp_eval_launches):
         add_launches(total, got)
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",
@@ -4499,7 +4930,12 @@ def main(argv=None) -> int:
         "source": "rdpn6d_tpu_torch/csrc/roi_crop.cu",
         "replaces": "rdpn6d_tpu/ops/warp.py:130",
         "launches": total.get("roi_crop", 0),
-        "max_abs_err": crop_err, **crop_times}], "card": card}
+        "max_abs_err": crop_err, **crop_times}, {
+        "name": "ransac_kabsch", "route": "cuda",
+        "source": "rdpn6d_tpu_torch/csrc/ransac_kabsch.cu",
+        "replaces": "rdpn6d_tpu/ops/ransac_kabsch.py:125",
+        "launches": total.get("ransac_kabsch", 0),
+        "max_abs_err": ransac_err, **ransac_times}], "card": card}
     print(card)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

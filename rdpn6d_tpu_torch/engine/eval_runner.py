@@ -21,7 +21,8 @@ and rank 0 scores them over the whole split; the other ranks return
 The BOP19 AR takes VSD when ``test.error_types`` asks for ``vsd``: the
 eval meshes' faces rendered on the host (``ops/rasterizer.py``) against
 the scene depth.
-Not ported, and refused: the RANSAC-Kabsch refinement (``test.use_pnp``).
+Each batch goes through ``parallel.make_eval_step``, as in the JAX
+package, so ``test.use_pnp`` refines the poses by RANSAC-Kabsch there.
 """
 
 from __future__ import annotations
@@ -204,12 +205,9 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     from ..data.pipeline import preprocess_rois_grouped
     from ..data.refs import get_ref
     from ..evaluation.evaluator import PoseEvaluator
+    from ..parallel import make_eval_step
     from .inference import evaluate_and_report, inference_on_dataset
 
-    if cfg.test.use_pnp:
-        raise NotImplementedError("test.use_pnp: the RANSAC-Kabsch "
-                                  "refinement is not ported (ROADMAP queue "
-                                  "1 item 12)")
     device = next(model.parameters()).device if model is not None \
         else resolve_device(device)
     split = get_split(split_name)
@@ -244,17 +242,16 @@ def run_eval(cfg: Config, ckpt_dir: str, split_name: str,
     elif int8:
         model = _int8_serving_copy(cfg, model, dtype)
     autocast = live and not int8 and dtype != torch.float32
+    # the preprocessing in float32 whatever the model's dtype, as the JAX
+    # package's: only the forward runs under autocast
+    step = make_eval_step(cfg, model, autocast=dtype if autocast else None)
 
     def preprocess(b):
         return preprocess_rois_grouped(cfg, b["frames"], b["rois"])
 
     def eval_step(b):
-        # the preprocessing in float32 whatever the model's dtype, as the
-        # JAX package's: only the forward runs under autocast
         with torch.no_grad():
-            batch = preprocess(b)
-            with torch.autocast(device.type, dtype=dtype, enabled=autocast):
-                return model(batch)
+            return step(preprocess(b))
 
     def asset(oid, key):
         return eval_assets.for_obj(oid)[key]

@@ -1,7 +1,9 @@
 """Serving API: RGB-D frames + detections in, 6DoF poses out.
 
-Counterpart of ``rdpn6d_tpu/engine/predictor.py``, with the body of the
-JAX package's ``make_eval_step`` inlined. Weights come from the port's
+Counterpart of ``rdpn6d_tpu/engine/predictor.py``: each batch goes
+through ``parallel.make_eval_step``, as in the JAX package, so
+``test.use_pnp`` refines the served poses by RANSAC-Kabsch there (one
+kernel launch a batch on the card). Weights come from the port's
 checkpoint directory (``ckpt_dir``: the latest step that
 ``engine/checkpoint.py`` wrote, as ``main``'s train branch writes them
 under ``<output_dir>/ckpt``; where the JAX ``Predictor`` reads orbax),
@@ -17,9 +19,6 @@ fixed batch shape, so a frame's detections go through in chunks of
 ``test.int8_static`` its activation scales are calibrated on the first
 served batch and then locked, as the JAX ``Predictor`` does (which keeps
 "per_channel" only as a truthy flag; the port keeps the mode).
-
-Not ported yet, and refused: the RANSAC-Kabsch refinement
-(``test.use_pnp``).
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from ..data.assets import ClassAssets
 from ..data.pipeline import preprocess_rois_grouped
 from ..models import RDPN, init_weights
 from ..models.quant import calibrate_quant, serving_mode
+from ..parallel import make_eval_step
 from ..utils.device import resolve_device
 from ..utils.flax_params import state_dict_from_flax
 
@@ -55,9 +55,6 @@ class Predictor:
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
                  allow_random_init: bool = False):
-        if cfg.test.use_pnp:
-            raise NotImplementedError(
-                "test.use_pnp: the RANSAC-Kabsch refinement is not ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.assets = assets
@@ -89,6 +86,7 @@ class Predictor:
             init_weights(model, torch.Generator().manual_seed(0))
         # Int8Conv keeps its weight in float32 under the cast
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        self._eval_step = make_eval_step(cfg, self.model)
         self._needs_calibration = bool(int8 and static)
 
     @torch.no_grad()
@@ -134,7 +132,7 @@ class Predictor:
                 # detection; an absmax cannot change by repeats.
                 calibrate_quant(self.model, [batch])
                 self._needs_calibration = False
-            out = self.model(batch)
+            out = self._eval_step(batch)
             R = out["rot_ego"].cpu().numpy()
             t = out["trans"].cpu().numpy()
             for i, d in enumerate(dets):

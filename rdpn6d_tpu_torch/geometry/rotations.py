@@ -52,6 +52,45 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def mat_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 4] (w,x,y,z), w >= 0: branchless Shepperd's
+    method, the construction with the largest pivot (the first of equal
+    ones)."""
+    m = rot
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    t = m00 + m11 + m22
+    d21, d02, d10 = (m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                     m[..., 1, 0] - m[..., 0, 1])
+    s01, s02, s12 = (m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0],
+                     m[..., 1, 2] + m[..., 2, 1])
+    pw, px = 1.0 + t, 1.0 + m00 - m11 - m22
+    py, pz = 1.0 + m11 - m00 - m22, 1.0 + m22 - m00 - m11
+    cands = torch.stack([
+        torch.stack([pw, d21, d02, d10], -1),
+        torch.stack([d21, px, s01, s02], -1),
+        torch.stack([d02, s01, py, s12], -1),
+        torch.stack([d10, s02, s12, pz], -1),
+    ], -1)                          # [..., 4 components, 4 candidates]
+    best = torch.stack([pw, px, py, pz], -1).argmax(-1)
+    q = torch.take_along_dim(
+        cands, best[..., None, None].expand(cands.shape[:-1] + (1,)),
+        dim=-1)[..., 0]
+    q = normalize(q)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w,x,y,z) quaternions, broadcasting over batch."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def axangle_to_mat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula. axis [..., 3] (auto-normalized), angle [...]."""
     axis = normalize(axis)
@@ -67,11 +106,47 @@ def axangle_to_mat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return m.reshape(angle.shape + (3, 3))
 
 
+def axangle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """axis [..., 3] (auto-normalized), angle [...] -> [..., 4]."""
+    axis = normalize(axis)
+    half = angle[..., None] / 2.0
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
+def log_map(rot: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """SO(3) log: [..., 3, 3] -> axis-angle vector [..., 3], through
+    :func:`mat_to_quat` (w >= 0, so the angle is in [0, pi]), which stays
+    well conditioned at a half turn."""
+    q = mat_to_quat(rot)
+    v = q[..., 1:]
+    vn = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(vn[..., 0], q[..., 0])
+    return v / vn.clamp_min(eps) * angle[..., None]
+
+
 def exp_map(vec: torch.Tensor) -> torch.Tensor:
     """SO(3) exp: axis-angle vector [..., 3] -> [..., 3, 3] (the axis via
     the scale-invariant :func:`normalize`)."""
     angle = torch.linalg.vector_norm(vec, dim=-1)
     return axangle_to_mat(normalize(vec), angle)
+
+
+def euler_to_mat(rx: torch.Tensor, ry: torch.Tensor,
+                 rz: torch.Tensor) -> torch.Tensor:
+    """Extrinsic XYZ euler angles (radians) -> R = Rz @ Ry @ Rx
+    (transforms3d's ``euler2mat(.., axes='sxyz')``)."""
+    zero, one = torch.zeros_like(rx), torch.ones_like(rx)
+    cx, sx = torch.cos(rx), torch.sin(rx)
+    cy, sy = torch.cos(ry), torch.sin(ry)
+    cz, sz = torch.cos(rz), torch.sin(rz)
+    shape = rx.shape + (3, 3)
+    Rx = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx],
+                     -1).reshape(shape)
+    Ry = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy],
+                     -1).reshape(shape)
+    Rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one],
+                     -1).reshape(shape)
+    return Rz @ Ry @ Rx
 
 
 def angular_distance(r1: torch.Tensor, r2: torch.Tensor,

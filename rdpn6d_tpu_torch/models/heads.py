@@ -86,3 +86,31 @@ class DenseHead(nn.Module):
         out = f[-1](x).float()  # logits in float32
         md, cd = self.mask_dim, self.coord_dim
         return out[:, :md], out[:, md:md + cd], out[:, md + cd:]
+
+
+class TransHead(nn.Module):
+    """Direct-translation head (``pnp.r_only``): counterpart of
+    ``rdpn6d_tpu/models/heads.py:TransHead``, the reference's
+    ``TransHeadNet`` with its names, ``features`` = (conv3x3 without bias,
+    norm, relu) triples and ``linears`` = Linear, ReLU, Linear, ReLU,
+    Linear. It reads the trunk's final feature map [B, C, 8, 8], flattened
+    NCHW, and returns float32 (centroid_rel, z_rel) [B, 3]."""
+
+    def __init__(self, in_channels: int, num_filters: int = 256,
+                 num_layers: int = 3, norm: str = "BN", gn_groups: int = 32,
+                 in_res: int = 8):
+        super().__init__()
+        layers: list[nn.Module] = []
+        cin = in_channels
+        for _ in range(num_layers):
+            layers += [nn.Conv2d(cin, num_filters, 3, padding=1, bias=False),
+                       make_norm(norm, num_filters, gn_groups), nn.ReLU()]
+            cin = num_filters
+        self.features = nn.Sequential(*layers)
+        self.linears = nn.Sequential(
+            nn.Linear(num_filters * in_res * in_res, 4096), nn.ReLU(),
+            nn.Linear(4096, 4096), nn.ReLU(), nn.Linear(4096, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.features(x.to(self.linears[0].weight.dtype))
+        return self.linears(x.flatten(1)).float()

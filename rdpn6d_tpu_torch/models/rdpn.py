@@ -2,9 +2,14 @@
 
 Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN``, without remat.
 Submodules carry the reference checkpoint's names (``backbone.*``,
-``backbone.spatial_net.*``, ``rot_head_net.features.*``, ``pnp_net.*``), so
-``state_dict()`` has the reference layout; ``loss.use_mtl`` adds the
-``log_var_*`` parameters at the top. The forward takes and returns the JAX
+``backbone.spatial_net.*``, ``rot_head_net.features.*``, ``pnp_net.*``,
+``trans_head_net.*``), so ``state_dict()`` has the reference layout;
+``loss.use_mtl`` adds the ``log_var_*`` parameters at the top. Variants:
+``backbone.space_to_depth`` (the exact s2d stem), ``pnp.pnp_head``
+"ConvPnPNet", "SimplePointPnP" or "PointPnP" (``models/point_pnp.py``;
+a point head takes the concatenated mask as one more channel), and
+``pnp.r_only`` (the translation from ``TransHead`` on the trunk's 8x8
+feature). The forward takes and returns the JAX
 package's layout (channels last); inside, the network runs NCHW in the
 parameters' dtype (or under the caller's autocast), with logits, the PnP
 outputs and the pose recovery in float32. ``train()`` mode is the JAX
@@ -39,7 +44,8 @@ from ..ops.resize import (
     upsample_bilinear_align_corners,
 )
 from .conv_pnp import ConvPnPNet
-from .heads import DenseHead
+from .heads import DenseHead, TransHead
+from .point_pnp import PointPnP, SimplePointPnP
 from .pointnet import SpatialPointNet
 from .quant import int8_targets
 from .resnet import ResNetTrunk
@@ -56,11 +62,30 @@ def head_out_res(cfg: Config) -> int:
 
 
 def pnp_in_channels(cfg: Config) -> int:
+    """Input channels of the PnP head: coord, 2-D coord, region FPS, the
+    region softmax (not PointPnP's: it pools with it) and the mask."""
     pnp = cfg.pnp
     n = 3 + (5 if pnp.with_2d_coord else 0) + 3
-    n += cfg.head.num_regions if pnp.region_attention else 0
+    if pnp.region_attention and pnp.pnp_head != "PointPnP":
+        n += cfg.head.num_regions
     n += 1 if pnp.mask_attention == "concat" else 0
     return n
+
+
+def build_pnp_net(cfg: Config) -> nn.Module:
+    pnp = cfg.pnp
+    if pnp.pnp_head == "ConvPnPNet":
+        return ConvPnPNet(
+            pnp_in_channels(cfg), rot_dim=pnp.rot_dim, featdim=pnp.featdim,
+            num_layers=pnp.num_layers, gn_groups=pnp.gn_groups,
+            norm=pnp.norm, in_res=head_out_res(cfg),
+            drop_prob=pnp.drop_prob)
+    if pnp.pnp_head == "SimplePointPnP":
+        return SimplePointPnP(pnp_in_channels(cfg), rot_dim=pnp.rot_dim)
+    if pnp.pnp_head == "PointPnP":
+        return PointPnP(pnp_in_channels(cfg), rot_dim=pnp.rot_dim,
+                        num_regions=cfg.head.num_regions)
+    raise ValueError(pnp.pnp_head)
 
 
 class RDPN(nn.Module):
@@ -69,16 +94,10 @@ class RDPN(nn.Module):
         super().__init__()
         h, pnp = cfg.head, cfg.pnp
         trunk_stages, int8_head = int8_targets(int8)
-        if cfg.backbone.space_to_depth:
-            raise NotImplementedError("backbone.space_to_depth is not "
-                                      "ported yet")
-        if pnp.pnp_head != "ConvPnPNet" or pnp.r_only:
-            raise NotImplementedError(
-                f"pnp_head={pnp.pnp_head!r} r_only={pnp.r_only}: only "
-                "ConvPnPNet without TransHead is ported yet")
         self.cfg = cfg
         self.backbone = ResNetTrunk(cfg.backbone.depth, trunk_stages,
-                                    int8_static)
+                                    int8_static,
+                                    s2d_stem=cfg.backbone.space_to_depth)
         ch = self.backbone.stage_channels
         # the reference keeps the fusion net inside the backbone module
         # (its state_dict keys are backbone.spatial_net.*)
@@ -95,11 +114,11 @@ class RDPN(nn.Module):
             norm=h.norm, gn_groups=h.gn_groups,
             skip_channels=ch[0] if concat else 0, int8=int8_head,
             int8_static=int8_static)
-        self.pnp_net = ConvPnPNet(
-            pnp_in_channels(cfg), rot_dim=pnp.rot_dim, featdim=pnp.featdim,
-            num_layers=pnp.num_layers, gn_groups=pnp.gn_groups,
-            norm=pnp.norm, in_res=head_out_res(cfg),
-            drop_prob=pnp.drop_prob)
+        self.pnp_net = build_pnp_net(cfg)
+        if pnp.r_only:
+            self.trans_head_net = TransHead(
+                ch[-1], num_filters=h.num_filters,
+                in_res=cfg.backbone.input_res // 32)
         if cfg.loss.use_mtl:
             # uncertainty weights s_i = log sigma_i^2 (loss * exp(-s) + s)
             for name in MTL_LOSSES:
@@ -136,6 +155,7 @@ class RDPN(nn.Module):
             feat = feat.detach()
             skip64 = None if skip64 is None else skip64.detach()
             skip32 = None if skip32 is None else skip32.detach()
+        feat8 = feat   # the trunk's 8x8 feature, TransHead's input
         h8, w8 = feat.shape[2], feat.shape[3]
         feat = upsample_bilinear_align_corners(feat, h8 * 4, w8 * 4)
         xyz32 = downsample_nearest_torch(depth_xyz, h8 * 4,
@@ -182,11 +202,20 @@ class RDPN(nn.Module):
             mask_concat = mask_prob(mask_logits, h.mask_loss)
         region_atten = torch.softmax(region_logits[:, 1:], dim=1) \
             if pnp.region_attention else None
-        rot_param, t_param = self.pnp_net(
-            coord_feat, region=region_atten, extents=batch["roi_extent"],
-            mask_attention=mask_atten, mask_concat=mask_concat,
-            drop_scale=drop_scale, generator=generator,
-            drop_shard=drop_shard)
+        if pnp.pnp_head == "ConvPnPNet":
+            rot_param, t_param = self.pnp_net(
+                coord_feat, region=region_atten,
+                extents=batch["roi_extent"], mask_attention=mask_atten,
+                mask_concat=mask_concat, drop_scale=drop_scale,
+                generator=generator, drop_shard=drop_shard)
+        else:
+            if mask_concat is not None:   # no spatial slot: one channel
+                coord_feat = torch.cat([coord_feat, mask_concat], dim=1)
+            rot_param, t_param = self.pnp_net(
+                coord_feat, region=region_atten,
+                extents=batch["roi_extent"], mask_attention=mask_atten)
+        if pnp.r_only:
+            t_param = self.trans_head_net(feat8)
 
         if "rot6d" in pnp.rot_type:
             rot_m = ortho6d_to_mat(rot_param)
@@ -253,11 +282,14 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 
 def init_weights(model: RDPN, generator: torch.Generator) -> RDPN:
     """The port's seeded init, distributed as the JAX package's: lecun
-    normal in the trunk and the fusion net; in the head and the PnP net
-    normal(0.001) ("reference") or lecun normal ("fan_in"), with fc_r and
-    fc_t at normal(0.01); zero biases, identity norms."""
+    normal in the trunk and the fusion net; in the head, TransHead and the
+    conv PnP net normal(0.001) ("reference") or lecun normal ("fan_in"), in
+    a point PnP head lecun normal, with fc_r and fc_t at normal(0.01); zero
+    biases, identity norms."""
     g = generator
     reference = model.cfg.head.init == "reference"
+    # the point heads' layers take flax's default init whatever head.init
+    conv_pnp = model.cfg.pnp.pnp_head == "ConvPnPNet"
 
     def small(w, fan_in):
         if reference:
@@ -284,7 +316,8 @@ def init_weights(model: RDPN, generator: torch.Generator) -> RDPN:
                 continue
             if name in ("pnp_net.fc_r", "pnp_net.fc_t"):
                 nn.init.normal_(m.weight, 0.0, 0.01, generator=g)
-            elif name.startswith(("rot_head_net.", "pnp_net.")):
+            elif name.startswith(("rot_head_net.", "trans_head_net.")) \
+                    or name.startswith("pnp_net.") and conv_pnp:
                 small(m.weight, fan_in_of(m))
             else:
                 _lecun_normal_(m.weight, fan_in_of(m), g)

@@ -5,8 +5,11 @@ Counterpart of ``rdpn6d_tpu/models/resnet.py`` (``BasicBlock``,
 (``conv1``/``bn1``/``layerN.i.{conv,bn}k``/``downsample``), which is the
 reference checkpoint's ``backbone.*`` layout. Under int8 the blocks' convs
 of the quantized stages, the 1×1 downsample included, are ``Int8Conv``
-(``models/quant.py``); the stem stays in the model's dtype. The
-space-to-depth stem is not ported yet.
+(``models/quant.py``); the stem stays in the model's dtype. With
+``s2d_stem`` (``backbone.space_to_depth``) the 7×7/s2 stem is the exactly
+equivalent space-to-depth(2) + 4×4/s1 conv with padding (2, 1): ``conv1``
+is then [64, 12, 4, 4], and ``stem_kernel_to_s2d`` remaps a 7×7 kernel
+(a torchvision trunk's) to it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .norm import BatchNorm2d
@@ -82,18 +86,47 @@ class Bottleneck(nn.Module):
         return torch.relu(y + idt)
 
 
+def stem_kernel_to_s2d(k7: torch.Tensor) -> torch.Tensor:
+    """Remap a [O, C, 7, 7] stride-2 stem kernel to the exactly equivalent
+    [O, 4C, 4, 4] space-to-depth(2) stride-1 kernel: tap a = 2 k + d - 1
+    (k < 4, d < 2) of channel block 2 d_i + d_j; taps outside 0..6 are the
+    structural zeros of the 8-wide cover."""
+    O, C = k7.shape[:2]
+    k4 = k7.new_zeros((O, 4 * C, 4, 4))
+    for ku in range(4):
+        for kv in range(4):
+            for di in range(2):
+                for dj in range(2):
+                    au, av = 2 * ku + di - 1, 2 * kv + dj - 1
+                    if 0 <= au < 7 and 0 <= av < 7:
+                        blk = (di * 2 + dj) * C
+                        k4[:, blk:blk + C, ku, kv] = k7[:, :, au, av]
+    return k4
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """[B, C, H, W] -> [B, b²C, H/b, W/b]; channel (d_i b + d_j) C + c, the
+    JAX package's order."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, C, H // block, block, W // block, block)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(
+        B, block * block * C, H // block, W // block)
+
+
 class ResNetTrunk(nn.Module):
-    """conv7x7/2 + maxpool/2 + 4 stages: 256² RGB -> 8x8 final feature.
-    ``int8_stages``: which of the 4 stages run their convs in int8 (None:
-    none)."""
+    """conv7x7/2 (or its space-to-depth form) + maxpool/2 + 4 stages: 256²
+    RGB -> 8x8 final feature. ``int8_stages``: which of the 4 stages run
+    their convs in int8 (None: none)."""
 
     def __init__(self, depth: int = 34,
                  int8_stages: tuple[bool, ...] | None = None,
-                 int8_static: Any = False):
+                 int8_static: Any = False, s2d_stem: bool = False):
         super().__init__()
         kind, layers = RESNET_SPECS[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.s2d_stem = s2d_stem
+        self.conv1 = nn.Conv2d(12, 64, 4, 1, 0, bias=False) if s2d_stem \
+            else nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         cin = 64
@@ -111,6 +144,9 @@ class ResNetTrunk(nn.Module):
             self.stage_channels.append(cin)
 
     def forward(self, x: torch.Tensor, return_skips: bool = False):
+        if self.s2d_stem:
+            # output i taps x[2i-4 .. 2i+3], the -4 tap a structural zero
+            x = F.pad(space_to_depth(x), (2, 1, 2, 1))
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         skips = []
         for stage in range(4):

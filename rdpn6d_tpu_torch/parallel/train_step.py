@@ -3,8 +3,7 @@
 Counterpart of ``rdpn6d_tpu/parallel/train_step.py`` (``TrainState``,
 ``create_train_state``, ``make_train_step`` and
 ``make_sharded_train_step`` around ``_make_step_fn``, and
-``make_eval_step``'s pose outputs without the RANSAC-Kabsch refinement),
-eager: the model
+``make_eval_step``), eager: the model
 and the optimizer update in place, so the state is the live objects plus
 the step count. Under ``solver.amp`` the forward runs in bf16 autocast
 over float32 parameters, as the JAX model runs bf16 compute over float32
@@ -23,6 +22,7 @@ a batch-sharded mesh does; every rank ends with the same parameters.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Callable
 
@@ -100,28 +100,50 @@ def make_train_step(cfg: Config, schedule: Callable[[int], float]
     return _make_step_fn(cfg, schedule, sharded=False)
 
 
-def make_eval_step(cfg: Config, model: RDPN
+def make_eval_step(cfg: Config, model: RDPN,
+                   autocast: torch.dtype | None = None
                    ) -> Callable[[dict], dict[str, torch.Tensor]]:
     """(batch) -> the eval outputs of the JAX package's ``make_eval_step``:
     ``rot_ego``, ``trans``, ``mask_prob`` [B,H,W] (the head's mask as a
     probability map), ``coord`` [B,H,W,3] and ``region_logits``, from the
-    model in eval mode without gradients. ``test.use_pnp`` (the
-    RANSAC-Kabsch refinement) is refused: ROADMAP queue 1 item 12."""
+    model in eval mode without gradients, its forward under autocast to
+    ``autocast`` where given. With ``test.use_pnp`` and
+    ``test.pnp_type="ransac_kabsch"`` the net pose
+    seeds the RANSAC-Kabsch refinement (``ops/ransac_kabsch``, in float32,
+    one kernel launch a batch on the card) over the dense correspondences
+    and the depth crop's points (``roi_coord_2d``'s xyz), with the draws
+    of ``hypothesis_draws`` for the batch's size: ``rot_ego`` and
+    ``trans`` are the refined pose where its inlier ratio exceeds 0.05,
+    and ``inlier_ratio`` [B] is added. ``test.use_pnp`` with
+    ``pnp_type="net"`` serves the net pose."""
     from ..models import mask_prob
+    from ..ops import ransac_kabsch as rk
 
-    if cfg.test.use_pnp:
-        raise NotImplementedError("test.use_pnp: the RANSAC-Kabsch "
-                                  "refinement is not ported (ROADMAP queue "
-                                  "1 item 12)")
+    use_kabsch = cfg.test.use_pnp and cfg.test.pnp_type == "ransac_kabsch"
 
     def eval_fn(batch: dict) -> dict[str, torch.Tensor]:
+        dev = batch["roi_img"].device
         with torch.no_grad():
-            out = model(batch)
-        prob = mask_prob(out["mask_logits"].permute(0, 3, 1, 2),
-                         cfg.head.mask_loss)[:, 0]
-        return {"rot_ego": out["rot_ego"], "trans": out["trans"],
-                "mask_prob": prob, "coord": out["coord"],
-                "region_logits": out["region_logits"]}
+            with torch.autocast(dev.type, dtype=autocast) if autocast \
+                    else contextlib.nullcontext():
+                out = model(batch)
+            prob = mask_prob(out["mask_logits"].permute(0, 3, 1, 2),
+                             cfg.head.mask_loss)[:, 0]
+            result = {"rot_ego": out["rot_ego"], "trans": out["trans"],
+                      "mask_prob": prob, "coord": out["coord"],
+                      "region_logits": out["region_logits"]}
+            if use_kabsch:
+                b = out["coord"].shape[0]
+                draws = rk.hypothesis_draws(b, rk.NUM_HYPS, rk.SAMPLE_SIZE,
+                                            dev)
+                ref = rk.refine_pose_kabsch(
+                    out["coord"], out["region_logits"], prob,
+                    batch["roi_coord_2d"][..., :3], batch["resize_ratio"],
+                    batch["fps"], batch["roi_extent"], out["rot_ego"],
+                    out["trans"], draws, mask_thr=cfg.head.mask_thr_test)
+                result.update(rot_ego=ref.R, trans=ref.t,
+                              inlier_ratio=ref.ratio)
+        return result
 
     return eval_fn
 

@@ -6,17 +6,23 @@ The JAX package saves served weights as a pickle of numpy trees
 (``engine/predictor.py``'s ``params_pkl``), named by flax's auto-naming:
 ``backbone/{Conv_0,BatchNorm_0,BasicBlock_i/...}``,
 ``spatial_net/{Conv_i,BatchNorm_i}``,
-``dense_head/{ConvTranspose_0,Conv_j,BatchNorm_j}`` and
-``pnp_net/{Conv_j,GroupNorm_j,Dense_j}``. The port's keys are the reference
-checkpoint's (``backbone.*``, ``backbone.spatial_net.*``,
-``rot_head_net.features.*``, ``pnp_net.*``), the layout that
-``rdpn6d_tpu/utils/torch_convert.convert_rdpn_checkpoint`` reads back.
+``dense_head/{ConvTranspose_0,Conv_j,BatchNorm_j}``,
+``pnp_net/{Conv_j,GroupNorm_j,Dense_j}`` (a point PnP head's
+``pnp_net/Dense_0..6``) and, with ``pnp.r_only``,
+``trans_head/{Conv_j,BatchNorm_j,Dense_j}``. The port's keys are the
+reference checkpoint's (``backbone.*``, ``backbone.spatial_net.*``,
+``rot_head_net.features.*``, ``pnp_net.*``, ``trans_head_net.*``), the
+layout that ``rdpn6d_tpu/utils/torch_convert.convert_rdpn_checkpoint``
+reads back; the point heads, which the reference checkpoint lacks, take
+the port's own names (``models/point_pnp.py``). A space-to-depth stem's
+[4, 4, 12, 64] kernel maps as any conv's.
 
 Layouts: conv kernels HWIO -> OIHW; the transposed conv's
 [kh, kw, out, in] -> [in, out, kh, kw]; dense kernels [in, out] -> [out, in];
-``fc1``'s input axis from flax's NHWC flatten order to torch's NCHW one,
-over the PnP net's own output map (derived from the config, not assumed
-8x8). ``loss.use_mtl``'s ``log_var_*`` leaves sit at the top of both.
+``fc1``'s (and TransHead's first linear's) input axis from flax's NHWC
+flatten order to torch's NCHW one, over the map it flattens (derived from
+the config, not assumed 8x8). ``loss.use_mtl``'s ``log_var_*`` leaves
+sit at the top of both.
 
 int8 serving's calibrated scales: the flax ``quant`` collection holds an
 ``act_amax`` (a scalar, or one value per input channel) at the path of each
@@ -144,23 +150,46 @@ def head_state(w: _Writer, num_layers: int, norm: str, prefix: str,
            path + (f"Conv_{2 * num_layers}",))
 
 
+def _nhwc_to_nchw(key: str, res: int, channels: int):
+    def fn(wt):  # [out, H*W*C] in flax order -> torch order
+        if wt.shape[1] != res * res * channels:
+            raise ValueError(
+                f"{key}: {wt.shape[1]} inputs, expected "
+                f"{res}x{res}x{channels} from the config")
+        return wt.reshape(-1, res, res, channels).transpose(
+            0, 3, 1, 2).reshape(wt.shape)
+    return fn
+
+
 def pnp_state(w: _Writer, num_layers: int, norm: str, featdim: int,
               out_res: int, prefix: str, path: tuple) -> None:
     for j in range(num_layers):
         w.conv(f"{prefix}.features.{3 * j}", path + (f"Conv_{j}",))
         w.norm(norm, f"{prefix}.features.{3 * j + 1}", path, j)
-
-    def nhwc_to_nchw(wt):  # [out, H*W*C] in flax order -> torch order
-        if wt.shape[1] != out_res * out_res * featdim:
-            raise ValueError(
-                f"{prefix}.fc1: {wt.shape[1]} inputs, expected "
-                f"{out_res}x{out_res}x{featdim} from the config")
-        return wt.reshape(-1, out_res, out_res, featdim).transpose(
-            0, 3, 1, 2).reshape(wt.shape)
-
-    w.dense(f"{prefix}.fc1", path + ("Dense_0",), nhwc_to_nchw)
+    w.dense(f"{prefix}.fc1", path + ("Dense_0",),
+            _nhwc_to_nchw(f"{prefix}.fc1", out_res, featdim))
     for j, fc in enumerate(["fc2", "fc_r", "fc_t"], start=1):
         w.dense(f"{prefix}.{fc}", path + (f"Dense_{j}",))
+
+
+def point_pnp_state(w: _Writer, prefix: str, path: tuple) -> None:
+    """``SimplePointPnP`` / ``PointPnP``: flax's Dense_0..6 in order."""
+    names = ["mlp.0", "mlp.1", "mlp.2", "fc1", "fc2", "fc_r", "fc_t"]
+    for j, name in enumerate(names):
+        w.dense(f"{prefix}.{name}", path + (f"Dense_{j}",))
+
+
+def trans_head_state(w: _Writer, num_layers: int, num_filters: int,
+                     in_res: int, prefix: str, path: tuple) -> None:
+    """``TransHead`` (flax's BatchNorm head) as the reference's
+    ``TransHeadNet``: features.{3j, 3j+1}, linears.{0, 2, 4}."""
+    for j in range(num_layers):
+        w.conv(f"{prefix}.features.{3 * j}", path + (f"Conv_{j}",))
+        w.bn(f"{prefix}.features.{3 * j + 1}", path + (f"BatchNorm_{j}",))
+    w.dense(f"{prefix}.linears.0", path + ("Dense_0",),
+            _nhwc_to_nchw(f"{prefix}.linears.0", in_res, num_filters))
+    w.dense(f"{prefix}.linears.2", path + ("Dense_1",))
+    w.dense(f"{prefix}.linears.4", path + ("Dense_2",))
 
 
 def pnp_out_res(cfg: Config) -> int:
@@ -202,8 +231,15 @@ def _rdpn_fill(cfg: Config):
         pointnet_state(w, "backbone.spatial_net", ("spatial_net",))
         head_state(w, cfg.head.num_layers, cfg.head.norm, "rot_head_net",
                    ("dense_head",))
-        pnp_state(w, cfg.pnp.num_layers, cfg.pnp.norm, cfg.pnp.featdim,
-                  pnp_out_res(cfg), "pnp_net", ("pnp_net",))
+        if cfg.pnp.pnp_head == "ConvPnPNet":
+            pnp_state(w, cfg.pnp.num_layers, cfg.pnp.norm, cfg.pnp.featdim,
+                      pnp_out_res(cfg), "pnp_net", ("pnp_net",))
+        else:
+            point_pnp_state(w, "pnp_net", ("pnp_net",))
+        if cfg.pnp.r_only:
+            trans_head_state(w, 3, cfg.head.num_filters,
+                             cfg.backbone.input_res // 32, "trans_head_net",
+                             ("trans_head",))
         if cfg.loss.use_mtl:
             from ..models.rdpn import MTL_LOSSES
 

@@ -65,7 +65,8 @@ def load_pretrained_backbone(model: nn.Module, spec: str,
     into ``model.backbone`` (in place; returns ``model``). The classifier
     (``fc.*``) is dropped; a trunk tensor the file lacks, or a key it has
     that the trunk does not, raises, so a partial file never leaves
-    random-init weights in the trunk."""
+    random-init weights in the trunk. A space-to-depth stem takes the 7×7
+    kernel remapped (``models/resnet.stem_kernel_to_s2d``)."""
     path = resolve_pretrained(spec, depth)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
@@ -81,5 +82,10 @@ def load_pretrained_backbone(model: nn.Module, spec: str,
         raise ValueError(
             f"{path}: not a ResNet-{depth} trunk: missing {missing[:5]}, "
             f"unexpected {unexpected[:5]}")
+    stem = model.backbone.conv1.weight
+    if stem.shape[-1] == 4 and sd["conv1.weight"].shape[-1] == 7:
+        from ..models.resnet import stem_kernel_to_s2d
+
+        sd["conv1.weight"] = stem_kernel_to_s2d(sd["conv1.weight"])
     model.backbone.load_state_dict(sd, strict=False)
     return model

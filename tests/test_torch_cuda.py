@@ -3,7 +3,8 @@ their plain versions on the card (the ROI crop and the label kernels also
 at T-LESS's 540x720 and ITODD's 960x1280 frames), one lm13 train step on
 the card, the
 entry points' default device, colour aug and lmo's two label paths card
-against CPU, and the image codecs on the card's machine.
+against CPU, the image codecs on the card's machine, and the RANSAC-Kabsch
+kernel against its plain version and on ``test.use_pnp``'s served path.
 
 They skip where there is no card. This file imports neither jax nor the
 JAX package, so it also runs on a machine without them:
@@ -1264,3 +1265,113 @@ def test_roi_crop_build_spills_nothing(card):
     assert len(usage) == 4
     for name, u in usage.items():
         assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
+
+
+def _ransac_inputs(B, N, seed, dev, special=True):
+    """Correspondences of a known pose per ROI (mm noise), ~10 cm outliers
+    at 0/30/60%, 85% of the mask set; with ``special`` the last ROI has no
+    valid point, the one before 3, the one before that a NaN point."""
+    rng = np.random.RandomState(seed)
+    q, _ = np.linalg.qr(rng.randn(B, 3, 3))
+    R = q * np.sign(np.linalg.det(q))[:, None, None]
+    t = np.stack([rng.uniform(-0.1, 0.1, B), rng.uniform(-0.1, 0.1, B),
+                  rng.uniform(0.6, 1.2, B)], 1)
+    m = rng.randn(B, N, 3) * 0.05
+    c = np.einsum("bij,bnj->bni", R, m) + t[:, None] \
+        + rng.randn(B, N, 3) * 0.001
+    out = rng.rand(B, N) < np.array([0.0, 0.3, 0.6])[np.arange(B) % 3, None]
+    c[out] += rng.randn(int(out.sum()), 3) * 0.1
+    mask = (rng.rand(B, N) < 0.85).astype(np.float32)
+    if special and B >= 3:
+        mask[-1] = 0.0
+        mask[-2] = 0.0
+        mask[-2, rng.choice(N, 3, replace=False)] = 1.0
+        m[-3, N // 2, 1] = np.nan
+    u = rng.rand(B, 128, 4)
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in (m, c, mask, u)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(1, 4096), (16, 4096), (3, 100), (2, 4097),
+                                 (5, 9000)])
+def test_ransac_kabsch_kernel_matches_plain(card, B, N):
+    """The kernel against its plain version on the card: the best
+    hypothesis, its score and the ratio equal and R, t within 1e-4 where
+    the best agrees (a d2 within rounding of the threshold may count on
+    one side only: then the scores within 1); NaN patterns equal; a ROI
+    without a valid point gets R = I from both (a zero covariance);
+    N = 9000 stages its points in three chunks."""
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import (
+        ransac_kabsch,
+        ransac_kabsch_plain,
+    )
+
+    args = _ransac_inputs(B, N, B * 7 + N, card)
+    cuda_build.reset_launches()
+    got = [x.cpu() for x in ransac_kabsch(*args, 0.015)]
+    assert cuda_build.LAUNCHES["ransac_kabsch"] == 1
+    ref = [x.cpu() for x in ransac_kabsch_plain(*args, 0.015)]
+    assert torch.equal(got[0].isnan(), ref[0].isnan())
+    assert torch.equal(got[1].isnan(), ref[1].isnan())
+    same = got[3] == ref[3]
+    assert int(same.sum()) >= B - 1
+    assert (got[4] - ref[4]).abs().max() <= 1
+    assert torch.equal(got[4][same], ref[4][same])
+    assert torch.equal(got[2][same], ref[2][same])
+    fin = same & ~ref[0].isnan().flatten(1).any(1)
+    assert float((got[0][fin] - ref[0][fin]).abs().max()) <= 1e-4
+    assert float((got[1][fin] - ref[1][fin]).abs().max()) <= 1e-4
+    if B >= 3:
+        np.testing.assert_allclose(got[0][-1].numpy(), np.eye(3), atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_ransac_kabsch_kernel_refuses_bad_input(card):
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import ransac_kabsch
+
+    m, c, mask, u = _ransac_inputs(2, 64, 0, card, special=False)
+    with pytest.raises(TypeError, match="float32"):
+        ransac_kabsch(m.double(), c, mask, u)
+    with pytest.raises(ValueError, match="different devices"):
+        ransac_kabsch(m, c.cpu(), mask, u)
+    with pytest.raises(ValueError, match="at most 16"):
+        ransac_kabsch(m, c, mask, torch.rand(2, 128, 17, device=card))
+
+
+@pytest.mark.cuda
+def test_ransac_kabsch_build_spills_nothing(card):
+    _, built = cuda_build.load("ransac_kabsch")
+    usage = {name: u for name, u in cuda_build.ptxas_usage(built.log).items()
+             if "ransac_kabsch_kernel" in name}
+    assert len(usage) == 1
+    for name, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (name, u)
+
+
+@pytest.mark.cuda
+def test_use_pnp_launches_one_ransac_a_batch(card):
+    """``Predictor`` with ``test.use_pnp`` at a tiny width on the card:
+    one ``ransac_kabsch`` launch a served batch, finite poses."""
+    from rdpn6d_tpu_torch.config import Config
+    from rdpn6d_tpu_torch.data.assets import synthetic_class_assets
+    from rdpn6d_tpu_torch.engine.predictor import Detection, Predictor
+
+    cfg = Config().apply_opts([
+        "backbone.depth=18", "backbone.input_res=64", "head.out_res=16",
+        "head.num_regions=4", "head.num_filters=32", "data.input_res=64",
+        "data.out_res=16", "test.use_pnp=true"])
+    pred = Predictor(cfg, synthetic_class_assets(num_regions=4),
+                     batch_size=3, dtype=torch.float32, device=card,
+                     allow_random_init=True)
+    rng = np.random.RandomState(0)
+    rgb = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+    depth = (0.8 + 0.1 * rng.rand(480, 640)).astype(np.float32)
+    K = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1]],
+                 np.float32)
+    dets = [Detection(1, np.array([100 + 40 * i, 120, 220 + 40 * i, 260.0]))
+            for i in range(5)]
+    cuda_build.reset_launches()
+    out = pred.predict(rgb, depth, K, dets)
+    assert cuda_build.LAUNCHES["ransac_kabsch"] == 2
+    assert len(out) == 5 and all(np.isfinite(r["R"]).all() for r in out)

@@ -274,9 +274,12 @@ def test_eval_refusals(tree, weights, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmain.main(base + ["--eval-only", "--opts",
                                f'train.output_dir="{tmp_path}"'])
-    with pytest.raises(NotImplementedError, match="use_pnp"):
-        t_run_eval(cfg.apply_opts(["test.use_pnp=true"]), ckpt_dir="",
-                   split_name="two_obj_test", device="cpu")
+    # test.use_pnp, refused until the refinement was ported, runs (held
+    # to the JAX package in tests/test_torch_ransac.py)
+    res = t_run_eval(cfg.apply_opts(["test.use_pnp=true"]), ckpt_dir="",
+                     split_name="two_obj_test", device="cpu",
+                     dtype=torch.float32, allow_random_init=True)
+    assert res["stats"]["n_rois"] == 6
     with pytest.raises(ValueError, match="int8='foo'"):
         t_run_eval(cfg.apply_opts(['test.int8="foo"']), ckpt_dir="",
                    split_name="two_obj_test", device="cpu",

@@ -139,3 +139,87 @@ def test_recover_pose_centroid_z(z_type, is_allo):
     np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), atol=ATOL)
     with pytest.raises(ValueError):
         tg.recover_pose_centroid_z(*map(_t, args), z_type="bogus")
+
+
+def _rot_of_angle(rng, n, lo, hi):
+    """n rotations by angles in [lo, hi] about random axes."""
+    ax = rng.randn(n, 3)
+    ax /= np.linalg.norm(ax, axis=1, keepdims=True)
+    ang = rng.uniform(lo, hi, n)
+    K = np.zeros((n, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -ax[:, 2], ax[:, 1], -ax[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    R = np.eye(3) + np.sin(ang)[:, None, None] * K \
+        + (1 - np.cos(ang))[:, None, None] * (K @ K)
+    return R.astype(np.float32)
+
+
+# random rotations, and the two ends where the conversions are delicate:
+# near identity (a tiny axis-angle) and near a half turn (w ~ 0)
+REGIMES = {"random": (0.0, np.pi), "near_identity": (1e-4, 1e-3),
+           "near_pi": (np.pi - 1e-2, np.pi - 1e-3)}
+
+
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_mat_to_quat_and_log_map(regime):
+    rng = np.random.RandomState(6)
+    R = _rot_of_angle(rng, 64, *REGIMES[regime])
+    q = tg.mat_to_quat(_t(R)).numpy()
+    np.testing.assert_allclose(q, np.asarray(jg.mat_to_quat(_j(R))),
+                               atol=ATOL)
+    assert (q[:, 0] >= 0).all()
+    np.testing.assert_allclose(tg.quat_to_mat(_t(q)).numpy(), R, atol=1e-5)
+    v = tg.log_map(_t(R)).numpy()
+    np.testing.assert_allclose(v, np.asarray(jg.log_map(_j(R))), atol=1e-5)
+    np.testing.assert_allclose(tg.exp_map(_t(v)).numpy(), R, atol=1e-5)
+
+
+def test_quat_mul_axangle_to_quat_euler():
+    rng = np.random.RandomState(7)
+    a, b = rng.randn(2, 64, 4).astype(np.float32)
+    np.testing.assert_allclose(tg.quat_mul(_t(a), _t(b)).numpy(),
+                               np.asarray(jg.quat_mul(_j(a), _j(b))),
+                               atol=ATOL)
+    ax = rng.randn(64, 3).astype(np.float32)
+    ang = rng.uniform(-3.1, 3.1, 64).astype(np.float32)
+    q = tg.axangle_to_quat(_t(ax), _t(ang))
+    np.testing.assert_allclose(
+        q.numpy(), np.asarray(jg.axangle_to_quat(_j(ax), _j(ang))),
+        atol=ATOL)
+    np.testing.assert_allclose(tg.quat_to_mat(q).numpy(),
+                               tg.axangle_to_mat(_t(ax), _t(ang)).numpy(),
+                               atol=1e-5)
+    from rdpn6d_tpu.geometry.rotations import euler_to_mat as j_euler
+
+    rx, ry, rz = rng.uniform(-3.1, 3.1, (3, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        tg.euler_to_mat(_t(rx), _t(ry), _t(rz)).numpy(),
+        np.asarray(j_euler(_j(rx), _j(ry), _j(rz))), atol=ATOL)
+
+
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_se3_compose_invert_to_homo(regime):
+    from rdpn6d_tpu_torch.geometry import se3
+
+    rng = np.random.RandomState(8)
+    Ra = _rot_of_angle(rng, 16, *REGIMES[regime])
+    Rb = _rand_rot(rng, 16)
+    ta, tb = rng.uniform(-1, 1, (2, 16, 3)).astype(np.float32)
+    R, t = tg.compose(_t(Ra), _t(ta), _t(Rb), _t(tb))
+    jR, jt = jg.compose(_j(Ra), _j(ta), _j(Rb), _j(tb))
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=ATOL)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=ATOL)
+    Ri, ti = tg.invert(_t(Ra), _t(ta))
+    jRi, jti = jg.invert(_j(Ra), _j(ta))
+    np.testing.assert_allclose(Ri.numpy(), np.asarray(jRi), atol=ATOL)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(jti), atol=ATOL)
+    # a pose composed with its inverse is the identity
+    R0, t0 = tg.compose(Ri, ti, _t(Ra), _t(ta))
+    np.testing.assert_allclose(R0.numpy(), np.broadcast_to(np.eye(3),
+                                                           R0.shape),
+                               atol=1e-6)
+    np.testing.assert_allclose(t0.numpy(), 0.0, atol=1e-6)
+    T4 = tg.to_homo(_t(Ra), _t(ta))
+    np.testing.assert_array_equal(T4.numpy(),
+                                  np.asarray(jg.to_homo(_j(Ra), _j(ta))))
+    assert se3.transform_pts is tg.transform_pts

@@ -47,7 +47,10 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.ops.int8_conv",
             "rdpn6d_tpu_torch.ops.roi_crop",
             "rdpn6d_tpu_torch.models.quant",
-            "rdpn6d_tpu_torch.parallel.mesh"} <= set(mods)
+            "rdpn6d_tpu_torch.parallel.mesh",
+            "rdpn6d_tpu_torch.ops.ransac_kabsch",
+            "rdpn6d_tpu_torch.geometry.se3",
+            "rdpn6d_tpu_torch.models.point_pnp"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -166,9 +166,15 @@ def test_predictor_refusals(served):
     with pytest.raises(ValueError, match="trunk0..trunk3"):
         TPredictor(cfg.apply_opts(['test.int8="trunk5"']), assets,
                    device="cpu", allow_random_init=True)
-    with pytest.raises(NotImplementedError):
-        TPredictor(cfg.apply_opts(["test.use_pnp=true"]), assets,
-                   device="cpu", allow_random_init=True)
+    # test.use_pnp, refused until the refinement was ported, serves
+    pnp = TPredictor(cfg.apply_opts(["test.use_pnp=true"]), assets,
+                     device="cpu", allow_random_init=True,
+                     dtype=torch.float32)
+    got = pnp.predict(served["rgb"], served["depth"], K,
+                      [TDet(1, np.array(b)) for b in BOXES])
+    assert len(got) == len(BOXES)
+    assert all(np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()
+               for r in got)
     # a pkl made for another width does not cover the model
     with pytest.raises(ValueError, match="does not cover"):
         TPredictor(cfg.apply_opts(["backbone.depth=34"]), assets,
