@@ -244,9 +244,11 @@ Phases, each fatal on failure:
               agrees the score and ratio equal and R, t within 1e-4 (a ROI
               with no valid point: both R rotations, t equal), where it
               does not the scores within 1 and the fits within 1e-2; NaN
-              patterns equal; then timed at the served batch (16 x 4096) by
-              ``queued_ms`` and CUDA events beside the plain version and its
-              bound, with registers and spills from the build log; (b) lm13
+              patterns equal; then timed by ``queued_ms`` at 6, 16 (the
+              served batch, also by CUDA events and beside the plain
+              version) and 32 ROIs of 4096 points, each beside its bound
+              and the blocks of a ROI's cluster and the SMs they cover,
+              with registers and spills from the build log; (b) lm13
               at full width with ``test.use_pnp=true`` through ``Predictor``
               in bf16 and f32 on phase 3's frames: one ``ransac_kabsch``
               launch a served batch, finite poses, the ROIs refined (ratio >
@@ -4228,6 +4230,8 @@ RANSAC_TOL = 1e-4           # kernel vs plain, R and t, where the best agrees
 RANSAC_OPS_PER_PAIR = 20
 FP32_FLOP_PER_S = 67e12
 RANSAC_BATCH = 16           # the served batch (phase 3's batch size)
+# timed: a served frame's detections, the served batch, an eval batch
+RANSAC_TIMED = (6, RANSAC_BATCH, 32)
 VARIANTS = {
     "s2d stem": ["backbone.space_to_depth=true"],
     "r_only TransHead": ["pnp.r_only=true"],
@@ -4334,14 +4338,19 @@ def ransac_compare(got, ref, mask, label, tol=RANSAC_TOL):
 
 def check_ransac_kabsch(dev, card):
     """Phase 16(a): ``ransac_kabsch`` against its plain version on the
-    card at every shape of ``RANSAC_SHAPES``, then timed at the served
-    batch beside the plain version and its bound; returns (max error,
-    times)."""
+    card at every shape of ``RANSAC_SHAPES``, then timed at each batch of
+    ``RANSAC_TIMED`` beside its bound (the served batch also beside the
+    plain version); returns (max error, times: the served batch's for the
+    kernels line, each batch's ms and cluster)."""
     import torch
 
     from rdpn6d_tpu_torch.ops import cuda_build
     from rdpn6d_tpu_torch.ops.ransac_kabsch import (
         NUM_HYPS,
+        SAMPLE_SIZE,
+        cluster_blocks,
+        cluster_sizes,
+        cluster_slots,
         ransac_kabsch,
         ransac_kabsch_plain,
     )
@@ -4365,32 +4374,47 @@ def check_ransac_kabsch(dev, card):
               f"patterns equal; {int(good.sum())} of {B} refits within "
               f"1e-2 of the true R; ratios "
               f"{np.round(got.ratio.cpu().numpy()[:6], 4).tolist()}")
-    args, _, _ = ransac_inputs(RANSAC_BATCH, 4096, 50, dev, special=False)
-
-    def kernel():
-        ransac_kabsch(*args, RANSAC_THR)
-
-    def plain():
-        ransac_kabsch_plain(*args, RANSAC_THR)
-
-    ms = queued_ms(kernel, iters=50)
-    events_ms = cuda_ms(kernel, iters=50)
-    plain_ms = cuda_ms(plain, iters=5, warmup=1)
-    bound_ms, bound_by = ransac_bound(RANSAC_BATCH, 4096, NUM_HYPS)
     _, built = cuda_build.load("ransac_kabsch")
     usage = {k: v for k, v in cuda_build.ptxas_usage(built.log).items()
              if "ransac" in k}
     regs = ", ".join(f"{v['registers']} registers, {v['spill_stores']} B "
                      f"spill stores, {v['spill_loads']} B spill loads"
                      for v in usage.values())
-    print(f"kernel: ransac_kabsch served batch, {RANSAC_BATCH} ROIs x 4096 "
-          f"points x {NUM_HYPS} hypotheses: device time (queued) {ms:.4f} "
-          f"ms, {100 * bound_ms / ms:.1f}% of bound (CUDA events over a "
-          f"burst {events_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes "
-          f"it; {regs} [{card}]")
-    return worst, dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    sms = cuda_build.sm_count(torch.cuda.current_device())
+    slots = cluster_slots(torch.cuda.current_device())
+    print(f"kernel: ransac_kabsch: clusters the card holds at one block an "
+          f"SM, by blocks a cluster: {slots} [{card}]")
+    times = {}
+    for B in RANSAC_TIMED:
+        args, _, _ = ransac_inputs(B, 4096, 50, dev, special=False)
+
+        def kernel():
+            ransac_kabsch(*args, RANSAC_THR)
+
+        ms = queued_ms(kernel, iters=50)
+        bound_ms, bound_by = ransac_bound(B, 4096, NUM_HYPS)
+        C = cluster_blocks(B, slots, cluster_sizes(4096, NUM_HYPS,
+                                                   SAMPLE_SIZE))
+        what = (f"device time (queued) {ms:.4f} ms, {100 * bound_ms / ms:.1f}"
+                f"% of bound {bound_ms:.5f} ms ({bound_by}); a cluster of "
+                f"{C} blocks a ROI, {B * C} blocks for the card's {sms} "
+                "SMs")
+        if B == RANSAC_BATCH:
+            def plain():
+                ransac_kabsch_plain(*args, RANSAC_THR)
+
+            events_ms = cuda_ms(kernel, iters=50)
+            plain_ms = cuda_ms(plain, iters=5, warmup=1)
+            times.update(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by)
+            what += (f" (CUDA events over a burst {events_ms:.4f} ms), plain "
+                     f"{plain_ms:.4f} ms; no single PyTorch call computes it")
+        times[f"b{B}_ms"] = ms
+        times[f"b{B}_cluster"] = C
+        print(f"kernel: ransac_kabsch {B} ROIs x 4096 points x {NUM_HYPS} "
+              f"hypotheses: {what}; {regs} [{card}]")
+    return worst, times
 
 
 class RansacCalls:

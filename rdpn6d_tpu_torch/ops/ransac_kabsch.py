@@ -21,7 +21,10 @@ over the batch (other numbers; tests hand both the same table).
 version, ``ransac_kabsch_plain``, which follows the JAX package op for op
 (the expanded d² of its matmul scoring, in its order of terms); CUDA
 tensors launch ``csrc/ransac_kabsch.cu`` (built with nvcc at first use),
-one launch a batch, or raise. The kernel computes d² in the direct form
+one launch a batch, or raise: a ROI's points are split over a cluster of
+``cluster_blocks`` blocks, which trade their counts and partial sums
+through distributed shared memory, and each ROI's outputs are the same
+bits whatever its batch. The kernel computes d² in the direct form
 |R m + t - c|², so a d² within rounding of the threshold can count on one
 side only. Both return the pre-fallback fit with the best hypothesis and
 its score; ``refine_pose_kabsch`` falls back to the net pose where
@@ -36,6 +39,7 @@ its R set to NaN, since ``torch.linalg.svd`` refuses non-finite input.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -46,9 +50,10 @@ from .region import gather_region_fps
 KERNEL = "ransac_kabsch"
 NUM_HYPS = 128           # the JAX package's defaults for the eval step
 SAMPLE_SIZE = 4
-CHUNK = 4096             # points staged in shared memory at once (kChunk)
+TILE = 256               # points a refit partial sum covers (kTile)
 MAX_SAMPLE = 16          # correspondences a hypothesis (kMaxSample)
 MAX_SMEM = 232448        # a block's shared memory on sm_90 (kMaxSmem)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks a ROI (kMaxCluster = 16)
 HORN_ITERS = 14          # normalised squarings of Horn's 4x4 matrix
 EPS = 1e-9
 REFINE_MIN_RATIO = 0.05  # below it the net pose is kept
@@ -241,22 +246,65 @@ def _check(model_pts, cam_pts, mask, uniforms) -> None:
         raise ValueError("ransac_kabsch: no points or no hypotheses")
 
 
-def shared_bytes(N: int, H: int) -> int:
-    """Dynamic shared memory of a launch (``smem_bytes`` in the source): a
-    chunk of points (xyz + xyz + mask) and each hypothesis's R, t and
-    score."""
-    return 7 * min(N, CHUNK) * 4 + H * 16 * 4
+def shared_bytes(N: int, H: int, S: int, C: int) -> int:
+    """Dynamic shared memory of a block of a cluster of C blocks
+    (``smem_bytes`` in the source): its share of the points' tiles (xyz
+    and mask, xyz and cdf), every hypothesis's R and t, the ranks' counts
+    and its own, the S picks of its hypotheses, and each tile's 7 + 9
+    partial sums."""
+    tiles = -(-N // TILE)
+    pmax = -(-tiles // C) * TILE
+    nh = -(-H // C)
+    return 4 * (8 * pmax + 12 * H + (C + 1) * H + 6 * nh * S + 16 * tiles)
+
+
+def cluster_sizes(N: int, H: int, S: int) -> tuple[int, ...]:
+    """The cluster sizes of ``CLUSTER_SIZES`` whose blocks' shared memory
+    fits a launch of N points, H hypotheses of S correspondences; raises
+    ValueError where the kernel takes none."""
+    sizes = tuple(c for c in CLUSTER_SIZES
+                  if shared_bytes(N, H, S, c) <= MAX_SMEM)
+    if S > MAX_SAMPLE or not sizes:
+        raise ValueError(
+            f"ransac_kabsch: the kernel takes at most {MAX_SAMPLE} "
+            f"correspondences a hypothesis and {MAX_SMEM} bytes of shared "
+            f"memory a block; got {H} hypotheses of {S} over {N} points")
+    return sizes
+
+
+def cluster_blocks(B: int, slots: dict[int, int],
+                   sizes: tuple[int, ...] = CLUSTER_SIZES) -> int:
+    """Blocks in a ROI's cluster for a batch of B ROIs: the largest of
+    ``sizes`` (powers of two) whose clusters the card holds B of at once
+    at one block an SM (``slots[C]``, ``cluster_slots``), so that as many
+    SMs work as that allows and none holds two blocks; the smallest of
+    ``sizes`` where none does. On a card whose SMs all take part (slots
+    ``sm_count // C``) that is the largest C with B x C <= ``sm_count``."""
+    fit = [c for c in sizes if B <= slots[c]]
+    return max(fit) if fit else min(sizes)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(index: int) -> dict[int, int]:
+    """Clusters of each size of ``CLUSTER_SIZES`` that CUDA device
+    ``index`` holds at once at one block an SM (the card's GPCs decide:
+    an H100 SXM holds 7 of 16 blocks on its 132 SMs, 15 of 8, 30 of 4)."""
+    lib, _ = cuda_build.load(KERNEL)
+    fn = lib.ransac_kabsch_cluster_slots
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    slots = {c: fn(c, index) for c in CLUSTER_SIZES}
+    if min(slots.values()) < 0:
+        raise RuntimeError(f"ransac_kabsch: the card's cluster slots could "
+                           f"not be read: {slots}")
+    return slots
 
 
 def _launch(model_pts, cam_pts, mask, uniforms, inlier_thr) -> RansacResult:
-    """Launch the kernel on the current stream: one block a ROI."""
+    """Launch the kernel on the current stream: one cluster a ROI. A
+    cluster the card refuses raises; no smaller one is tried."""
     B, N, _ = model_pts.shape
     H, S = uniforms.shape[1:]
-    if S > MAX_SAMPLE or shared_bytes(N, H) > MAX_SMEM:
-        raise ValueError(f"ransac_kabsch: the kernel takes at most "
-                         f"{MAX_SAMPLE} correspondences a hypothesis and "
-                         f"{(MAX_SMEM - 7 * CHUNK * 4) // 64} hypotheses; "
-                         f"got {H} of {S}")
+    sizes = cluster_sizes(N, H, S)
     lib, _ = cuda_build.load(KERNEL)
     model_pts, cam_pts, mask, uniforms = (
         x.contiguous() for x in (model_pts, cam_pts, mask, uniforms))
@@ -264,28 +312,28 @@ def _launch(model_pts, cam_pts, mask, uniforms, inlier_thr) -> RansacResult:
     R = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
     t = torch.empty((B, 3), dtype=torch.float32, device=dev)
     ratio = torch.empty((B,), dtype=torch.float32, device=dev)
-    best = torch.empty((B, 2), dtype=torch.int32, device=dev)
-    cdf = torch.empty((B, N), dtype=torch.float32, device=dev)
+    best = torch.empty((B, 2), dtype=torch.int64, device=dev)
     if B:
         fn = lib.ransac_kabsch_launch
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         index = dev.index if dev.index is not None \
             else torch.cuda.current_device()
+        C = cluster_blocks(B, cluster_slots(index), sizes)
         err = fn(model_pts.data_ptr(), cam_pts.data_ptr(), mask.data_ptr(),
-                 uniforms.data_ptr(), cdf.data_ptr(), R.data_ptr(),
-                 t.data_ptr(), ratio.data_ptr(), best.data_ptr(), B, N, H,
-                 S, float(_threshold_sq(inlier_thr)), index,
+                 uniforms.data_ptr(), R.data_ptr(), t.data_ptr(),
+                 ratio.data_ptr(), best.data_ptr(), B, N, H, S, C,
+                 float(_threshold_sq(inlier_thr)), index,
                  torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             lib.ransac_kabsch_error_string.restype = ctypes.c_char_p
             lib.ransac_kabsch_error_string.argtypes = [ctypes.c_int]
             msg = lib.ransac_kabsch_error_string(err).decode()
             raise RuntimeError(
-                f"ransac_kabsch kernel launch failed: {msg} ({err})")
+                f"ransac_kabsch kernel launch failed at a cluster of {C} "
+                f"blocks a ROI: {msg} ({err})")
         cuda_build.count_launch(KERNEL)
-    best = best.long()
     return RansacResult(R, t, ratio, best[:, 0], best[:, 1])
 
 

@@ -76,6 +76,7 @@ def _sources():
     yield os.path.join(ROOT, "time_int8.py")
     yield os.path.join(ROOT, "time_labels.py")
     yield os.path.join(ROOT, "time_crop.py")
+    yield os.path.join(ROOT, "time_ransac.py")
     # the data-parallel tests' rank functions: a spawned rank must not
     # load jax
     yield os.path.join(ROOT, "tests", "torch_dist_workers.py")

@@ -418,11 +418,26 @@ def test_kernel_limits_match_the_source():
                             "ransac_kabsch.cu")).read()
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr int (k\w+) = (\d+);", src)}
-    assert (consts["kChunk"], consts["kMaxSample"], consts["kMaxSmem"]) \
-        == (T.CHUNK, T.MAX_SAMPLE, T.MAX_SMEM)
-    assert "(size_t)7 * chunk * 4 + (size_t)H * 16 * 4" in src
-    assert T.shared_bytes(100, 128) == 7 * 100 * 4 + 128 * 64
-    assert T.shared_bytes(9000, 128) == 7 * 4096 * 4 + 128 * 64
+    assert (consts["kTile"], consts["kMaxSample"], consts["kMaxSmem"],
+            consts["kMaxCluster"]) \
+        == (T.TILE, T.MAX_SAMPLE, T.MAX_SMEM, max(T.CLUSTER_SIZES))
+    body = re.search(r"smem_bytes\(int N, int H, int S, int C\) \{(.*?)\n\}",
+                     src, re.S).group(1)
+    assert " ".join(body.replace("(size_t)", "").split()) == (
+        "const int tiles = (N + kTile - 1) / kTile; const int pmax = "
+        "(tiles + C - 1) / C * kTile; const int nh = (H + C - 1) / C; "
+        "return 4 * (8 * pmax + 12 * H + (C + 1) * H + 6 * nh * S + "
+        "16 * tiles);")
+    # one tile a block at 16 blocks; 4096 points staged in one block
+    assert T.shared_bytes(4096, 128, 4, 16) \
+        == 4 * (8 * 256 + 12 * 128 + 17 * 128 + 6 * 8 * 4 + 16 * 16)
+    assert T.shared_bytes(4096, 128, 4, 1) \
+        == 4 * (8 * 4096 + 12 * 128 + 2 * 128 + 6 * 128 * 4 + 16 * 16)
+    assert T.shared_bytes(100, 128, 4, 16) \
+        == 4 * (8 * 256 + 12 * 128 + 17 * 128 + 6 * 8 * 4 + 16)
+    # 9000 points (36 tiles) do not fit one block, so two at least
+    assert T.cluster_sizes(9000, 128, 4) == (2, 4, 8, 16)
+    assert T.cluster_sizes(4096, 128, 4) == T.CLUSTER_SIZES
     m, c, mask, _, _ = synth(1, 64, 5)
     args = [torch.from_numpy(x) for x in (m, c, mask)]
     with pytest.raises(ValueError, match="at most 16"):
@@ -430,6 +445,105 @@ def test_kernel_limits_match_the_source():
     with pytest.raises(ValueError, match="at most 16"):
         T._launch(*args, torch.rand(1, 4000, 4), 0.01)
 
+
+
+# clusters an H100 SXM holds at one block an SM (cluster_slots on the card)
+H100_SLOTS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_cluster_blocks_cover_the_sms(sms):
+    """The blocks of a ROI's cluster on a card whose SMs all take part: a
+    power of two in [1, 16], the largest with B x C <= the SM count (so
+    every cluster is resident at once), 1 at B >= the SM count; within the
+    sizes a launch fits. On an H100 SXM, whose GPCs hold fewer clusters of
+    8 and 16 than that, the largest C whose B clusters it holds."""
+    slots = {c: sms // c for c in T.CLUSTER_SIZES}
+    for B in range(1, 3 * sms):
+        C = T.cluster_blocks(B, slots)
+        assert C in (1, 2, 4, 8, 16)
+        if B * 16 <= sms:
+            assert C == 16
+        elif B <= sms:
+            assert B * C <= sms < 2 * B * C
+        else:
+            assert C == 1
+        # 9000 points need two blocks at least: never fewer
+        assert T.cluster_blocks(B, slots, (2, 4, 8, 16)) == max(C, 2)
+        Ch = T.cluster_blocks(B, H100_SLOTS)
+        assert Ch == max([c for c in T.CLUSTER_SIZES
+                          if B <= H100_SLOTS[c]], default=1)
+        assert B * Ch <= 132 or Ch == 1
+    assert [T.cluster_blocks(B, {c: 132 // c for c in T.CLUSTER_SIZES})
+            for B in (6, 8, 16, 32, 64, 132, 200)] == [16, 16, 8, 4, 2, 1, 1]
+    assert [T.cluster_blocks(B, H100_SLOTS)
+            for B in (6, 8, 16, 32, 64, 67, 200)] == [16, 8, 4, 2, 2, 1, 1]
+
+
+def cluster_picks(mask, u, C):
+    """The kernel's scan and sample (``csrc/ransac_kabsch.cu``, stages 1
+    and 2) for one ROI, rank by rank: each rank's tiles, its cdf offset by
+    the lower ranks' totals, the rank that holds each pick and its search
+    of its own slice. Also checks that the ranks' points cover [0, N) once
+    within each block's staging room, and that the rank fitting each
+    hypothesis is the one whose share holds it."""
+    N = mask.shape[0]
+    H, S = u.shape
+    tiles = -(-N // T.TILE)
+
+    def start(r, n):
+        return (r * n + C - 1) // C
+
+    lo = [min(start(r, tiles) * T.TILE, N) for r in range(C + 1)]
+    assert lo[0] == 0 and lo[C] == N and all(
+        0 <= lo[r + 1] - lo[r] <= -(-tiles // C) * T.TILE for r in range(C))
+    cdfs = []
+    for r in range(C):
+        cdf = np.cumsum(mask[lo[r]:lo[r + 1]], dtype=np.float32)
+        cdfs.append(cdf)
+    incl = np.cumsum([c[-1] if len(c) else np.float32(0) for c in cdfs],
+                     dtype=np.float32)
+    scale = np.float32(max(incl[-1], np.float32(1)))
+    picks = np.empty((H, S), np.int64)
+    for h in range(H):
+        f = h * C // H
+        assert start(f, H) <= h < start(f + 1, H)
+        for s in range(S):
+            uu = np.float32(u[h, s] * scale)
+            owner = 0
+            while owner < C and incl[owner] < uu:
+                owner += 1
+            if owner == C:
+                picks[h, s] = N - 1
+                last = (N - 1) // T.TILE * C // tiles
+                assert lo[last] <= N - 1 < lo[last + 1]
+                continue
+            cdf = cdfs[owner] + (incl[owner - 1] if owner else np.float32(0))
+            i = int(np.searchsorted(cdf, uu, "left"))
+            assert i < len(cdf)
+            picks[h, s] = lo[owner] + i
+    return picks
+
+
+@pytest.mark.parametrize("N", [100, 4096, 4097, 9000])
+@pytest.mark.parametrize("kind", ["85%", "3 valid", "none"])
+def test_cluster_split_picks_as_one_block(N, kind):
+    """Split over any cluster size, the kernel's scan and sample pick what
+    the parent's one block picked, which is ``hypothesis_picks``: for a
+    0/1 mask every cdf value is an exact integer, however it is summed."""
+    rng = np.random.RandomState(N)
+    mask = (rng.rand(N) < 0.85).astype(np.float32)
+    if kind == "3 valid":
+        mask[:] = 0.0
+        mask[rng.choice(N, 3, replace=False)] = 1.0
+    elif kind == "none":
+        mask[:] = 0.0
+    u = rng.rand(H, S).astype(np.float32)
+    u[0, 0] = 0.0
+    want = T.hypothesis_picks(torch.from_numpy(mask)[None],
+                              torch.from_numpy(u)[None])[0].numpy()
+    for C in T.CLUSTER_SIZES:
+        np.testing.assert_array_equal(cluster_picks(mask, u, C), want)
 
 def test_main_runs_the_variants_with_use_pnp(tree, tmp_path,  # noqa
                                              monkeypatch):
