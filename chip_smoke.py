@@ -237,11 +237,12 @@ Phases, each fatal on failure:
               does) within phase 5's bounds of the trained model's.
  16. RANSAC-Kabsch and the model variants — (a) ``ransac_kabsch``
               (``csrc/ransac_kabsch.cu``) against its plain version on the
-              card at (B, N) = (1, 4096), (16, 4096), (64, 4096), (3, 100)
-              and (2, 4097), 128 hypotheses of 4: correspondences of a known
-              pose with 0%, 30% and 60% outliers, a ROI with no valid point,
-              one with 3 and one with a NaN point; where the best hypothesis
-              agrees the score and ratio equal and R, t within 1e-4 (a ROI
+              card at (B, N) = (1, 4096), (8, 4096), (16, 4096), (32,
+              4096), (64, 4096), (3, 100) and (2, 4097) (every cluster size
+              of the served and eval batches), 128 hypotheses of 4:
+              correspondences of a known pose with 0%, 30% and 60%
+              outliers, a ROI with no valid point, one with 3 and one with
+              a NaN point; where the best hypothesis agrees the score and ratio equal and R, t within 1e-4 (a ROI
               with no valid point: both R rotations, t equal), where it
               does not the scores within 1 and the fits within 1e-2; NaN
               patterns equal; then timed by ``queued_ms`` at 6, 16 (the
@@ -258,7 +259,9 @@ Phases, each fatal on failure:
               valid masks and the best hypothesis agree; (c) ``main
               --eval-only`` with ``test.use_pnp=true`` on phase 9's tree and
               checkpoint: one ``ransac_kabsch`` launch an eval batch,
-              ``min_dist2`` one an object, the MEAN table beside phase 9's;
+              ``min_dist2`` one an object, the fits' NaN patterns equal
+              to the plain version's on the same inputs and their
+              agreement reported, the MEAN table beside phase 9's;
               (d) the space-to-depth stem, ``pnp.r_only`` (TransHead),
               ``SimplePointPnP`` and ``PointPnP`` at lm13 full width: the f32
               forward of 4 ROIs card vs CPU within phase 5's bounds, and
@@ -4222,7 +4225,10 @@ def run_flat(dev, card, work, frames):
 
 
 # phase 16: test.use_pnp's RANSAC-Kabsch refinement and the model variants
-RANSAC_SHAPES = [(1, 4096), (16, 4096), (64, 4096), (3, 100), (2, 4097)]
+# on an H100 SXM the 4096-point batches take clusters of 16, 8, 4, 2 and 2
+# blocks a ROI: every size the served and eval batches give the kernel
+RANSAC_SHAPES = [(1, 4096), (8, 4096), (16, 4096), (32, 4096), (64, 4096),
+                 (3, 100), (2, 4097)]
 RANSAC_THR = 0.015          # refine_pose_kabsch's inlier threshold
 RANSAC_TOL = 1e-4           # kernel vs plain, R and t, where the best agrees
 # ~20 FP32 operations a (hypothesis, point) pair: 9 multiply-adds of
@@ -4355,9 +4361,11 @@ def check_ransac_kabsch(dev, card):
         ransac_kabsch_plain,
     )
 
+    slots = cluster_slots(torch.cuda.current_device())
     worst = 0.0
     for i, (B, N) in enumerate(RANSAC_SHAPES):
         args, R_true, t_true = ransac_inputs(B, N, 40 + i, dev)
+        C = cluster_blocks(B, slots, cluster_sizes(N, NUM_HYPS, SAMPLE_SIZE))
         got = ransac_kabsch(*args, RANSAC_THR)
         ref = ransac_kabsch_plain(*args, RANSAC_THR)
         torch.cuda.synchronize()
@@ -4368,7 +4376,8 @@ def check_ransac_kabsch(dev, card):
         ok = np.isfinite(R).all((1, 2))
         dR = np.abs(R - R_true).max((1, 2))
         good = ok & (dR <= 1e-2)
-        print(f"kernel: ransac_kabsch B={B} N={N} H={NUM_HYPS}: R, t within "
+        print(f"kernel: ransac_kabsch B={B} N={N} H={NUM_HYPS} (a cluster "
+              f"of {C} blocks a ROI): R, t within "
               f"{err:.3e} of plain where the best hypothesis agrees "
               f"({B - len(flips)} of {B} ROIs; differing: {flips}), NaN "
               f"patterns equal; {int(good.sum())} of {B} refits within "
@@ -4381,7 +4390,6 @@ def check_ransac_kabsch(dev, card):
                      f"spill stores, {v['spill_loads']} B spill loads"
                      for v in usage.values())
     sms = cuda_build.sm_count(torch.cuda.current_device())
-    slots = cluster_slots(torch.cuda.current_device())
     print(f"kernel: ransac_kabsch: clusters the card holds at one block an "
           f"SM, by blocks a cluster: {slots} [{card}]")
     times = {}
@@ -4535,11 +4543,22 @@ def run_ransac_serving(dev, card, cfg, assets, frames):
 def run_ransac_eval(dev, card, work, bf16_mean):
     """Phase 16(c): ``main --eval-only`` with ``test.use_pnp=true`` on
     phase 9's tree and checkpoint: one ``ransac_kabsch`` launch an eval
-    batch, ``min_dist2`` one an object; returns the launches."""
+    batch, ``min_dist2`` one an object; each batch's cluster size (the
+    last batch is short) and its fits against the plain version on its
+    own inputs, NaN patterns equal and the rest reported; returns the
+    launches."""
     import torch
 
     from rdpn6d_tpu_torch import main as port_main
     from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import (
+        NUM_HYPS,
+        SAMPLE_SIZE,
+        cluster_blocks,
+        cluster_sizes,
+        cluster_slots,
+        ransac_kabsch_plain,
+    )
 
     os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
     out = os.path.join(work, "out_pnp")
@@ -4570,6 +4589,24 @@ def run_ransac_eval(dev, card, work, bf16_mean):
                                         and np.isfinite(t).all()),
           "use_pnp eval: missing or non-finite poses in the CSV")
     refined, fitted = rc.refined()
+    # the main path's own fits against the plain version, reported: the
+    # seeded net decodes most ROIs' inliers to one or two model points,
+    # where the refit's rotation is not unique and a d2 at thr^2 may round
+    # to either side; 16(a) holds these cluster sizes to plain on posed data
+    slots = cluster_slots(torch.cuda.current_device())
+    sizes, agree = [], np.zeros(4, int)  # ROIs, best, score, R and t equal
+    for args, fit in rc.calls:
+        B, N = args[2].shape
+        C = cluster_blocks(B, slots, cluster_sizes(N, NUM_HYPS, SAMPLE_SIZE))
+        sizes.append(f"{B} ROIs: {C}")
+        g = [x.cpu() for x in fit]
+        r = [x.cpu() for x in ransac_kabsch_plain(*args)]
+        check(torch.equal(g[0].isnan(), r[0].isnan()),
+              "use_pnp eval: the kernel's NaN pattern differs from plain's")
+        d = torch.maximum((g[0] - r[0]).abs().flatten(1).amax(1),
+                          (g[1] - r[1]).abs().amax(1))
+        agree += [B, int((g[3] == r[3]).sum()), int((g[4] == r[4]).sum()),
+                  int((d <= RANSAC_TOL).sum())]
     st = res["stats"]
     keys = [k for k in ("ad_2", "ad_5", "ad_10", "adi_10", "re_5", "te_5",
                         "proj_5") if k in res["mean"]]
@@ -4580,6 +4617,10 @@ def run_ransac_eval(dev, card, work, bf16_mean):
           f"lm_13_test: {st['n_rois']} ROIs, {rate:.1f} poses/s past "
           f"warm-up, split "
           f"wall time {wall:.2f} s; {refined} of {fitted} ROIs refined; "
+          f"blocks a ROI by batch: {', '.join(sizes)}; against plain on "
+          f"these inputs (reported, not gated) best hypothesis equal on "
+          f"{agree[1]} of {agree[0]} ROIs, score on {agree[2]}, R and t "
+          f"within {RANSAC_TOL} on {agree[3]}; "
           f"MEAN {table} (seeded weights: reported, not gated); launches "
           f"{got} [{card}]")
     return got

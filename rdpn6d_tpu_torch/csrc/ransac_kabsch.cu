@@ -83,6 +83,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cmath>
 
@@ -100,6 +101,7 @@ constexpr int kMaxSample = 16;   // S a fit holds in local arrays
 constexpr int kMaxCluster = 16;  // blocks a ROI at most
 constexpr int kSweeps = 24;      // one-sided Jacobi sweeps at most
 constexpr int kMaxSmem = 232448; // a block's shared memory on sm_90
+constexpr int kMaxDevices = 64;  // devices whose attributes are kept set
 constexpr float kEps = 1e-9f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -715,6 +717,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// Sets the kernel's attributes on `device`, the current device, once: the
+// most dynamic shared memory the card lets a block ask for beside the
+// kernel's static shared memory, and clusters past the portable 8 blocks.
+cudaError_t prepare_kernel(int device) {
+  static std::atomic<bool> ready[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (ready[device].load()) return cudaSuccess;
+  cudaFuncAttributes fa;
+  int optin = 0;
+  cudaError_t err = cudaFuncGetAttributes(&fa, ransac_kabsch_kernel);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ransac_kabsch_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ransac_kabsch_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err == cudaSuccess) ready[device].store(true);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -722,8 +749,8 @@ extern "C" {
 // Launches one cluster of C blocks a ROI on `stream` of CUDA device
 // `device` (made current for the launch, the caller's device restored
 // after). Returns a cudaError_t as an int (0 = ok); cudaErrorInvalidValue
-// for shapes this file does not take, cudaErrorInvalidConfiguration where
-// the card cannot hold one cluster of C blocks with this shared memory.
+// for shapes this file does not take, and the launch's own error where
+// the card cannot hold a cluster of C blocks with this shared memory.
 int ransac_kabsch_launch(const float* model, const float* cam,
                          const float* mask, const float* uniforms, float* R,
                          float* t, float* ratio, long long* best, int B, int N,
@@ -738,14 +765,7 @@ int ransac_kabsch_launch(const float* model, const float* cam,
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   const size_t smem = smem_bytes(N, H, S, C);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ransac_kabsch_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(ransac_kabsch_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
+  if (err == cudaSuccess) err = prepare_kernel(device);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
@@ -758,13 +778,6 @@ int ransac_kabsch_launch(const float* model, const float* cam,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (err == cudaSuccess) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, ransac_kabsch_kernel,
-                                         &cfg);
-    if (err == cudaSuccess && clusters < 1)
-      err = cudaErrorInvalidConfiguration;
-  }
   if (err == cudaSuccess) {
     err = cudaLaunchKernelEx(&cfg, ransac_kabsch_kernel, model, cam, mask,
                              uniforms, R, t, ratio, best, N, H, S, thr2);
@@ -790,14 +803,7 @@ int ransac_kabsch_cluster_slots(int C, int device) {
     err = cudaDeviceGetAttribute(
         &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   const int smem = per_sm / 2 + 1;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ransac_kabsch_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(ransac_kabsch_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
+  if (err == cudaSuccess) err = prepare_kernel(device);
   if (err == cudaSuccess) {
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -1293,17 +1293,19 @@ def _ransac_inputs(B, N, seed, dev, special=True):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(1, 4096), (16, 4096), (3, 100), (2, 4097),
-                                 (5, 9000), (64, 4096), (200, 4096)])
+@pytest.mark.parametrize("B,N", [(1, 4096), (8, 4096), (16, 4096),
+                                 (32, 4096), (3, 100), (2, 4097), (5, 9000),
+                                 (64, 4096), (200, 4096)])
 def test_ransac_kabsch_kernel_matches_plain(card, B, N):
     """The kernel against its plain version on the card: the best
     hypothesis, its score and the ratio equal and R, t within 1e-4 where
     the best agrees (a d2 within rounding of the threshold may count on
     one side only: then the scores within 1); NaN patterns equal; a ROI
     without a valid point gets R = I from both (a zero covariance). The
-    clusters on an H100 SXM: 16 blocks a ROI at B <= 7, 4 at 16, 2 at
-    64, 1 at 200; N = 100 leaves 15 of 16 blocks without a point, N = 4097
-    a tile of one point, N = 9000 needs two blocks at least."""
+    clusters on an H100 SXM: 16 blocks a ROI at B <= 7, 8 at 8, 4 at 16,
+    2 at 32 and 64, 1 at 200; N = 100 leaves 15 of 16 blocks without a
+    point, N = 4097 a tile of one point, N = 9000 needs two blocks at
+    least."""
     from rdpn6d_tpu_torch.ops.ransac_kabsch import (
         ransac_kabsch,
         ransac_kabsch_plain,
@@ -1338,9 +1340,11 @@ def _ransac_bits(res):
 @pytest.mark.cuda
 def test_ransac_kabsch_roi_does_not_depend_on_its_batch(card):
     """A ROI's outputs are bit-equal alone (a cluster of 16 blocks) and in
-    batches of 16, 64 and 200 (on an H100 SXM clusters of 4, 2 and 1): the
-    refit sums a fixed tile tree in tile order, and counts are integers.
-    The last 16 ROIs hold the no-valid-point, 3-valid and NaN ROIs."""
+    batches of 8, 16, 32, 64 and 200 (on an H100 SXM clusters of 8, 4, 2,
+    2 and 1), which hold every cluster size the card gives a batch of up
+    to 200: the refit sums a fixed tile tree in tile order, and counts are
+    integers. The last 16 ROIs hold the no-valid-point, 3-valid and NaN
+    ROIs."""
     from rdpn6d_tpu_torch.ops.ransac_kabsch import (
         cluster_blocks,
         cluster_slots,
@@ -1350,9 +1354,11 @@ def test_ransac_kabsch_roi_does_not_depend_on_its_batch(card):
     m, c, mask, u = _ransac_inputs(200, 4096, 11, card)
     full = _ransac_bits(ransac_kabsch(m, c, mask, u, 0.015))
     slots = cluster_slots(torch.cuda.current_device())
-    sizes = [cluster_blocks(B, slots) for B in (1, 16, 64, 200)]
+    batches = (1, 8, 16, 32, 64, 200)
+    sizes = [cluster_blocks(B, slots) for B in batches]
     assert sizes[0] == 16 and sizes[-1] == 1 and sizes == sorted(sizes)[::-1]
-    for B in (16, 64):
+    assert {cluster_blocks(B, slots) for B in range(1, 201)} == set(sizes)
+    for B in batches[1:-1]:
         part = _ransac_bits(ransac_kabsch(m[-B:], c[-B:], mask[-B:], u[-B:],
                                           0.015))
         for a, b in zip(part, full):
@@ -1365,7 +1371,7 @@ def test_ransac_kabsch_roi_does_not_depend_on_its_batch(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [16, 200])
+@pytest.mark.parametrize("B", [8, 16, 200])
 def test_ransac_kabsch_launches_repeat_bit_for_bit(card, B):
     """Two launches on the same inputs give the same bits: no float
     atomics, and integer counts in any order."""

@@ -9,32 +9,35 @@ refinement) on one NVIDIA GPU, at N = 4096 points (lm13's 64x64 head), H =
     32 ROIs   an eval batch (phase 16(c))
 
     python3 time_ransac.py [--root DIR] [--out DIR]
+    python3 time_ransac.py --root PARENT --root CHANGE [--out DIR]
 
 ``--root`` names the directory whose ``rdpn6d_tpu_torch`` is timed
-(default: the one beside this script), so that two trees, such as a change
-and its parent unpacked with ``git archive``, are compared in one run on
-one card: parent, change, change, parent. The inputs are
+(default: the one beside this script). The inputs are
 ``chip_smoke.ransac_inputs`` (seeded, outliers at 0/30/60%, 85% of the
 mask set), the same whatever the tree. For each batch it prints the
 device time a call (queued behind filler work so that the host's cost is
 hidden, ``chip_smoke.queued_ms``), CUDA events over a burst of calls, the
-share of ``chip_smoke.ransac_bound``, the blocks of a ROI's cluster and
-the SMs they cover, then the kernel's registers and spills from its build
-log, beside the card's name and power limit, and one JSON line.
+share of ``chip_smoke.ransac_bound``, the blocks of a ROI's cluster (1
+for a tree without clusters) and the SMs they cover, then the kernel's
+registers and spills from its build log, beside the card's name and power
+limit, and one JSON line.
 
-Each tree's outputs (R, t, ratio, best hypothesis, score at each batch)
-go to ``--out`` (default ``chiprun_out/time_ransac``) as ``<tree>.npz``;
-the script then holds them against every other tree's file there: score,
-best hypothesis and ratio bit-equal, and the largest |dR| and |dt|.
-Exits non-zero without a CUDA device.
+Given two trees, such as a change and its parent unpacked with ``git
+archive``, it times them in turns on one card, each in a process of its
+own: the first, the second, the second, the first. Each run saves its
+outputs (R, t, ratio, best hypothesis, score at each batch) to ``--out``
+(default ``chiprun_out/time_ransac``) as ``run<i>.npz``, cleared first;
+every run is then held against the first: score, best hypothesis and
+ratio bit-equal, R and t within 1e-5. Exits non-zero where one is not,
+where a run fails, or without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
+import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,28 +45,15 @@ BATCHES = (6, 16, 32)
 N_POINTS = 4096
 CALLS = 200          # queued calls a timing (their median)
 BURST = 50           # calls a CUDA-event burst
+POSE_TOL = 1e-5      # R and t of two trees' fits with the same best
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=HERE,
-                    help="directory holding the rdpn6d_tpu_torch to time")
-    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
-                                                  "time_ransac"),
-                    help="directory for each tree's outputs")
-    args = ap.parse_args(argv)
-
+def time_tree(root: str, save: str) -> int:
+    """Times the kernel of the tree under ``root`` and saves its outputs
+    to ``save``."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("time_ransac: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.abspath(args.root)
-    if not os.path.isdir(os.path.join(root, "rdpn6d_tpu_torch")):
-        print(f"time_ransac: no rdpn6d_tpu_torch/ under {root}",
-              file=sys.stderr)
-        return 2
     import chip_smoke as cs    # this script's own: timers, inputs, bound
 
     sys.path.insert(0, root)
@@ -78,8 +68,9 @@ def main(argv=None) -> int:
         return 2
     card = cs.nvidia_smi("name,power.limit")
     dev = torch.device("cuda")
+    index = torch.cuda.current_device()
     tree = os.path.relpath(root, HERE)
-    sms = cuda_build.sm_count(torch.cuda.current_device())
+    sms = cuda_build.sm_count(index)
     result = {"root": tree, "card": card, "batches": {}}
     saved = {}
     for B in BATCHES:
@@ -95,20 +86,16 @@ def main(argv=None) -> int:
         ms = cs.queued_ms(run, iters=CALLS)
         events_ms = cs.cuda_ms(run, iters=BURST)
         bound_ms, bound_by = cs.ransac_bound(B, N_POINTS, rk.NUM_HYPS)
-        if hasattr(rk, "cluster_blocks"):
-            C = rk.cluster_blocks(
-                B, rk.cluster_slots(torch.cuda.current_device()),
-                rk.cluster_sizes(N_POINTS, rk.NUM_HYPS, rk.SAMPLE_SIZE))
-            spread = (f"a cluster of {C} blocks a ROI, {B * C} blocks for "
-                      f"the card's {sms} SMs")
-        else:
-            C = None
-            spread = f"one block a ROI, {B} blocks for the card's {sms} SMs"
+        C = rk.cluster_blocks(
+            B, rk.cluster_slots(index),
+            rk.cluster_sizes(N_POINTS, rk.NUM_HYPS, rk.SAMPLE_SIZE)) \
+            if hasattr(rk, "cluster_blocks") else 1
         print(f"time_ransac: {tree} ransac_kabsch {B} ROIs x {N_POINTS} "
               f"points x {rk.NUM_HYPS} hypotheses: device time (queued) "
               f"{ms:.5f} ms, {100 * bound_ms / ms:.1f}% of its bound "
               f"{bound_ms:.5f} ms ({bound_by}); CUDA events over a burst "
-              f"{events_ms:.5f} ms; {spread} [{card}]")
+              f"{events_ms:.5f} ms; a cluster of {C} blocks a ROI, {B * C} "
+              f"blocks for the card's {sms} SMs [{card}]")
         result["batches"][B] = {"queued_ms": ms, "events_ms": events_ms,
                                 "bound_ms": bound_ms, "cluster": C}
     _, built = cuda_build.load(rk.KERNEL)
@@ -119,31 +106,80 @@ def main(argv=None) -> int:
         f"{u['spill_loads']} bytes spilled, {u['smem']} bytes static smem"
         for u in usage.values()))
     result["ptxas"] = usage
-
-    os.makedirs(args.out, exist_ok=True)
-    name = tree.replace(os.sep, "_").strip("._") or "tree"
-    mine = os.path.join(args.out, name + ".npz")
-    np.savez(mine, **saved)
-    result["against"] = {}
-    for other in sorted(glob.glob(os.path.join(args.out, "*.npz"))):
-        if os.path.abspath(other) == os.path.abspath(mine):
-            continue
-        theirs = np.load(other)
-        oname = os.path.splitext(os.path.basename(other))[0]
-        for B in BATCHES:
-            same = {k: bool(np.array_equal(saved[f"{k}_{B}"],
-                                           theirs[f"{k}_{B}"]))
-                    for k in ("score", "best", "ratio")}
-            dR = float(np.nanmax(np.abs(saved[f"R_{B}"] - theirs[f"R_{B}"])))
-            dt = float(np.nanmax(np.abs(saved[f"t_{B}"] - theirs[f"t_{B}"])))
-            print(f"time_ransac: {tree} against {oname}, {B} ROIs: score "
-                  f"{'bit-equal' if same['score'] else 'DIFFERS'}, best "
-                  f"hypothesis {'bit-equal' if same['best'] else 'DIFFERS'}, "
-                  f"ratio {'bit-equal' if same['ratio'] else 'DIFFERS'}; "
-                  f"max |dR| {dR:.3e}, max |dt| {dt:.3e}")
-            result["against"][f"{oname}/{B}"] = dict(same, dR=dR, dt=dt)
+    os.makedirs(os.path.dirname(save), exist_ok=True)
+    np.savez(save, **saved)
     print(json.dumps(result))
     return 0
+
+
+def compare(runs: list[tuple[str, str]]) -> bool:
+    """Holds every run's saved outputs against the first run's; prints a
+    line a run and batch and returns whether all agree."""
+    import numpy as np
+
+    first_tree, first = runs[0]
+    ref = np.load(first)
+    ok = True
+    for i, (tree, path) in enumerate(runs[1:], 1):
+        got = np.load(path)
+        for B in BATCHES:
+            same = {k: bool(np.array_equal(got[f"{k}_{B}"], ref[f"{k}_{B}"]))
+                    for k in ("score", "best", "ratio")}
+            dR, dt = (float(np.abs(got[f"{k}_{B}"] - ref[f"{k}_{B}"]).max())
+                      for k in ("R", "t"))
+            good = all(same.values()) and dR <= POSE_TOL and dt <= POSE_TOL
+            ok &= good
+            print(f"time_ransac: run {i} ({tree}) against run 0 "
+                  f"({first_tree}), {B} ROIs: " + ", ".join(
+                      f"{k} {'bit-equal' if v else 'DIFFERS'}"
+                      for k, v in same.items())
+                  + f"; max |dR| {dR:.3e}, max |dt| {dt:.3e} (tol "
+                  f"{POSE_TOL}){'' if good else ': FAILED'}")
+    return ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", action="append",
+                    help="directory holding the rdpn6d_tpu_torch to time; "
+                    "twice to time two trees in turns and compare them")
+    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
+                                                  "time_ransac"),
+                    help="directory for each run's outputs")
+    ap.add_argument("--save", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_ransac: no CUDA device", file=sys.stderr)
+        return 2
+    roots = [os.path.abspath(r) for r in args.root or [HERE]]
+    if len(roots) > 2:
+        ap.error("at most two --root")
+    for root in roots:
+        if not os.path.isdir(os.path.join(root, "rdpn6d_tpu_torch")):
+            print(f"time_ransac: no rdpn6d_tpu_torch/ under {root}",
+                  file=sys.stderr)
+            return 2
+    if len(roots) == 1:
+        return time_tree(roots[0], args.save or os.path.join(
+            args.out, "run0.npz"))
+    os.makedirs(args.out, exist_ok=True)
+    order = [roots[0], roots[1], roots[1], roots[0]]
+    runs = [(os.path.relpath(r, HERE), os.path.join(args.out, f"run{i}.npz"))
+            for i, r in enumerate(order)]
+    for _, path in runs:
+        if os.path.exists(path):
+            os.remove(path)
+    for root, (tree, path) in zip(order, runs):
+        rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                              "--root", root, "--save", path])
+        if rc != 0:
+            print(f"time_ransac: the run of {tree} failed ({rc})",
+                  file=sys.stderr)
+            return rc
+    return 0 if compare(runs) else 1
 
 
 if __name__ == "__main__":
