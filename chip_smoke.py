@@ -243,7 +243,9 @@ Phases, each fatal on failure:
               correspondences of a known pose with 0%, 30% and 60%
               outliers, a ROI with no valid point, one with 3 and one with
               a NaN point; where the best hypothesis agrees the score and ratio equal and R, t within 1e-4 (a ROI
-              with no valid point: both R rotations, t equal), where it
+              with no valid point: both R rotations, t equal; where plain's
+              float32 refit is the one farther than 1e-4, the kernel's
+              within 1e-4 of a float64 refit on plain's inliers), where it
               does not the scores within 1 and the fits within 1e-2; NaN
               patterns equal; then timed by ``queued_ms`` at 6, 16 (the
               served batch, also by CUDA events and beside the plain
@@ -254,7 +256,7 @@ Phases, each fatal on failure:
               in bf16 and f32 on phase 3's frames: one ``ransac_kabsch``
               launch a served batch, finite poses, the ROIs refined (ratio >
               0.05) counted; the f32 pass's fits against the plain version
-              on the same inputs, and frame 0 card vs CPU (the same weights
+              on the same inputs (as in (a)), and frame 0 card vs CPU (the same weights
               and draws): the pre-fallback R within phase 5's 1e-3 where the
               valid masks and the best hypothesis agree; (c) ``main
               --eval-only`` with ``test.use_pnp=true`` on phase 9's tree and
@@ -266,12 +268,37 @@ Phases, each fatal on failure:
               ``SimplePointPnP`` and ``PointPnP`` at lm13 full width: the f32
               forward of 4 ROIs card vs CPU within phase 5's bounds, and
               phase 7's f32 train step card vs CPU.
+ 17. optimizers, tools, host modules — (a) every optimizer name of
+              ``solver.build_optimizer`` (Ranger's included) on lm13's full
+              trainable parameter set (164 tensors), 7 steps card against
+              CPU from the same seeded weights and seeded CPU-made
+              gradients, lm13's schedule with a 2-iteration warm-up,
+              weight decay 0.01 and a global-norm clip of 1: every
+              parameter within 1e-5 of its leaf's change plus the larger
+              of 1e-7 and a float32 ulp of the leaf's largest |p| a step
+              (a BatchNorm scale at 1 rounds p + u to 1.2e-7), AdamP's
+              and SGDP's projection decisions equal a leaf a step (a leaf
+              whose cosine lies within 1e-6 relative of its threshold is
+              printed and exempt); each name's ``Optimizer.step`` by CUDA
+              events over a burst and queued, its host ms, its kernel
+              launches and their device ms (profiler); (b) 3 ``Trainer.train`` steps at lm13 full width
+              on phase 6's held batches with each of ranger_adabelief,
+              adamp and rangerlars: losses finite, weights moved,
+              ``roi_crop`` and ``gt_labels`` once a step, ms/step beside
+              phase 6's; (c) ``tools.score_csv`` on phase 9's CSV and tree
+              (its MEAN table phase 9's, ``min_dist2`` once an object),
+              ``tools.strip_checkpoint`` on phase 9's checkpoint and
+              ``Predictor(ckpt_dir=<stripped>)`` f32 on the card against
+              the full checkpoint on the CPU (phase 5's bounds), the host
+              ``pnp_ransac`` on a posed object (200 points, 30% outliers,
+              noise in +-1 px), the morphology and RLE on phase 9's masks,
+              and ``grid_show``'s refusal without matplotlib.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12,
 each rank's steps and each ``main`` of phases 13, 14 and 15, phase 15's
-served pass, and phase 16's served passes and ``main``) and read right
-after it. In phases 3, 6, 9, 10, 11, 12(c), 13, 14, 15 and 16(b, c) the
+served pass, phase 16's served passes and ``main``, each of phase 17's
+training runs and its ``score_csv``) and read right after it. In phases 3, 6, 9, 10, 11, 12(c), 13, 14, 15 and 16(b, c) the
 batches the entry points preprocess are counted too
 (``PreprocessCalls``), and ``roi_crop`` must have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
@@ -1280,7 +1307,9 @@ def train_inputs(cfg, seed, n_frames, rois_per_frame, ship_xyz=True):
 def run_train(dev, card, profile: bool, work: str):
     """Phase 6: ``Trainer.train`` at lm13 full width on the card; with
     ``profile``, one more step (preprocessing included) under the
-    profiler after the launch counts are read."""
+    profiler after the launch counts are read. Returns the launches, the
+    two held batches (phase 17(b) trains on them) and the median
+    ms/step."""
     import torch
 
     from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
@@ -1361,7 +1390,7 @@ def run_train(dev, card, profile: bool, work: str):
             float(m["total_loss"])
 
         profile_pass("train step, bf16 autocast", one_step)
-    return launches
+    return launches, batches, med
 
 
 def train_parity(dev, work, batches=None, label="train parity", opts=(),
@@ -4291,23 +4320,63 @@ def ransac_inputs(B, N, seed, dev, special=True):
     return (to(m), to(c), to(mask), to(u)), R, t
 
 
-def ransac_compare(got, ref, mask, label, tol=RANSAC_TOL):
-    """The kernel's fit against the plain version's: where the best
+def refit_weights(model_pts, cam_pts, mask, uniforms, inlier_thr):
+    """The refit weights ``ransac_kabsch_plain`` uses, its own arithmetic:
+    its best hypothesis's inliers, or the mask where they are fewer than
+    the sample size."""
+    import torch
+
+    from rdpn6d_tpu_torch.ops import ransac_kabsch as rk
+
+    B, N, _ = model_pts.shape
+    H, S = uniforms.shape[1:]
+    idx = rk.hypothesis_picks(mask, uniforms).reshape(B, H * S, 1)
+    src = torch.take_along_dim(model_pts, idx, 1).reshape(B, H, S, 3)
+    dst = torch.take_along_dim(cam_pts, idx, 1).reshape(B, H, S, 3)
+    R_h, t_h = rk.kabsch_quat(src, dst)
+    m2 = (model_pts * model_pts).sum(-1)
+    c2 = (cam_pts * cam_pts).sum(-1)
+    outer = (cam_pts[..., :, None] * model_pts[..., None, :]).reshape(
+        B, N, 9)
+    cross = R_h.reshape(B, H, 9) @ outer.transpose(1, 2)
+    Rt_t = torch.einsum("bhji,bhj->bhi", R_h, t_h)
+    t2 = (t_h * t_h).sum(-1)
+    d2 = (m2[:, None] + c2[:, None] + t2[..., None]
+          + 2.0 * (Rt_t @ model_pts.transpose(1, 2)) - 2.0 * cross
+          - 2.0 * (t_h @ cam_pts.transpose(1, 2)))
+    inl = (d2 < rk._threshold_sq(inlier_thr).to(d2.device)) \
+        & (mask[:, None] > 0)
+    best = inl.sum(-1).argmax(-1)
+    w = inl[torch.arange(B, device=mask.device), best].to(model_pts.dtype)
+    return torch.where(w.sum(-1, keepdim=True) >= S, w, mask.to(w.dtype))
+
+
+def ransac_compare(got, ref, args, inlier_thr, label, tol=RANSAC_TOL):
+    """The kernel's fit against the plain version's on inputs ``args``
+    (model points, camera points, mask, uniforms): where the best
     hypothesis agrees, the same score and ratio and R, t within ``tol``
     (a ROI with no valid point has a zero covariance, whose rotation is
     any: there both R orthonormal and t equal); where it does not (a d2
     within rounding of the threshold counted on one side), the scores
-    within 1 and the two refits within 1e-2. NaN patterns equal. Returns
-    (worst error where the best agrees, ROIs whose best differs)."""
+    within 1 and the two refits within 1e-2. NaN patterns equal. Where R,
+    t are more than ``tol`` from plain's, the kernel is held instead to a
+    float64 refit on plain's inliers, within ``tol``: inliers near a line
+    give a near rank-1 covariance, where plain's float32 refit is itself
+    up to ~1e-4 from the float64 one (``ransac_conditioning.py``). Returns
+    (worst error where the best agrees, ROIs whose best differs, ROIs held
+    to the float64 refit)."""
     import torch
+
+    from rdpn6d_tpu_torch.ops.ransac_kabsch import kabsch
 
     g = [x.cpu() for x in got]
     r = [x.cpu() for x in ref]
     check(torch.equal(g[0].isnan(), r[0].isnan())
           and torch.equal(g[1].isnan(), r[1].isnan()),
           f"{label}: the kernel's NaN pattern differs from plain's")
-    empty = (mask.cpu().sum(-1) == 0)
-    worst, flips = 0.0, []
+    empty = (args[2].cpu().sum(-1) == 0)
+    worst, flips, exact = 0.0, [], []
+    w = None
     for i in range(g[0].shape[0]):
         if int(g[3][i]) != int(r[3][i]):
             flips.append(i)
@@ -4336,10 +4405,19 @@ def ransac_compare(got, ref, mask, label, tol=RANSAC_TOL):
             continue
         d = max(float((g[0][i] - r[0][i]).abs().max()),
                 float((g[1][i] - r[1][i]).abs().max()))
-        check(d <= tol, f"{label}: ROI {i}: R, t {d:.3e} from plain "
-              f"(tol {tol})")
+        if d > tol:
+            if w is None:
+                w = refit_weights(*args[:4], inlier_thr).cpu().double()
+                pts = [x.cpu().double() for x in args[:2]]
+            R64, t64 = kabsch(pts[0][i], pts[1][i], w[i])
+            d = max(float((g[0][i].double() - R64).abs().max()),
+                    float((g[1][i].double() - t64).abs().max()))
+            check(d <= tol, f"{label}: ROI {i}: R, t more than {tol} "
+                  f"from plain's and {d:.3e} from the float64 refit on "
+                  "plain's inliers")
+            exact.append(i)
         worst = max(worst, d)
-    return worst, flips
+    return worst, flips, exact
 
 
 def check_ransac_kabsch(dev, card):
@@ -4369,8 +4447,8 @@ def check_ransac_kabsch(dev, card):
         got = ransac_kabsch(*args, RANSAC_THR)
         ref = ransac_kabsch_plain(*args, RANSAC_THR)
         torch.cuda.synchronize()
-        err, flips = ransac_compare(got, ref, args[2],
-                                    f"ransac_kabsch B={B} N={N}")
+        err, flips, exact = ransac_compare(got, ref, args, RANSAC_THR,
+                                           f"ransac_kabsch B={B} N={N}")
         worst = max(worst, err)
         R = got.R.cpu().numpy()
         ok = np.isfinite(R).all((1, 2))
@@ -4379,7 +4457,8 @@ def check_ransac_kabsch(dev, card):
         print(f"kernel: ransac_kabsch B={B} N={N} H={NUM_HYPS} (a cluster "
               f"of {C} blocks a ROI): R, t within "
               f"{err:.3e} of plain where the best hypothesis agrees "
-              f"({B - len(flips)} of {B} ROIs; differing: {flips}), NaN "
+              f"({B - len(flips)} of {B} ROIs; differing: {flips}; held "
+              f"to the float64 refit: {exact}), NaN "
               f"patterns equal; {int(good.sum())} of {B} refits within "
               f"1e-2 of the true R; ratios "
               f"{np.round(got.ratio.cpu().numpy()[:6], 4).tolist()}")
@@ -4500,12 +4579,14 @@ def run_ransac_serving(dev, card, cfg, assets, frames):
         add_launches(total, got)
         fits[name] = (pred, rc.calls)
     # the kernel on the served pass's own inputs against the plain version
-    worst, flips = 0.0, 0
+    worst, flips, exact = 0.0, 0, 0
     for args, out in fits["f32"][1]:
         ref = ransac_kabsch_plain(*args)
         torch.cuda.synchronize()
-        err, f = ransac_compare(out, ref, args[2], "use_pnp f32 served fit")
-        worst, flips = max(worst, err), flips + len(f)
+        err, f, ex = ransac_compare(out, ref, args, args[4],
+                                    "use_pnp f32 served fit")
+        worst, flips, exact = max(worst, err), flips + len(f), \
+            exact + len(ex)
     # the card's served pass against the CPU's, frame 0, the same draws
     cpu = physical_z(Predictor(cfg, assets, batch_size=SERVE_BATCH,
                                dtype=torch.float32, device="cpu",
@@ -4532,7 +4613,8 @@ def run_ransac_serving(dev, card, cfg, assets, frames):
           f"{dR_fit:.3e} where the best hypothesis agrees")
     print(f"serve: use_pnp f32 fits: kernel vs plain on the card's inputs "
           f"within {worst:.3e} where the best hypothesis agrees ({flips} "
-          f"differ); card vs CPU on frame 0's {len(dets)} ROIs: masks agree "
+          f"differ; {exact} held to the float64 refit, plain's farther); "
+          f"card vs CPU on frame 0's {len(dets)} ROIs: masks agree "
           f"on {100 * mask_agree:.3f}% of points, masks and best "
           f"hypothesis equal on {int(same.sum())}, pre-fallback R within "
           f"{dR_fit:.3e} there; "
@@ -4669,6 +4751,364 @@ def variant_forward(dev, card, work, name, opts):
           f"[{card}]")
     train_parity(dev, work, label=f"variants: {name} train step", opts=opts,
                  prepare=physical)
+
+
+# phase 17: the other optimizer names, the tools and the host modules
+OPT_NAMES = ("ranger", "ranger_adabelief", "adamp", "sgdp", "ralamb",
+             "rangerlars", "rmsprop_tf", "sgd_gcc", "radam", "adabelief",
+             "lookahead_adam", "sgd_gc")
+OPT_STEPS = 7               # 1-5 RAdam's momentum, 6 adaptive + Lookahead
+OPT_HORIZON = 10            # lm13's schedule over 10 iterations
+OPT_TRAIN = ("ranger_adabelief", "adamp", "rangerlars")
+OPT_TRAIN_STEPS = 3
+OPT_TOL = 1e-5              # of a leaf's change, plus 1e-7: the CPU tests'
+OPT_ULP = 2.0 ** -23        # bound, or an ulp of the leaf's |p| a step
+PNP_POINTS = 200
+
+
+def opt_config(name: str):
+    """lm13 at full width with ``name``, a 2-iteration warm-up, weight
+    decay 0.01 and a global-norm clip of 1."""
+    from rdpn6d_tpu_torch.configs import lm13
+
+    return lm13.get_config().apply_opts([
+        'head.init="fan_in"', 'backbone.pretrained=""',
+        f'solver.optimizer="{name}"', "solver.warmup_iters=2",
+        "solver.weight_decay=0.01", "solver.max_grad_norm=1.0"])
+
+
+def kernels_in(fn) -> tuple[int, float]:
+    """Device kernels ``fn`` launches and their summed device ms
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def opt_step_times(opt, params) -> dict:
+    """One ``Optimizer.step``'s ms by CUDA events over a burst and queued
+    behind a product long enough to hide its host time, the host ms to
+    enqueue it, its kernel launches and their summed device ms (the
+    profiler). Past ~1000 launches the launch queue fills behind the
+    product and the host waits, so a queued step of thousands of kernels
+    times its host again; the profiler's sum is its device time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # a float32 n x n product (2 n^3 flop, ~50 TFLOP/s) twice the host time
+    n = int(min(16384, max(2048, (host * 2 * 50e12 / 2) ** (1 / 3))))
+    launches, busy = kernels_in(opt.step)
+    return {"ms": cuda_ms(opt.step, iters=5, warmup=1),
+            "queued_ms": queued_ms(opt.step, iters=3, filler=n),
+            "host_ms": host * 1e3, "launches": launches, "device_ms": busy}
+
+
+def run_optimizers(dev, card) -> dict:
+    """Phase 17(a): every optimizer name ``build_optimizer`` knows, on
+    lm13's full trainable parameter set, 7 steps on the card and on the CPU
+    from the same weights with the same seeded gradients (made on the CPU,
+    copied to the card), the train step's lr (``schedule_step``) and clip;
+    every parameter within 1e-5 of its leaf's change plus the larger of
+    1e-7 and a float32 ulp of the leaf's largest |p| a step; AdamP's
+    and SGDP's projection decisions equal a leaf a step, but where a
+    cosine lies within 1e-6 relative of its threshold (printed); then
+    each name's step timed on the card. Returns {name: times}."""
+    import torch
+
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.solver import (
+        build_optimizer,
+        build_schedule,
+        clip_by_global_norm_,
+        schedule_step,
+        trainable_parameters,
+    )
+    from rdpn6d_tpu_torch.solver.projection import cosine_ratios
+
+    base = opt_config("ranger")
+    cpu_model = init_weights(RDPN(base), torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    names = [n for n, _ in trainable_parameters(base, cpu_model)]
+    start = {n: p.detach().clone() for n, p in cpu_model.named_parameters()
+             if n in names}
+    mb = sum(v.numel() for v in start.values()) * 4 / 1e6
+    gen = torch.Generator().manual_seed(17)
+    grads = [[torch.randn(start[n].shape, generator=gen) for n in names]
+             for _ in range(OPT_STEPS)]
+    grads_card = [[g.to(dev) for g in step] for step in grads]
+    times = {}
+    for name in OPT_NAMES:
+        t0 = time.perf_counter()
+        cfg = opt_config(name)
+        schedule = build_schedule(cfg, OPT_HORIZON)
+        side = {}
+        for tag, model, gs in (("cpu", cpu_model, grads),
+                               ("card", card_model, grads_card)):
+            params = dict(model.named_parameters())
+            with torch.no_grad():
+                for n in names:
+                    params[n].copy_(start[n])
+            opt = build_optimizer(cfg, model)
+            plist = [params[n] for n in names]
+            decisions, ratios = [], []
+            for i in range(OPT_STEPS):
+                for p, g in zip(plist, gs[i]):
+                    p.grad = g.clone()
+                for group in opt.param_groups:
+                    group["lr"] = schedule(schedule_step(cfg, i))
+                clip_by_global_norm_(plist, cfg.solver.max_grad_norm)
+                if name in ("adamp", "sgdp") and tag == "cpu":
+                    ratios.append([cosine_ratios(p, p.grad, 0.1, 1e-8)
+                                   if p.dim() > 1 else None for p in plist])
+                opt.step()
+                if name in ("adamp", "sgdp"):
+                    decisions.append([bool(opt.state[p]["projected"])
+                                      for p in plist])
+            side[tag] = ({n: params[n].detach().cpu() for n in names},
+                         decisions, ratios, opt, plist)
+        cpu, card_side = side["cpu"], side["card"]
+        near = set()
+        for i, (dc, dg) in enumerate(zip(cpu[1], card_side[1])):
+            for k, (a, b) in enumerate(zip(dc, dg)):
+                r = cpu[2][i][k]
+                edge = r is not None and bool(
+                    ((r - 1.0).abs() <= 1e-6).any())
+                if edge:
+                    near.add(names[k])
+                    print(f"optim: {name}: {names[k]} step {i + 1}: a "
+                          "cosine within 1e-6 relative of its threshold")
+                check(a == b or edge, f"optim: {name}: {names[k]} projected "
+                      f"{b} on the card, {a} on the CPU, at step {i + 1}")
+        worst, moved = 0.0, 0
+        for n in names:
+            if n in near:
+                continue
+            change = float((cpu[0][n] - start[n]).abs().max())
+            err = float((card_side[0][n] - cpu[0][n]).abs().max())
+            # the CPU tests' leaves are ~0.1, where 1e-7 is some 10 ulps;
+            # a BatchNorm scale sits at 1, where each step's rounding of
+            # p + u may land one ulp (6e-8 or 1.2e-7) apart on the sides
+            floor = max(1e-7, OPT_STEPS * OPT_ULP
+                        * float(cpu[0][n].abs().max()))
+            check(err <= OPT_TOL * change + floor, f"optim: {name}: {n} "
+                  f"card vs CPU {err:.3e} for a change of {change:.3e}")
+            moved += change > 0
+            worst = max(worst, err / max(change, 1e-30))
+        check(moved >= 0.9 * len(names), f"optim: {name}: only {moved} of "
+              f"{len(names)} tensors moved")
+        projected = sum(map(sum, card_side[1])) if card_side[1] else 0
+        times[name] = opt_step_times(card_side[3], card_side[4])
+        tm = times[name]
+        print(f"optim: {name}: {len(names)} tensors ({mb:.1f} MB), "
+              f"{OPT_STEPS} steps card vs CPU: worst |err| / change "
+              f"{worst:.3e} (tol {OPT_TOL} + max(1e-7, an ulp of |p| a "
+              "step))"
+              + (f", {projected} projected leaf-steps, decisions equal"
+                 if card_side[1] else "")
+              + f"; Optimizer.step {tm['ms']:.3f} ms by CUDA events over "
+              f"a burst, {tm['queued_ms']:.3f} ms queued, host "
+              f"{tm['host_ms']:.2f} ms, {tm['launches']} kernel launches "
+              f"of {tm['device_ms']:.3f} ms device time (profiler); "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return times
+
+
+def run_opt_train(dev, card, work, batches, ranger_ms) -> dict:
+    """Phase 17(b): ``Trainer.train`` at lm13 full width on phase 6's held
+    batches (24 ROIs, bf16 autocast), 3 steps with each of ``OPT_TRAIN``:
+    losses finite, weights moved, ``roi_crop`` and ``gt_labels`` once a
+    step; ms/step beside phase 6's Ranger. Returns the launches."""
+    import torch
+
+    from rdpn6d_tpu_torch.engine.trainer import Trainer
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    total: dict = {}
+    for name in OPT_TRAIN:
+        cfg = train_config(amp=True, out_dir=os.path.join(
+            work, f"phase17_{name}")).apply_opts([
+                f'solver.optimizer="{name}"'])
+        model = init_weights(RDPN(cfg), torch.Generator().manual_seed(0))
+        before = {k: v.detach().clone() for k, v in
+                  model.named_parameters()}
+        trainer = Trainer(cfg, model, total_iters=OPT_TRAIN_STEPS,
+                          device=dev)
+        stamps, hist = [], []
+
+        def hook(it, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            hist.append({k: float(v) for k, v in metrics.items()})
+
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        with PreprocessCalls() as calls:
+            trainer.train(itertools.cycle(batches), step_hook=hook)
+        torch.cuda.synchronize()
+        got = dict(cuda_build.LAUNCHES)
+        check(len(hist) == OPT_TRAIN_STEPS and all(
+            np.isfinite(v) for m in hist for v in m.values()),
+              f"{name} train: {len(hist)} steps, losses {hist}")
+        moved = sum(not torch.equal(p.detach().cpu(), before[k])
+                    for k, p in model.named_parameters())
+        check(moved > 0.5 * len(before), f"{name} train: only {moved} "
+              f"of {len(before)} parameter tensors moved")
+        check(got.get("roi_crop", 0) == got.get("gt_labels", 0) == calls.n
+              == OPT_TRAIN_STEPS, f"{name} train: launches {got} for "
+              f"{calls.n} preprocessed batches in {OPT_TRAIN_STEPS} steps")
+        step_ms = 1e3 * np.diff([t0] + stamps)
+        print(f"train: lm13 full width bf16, {TRAIN_ROIS} ROIs/step, "
+              f"{name}: {OPT_TRAIN_STEPS} steps "
+              + ", ".join(f"{x:.2f}" for x in step_ms)
+              + f" ms (Ranger, phase 6: median {ranger_ms:.2f}); total_loss "
+              f"{hist[-1]['total_loss']:.4f}, {moved}/{len(before)} tensors "
+              f"moved; launches {got} [{card}]")
+        add_launches(total, got)
+    return total
+
+
+def run_tools(dev, card, work, bf16_mean, frames, assets) -> dict:
+    """Phase 17(c): the tools and host modules on this machine (no OpenCV,
+    no matplotlib): ``tools.score_csv`` on phase 9's CSV and tree,
+    ``tools.strip_checkpoint`` then ``Predictor(ckpt_dir=...)``,
+    ``pnp_ransac`` on a posed object, the morphology and RLE on phase 9's
+    masks, ``grid_show``'s gate. Returns score_csv's launches."""
+    import hashlib
+
+    import torch
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.png import imread_mask
+    from rdpn6d_tpu_torch.engine.checkpoint import STATE_FILE
+    from rdpn6d_tpu_torch.engine.predictor import Predictor
+    from rdpn6d_tpu_torch.ops import cuda_build, pnp_host
+    from rdpn6d_tpu_torch.tools import score_csv, strip_checkpoint
+    from rdpn6d_tpu_torch.utils import mask, vis
+
+    os.environ["RDPN6D_DATA_ROOT"] = os.path.join(work, "data")
+    csv = os.path.join(work, "out", "lm_13_test_bop19.csv")
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    res = score_csv.main(["--csv", csv, "--split", "lm_13_test"])
+    secs = time.perf_counter() - t0
+    got = dict(cuda_build.LAUNCHES)
+    check(got.get("min_dist2", 0) == 13, f"score_csv launches {got}, want "
+          "min_dist2 once for each of 13 objects")
+    # the CSV writes R and t (mm) to 8 decimals: recalls move only where
+    # an instance sits on a threshold, one instance 100/8 points of its
+    # object's recall, 100/104 of the MEAN
+    keys = sorted(set(res["mean"]) & set(bf16_mean))
+    diff = max(abs(float(res["mean"][k]) - float(bf16_mean[k]))
+               for k in keys)
+    check(len(keys) >= 7 and diff <= 100.0 / (13 * EVAL_FRAMES_PER_OBJ),
+          f"score_csv MEAN differs from phase 9's by {diff} over {keys}")
+    print(f"tools: score_csv on phase 9's CSV of lm_13_test in {secs:.2f} "
+          f"s: MEAN equal to phase 9's over {len(keys)} columns within "
+          f"{diff:.3e} (bound 100/104, one instance); launches {got} "
+          f"[{card}]")
+
+    release = os.path.join(work, "release")
+    t0 = time.perf_counter()
+    named = strip_checkpoint.main(["--ckpt-dir", os.path.join(
+        work, "out", "ckpt"), "--out", release])
+    with open(named, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()[:8]
+    check(named.endswith(f"_{sha}.pt"), f"strip: {named} is not named by "
+          f"its hash {sha}")
+    slim = torch.load(os.path.join(release, "0", STATE_FILE),
+                      weights_only=True)
+    check(slim["optimizer"] is None, "strip: the optimizer state is kept")
+    cfg = lm13.get_config()
+    stripped = Predictor(cfg, assets, ckpt_dir=release, batch_size=16,
+                         dtype=torch.float32, device="cuda")
+    full = Predictor(cfg, assets, ckpt_dir=os.path.join(work, "out",
+                                                        "ckpt"),
+                     batch_size=16, dtype=torch.float32, device="cpu")
+    rgb, depth, dets = frames[0]
+    a = stripped.predict(rgb, depth, K_LM, dets)
+    b = full.predict(rgb, depth, K_LM, dets)
+    dR = max(float(np.abs(x["R"] - y["R"]).max()) for x, y in zip(a, b))
+    dt = max(float(np.abs(x["t"] - y["t"]).max() / np.abs(y["t"]).max())
+             for x, y in zip(a, b))
+    check(len(a) == len(b) == len(dets) and dR <= 1e-3 and dt <= 1e-3,
+          f"strip: the stripped checkpoint's poses on the card differ from "
+          f"the full one's on the CPU: |dR| {dR:.3e}, |dt|/|t| {dt:.3e}")
+    print(f"tools: strip_checkpoint -> {os.path.relpath(named, work)} "
+          f"({os.path.getsize(named) / 1e6:.1f} MB) in "
+          f"{time.perf_counter() - t0:.2f} s with both Predictors; "
+          f"Predictor(ckpt_dir=<stripped>) f32 on the card against phase "
+          f"9's checkpoint on the CPU over {len(dets)} ROIs of phase 3's "
+          f"first frame: max |dR| {dR:.3e}, max |dt|/|t| {dt:.3e} (tol "
+          f"1e-3) [{card}]")
+
+    # a posed object, noise uniform in +-1 px, 30% outliers: RANSAC keeps
+    # the true inliers, so the pose is the least-squares one on them; 1 px
+    # of noise leaves that ~1e-3 from the ground truth
+    rng = np.random.RandomState(17)
+    p3 = rng.uniform(-0.1, 0.1, (PNP_POINTS, 3))
+    R_gt = pnp_host.rodrigues(np.array([0.4, -0.9, 0.3]))
+    t_gt = np.array([0.03, -0.02, 0.6])
+    uv = (p3 @ R_gt.T + t_gt) @ K_LM.T
+    p2 = uv[:, :2] / uv[:, 2:] + rng.uniform(-1, 1, (PNP_POINTS, 2))
+    out = rng.choice(PNP_POINTS, int(0.3 * PNP_POINTS), replace=False)
+    p2[out] = rng.uniform(0, 1, (len(out), 2)) * [640, 480]
+    inl = np.ones(PNP_POINTS, bool)
+    inl[out] = False
+    t0 = time.perf_counter()
+    R, t = pnp_host.pnp_ransac(p3, p2, K_LM)
+    pnp_s = time.perf_counter() - t0
+    R_ls, t_ls = pnp_host.refine_lm(p3[inl], p2[inl], K_LM, R_gt, t_gt)
+    d_ls = max(float(np.abs(R - R_ls).max()), float(np.abs(t - t_ls).max()))
+    d_gt = max(float(np.abs(R - R_gt).max()), float(np.abs(t - t_gt).max()))
+    check(d_ls <= 1e-5 and d_gt <= 1e-2, f"pnp_ransac: {d_ls:.3e} from "
+          f"the least-squares pose on the true inliers, {d_gt:.3e} from "
+          "the ground truth")
+    print(f"tools: pnp_ransac, {PNP_POINTS} points, 30% outliers, +-1 px: "
+          f"{pnp_s * 1e3:.1f} ms host; R, t within {d_ls:.3e} of the "
+          f"least-squares pose on the true inliers (tol 1e-5), {d_gt:.3e} "
+          f"of the ground truth (tol 1e-2)")
+
+    mdir = os.path.join(work, "data", "lm", "test", "000001", "mask_visib")
+    shown = 0
+    for f in sorted(os.listdir(mdir)):
+        m = (imread_mask(os.path.join(mdir, f)) > 0).astype(np.uint8)
+        e, d = mask.erode_mask(m, 3, 2), mask.dilate_mask(m, 5)
+        edges = mask.mask_edges(m)
+        check(bool((e <= m).all() and (m <= d).all() and e.sum() < m.sum()
+                   < d.sum()), f"masks: {f} erode/dilate out of order")
+        check(np.array_equal(edges, (mask.dilate_mask(m) !=
+                                     mask.erode_mask(m)).astype(np.uint8)),
+              f"masks: {f} edges are not dilate != erode")
+        check(np.array_equal(mask.rle_to_mask(mask.mask_to_rle(m)), m > 0),
+              f"masks: {f} RLE does not round-trip")
+        shown += 1
+    print(f"tools: erode, dilate, mask_edges and RLE on {shown} of phase "
+          f"9's masks (480x640): ordered, edges the gradient, RLE bit for "
+          f"bit")
+    try:
+        vis.grid_show([rgb])
+        print("tools: grid_show drew (matplotlib present)")
+    except ImportError as err:
+        check("matplotlib" in str(err), f"grid_show: {err}")
+        print(f"tools: grid_show refuses without matplotlib: {err}")
+    return got
+
 
 
 def main(argv=None) -> int:
@@ -4883,7 +5323,8 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # 6. train -------------------------------------------------------
-        train_launches = run_train(dev, card, args.profile, work)
+        train_launches, held, ranger_ms = run_train(dev, card, args.profile,
+                                                    work)
 
         # 7. train parity ------------------------------------------------
         train_parity(dev, work)
@@ -4936,6 +5377,23 @@ def main(argv=None) -> int:
         for name, opts in VARIANTS.items():
             variant_forward(dev, card, work, name, opts)
         print(f"phase 16: {time.perf_counter() - t16:.1f} s [{card}]")
+
+        # 17. the other optimizer names, the tools and host modules ------
+        t17 = time.perf_counter()
+        opt_times = run_optimizers(dev, card)
+        print("optim: Optimizer.step ms queued / profiler device ms "
+              "(launches) beside ranger's "
+              f"{opt_times['ranger']['queued_ms']:.3f} / "
+              f"{opt_times['ranger']['device_ms']:.3f} "
+              f"({opt_times['ranger']['launches']}): " + ", ".join(
+                  f"{n} {t['queued_ms']:.3f} / {t['device_ms']:.3f} "
+                  f"({t['launches']})"
+                  for n, t in opt_times.items() if n != "ranger")
+              + f" [{card}]")
+        opt_train_launches = run_opt_train(dev, card, work, held, ranger_ms)
+        tools_launches = run_tools(dev, card, work, bf16_mean, frames,
+                                   assets)
+        print(f"phase 17: {time.perf_counter() - t17:.1f} s [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4947,7 +5405,7 @@ def main(argv=None) -> int:
                 serve8, eval8, dist_launches, mh_launches, ycbv_launches,
                 tless_launches, mini_launches, mp6d_launches,
                 itodd_launches, flat_launches, pnp_serve_launches,
-                pnp_eval_launches):
+                pnp_eval_launches, opt_train_launches, tools_launches):
         add_launches(total, got)
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",

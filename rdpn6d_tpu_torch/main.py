@@ -121,29 +121,6 @@ def auto_output_dir(config_file: str) -> str:
         else os.path.join("output", rel)
 
 
-@contextlib.contextmanager
-def _profiled(enabled: bool, trace_dir: str):
-    """A torch.profiler trace of the block into ``trace_dir`` (a Chrome
-    trace, ``trace.json``; rank r > 0's ``trace.rank<r>.json``), or
-    nothing."""
-    if not enabled:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if torch.cuda.is_available() else [])
-    os.makedirs(trace_dir, exist_ok=True)
-    from .parallel import mesh
-
-    with profile(activities=acts) as prof:
-        yield
-    r = mesh.rank()
-    prof.export_chrome_trace(os.path.join(
-        trace_dir, f"trace.rank{r}.json" if r else "trace.json"))
-
-
 def main(argv=None):
     """Training returns the final ``TrainState``; ``--eval-only`` returns
     {split: run_eval's result} for each test split (rank 0's full result,
@@ -263,6 +240,7 @@ def train(cfg, args, device, logger):
     from .engine.trainer import Trainer
     from .models import RDPN, init_weights
     from .parallel import mesh
+    from .utils.profiling import trace
 
     out_dir = cfg.train.output_dir
     if cfg.solver.ims_per_batch % mesh.world():
@@ -332,7 +310,8 @@ def train(cfg, args, device, logger):
                 run_eval(cfg, ckpt_dir="", split_name=test_split,
                          model=state.model, dtype=eval_dtype)
 
-    with _profiled(args.profile, os.path.join(out_dir, "profile")):
+    with trace(os.path.join(out_dir, "profile")) if args.profile \
+            else contextlib.nullcontext():
         state = trainer.train(
             device_batches(split), start_iter=start, loader2=loader2,
             train2_ratio=cfg.data.train2_ratio, eval_fn=eval_fn,

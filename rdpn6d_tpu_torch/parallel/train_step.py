@@ -30,7 +30,8 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config
-from ..solver import build_optimizer, clip_by_global_norm_, global_norm
+from ..solver import (build_optimizer, clip_by_global_norm_, global_norm,
+                      schedule_step)
 from .mesh import in_group, rank, world
 
 if TYPE_CHECKING:
@@ -171,7 +172,7 @@ def _make_step_fn(cfg: Config, schedule: Callable[[int], float],
         model, opt = state.model, state.optimizer
         dev = next(model.parameters()).device
         model.train()
-        lr = schedule(state.step)
+        lr = schedule(schedule_step(cfg, state.step))
         for group in opt.param_groups:
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)

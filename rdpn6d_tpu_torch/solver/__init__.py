@@ -1,13 +1,18 @@
 """Optimizers and LR schedules.
 
 Counterpart of ``rdpn6d_tpu/solver/__init__.py`` (``build_schedule``,
-``build_optimizer``) for the names ``ranger``, ``adam``, ``adamw`` and
-``sgd``; the other names the JAX package knows raise NotImplementedError.
-``solver.max_grad_norm`` clips by the global norm before the update
-(``clip_by_global_norm_``, which the train step calls), and
-``backbone.freeze`` leaves the ResNet trunk out of the optimizer (the
-fusion net under ``backbone.spatial_net`` still trains, as in the JAX
-package, whose mask covers its ``backbone`` subtree only).
+``build_optimizer``) for every optimizer name the JAX package builds; an
+unknown name raises ValueError, as there. ``solver.max_grad_norm`` clips
+by the global norm before the update (``clip_by_global_norm_``, which the
+train step calls), and ``backbone.freeze`` leaves the ResNet trunk out of
+the optimizer (the fusion net under ``backbone.spatial_net`` still trains,
+as in the JAX package, whose mask covers its ``backbone`` subtree only).
+
+The train step writes ``schedule(schedule_step(cfg, step))`` into the
+param groups before each update: the JAX package's optax chains read the
+schedule at the 0-based update count, but its ``ralamb`` (so
+``rangerlars``), ``adamp`` and ``sgdp`` read it at their own 1-based count
+unless ``solver.host_lr`` injects ``schedule(step)`` for every name.
 """
 
 from __future__ import annotations
@@ -18,12 +23,21 @@ import torch
 from torch import nn
 
 from ..config import Config
-from .ranger import Ranger, centralize_, radam_step_size
+from .optax_rules import SGDGC, AdaBelief, RMSpropTF
+from .projection import SGDP, AdamP, project_scale_invariant
+from .ranger import (Lookahead, RAdam, Ralamb, Ranger, centralize_,
+                     radam_step_size)
 from .schedule import flat_and_anneal, warmup_multistep
 
-__all__ = ["Ranger", "centralize_", "radam_step_size", "flat_and_anneal",
+__all__ = ["Ranger", "RAdam", "Ralamb", "Lookahead", "AdamP", "SGDP",
+           "RMSpropTF", "AdaBelief", "SGDGC", "centralize_",
+           "radam_step_size", "project_scale_invariant", "flat_and_anneal",
            "warmup_multistep", "build_schedule", "build_optimizer",
-           "trainable_parameters", "clip_by_global_norm_", "global_norm"]
+           "schedule_step", "trainable_parameters", "clip_by_global_norm_",
+           "global_norm"]
+
+# names whose JAX update reads the schedule at its own 1-based count
+ONE_BASED_LR = ("ralamb", "rangerlars", "over9000", "adamp", "sgdp")
 
 
 def build_schedule(cfg: Config, total_iters: int) -> Callable[[int], float]:
@@ -51,26 +65,61 @@ def trainable_parameters(cfg: Config, model: nn.Module
     return [(n, p) for n, p in model.named_parameters() if not frozen(n)]
 
 
+def schedule_step(cfg: Config, step: int) -> int:
+    """The schedule index whose lr the update of train step ``step``
+    (0-based) applies, as in the JAX package (module docstring)."""
+    s = cfg.solver
+    return step + 1 if s.optimizer in ONE_BASED_LR and not s.host_lr \
+        else step
+
+
 def build_optimizer(cfg: Config, model: nn.Module,
                     lr: float | None = None) -> torch.optim.Optimizer:
     """The configured optimizer over ``trainable_parameters``; ``lr`` is
-    the starting value (the train step overwrites it every step, so
-    ``solver.host_lr``, the JAX package's way to keep the lr out of the
-    compiled step, has nothing left to do here)."""
+    the starting value (the train step overwrites it every step with the
+    schedule's value at ``schedule_step``). The hyperparameters are the
+    JAX package's (``rdpn6d_tpu/solver/__init__.py``): its optax
+    defaults, and ``solver.weight_decay`` for ranger, ranger_adabelief,
+    adamp, sgdp, ralamb, rangerlars and adamw only."""
     s = cfg.solver
     params = [p for _, p in trainable_parameters(cfg, model)]
     lr = s.base_lr if lr is None else lr
-    if s.optimizer == "ranger":
-        return Ranger(params, lr=lr, weight_decay=s.weight_decay)
-    if s.optimizer == "adam":
+    wd = s.weight_decay
+    name = s.optimizer
+    if name == "ranger":
+        return Ranger(params, lr=lr, weight_decay=wd)
+    if name == "ranger_adabelief":
+        return Ranger(params, lr=lr, weight_decay=wd, belief=True)
+    if name == "adamp":
+        return AdamP(params, lr=lr, weight_decay=wd)
+    if name == "sgdp":
+        return SGDP(params, lr=lr, weight_decay=wd)
+    if name == "ralamb":
+        return Ralamb(params, lr=lr, weight_decay=wd, f32_lr=not s.host_lr)
+    if name in ("rangerlars", "over9000"):
+        return Lookahead(Ralamb(params, lr=lr, weight_decay=wd,
+                                f32_lr=not s.host_lr))
+    if name == "rmsprop_tf":
+        return RMSpropTF(params, lr=lr)
+    if name == "sgd_gcc":
+        return SGDGC(params, lr=lr, conv_only=True)
+    if name == "sgd_gc":
+        return SGDGC(params, lr=lr)
+    if name == "radam":
+        return RAdam(params, lr=lr)
+    if name == "adabelief":
+        return AdaBelief(params, lr=lr)
+    if name == "lookahead_adam":
+        return Lookahead(torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                          eps=1e-8))
+    if name == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    if s.optimizer == "adamw":
+    if name == "adamw":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=s.weight_decay)
-    if s.optimizer == "sgd":
+                                 eps=1e-8, weight_decay=wd)
+    if name == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=0.9)
-    raise NotImplementedError(f"solver.optimizer={s.optimizer!r} is not "
-                              "ported (ranger | adam | adamw | sgd)")
+    raise ValueError(name)
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """The port stands alone: importing it pulls in neither jax nor the JAX
 package, and no source of the port, of ``chip_smoke.py`` or of the
 data-parallel tests' rank functions imports them, nor OpenCV or Pillow
-(the GPU machine has neither; the port reads PNG itself)."""
+(the GPU machine has neither; the port reads PNG itself). Importing the
+port pulls in no matplotlib either (absent there too: ``utils/vis``'s
+``grid_show`` imports it when called)."""
 
 import ast
 import os
@@ -14,6 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rdpn6d_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rdpn6d_tpu", "cv2",
              "PIL")
+NOT_AT_IMPORT = FORBIDDEN + ("matplotlib",)
 
 
 def _port_modules():
@@ -50,13 +53,21 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.parallel.mesh",
             "rdpn6d_tpu_torch.ops.ransac_kabsch",
             "rdpn6d_tpu_torch.geometry.se3",
-            "rdpn6d_tpu_torch.models.point_pnp"} <= set(mods)
+            "rdpn6d_tpu_torch.models.point_pnp",
+            "rdpn6d_tpu_torch.solver.projection",
+            "rdpn6d_tpu_torch.solver.optax_rules",
+            "rdpn6d_tpu_torch.ops.pnp_host",
+            "rdpn6d_tpu_torch.ops.view_sampler",
+            "rdpn6d_tpu_torch.utils.mask", "rdpn6d_tpu_torch.utils.vis",
+            "rdpn6d_tpu_torch.utils.profiling",
+            "rdpn6d_tpu_torch.tools.score_csv",
+            "rdpn6d_tpu_torch.tools.convert_checkpoint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{NOT_AT_IMPORT!r})\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -77,6 +88,7 @@ def _sources():
     yield os.path.join(ROOT, "time_labels.py")
     yield os.path.join(ROOT, "time_crop.py")
     yield os.path.join(ROOT, "time_ransac.py")
+    yield os.path.join(ROOT, "ransac_conditioning.py")
     # the data-parallel tests' rank functions: a spawned rank must not
     # load jax
     yield os.path.join(ROOT, "tests", "torch_dist_workers.py")

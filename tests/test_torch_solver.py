@@ -2,7 +2,14 @@
 Ranger optimizer over 13 steps against the optax chain (GC -> rectified
 RAdam -> weight decay -> lr -> Lookahead, with and without a global-norm
 clip) on a seeded tree of conv, transposed-conv, dense and 1-D leaves, and
-the other ported optimizer names.
+every other optimizer name ``build_optimizer`` knows: each over 13 steps
+against ``rdpn6d_tpu.solver.build_optimizer`` under both ``solver.host_lr``
+values (weight decay and the clip on), and with ``backbone.freeze``. The
+lr each update applies is the schedule at ``schedule_step`` (the JAX
+package's ralamb, rangerlars, adamp and sgdp read it one step later unless
+``host_lr`` injects it); with ``host_lr`` the JAX side gets the
+schedule's float32 table written into its injected hyperparameter, as its
+trainer does.
 
 Leaves live in flax layouts on the JAX side and in torch layouts on the
 port's (conv HWIO -> OIHW; transposed conv [kh, kw, out, in] ->
@@ -37,6 +44,7 @@ from rdpn6d_tpu_torch.solver import (
     clip_by_global_norm_,
     flat_and_anneal,
     radam_step_size,
+    schedule_step,
     trainable_parameters,
     warmup_multistep,
 )
@@ -213,12 +221,148 @@ def _holder(params, module):
     return module
 
 
-def test_build_optimizer_refuses_unported_names():
-    cfg = TConfig().apply_opts(['solver.optimizer="ralamb"'])
-    with pytest.raises(NotImplementedError):
-        build_optimizer(cfg, torch.nn.Linear(2, 2))
-    # every name the JAX package builds is at least a known name there
-    j_build_opt(JConfig().apply_opts(['solver.optimizer="ralamb"']), 10)
+NEW_NAMES = ["ranger_adabelief", "adamp", "sgdp", "ralamb", "rangerlars",
+             "rmsprop_tf", "sgd_gcc", "radam", "adabelief", "lookahead_adam",
+             "sgd_gc"]
+
+
+def _named_holder(tp, frozen=()):
+    """A module whose parameter names are the tree's keys; ``frozen`` ones
+    sit under ``backbone.`` (the trunk ``backbone.freeze`` leaves out)."""
+    module = torch.nn.Module()
+    module.backbone = torch.nn.Module()
+    for k, p in tp.items():
+        (module.backbone if k in frozen else module).register_parameter(k, p)
+    return module
+
+
+def _run_name(name, host_lr, freeze, params, grads):
+    opts = [f'solver.optimizer="{name}"', "solver.weight_decay=0.01",
+            "solver.warmup_iters=4", "solver.base_lr=2e-2",
+            "solver.anneal_point=0.2", "solver.max_grad_norm=0.5",
+            f"solver.host_lr={str(host_lr).lower()}",
+            f"backbone.freeze={str(freeze).lower()}"]
+    jcfg, tcfg = JConfig().apply_opts(opts), TConfig().apply_opts(opts)
+    total = 40
+    # JAX: the masked chain over a flat tree, "backbone" the frozen leaf
+    tx = j_build_opt(jcfg, total)
+    table = np.asarray(jax.vmap(j_build_schedule(jcfg, total))(
+        jnp.arange(total, dtype=jnp.float32)))
+    p = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(p)
+    for i, g in enumerate(grads):
+        if host_lr:
+            state = state._replace(hyperparams={
+                **state.hyperparams, "learning_rate": np.float32(table[i])})
+        upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                               state, p)
+        p = optax.apply_updates(p, upd)
+    ref = {k: np.asarray(v) for k, v in p.items()}
+    # the port, as its train step drives the optimizer
+    tp = {k: torch.nn.Parameter(v) for k, v in _to_torch(params).items()}
+    opt = build_optimizer(tcfg, _named_holder(tp, ("backbone",) if freeze
+                                              else ()))
+    schedule = build_schedule(tcfg, total)
+    for i, g in enumerate(grads):
+        for k, v in _to_torch(g).items():
+            tp[k].grad = v
+        for group in opt.param_groups:
+            group["lr"] = schedule(schedule_step(tcfg, i))
+        clip_by_global_norm_([q for gr in opt.param_groups
+                              for q in gr["params"]], 0.5)
+        opt.step()
+    return {k: _to_flax(k, v) for k, v in tp.items()}, ref
+
+
+@pytest.mark.parametrize("host_lr", [False, True])
+@pytest.mark.parametrize("name", NEW_NAMES)
+def test_every_name_matches_jax(name, host_lr):
+    rng = np.random.RandomState(3)
+    params = _tree(rng)
+    grads = [_tree(rng, 1.0) for _ in range(STEPS)]
+    for g in grads[::3]:
+        g["dense"] *= 5.0            # uneven scales: the clip engages
+    ours, ref = _run_name(name, host_lr, False, params, grads)
+    _assert_close(ours, ref, params)
+
+
+@pytest.mark.parametrize("name", NEW_NAMES)
+def test_every_name_with_frozen_backbone(name):
+    """backbone.freeze: the trunk's leaf (a conv, zero gradient as the
+    model's stop-gradient gives it) stays put on both sides, weight decay
+    included; the rest matches."""
+    rng = np.random.RandomState(4)
+    params = _tree(rng)
+    params["backbone"] = params["conv"][::-1].copy()
+    grads = [_tree(rng, 1.0) for _ in range(STEPS)]
+    for g in grads:
+        g["backbone"] = np.zeros_like(params["backbone"])
+    TO_TORCH["backbone"] = TO_TORCH["conv"]
+    try:
+        ours, ref = _run_name(name, False, True, params, grads)
+    finally:
+        del TO_TORCH["backbone"]
+    np.testing.assert_array_equal(ours.pop("backbone"), params["backbone"])
+    np.testing.assert_array_equal(ref.pop("backbone"), params["backbone"])
+    _assert_close(ours, ref, params)
+
+
+def test_unknown_name_raises_value_error_on_both_sides():
+    opts = ['solver.optimizer="adamax"']
+    with pytest.raises(ValueError):
+        build_optimizer(TConfig().apply_opts(opts), torch.nn.Linear(2, 2))
+    with pytest.raises(ValueError):
+        j_build_opt(JConfig().apply_opts(opts), 10)
+
+
+def test_schedule_step_reads_one_later_where_jax_does():
+    for name in NEW_NAMES + ["ranger", "adam", "adamw", "sgd"]:
+        for host_lr in (False, True):
+            cfg = TConfig().apply_opts([
+                f'solver.optimizer="{name}"',
+                f"solver.host_lr={str(host_lr).lower()}"])
+            late = name in ("ralamb", "rangerlars", "adamp", "sgdp") \
+                and not host_lr
+            assert schedule_step(cfg, 7) == 7 + late, (name, host_lr)
+
+
+@pytest.mark.parametrize("kind", ["adamp", "sgdp"])
+def test_projection_takes_the_flax_rows(kind):
+    """A conv whose gradient is orthogonal to its weight within each
+    torch output channel (the per-channel view of the torch reference) but
+    not within each row of kernel height (flax's axis 0): the JAX package
+    projects in the whole-tensor view only, and so does the port. Rows by
+    torch's dim 0 would project per output channel and land elsewhere."""
+    rng = np.random.RandomState(5)
+    w = rng.randn(8, 4, 3, 3).astype(np.float32)          # OIHW
+    g = rng.randn(8, 4, 3, 3).astype(np.float32)
+    wf = w.reshape(8, -1)
+    gf = g.reshape(8, -1)
+    gf -= (gf * wf).sum(1, keepdims=True) / (wf * wf).sum(1, keepdims=True) \
+        * wf                                              # per out channel
+    g = gf.reshape(w.shape)
+    jw = {"conv": jnp.asarray(w.transpose(2, 3, 1, 0))}
+    jg = {"conv": jnp.asarray(g.transpose(2, 3, 1, 0))}
+    opts = [f'solver.optimizer="{kind}"', "solver.weight_decay=0.05",
+            "solver.base_lr=0.1", "solver.warmup_iters=0"]
+    tx = j_build_opt(JConfig().apply_opts(opts), 10)
+    upd, _ = tx.update(jg, tx.init(jw), jw)
+    ref = np.asarray(optax.apply_updates(jw, upd)["conv"]).transpose(
+        3, 2, 0, 1)
+    cfg = TConfig().apply_opts(opts)
+    p = torch.nn.Parameter(torch.tensor(w))
+    opt = build_optimizer(cfg, _named_holder({"conv": p}))
+    for group in opt.param_groups:
+        group["lr"] = build_schedule(cfg, 10)(schedule_step(cfg, 0))
+    p.grad = torch.tensor(g)
+    opt.step()
+    assert bool(opt.state[p]["projected"])
+    np.testing.assert_allclose(p.detach().numpy(), ref, atol=1e-6)
+    # rows along the flax layout's axis 0 only: the channel view of torch
+    # dim 0 would have fired and moved the weights differently
+    from rdpn6d_tpu_torch.solver.projection import cosine_ratios
+    ratios = cosine_ratios(torch.tensor(w), torch.tensor(g), 0.1, 1e-8)
+    assert float(ratios[0]) >= 1.0 and float(ratios[1]) < 1.0
 
 
 def test_freeze_leaves_only_the_trunk_out():
@@ -233,3 +377,52 @@ def test_freeze_leaves_only_the_trunk_out():
     assert any(n.startswith("pnp_net.") for n in names)
     opt = build_optimizer(TConfig().apply_opts(opts), model)
     assert sum(len(g["params"]) for g in opt.param_groups) == len(names)
+
+
+def test_rangerlars_resume_is_bit_exact(tmp_path):
+    """3 steps, a checkpoint, a fresh model and optimizer restored from it,
+    3 more steps: bit for bit the 6 uninterrupted steps of the port's train
+    step (Ralamb's moments, the Lookahead slow copy and call count, which
+    syncs at step 6, and the 1-based lr all round-trip)."""
+    from rdpn6d_tpu_torch.data.synthetic import dummy_train_batch
+    from rdpn6d_tpu_torch.engine.checkpoint import CheckpointManager
+    from rdpn6d_tpu_torch.models import init_weights
+    from rdpn6d_tpu_torch.parallel import create_train_state, make_train_step
+
+    opts = ["backbone.depth=18", "backbone.input_res=64", "head.out_res=16",
+            "head.num_regions=4", "head.num_filters=32", "data.input_res=64",
+            "data.out_res=16", 'solver.optimizer="rangerlars"',
+            "solver.weight_decay=0.01", "solver.warmup_iters=2",
+            "solver.base_lr=1e-3", "solver.max_grad_norm=1.0"]
+    cfg = TConfig().apply_opts(opts)
+    batches = [{k: torch.from_numpy(v) for k, v in
+                dummy_train_batch(cfg, 2, seed=s).items()} for s in range(6)]
+    schedule = build_schedule(cfg, 20)
+
+    def fresh():
+        model = init_weights(RDPN(cfg), torch.Generator().manual_seed(0))
+        return create_train_state(cfg, model, lr=schedule(0))
+
+    step = make_train_step(cfg, schedule)
+    whole = fresh()
+    for b in batches:
+        whole, _ = step(whole, b)
+    first = fresh()
+    for b in batches[:3]:
+        first, _ = step(first, b)
+    CheckpointManager(str(tmp_path / "ckpt")).save(3, first)
+    second, _ = CheckpointManager(str(tmp_path / "ckpt")).restore(fresh())
+    assert second.step == 3
+    for b in batches[3:]:
+        second, _ = step(second, b)
+    a, b = whole.model.state_dict(), second.model.state_dict()
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    sa, sb = whole.optimizer.state_dict(), second.optimizer.state_dict()
+    assert sa["param_groups"] == sb["param_groups"]
+    assert sa["param_groups"][0]["lookahead_step"] == 6
+    for i, st in sa["state"].items():
+        for k, v in st.items():
+            assert torch.equal(torch.as_tensor(v), torch.as_tensor(
+                sb["state"][i][k])), (i, k)
