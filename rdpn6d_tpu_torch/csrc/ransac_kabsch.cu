@@ -32,26 +32,27 @@
 //     rank whose inclusive total is not below u) finds it by a binary
 //     search of its own cdf and writes the pair to the block that fits h.
 //  3. Fit. The hypotheses are spread over the cluster, about H / C a
-//     block, a half warp each (a lane an entry of the 4x4 matrix, with
-//     the operations of one thread doing the whole fit, in its order, so
-//     the same bits): Horn's 4x4 K of the S picks (weights 1, eps 1e-9),
-//     shifted by its Frobenius norm, 14 normalised squarings, the column
-//     of largest norm (the first of equal ones) as the quaternion, as
-//     kabsch_quat does. Each block sends its fits to every block.
+//     block, a half warp each (a lane an entry of the 4x4 matrix): Horn's
+//     4x4 K of the S picks (weights 1, eps 1e-9), shifted by its Frobenius
+//     norm, 14 normalised squarings, the column of largest norm (the first
+//     of equal ones) as the quaternion, as kabsch_quat does, every op _rn
+//     in its order, so kabsch_quat's bits. A fit keeps R, R^T t, t and
+//     |t|^2 for the scoring. Each block sends its fits to every block.
 //  4. Score. Each block counts, for every hypothesis, its own points with
 //     d2 < thr^2 where the mask is > 0 (the spent cdf slot of a point
-//     holds thr^2 there and -1 elsewhere, one compare a pair): a lane
-//     holds two hypotheses' R and t in registers and their counts, a warp
-//     walks a share of the block's points kPts at a time, each point two
-//     16-byte broadcast reads of shared memory; a lane's counts go to the
-//     block's integer counts by shared atomic adds. d2 is the direct form
-//     |R m + t - c|^2 with every op _rn, so the refit's recount gives the
-//     same bits and the counts are the first design's; the plain
-//     version keeps the JAX package's expanded form, so a d2 within
-//     rounding of thr^2 may count on one side only. A NaN point is no
-//     inlier. Every block sends its counts to every block, which sums them
-//     in integers and takes the best hypothesis: the lowest index of the
-//     highest score, as jnp.argmax.
+//     holds thr^2 there and -infinity elsewhere, one compare a pair): a
+//     lane holds two hypotheses' terms in registers and their counts, a
+//     warp walks a share of the block's points kPts at a time, each point
+//     two 16-byte broadcast reads of shared memory and its nine products
+//     c_i m_j formed once for the lane's two hypotheses; a lane's counts
+//     go to the block's integer counts by shared atomic adds. d2 is the
+//     JAX package's expanded form, |m|^2 + |c|^2 + |t|^2 + 2 (R^T t).m -
+//     2 sum_k R_k (c m^T)_k - 2 t.c, in the plain version's order of terms
+//     with every op _rn (|m|^2 + |c|^2 kept a point), so the counts are
+//     the plain version's, and the refit's recount gives the same bits. A
+//     NaN point is no inlier. Every block sends its counts to every block,
+//     which sums them in integers and takes the best hypothesis: the
+//     lowest index of the highest score, as jnp.argmax.
 //  5. Refit. Weights are the best hypothesis's inliers, or the mask where
 //     it has fewer than S. Each tile's sums of w, w m and w c, then of
 //     (m - cm) w (c - cc)^T, are taken by a fixed tree (a thread a point,
@@ -66,17 +67,19 @@
 //     1, det(V U^T)) U^T, t = cc - R cm and ratio = score / max(sum(mask),
 //     1). A non-finite covariance gives NaN R and t.
 //
-// Bound: operations. Scoring is H x N pairs a ROI at ~20 FP32 operations
-// (9 multiply-adds of R m + t - c, 3 for the squares, the compare), 10.5
-// MFLOP a ROI at H = 128, N = 4096; each input is read once, N x 7 x 4 B a
-// ROI (115 KB). At B = 16: 168 MFLOP at 67 TFLOP/s, 2.5 us, against 1.8 MB
-// at 3.35 TB/s, 0.55 us. One block a ROI would leave most SMs idle (16 of
+// Bound: operations. Scoring is H x N pairs a ROI at 35 FP32 operations
+// (the 9-term cross sum 17, the two dot products 10, the three doublings,
+// four adds and the compare 8; a point's c m^T and norms are per point),
+// 18.4 MFLOP a ROI at H = 128, N = 4096; each input is read once, N x 7 x
+// 4 B a ROI (115 KB). At B = 16: 294 MFLOP at 67 TFLOP/s, 4.4 us, against
+// 1.8 MB at 3.35 TB/s, 0.55 us. One block a ROI would leave most SMs idle (16 of
 // 132 at B = 16); the cluster spreads the scoring over B x C SMs. What
 // stays serial a ROI is a fit's latency on a half warp (14 squarings of
 // a 4x4 matrix, each a chain of shuffles, a 16-term norm, a square root
 // and an IEEE division, kept for the first design's bits), the six
 // cluster barriers and the float64 SVD on one thread. The [H,9]@[9,N]
-// product on tensor cores is untried: TF32 would move counts near thr^2.
+// product on tensor cores is untried: TF32 would move counts near thr^2,
+// and a matmul's order of sums is not the plain version's.
 // The fit and the SVD index their local arrays by constants only (selects
 // where the order is found at run time), so they stay in registers.
 
@@ -112,7 +115,7 @@ __host__ __device__ inline size_t smem_bytes(int N, int H, int S, int C) {
   const int tiles = (N + kTile - 1) / kTile;
   const int pmax = (tiles + C - 1) / C * kTile;
   const int nh = (H + C - 1) / C;
-  return (size_t)4 * ((size_t)8 * pmax + (size_t)12 * H + (size_t)(C + 1) * H +
+  return (size_t)4 * ((size_t)8 * pmax + (size_t)16 * H + (size_t)(C + 1) * H +
                       (size_t)6 * nh * S + (size_t)16 * tiles);
 }
 
@@ -122,99 +125,137 @@ __device__ __forceinline__ int share_start(int r, int n, int C) {
   return (r * n + C - 1) / C;
 }
 
-// |R m + t - c|^2, every op rounded on its own: the same bits wherever it
-// is inlined
-__device__ __forceinline__ float dist2(const float* r, float mx, float my,
-                                       float mz, float cx, float cy,
-                                       float cz) {
-  const float ex = __fsub_rn(
-      __fmaf_rn(r[0], mx, __fmaf_rn(r[1], my, __fmaf_rn(r[2], mz, r[9]))),
-      cx);
-  const float ey = __fsub_rn(
-      __fmaf_rn(r[3], mx, __fmaf_rn(r[4], my, __fmaf_rn(r[5], mz, r[10]))),
-      cy);
-  const float ez = __fsub_rn(
-      __fmaf_rn(r[6], mx, __fmaf_rn(r[7], my, __fmaf_rn(r[8], mz, r[11]))),
-      cz);
-  return __fmaf_rn(ez, ez, __fmaf_rn(ey, ey, __fmul_rn(ex, ex)));
+// A hypothesis's scoring terms, hyp[16 h ..]: R row-major (0-8), R^T t
+// (9-11), t (12-14), |t|^2 (15)
+constexpr int kHyp = 16;
+
+// The nine products c_i m_j of a point, o[3 i + j]
+__device__ __forceinline__ void outer9(float mx, float my, float mz,
+                                       float cx, float cy, float cz,
+                                       float* o) {
+  o[0] = __fmul_rn(cx, mx), o[1] = __fmul_rn(cx, my), o[2] = __fmul_rn(cx, mz);
+  o[3] = __fmul_rn(cy, mx), o[4] = __fmul_rn(cy, my), o[5] = __fmul_rn(cy, mz);
+  o[6] = __fmul_rn(cz, mx), o[7] = __fmul_rn(cz, my), o[8] = __fmul_rn(cz, mz);
 }
 
-// hypothesis h's R and t from hyp [H][12] into r, by three 16-byte reads
+// a0 b0 + a1 b1 + a2 b2, left to right, every op rounded on its own
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
+                                      float b1, float b2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)),
+                   __fmul_rn(a2, b2));
+}
+
+// |m|^2 + |c|^2 of a point, as the plain version's mc2
+__device__ __forceinline__ float norms2(float mx, float my, float mz,
+                                        float cx, float cy, float cz) {
+  return __fadd_rn(dot3(mx, my, mz, mx, my, mz), dot3(cx, cy, cz, cx, cy, cz));
+}
+
+// |R m + t - c|^2 in the plain version's expanded form and order of terms
+// (ops/ransac_kabsch.expanded_d2): mc2 + |t|^2 + 2 (R^T t).m - 2 sum_k R_k
+// o_k - 2 t.c, every op rounded on its own, so the plain version's bits
+__device__ __forceinline__ float dist2(const float* r, const float* o,
+                                       float mx, float my, float mz,
+                                       float mc2, float cx, float cy,
+                                       float cz) {
+  float d = __fadd_rn(mc2, r[15]);
+  d = __fadd_rn(d, __fmul_rn(2.f, dot3(r[9], r[10], r[11], mx, my, mz)));
+  float cr = __fmul_rn(r[0], o[0]);
+#pragma unroll
+  for (int k = 1; k < 9; ++k) cr = __fadd_rn(cr, __fmul_rn(r[k], o[k]));
+  d = __fsub_rn(d, __fmul_rn(2.f, cr));
+  return __fsub_rn(d,
+                   __fmul_rn(2.f, dot3(r[12], r[13], r[14], cx, cy, cz)));
+}
+
+// hypothesis h's terms from hyp [H][kHyp] into r, by four 16-byte reads
 __device__ __forceinline__ void load_hyp(const float* hyp, int h, float* r) {
-  const float4* q = reinterpret_cast<const float4*>(hyp + 12 * h);
-  const float4 q0 = q[0], q1 = q[1], q2 = q[2];
-  r[0] = q0.x, r[1] = q0.y, r[2] = q0.z, r[3] = q0.w;
-  r[4] = q1.x, r[5] = q1.y, r[6] = q1.z, r[7] = q1.w;
-  r[8] = q2.x, r[9] = q2.y, r[10] = q2.z, r[11] = q2.w;
+  const float4* q = reinterpret_cast<const float4*>(hyp + kHyp * h);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = q[i];
+    r[4 * i] = v.x, r[4 * i + 1] = v.y, r[4 * i + 2] = v.z, r[4 * i + 3] = v.w;
+  }
 }
 
 // Horn's quaternion fit of S correspondences (weights 1), as kabsch_quat,
 // by the 16 lanes of a half warp, lane e holding entry e of the 4x4
 // matrix through the squarings (each lane forms its entry of the product
-// and the norm from its neighbours' by shuffles, in the order and with the
-// operations of one thread doing all 16). pk[6 s ..] = (src, dst) of pick
-// s; where `store`, lane 0 of the half writes r[0..8] = R row-major,
-// r[9..11] = t. Every lane of the warp calls it. Every local array is
-// indexed by constants, so it stays in registers
+// and the norm from its neighbours' by shuffles). Every op is rounded on
+// its own and every sum runs left to right in the plain version's order,
+// with correctly rounded square roots and divisions, so the fits are
+// kabsch_quat's bits. pk[6 s ..] = (src, dst) of pick s; where `store`,
+// lane 0 of the half writes the hypothesis's kHyp terms to r. Every lane
+// of the warp calls it. Every local array is indexed by constants, so it
+// stays in registers
 __device__ void horn_fit(const float* pk, int S, float* r, bool store) {
   const int e = threadIdx.x & 15, ei = e >> 2, ej = e & 3;
-  float cs[3] = {0.f, 0.f, 0.f}, cd[3] = {0.f, 0.f, 0.f};
-  float wsum = 0.f;
-  for (int s = 0; s < S; ++s) {
-    wsum += 1.f;
+  float cs[3], cd[3], wsum = 1.f;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) cs[d] = pk[d], cd[d] = pk[3 + d];
+  for (int s = 1; s < S; ++s) {
+    wsum = __fadd_rn(wsum, 1.f);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      cs[d] += pk[6 * s + d];
-      cd[d] += pk[6 * s + 3 + d];
+      cs[d] = __fadd_rn(cs[d], pk[6 * s + d]);
+      cd[d] = __fadd_rn(cd[d], pk[6 * s + 3 + d]);
     }
   }
-  wsum += kEps;
+  wsum = __fadd_rn(wsum, kEps);
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    cs[d] = cs[d] / wsum;
-    cd[d] = cd[d] / wsum;
+    cs[d] = __fdiv_rn(cs[d], wsum);
+    cd[d] = __fdiv_rn(cd[d], wsum);
   }
-  float h[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float h[9];
   for (int s = 0; s < S; ++s) {
     float a[3], b[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      a[d] = pk[6 * s + d] - cs[d];
-      b[d] = pk[6 * s + 3 + d] - cd[d];
+      a[d] = __fsub_rn(pk[6 * s + d], cs[d]);
+      b[d] = __fsub_rn(pk[6 * s + 3 + d], cd[d]);
     }
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) h[3 * i + j] += a[i] * b[j];
+      for (int j = 0; j < 3; ++j) {
+        const float p = __fmul_rn(a[i], b[j]);
+        h[3 * i + j] = s == 0 ? p : __fadd_rn(h[3 * i + j], p);
+      }
   }
   const float Sxx = h[0], Sxy = h[1], Sxz = h[2], Syx = h[3], Syy = h[4],
               Syz = h[5], Szx = h[6], Szy = h[7], Szz = h[8];
-  float m[16] = {Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx,
-                 Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz,
-                 Szx - Sxz, Sxy + Syx, Syy - Sxx - Szz, Syz + Szy,
-                 Sxy - Syx, Szx + Sxz, Syz + Szy, Szz - Sxx - Syy};
-  float fro = 0.f;
+  float m[16] = {__fadd_rn(__fadd_rn(Sxx, Syy), Szz), __fsub_rn(Syz, Szy),
+                 __fsub_rn(Szx, Sxz), __fsub_rn(Sxy, Syx),
+                 __fsub_rn(Syz, Szy), __fsub_rn(__fsub_rn(Sxx, Syy), Szz),
+                 __fadd_rn(Sxy, Syx), __fadd_rn(Szx, Sxz),
+                 __fsub_rn(Szx, Sxz), __fadd_rn(Sxy, Syx),
+                 __fsub_rn(__fsub_rn(Syy, Sxx), Szz), __fadd_rn(Syz, Szy),
+                 __fsub_rn(Sxy, Syx), __fadd_rn(Szx, Sxz),
+                 __fadd_rn(Syz, Szy), __fsub_rn(__fsub_rn(Szz, Sxx), Syy)};
+  float fro = __fmul_rn(m[0], m[0]);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) fro += m[i] * m[i];
-  fro = sqrtf(fro) + kEps;
+  for (int i = 1; i < 16; ++i) fro = __fadd_rn(fro, __fmul_rn(m[i], m[i]));
+  fro = __fadd_rn(__fsqrt_rn(fro), kEps);
   float me = 0.f;  // this lane's entry
 #pragma unroll
   for (int i = 0; i < 16; ++i)
-    if (i == e) me = m[i] / fro + ((i % 5 == 0) ? 1.f : 0.f);
+    if (i == e) me = __fadd_rn(__fdiv_rn(m[i], fro), (i % 5 == 0) ? 1.f : 0.f);
   for (int it = 0; it < kHornIters; ++it) {
     float acc = 0.f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      acc += __shfl_sync(kFull, me, 4 * ei + k, 16) *
-             __shfl_sync(kFull, me, 4 * k + ej, 16);
+    for (int k = 0; k < 4; ++k) {
+      const float p = __fmul_rn(__shfl_sync(kFull, me, 4 * ei + k, 16),
+                                __shfl_sync(kFull, me, 4 * k + ej, 16));
+      acc = k == 0 ? p : __fadd_rn(acc, p);
+    }
     float n2 = 0.f;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const float pi = __shfl_sync(kFull, acc, i, 16);
-      n2 += pi * pi;
+      n2 = i == 0 ? __fmul_rn(pi, pi) : __fadd_rn(n2, __fmul_rn(pi, pi));
     }
-    const float n = sqrtf(n2) + kEps;
-    me = acc / n;
+    me = __fdiv_rn(acc, __fadd_rn(__fsqrt_rn(n2), kEps));
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) m[i] = __shfl_sync(kFull, me, i, 16);
@@ -222,10 +263,11 @@ __device__ void horn_fit(const float* pk, int S, float* r, bool store) {
   float best = -1.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    float c = 0.f;
+    float c = __fmul_rn(m[j], m[j]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) c += m[4 * i + j] * m[4 * i + j];
-    c = sqrtf(c);
+    for (int i = 1; i < 4; ++i)
+      c = __fadd_rn(c, __fmul_rn(m[4 * i + j], m[4 * i + j]));
+    c = __fsqrt_rn(c);
     if (j == 0 || c > best) {  // the first of equal norms
       best = c;
       jb = j;
@@ -236,28 +278,46 @@ __device__ void horn_fit(const float* pk, int S, float* r, bool store) {
   for (int i = 0; i < 4; ++i)
     q[i] = jb == 0 ? m[4 * i] : jb == 1 ? m[4 * i + 1]
                               : jb == 2 ? m[4 * i + 2] : m[4 * i + 3];
-  const float qn =
-      sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]) + kEps;
+  const float qn = __fadd_rn(
+      __fsqrt_rn(__fadd_rn(dot3(q[0], q[1], q[2], q[0], q[1], q[2]),
+                           __fmul_rn(q[3], q[3]))),
+      kEps);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = q[i] / qn;
+  for (int i = 0; i < 4; ++i) q[i] = __fdiv_rn(q[i], qn);
   const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-  float rr[12];
-  rr[0] = 1.f - 2.f * (qy * qy + qz * qz);
-  rr[1] = 2.f * (qx * qy - qw * qz);
-  rr[2] = 2.f * (qx * qz + qw * qy);
-  rr[3] = 2.f * (qx * qy + qw * qz);
-  rr[4] = 1.f - 2.f * (qx * qx + qz * qz);
-  rr[5] = 2.f * (qy * qz - qw * qx);
-  rr[6] = 2.f * (qx * qz - qw * qy);
-  rr[7] = 2.f * (qy * qz + qw * qx);
-  rr[8] = 1.f - 2.f * (qx * qx + qy * qy);
+  // 1 - 2 (a a + b b) and 2 (a b -+ c d), as quat_rotation
+  auto diag = [](float a, float b) {
+    return __fsub_rn(1.f, __fmul_rn(2.f, __fadd_rn(__fmul_rn(a, a),
+                                                   __fmul_rn(b, b))));
+  };
+  auto minus = [](float a, float b, float c, float d) {
+    return __fmul_rn(2.f, __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d)));
+  };
+  auto plus = [](float a, float b, float c, float d) {
+    return __fmul_rn(2.f, __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d)));
+  };
+  float rr[kHyp];
+  rr[0] = diag(qy, qz);
+  rr[1] = minus(qx, qy, qw, qz);
+  rr[2] = plus(qx, qz, qw, qy);
+  rr[3] = plus(qx, qy, qw, qz);
+  rr[4] = diag(qx, qz);
+  rr[5] = minus(qy, qz, qw, qx);
+  rr[6] = minus(qx, qz, qw, qy);
+  rr[7] = plus(qy, qz, qw, qx);
+  rr[8] = diag(qx, qy);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
-    rr[9 + i] = cd[i] - (rr[3 * i] * cs[0] + rr[3 * i + 1] * cs[1] +
-                         rr[3 * i + 2] * cs[2]);
+    rr[12 + i] = __fsub_rn(
+        cd[i], dot3(rr[3 * i], rr[3 * i + 1], rr[3 * i + 2], cs[0], cs[1],
+                    cs[2]));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    rr[9 + i] = dot3(rr[i], rr[3 + i], rr[6 + i], rr[12], rr[13], rr[14]);
+  rr[15] = dot3(rr[12], rr[13], rr[14], rr[12], rr[13], rr[14]);
   if (store && e == 0)
 #pragma unroll
-    for (int i = 0; i < 12; ++i) r[i] = rr[i];
+    for (int i = 0; i < kHyp; ++i) r[i] = rr[i];
 }
 
 __device__ inline double det3(const double (&a)[3][3]) {
@@ -461,11 +521,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h0 = share_start(rank, H, C), h1 = share_start(rank + 1, H, C);
 
   extern __shared__ float4 dyn[];
-  // point i: pts[2 i] = (m, mask), pts[2 i + 1] = (c, the global cdf; from
-  // stage 3 on, the point's inlier threshold)
+  // point i: pts[2 i] = (m, mask; from stage 3 on, |m|^2 + |c|^2),
+  // pts[2 i + 1] = (c, the global cdf; from stage 3 on, the point's inlier
+  // threshold)
   float4* pts = dyn;
-  float* hyp = reinterpret_cast<float*>(pts + 2 * pmax);  // [H][12]: R, t
-  int* part = reinterpret_cast<int*>(hyp + 12 * H);  // [C][H] the ranks'
+  float* hyp = reinterpret_cast<float*>(pts + 2 * pmax);  // [H][kHyp]
+  int* part = reinterpret_cast<int*>(hyp + kHyp * H);  // [C][H] the ranks'
   int* score = part + C * H;                     // [H] this block's counts
   float* picks = reinterpret_cast<float*>(score + H);  // [nhmax][S][6]
   float* tab7 = picks + 6 * nhmax * S;           // [tiles][7]
@@ -567,30 +628,36 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // 3. fit this block's hypotheses, a half warp each, and share them -----
   // the cdf is spent: each point's slot takes its own inlier threshold,
-  // thr^2 where the mask is > 0 and -1 (below every d2) where it is not
-  for (int i = tid; i < np; i += kThreads)
-    pts[2 * i + 1].w = pts[2 * i].w > 0.f ? thr2 : -1.f;
+  // thr^2 where the mask is > 0 and -infinity (no d2 is below it) where it
+  // is not; the mask's slot takes |m|^2 + |c|^2 (the refit reads the mask
+  // from global memory)
+  for (int i = tid; i < np; i += kThreads) {
+    const float4 m = pts[2 * i], c = pts[2 * i + 1];
+    pts[2 * i + 1].w = m.w > 0.f ? thr2 : -INFINITY;
+    pts[2 * i].w = norms2(m.x, m.y, m.z, c.x, c.y, c.z);
+  }
   for (int base = h0 + 2 * warp; base < h1; base += 2 * kWarps) {
     const int h = base + (lane >> 4);
     const int hc = h < h1 ? h : base;  // the second half's, past h1: idle
-    horn_fit(picks + (hc - h0) * S * 6, S, hyp + 12 * hc, h < h1);
+    horn_fit(picks + (hc - h0) * S * 6, S, hyp + kHyp * hc, h < h1);
   }
   __syncthreads();
-  const int nf = 12 * (h1 - h0);
+  const int nf = kHyp * (h1 - h0);
   for (int i = tid; i < nf * C; i += kThreads) {
-    const int q = i / nf, j = 12 * h0 + i - q * nf;
+    const int q = i / nf, j = kHyp * h0 + i - q * nf;
     if (q != rank) cluster.map_shared_rank(hyp, q)[j] = hyp[j];
   }
   cluster.sync();  // every block holds every fit
 
   // 4. score: a lane two hypotheses, a warp 64 of them over a share of
-  // this block's points, each point a broadcast read ---------------------
+  // this block's points, each point a broadcast read and its nine products
+  // c_i m_j formed once for both ---------------------------------------
   const int hgroups = (H + 63) / 64;
   const int psplit = hgroups >= kWarps ? 1 : kWarps / hgroups;
   for (int item = warp; item < hgroups * psplit; item += kWarps) {
     const int hg = item / psplit, ps = item - hg * psplit;
     const int ha = hg * 64 + lane, hb = ha + 32;
-    float ra[12], rb[12];
+    float ra[kHyp], rb[kHyp], o[9];
     load_hyp(hyp, min(ha, H - 1), ra);
     load_hyp(hyp, min(hb, H - 1), rb);
     const int ja = ps * np / psplit, jb = (ps + 1) * np / psplit;
@@ -600,14 +667,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 0; k < kPts; ++k) {
         const float4 m = pts[2 * (j + k)], c = pts[2 * (j + k) + 1];
-        ca += dist2(ra, m.x, m.y, m.z, c.x, c.y, c.z) < c.w;
-        cb += dist2(rb, m.x, m.y, m.z, c.x, c.y, c.z) < c.w;
+        outer9(m.x, m.y, m.z, c.x, c.y, c.z, o);
+        ca += dist2(ra, o, m.x, m.y, m.z, m.w, c.x, c.y, c.z) < c.w;
+        cb += dist2(rb, o, m.x, m.y, m.z, m.w, c.x, c.y, c.z) < c.w;
       }
     }
     for (; j < jb; ++j) {
       const float4 m = pts[2 * j], c = pts[2 * j + 1];
-      ca += dist2(ra, m.x, m.y, m.z, c.x, c.y, c.z) < c.w;
-      cb += dist2(rb, m.x, m.y, m.z, c.x, c.y, c.z) < c.w;
+      outer9(m.x, m.y, m.z, c.x, c.y, c.z, o);
+      ca += dist2(ra, o, m.x, m.y, m.z, m.w, c.x, c.y, c.z) < c.w;
+      cb += dist2(rb, o, m.x, m.y, m.z, m.w, c.x, c.y, c.z) < c.w;
     }
     if (ha < H) atomicAdd(&score[ha], (int)ca);
     if (hb < H) atomicAdd(&score[hb], (int)cb);
@@ -645,9 +714,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   const int bh = best_s[0], bs = best_s[1];
   const bool use_inl = bs >= S;
-  float r[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) r[i] = hyp[12 * bh + i];
+  float r[kHyp];
+  load_hyp(hyp, bh, r);
 
   // 5. the weighted refit, by tiles in tile order ------------------------
   // the point of this thread in the pass at tile t, its weight
@@ -660,9 +728,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     m = pts[2 * i];
     c = pts[2 * i + 1];
-    return use_inl
-               ? (dist2(r, m.x, m.y, m.z, c.x, c.y, c.z) < c.w ? 1.f : 0.f)
-               : m.w;
+    if (!use_inl) return kb[i];
+    float o[9];
+    outer9(m.x, m.y, m.z, c.x, c.y, c.z, o);
+    return dist2(r, o, m.x, m.y, m.z, m.w, c.x, c.y, c.z) < c.w ? 1.f : 0.f;
   };
   for (int t = t0; t < t1; t += kTilesAtOnce) {
     float4 m, c;

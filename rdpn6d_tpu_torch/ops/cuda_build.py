@@ -13,18 +13,25 @@ and no contraction to FMAs, so its output does not depend on the machine.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run that
 must show a path went through a kernel zeroes it with ``reset_launches``
-before and reads it after.
+before and reads it after. For tests and ``chip_smoke.py`` only, a
+process started with ``RDPN6D_LAUNCH_LOG`` set appends its argv and counts
+to that file as a JSON line when it exits, so that a chain of
+subprocesses (``tools.rehearse_protocol``) reports its launches too; no
+entry point of the port reads it.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 from dataclasses import dataclass
 
@@ -54,6 +61,15 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def _log_launches(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"argv": sys.argv, "launches": LAUNCHES}) + "\n")
+
+
+if os.environ.get("RDPN6D_LAUNCH_LOG"):
+    atexit.register(_log_launches, os.environ["RDPN6D_LAUNCH_LOG"])
 
 
 def _nvcc() -> str:

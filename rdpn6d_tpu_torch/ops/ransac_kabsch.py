@@ -19,16 +19,18 @@ over the batch (other numbers; tests hand both the same table).
 
 ``ransac_kabsch`` picks by the tensors' device: CPU tensors take the plain
 version, ``ransac_kabsch_plain``, which follows the JAX package op for op
-(the expanded d² of its matmul scoring, in its order of terms); CUDA
-tensors launch ``csrc/ransac_kabsch.cu`` (built with nvcc at first use),
-one launch a batch, or raise: a ROI's points are split over a cluster of
+(the expanded d² of its matmul scoring, in its order of terms), with every
+sum of the fits and of d² taken left to right element-wise; CUDA tensors
+launch ``csrc/ransac_kabsch.cu`` (built with nvcc at first use), one
+launch a batch, or raise: a ROI's points are split over a cluster of
 ``cluster_blocks`` blocks, which trade their counts and partial sums
 through distributed shared memory, and each ROI's outputs are the same
-bits whatever its batch. The kernel computes d² in the direct form
-|R m + t - c|², so a d² within rounding of the threshold can count on one
-side only. Both return the pre-fallback fit with the best hypothesis and
-its score; ``refine_pose_kabsch`` falls back to the net pose where
-``ratio <= 0.05``.
+bits whatever its batch. The kernel rounds every op of the fits and of d²
+on its own in the plain version's order, so on the same inputs the two
+give the same hypotheses, counts and best hypothesis; only the refit's
+sums run in other orders. Both return the pre-fallback fit with the best
+hypothesis and its score; ``refine_pose_kabsch`` falls back to the net
+pose where ``ratio <= 0.05``.
 
 NaN: a NaN point makes the weighted sums NaN even where its weight is 0
 (``src * w`` is NaN * 0), and so the refit's R and t, as in the JAX
@@ -132,6 +134,22 @@ def quat_rotation(q: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
+def _seq_sum(terms):
+    """The terms summed left to right, each add rounded on its own: the
+    order the kernel keeps."""
+    terms = iter(terms)
+    acc = next(terms)
+    for x in terms:
+        acc = acc + x
+    return acc
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The float32 square root correctly rounded, on every device: taken in
+    float64 and rounded once more, which gives the same bits."""
+    return torch.sqrt(x.double()).float()
+
+
 def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
                 weights: torch.Tensor | None = None,
                 n_iters: int = HORN_ITERS,
@@ -140,11 +158,24 @@ def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
     symmetric 4x4 K, shifted to a non-negative spectrum and driven out by
     ``n_iters`` normalised squarings; the column of largest norm (the
     first of equal ones) is the quaternion. Same contract as
-    :func:`kabsch`; always a proper rotation."""
+    :func:`kabsch`; always a proper rotation. Every sum runs left to right
+    over its terms, element-wise (the centroids and K over the points in
+    order, each product of M over k, each norm over the entries row by
+    row), and square roots are correctly rounded: the kernel's fits are
+    these bits."""
+    n = src.shape[-2]
     if weights is None:
         weights = torch.ones(src.shape[:-1], dtype=src.dtype,
                              device=src.device)
-    c_src, c_dst, H = _centred(src, dst, weights, eps)
+    w = weights[..., None]
+    sw, dw = src * w, dst * w
+    wsum = _seq_sum([w[..., s, :] for s in range(n)]) + eps
+    c_src = _seq_sum([sw[..., s, :] for s in range(n)]) / wsum
+    c_dst = _seq_sum([dw[..., s, :] for s in range(n)]) / wsum
+    a = (src - c_src[..., None, :]) * w
+    b = dst - c_dst[..., None, :]
+    H = _seq_sum([a[..., s, :, None] * b[..., s, None, :]
+                  for s in range(n)])
     Sxx, Sxy, Sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     Syx, Syy, Syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     Szx, Szy, Szz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
@@ -154,17 +185,26 @@ def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
         torch.stack([Szx - Sxz, Sxy + Syx, Syy - Sxx - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, Szz - Sxx - Syy], -1),
     ], -2)
-    fro = torch.sqrt((K * K).sum((-2, -1), keepdim=True)) + eps
-    M = K / fro + torch.eye(4, dtype=K.dtype, device=K.device)
+
+    def fro(M):  # [..., 4, 4] -> [..., 1, 1]
+        e = M.flatten(-2)
+        return _sqrt_rn(_seq_sum([e[..., i] * e[..., i]
+                                  for i in range(16)]))[..., None, None]
+
+    M = K / (fro(K) + eps) + torch.eye(4, dtype=K.dtype, device=K.device)
     for _ in range(n_iters):
-        M = M @ M
-        M = M / (torch.sqrt((M * M).sum((-2, -1), keepdim=True)) + eps)
-    j = torch.sqrt((M * M).sum(-2)).argmax(-1)
+        M = _seq_sum([M[..., :, k, None] * M[..., None, k, :]
+                      for k in range(4)])
+        M = M / (fro(M) + eps)
+    col = _sqrt_rn(_seq_sum([M[..., i, :] * M[..., i, :] for i in range(4)]))
+    j = col.argmax(-1)
     q = torch.take_along_dim(M, j[..., None, None].expand(
         M.shape[:-1] + (1,)), dim=-1)[..., 0]
-    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + eps)
+    q = q / (_sqrt_rn(_seq_sum([q[..., i] * q[..., i] for i in range(4)]))
+             + eps)[..., None]
     R = quat_rotation(q)
-    t = c_dst - torch.einsum("...ij,...j->...i", R, c_src)
+    t = c_dst - _seq_sum([R[..., :, k] * c_src[..., k, None]
+                          for k in range(3)])
     return R, t
 
 
@@ -188,6 +228,29 @@ def _threshold_sq(inlier_thr: float) -> torch.Tensor:
     return thr * thr
 
 
+def expanded_d2(model_pts: torch.Tensor, cam_pts: torch.Tensor,
+                R_h: torch.Tensor, t_h: torch.Tensor) -> torch.Tensor:
+    """[B, H, N] |R m + t - c|² in the JAX package's expanded form, its
+    order of terms: |m|² + |c|² + |t|² + 2 (Rᵀt)·m - 2 Σ_k R_k (c mᵀ)_k
+    - 2 t·c, each dot product and the 9-term cross sum left to right,
+    element-wise (a matmul's order of sums is the library's): the
+    kernel's d² bit for bit. model_pts / cam_pts [B, N, 3], R_h [B, H, 3,
+    3], t_h [B, H, 3]."""
+    m = [x[:, None, :] for x in model_pts.unbind(-1)]     # [B, 1, N]
+    c = [x[:, None, :] for x in cam_pts.unbind(-1)]
+    R = [x[..., None] for x in R_h.flatten(-2).unbind(-1)]  # [B, H, 1]
+    t = [x[..., None] for x in t_h.unbind(-1)]
+    Rt_t = [_seq_sum([R[3 * j + i] * t[j] for j in range(3)])
+            for i in range(3)]                            # Rᵀt
+    t2 = _seq_sum([x * x for x in t])
+    mc2 = _seq_sum([x * x for x in m]) + _seq_sum([x * x for x in c])
+    d2 = mc2 + t2
+    d2 = d2 + 2.0 * _seq_sum([Rt_t[i] * m[i] for i in range(3)])
+    d2 = d2 - 2.0 * _seq_sum(R[3 * i + j] * (c[i] * m[j])
+                             for i in range(3) for j in range(3))
+    return d2 - 2.0 * _seq_sum([t[i] * c[i] for i in range(3)])
+
+
 def ransac_kabsch_plain(model_pts: torch.Tensor, cam_pts: torch.Tensor,
                         mask: torch.Tensor, uniforms: torch.Tensor,
                         inlier_thr: float = 0.01) -> RansacResult:
@@ -199,19 +262,7 @@ def ransac_kabsch_plain(model_pts: torch.Tensor, cam_pts: torch.Tensor,
     src = torch.take_along_dim(model_pts, idx, 1).reshape(B, H, S, 3)
     dst = torch.take_along_dim(cam_pts, idx, 1).reshape(B, H, S, 3)
     R_h, t_h = kabsch_quat(src, dst)                     # [B,H,3,3], [B,H,3]
-
-    # the JAX package's matmul form of |R m + t - c|², its order of terms
-    m2 = (model_pts * model_pts).sum(-1)                 # [B, N]
-    c2 = (cam_pts * cam_pts).sum(-1)
-    outer = (cam_pts[..., :, None]
-             * model_pts[..., None, :]).reshape(B, N, 9)  # c m^T
-    cross = R_h.reshape(B, H, 9) @ outer.transpose(1, 2)  # [B, H, N]
-    Rt_t = torch.einsum("bhji,bhj->bhi", R_h, t_h)        # R^T t
-    t2 = (t_h * t_h).sum(-1)                              # [B, H]
-    d2 = (m2[:, None] + c2[:, None] + t2[..., None]
-          + 2.0 * (Rt_t @ model_pts.transpose(1, 2))
-          - 2.0 * cross
-          - 2.0 * (t_h @ cam_pts.transpose(1, 2)))
+    d2 = expanded_d2(model_pts, cam_pts, R_h, t_h)
     inl = (d2 < _threshold_sq(inlier_thr).to(d2.device)) \
         & (mask[:, None] > 0)
     score = inl.sum(-1)                                   # [B, H]
@@ -249,13 +300,14 @@ def _check(model_pts, cam_pts, mask, uniforms) -> None:
 def shared_bytes(N: int, H: int, S: int, C: int) -> int:
     """Dynamic shared memory of a block of a cluster of C blocks
     (``smem_bytes`` in the source): its share of the points' tiles (xyz
-    and mask, xyz and cdf), every hypothesis's R and t, the ranks' counts
+    and mask, xyz and cdf), every hypothesis's 16 scoring terms (R, Rᵀt,
+    t, |t|²), the ranks' counts
     and its own, the S picks of its hypotheses, and each tile's 7 + 9
     partial sums."""
     tiles = -(-N // TILE)
     pmax = -(-tiles // C) * TILE
     nh = -(-H // C)
-    return 4 * (8 * pmax + 12 * H + (C + 1) * H + 6 * nh * S + 16 * tiles)
+    return 4 * (8 * pmax + 16 * H + (C + 1) * H + 6 * nh * S + 16 * tiles)
 
 
 def cluster_sizes(N: int, H: int, S: int) -> tuple[int, ...]:

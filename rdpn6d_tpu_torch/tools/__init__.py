@@ -10,4 +10,13 @@ computes on a device).
   * ``compute_fps``: the FPS keypoints of a dataset's models.
   * ``convert_checkpoint``: a reference RDPN6D ``.pth`` or a JAX
     ``params.pkl`` to the port's checkpoint directory.
+  * ``make_mini_bop``: the mini rehearsal dataset, rendered.
+  * ``gen_xyz_crop``: the GT xyz crops of a split, rendered.
+  * ``overfit_synth``: train on N rendered views and score every serving
+    mode on them.
+  * ``int8_gate_sweep``: ``overfit_synth``'s int8 modes over seeds.
+  * ``rehearse_protocol``: ``make_mini_bop`` through training, eval and
+    BOP19 scoring, each step a subprocess.
+  * ``train_so_family``: one single-object model per object of a
+    dataset.
 """

@@ -7,6 +7,7 @@ port pulls in no matplotlib either (absent there too: ``utils/vis``'s
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -17,6 +18,11 @@ PKG = os.path.join(ROOT, "rdpn6d_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rdpn6d_tpu", "cv2",
              "PIL")
 NOT_AT_IMPORT = FORBIDDEN + ("matplotlib",)
+# the trained-model tools; each but the two host-only renderers takes
+# --device
+NEW_TOOLS = ("make_mini_bop", "gen_xyz_crop", "overfit_synth",
+             "int8_gate_sweep", "rehearse_protocol", "train_so_family")
+HOST_ONLY = ("make_mini_bop", "gen_xyz_crop")
 
 
 def _port_modules():
@@ -61,7 +67,9 @@ def test_import_pulls_no_jax():
             "rdpn6d_tpu_torch.utils.mask", "rdpn6d_tpu_torch.utils.vis",
             "rdpn6d_tpu_torch.utils.profiling",
             "rdpn6d_tpu_torch.tools.score_csv",
-            "rdpn6d_tpu_torch.tools.convert_checkpoint"} <= set(mods)
+            "rdpn6d_tpu_torch.tools.convert_checkpoint",
+            *(f"rdpn6d_tpu_torch.tools.{t}" for t in NEW_TOOLS)} \
+        <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -123,3 +131,30 @@ def test_source_loads_no_jax_package_file(path):
         text = f.read()
     for needle in ("librasterizer", "csrc/rasterizer/"):
         assert needle not in text, (path, needle)
+
+
+@pytest.mark.parametrize("tool", NEW_TOOLS)
+def test_tool_runs_as_a_module_without_jax(tool):
+    """``python -m rdpn6d_tpu_torch.tools.<tool> --help`` in a process where
+    importing any forbidden package fails: it exits 0, lists the JAX
+    tool's flags (and ``--device`` where the tool computes on one) and
+    loaded none of them."""
+    code = (
+        "import runpy, sys\n"
+        f"for m in {FORBIDDEN!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"sys.argv = [{tool!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('rdpn6d_tpu_torch.tools.{tool}', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(os.path.join(ROOT, "tools", f"{tool}.py")) as f:
+        flags = set(re.findall(r'add_argument\("(--[a-z0-9-]+)"', f.read()))
+    flags.discard("--platform")     # the JAX tool's; the port's --device
+    assert flags and all(fl in proc.stdout for fl in flags), proc.stdout
+    assert ("--device" in proc.stdout) == (tool not in HOST_ONLY)

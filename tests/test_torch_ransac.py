@@ -426,15 +426,15 @@ def test_kernel_limits_match_the_source():
     assert " ".join(body.replace("(size_t)", "").split()) == (
         "const int tiles = (N + kTile - 1) / kTile; const int pmax = "
         "(tiles + C - 1) / C * kTile; const int nh = (H + C - 1) / C; "
-        "return 4 * (8 * pmax + 12 * H + (C + 1) * H + 6 * nh * S + "
+        "return 4 * (8 * pmax + 16 * H + (C + 1) * H + 6 * nh * S + "
         "16 * tiles);")
     # one tile a block at 16 blocks; 4096 points staged in one block
     assert T.shared_bytes(4096, 128, 4, 16) \
-        == 4 * (8 * 256 + 12 * 128 + 17 * 128 + 6 * 8 * 4 + 16 * 16)
+        == 4 * (8 * 256 + 16 * 128 + 17 * 128 + 6 * 8 * 4 + 16 * 16)
     assert T.shared_bytes(4096, 128, 4, 1) \
-        == 4 * (8 * 4096 + 12 * 128 + 2 * 128 + 6 * 128 * 4 + 16 * 16)
+        == 4 * (8 * 4096 + 16 * 128 + 2 * 128 + 6 * 128 * 4 + 16 * 16)
     assert T.shared_bytes(100, 128, 4, 16) \
-        == 4 * (8 * 256 + 12 * 128 + 17 * 128 + 6 * 8 * 4 + 16)
+        == 4 * (8 * 256 + 16 * 128 + 17 * 128 + 6 * 8 * 4 + 16)
     # 9000 points (36 tiles) do not fit one block, so two at least
     assert T.cluster_sizes(9000, 128, 4) == (2, 4, 8, 16)
     assert T.cluster_sizes(4096, 128, 4) == T.CLUSTER_SIZES
@@ -445,6 +445,116 @@ def test_kernel_limits_match_the_source():
     with pytest.raises(ValueError, match="at most 16"):
         T._launch(*args, torch.rand(1, 4000, 4), 0.01)
 
+
+
+def _horn_terms_np(pk):
+    """The kernel's ``horn_fit`` op for op in numpy float32 (each op
+    rounded once, every sum left to right, square roots correctly
+    rounded), over hypotheses at once: picks [..., S, 6] (src, dst) ->
+    its 16 scoring terms [..., 16] (R row-major, Rᵀt, t, |t|²)."""
+    f = np.float32
+    S = pk.shape[-2]
+    cs, cd, wsum = pk[..., 0, :3], pk[..., 0, 3:], f(1)
+    for s in range(1, S):
+        wsum = f(wsum + f(1))
+        cs, cd = cs + pk[..., s, :3], cd + pk[..., s, 3:]
+    wsum = f(wsum + f(T.EPS))
+    cs, cd = cs / wsum, cd / wsum
+    h = None
+    for s in range(S):
+        a, b = pk[..., s, :3] - cs, pk[..., s, 3:] - cd
+        p = a[..., :, None] * b[..., None, :]
+        h = p if h is None else h + p
+    (Sxx, Sxy, Sxz), (Syx, Syy, Syz), (Szx, Szy, Szz) = \
+        [[h[..., i, j] for j in range(3)] for i in range(3)]
+    m = np.stack([Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx,
+                  Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz,
+                  Szx - Sxz, Sxy + Syx, Syy - Sxx - Szz, Syz + Szy,
+                  Sxy - Syx, Szx + Sxz, Syz + Szy, Szz - Sxx - Syy], -1)
+
+    def norm(v, n):  # sqrt of the left-to-right sum of squares, [..., 1]
+        acc = v[..., 0] * v[..., 0]
+        for i in range(1, n):
+            acc = acc + v[..., i] * v[..., i]
+        return np.sqrt(acc)[..., None]
+
+    m = m / (norm(m, 16) + f(T.EPS)) + np.eye(4, dtype=f).reshape(16)
+    for _ in range(T.HORN_ITERS):
+        M = m.reshape(m.shape[:-1] + (4, 4))
+        acc = None
+        for k in range(4):
+            p = M[..., :, k, None] * M[..., None, k, :]
+            acc = p if acc is None else acc + p
+        acc = acc.reshape(m.shape)
+        m = acc / (norm(acc, 16) + f(T.EPS))
+    M = m.reshape(m.shape[:-1] + (4, 4))
+    col = np.sqrt(sum((M[..., i, :] * M[..., i, :] for i in range(1, 4)),
+                      M[..., 0, :] * M[..., 0, :]))
+    q = np.take_along_axis(M, col.argmax(-1)[..., None, None]
+                           .repeat(4, -2), -1)[..., 0]
+    q = q / (norm(q, 4) + f(T.EPS))
+    qw, qx, qy, qz = (q[..., i] for i in range(4))
+    two, one = f(2), f(1)
+    R = np.stack([one - two * (qy * qy + qz * qz), two * (qx * qy - qw * qz),
+                  two * (qx * qz + qw * qy), two * (qx * qy + qw * qz),
+                  one - two * (qx * qx + qz * qz), two * (qy * qz - qw * qx),
+                  two * (qx * qz - qw * qy), two * (qy * qz + qw * qx),
+                  one - two * (qx * qx + qy * qy)], -1)
+
+    def dot3(a, b):
+        return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+    t = [cd[..., i] - dot3([R[..., 3 * i + j] for j in range(3)],
+                           [cs[..., j] for j in range(3)]) for i in range(3)]
+    Rt_t = [dot3([R[..., 3 * j + i] for j in range(3)], t) for i in range(3)]
+    return np.concatenate([R, np.stack(Rt_t + t + [dot3(t, t)], -1)], -1)
+
+
+def _dist2_np(terms, m, c):
+    """The kernel's ``dist2`` in numpy float32: terms [B, H, 16], m / c
+    [B, N, 3] -> [B, H, N]."""
+    r = [terms[..., k, None] for k in range(16)]
+    mx, my, mz = (m[:, None, :, i] for i in range(3))
+    cx, cy, cz = (c[:, None, :, i] for i in range(3))
+    o = [ci * mj for ci in (cx, cy, cz) for mj in (mx, my, mz)]
+    mc2 = ((mx * mx + my * my) + mz * mz) + ((cx * cx + cy * cy) + cz * cz)
+    two = np.float32(2)
+    d = (mc2 + r[15]) + two * ((r[9] * mx + r[10] * my) + r[11] * mz)
+    cr = r[0] * o[0]
+    for k in range(1, 9):
+        cr = cr + r[k] * o[k]
+    d = d - two * cr
+    return d - two * ((r[12] * cx + r[13] * cy) + r[14] * cz)
+
+
+def test_plain_fits_and_d2_are_the_kernels_ops():
+    """The plain version's hypotheses and d² bit-equal a numpy float32
+    emulation of the kernel's ``horn_fit`` and ``dist2``, op for op in the
+    source's order: the card then holds the kernel's counts, best
+    hypothesis and score equal to plain's (``tests/test_torch_cuda.py``,
+    smoke phases 16(a) and 18(b)). Duplicate picks, a NaN point and
+    near-degenerate samples included."""
+    m, c, mask, _, _ = synth(3, 300, 8)
+    m[2, 7] = np.nan
+    mask[1, ::2] = 0.0
+    u = torch.from_numpy(jax_uniforms(3))
+    mt, ct, kt = (torch.from_numpy(x) for x in (m, c, mask))
+    idx = T.hypothesis_picks(kt, u).reshape(3, -1, 1)
+    src = torch.take_along_dim(mt, idx, 1).reshape(3, H, S, 3)
+    dst = torch.take_along_dim(ct, idx, 1).reshape(3, H, S, 3)
+    src[0, 5, 1] = src[0, 5, 0]              # a duplicate pick
+    dst[0, 5, 1] = dst[0, 5, 0]
+    src[1, 9] = src[1, 9, :1] + 1e-4 * torch.arange(4.0)[:, None]
+    R_h, t_h = T.kabsch_quat(src, dst)
+    terms = _horn_terms_np(torch.cat([src, dst], -1).numpy())
+    got = torch.cat([R_h.flatten(-2), t_h], -1).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  terms[..., [*range(9), 12, 13, 14]]
+                                  .view(np.int32))
+    d2 = T.expanded_d2(mt, ct, R_h, t_h).numpy()
+    want = _dist2_np(terms, m, c)
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(d2.view(np.int32), want.view(np.int32))
 
 
 # clusters an H100 SXM holds at one block an SM (cluster_slots on the card)
