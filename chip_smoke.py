@@ -317,14 +317,37 @@ Phases, each fatal on failure:
               files exist (no accuracy gate); then the test split's GT
               poses written as a result CSV and rescored by
               ``tools.score_csv --bop19``: its ARs 1.
+ 19. bench  — the seven ``bench_*`` tools at full width, in process, every
+              number of every JSON line finite: (a) ``bench_train`` at 24
+              and 96 ROIs with ``--decompose`` (an MFU on the card), again
+              with ``--remat``; remat's gates: lm13, 4 ROIs, float32 with
+              TF32 off, one step with and without remat from the same
+              weights and batch, every loss and ``grad_norm`` within
+              phase 7's bounds and every BatchNorm statistic bit-equal,
+              and a bf16 step's peak memory at 96 ROIs lower with remat;
+              ``--grouped-ab`` at 24, the two paths' steps alternated
+              (``roi_crop`` and ``surface_labels`` once a preprocessed
+              batch: labels from the depth surface); the fused step
+              against two calls, 2 steps at lm13 f32 under
+              deterministic algorithms: both steps' metrics and every
+              parameter and statistic bit-equal to two two-call runs';
+              (b) ``bench_int8 --batch 64`` in every mode, ``int8_conv``
+              launched by each int8 mode and not by bf16; (c) ``bench_bn
+              --batch 32 --s2d`` and ``bench_layout --batch 32``; (d)
+              ``bench_input`` (on the card and on the CPU: the same MB a
+              pose) and ``bench_cli_step`` at 24 ROIs on phase 18(c)'s
+              ``make_mini_bop`` tree, ``roi_crop`` once a preprocessed
+              batch; (e) ``bench_score_scale`` at 5000 targets,
+              ``min_dist2`` launched.
 Kernel launch counts are zeroed right before each path (phases 3-4, phase
 6, each run of phase 8, phase 9's ``main``, each of phase 10's and phase
 11's ``main``, each int8 served pass and the int8 ``main`` of phase 12,
 each rank's steps and each ``main`` of phases 13, 14 and 15, phase 15's
 served pass, phase 16's served passes and ``main``, each of phase 17's
-training runs and its ``score_csv``, each of phase 18's overfit runs, and
-in each subprocess of phase 18(c)'s chain, which starts at 0) and read
-right after it. In phases 3, 6, 9, 10, 11, 12(c), 13, 14, 15 and 16(b, c) the
+training runs and its ``score_csv``, each of phase 18's overfit runs, in
+each subprocess of phase 18(c)'s chain, which starts at 0, and before each
+tool of phase 19) and read right after it. In phases 3, 6, 9, 10, 11,
+12(c), 13, 14, 15, 16(b, c) and 19(a, d) the
 batches the entry points preprocess are counted too
 (``PreprocessCalls``), and ``roi_crop`` must have launched once for each.
 Output: the card's name and power limit (nvidia-smi), one
@@ -5374,6 +5397,385 @@ def run_rehearsal(card, work) -> dict:
     return launches
 
 
+BENCH_ITERS = 5              # phase 19's timed iterations a tool
+BENCH_TRAIN_BATCHES = (24, 96)
+GROUPED_AB_ITERS = 20        # the A/B's steps a path, alternated
+REMAT_MEMORY_ROIS = 96
+SCORE_SCALE_LIMIT_S = 90.0   # (e) at its defaults, else --frames 200
+
+
+def finite_numbers(value, label: str) -> None:
+    """Every number in a tool's JSON line (nested) is finite."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            finite_numbers(v, f"{label}.{k}")
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            finite_numbers(v, f"{label}[{i}]")
+    elif isinstance(value, (int, float)) and not isinstance(value, bool):
+        check(bool(np.isfinite(value)), f"{label} is {value}")
+
+
+def launches_of(fn):
+    """(fn(), the kernel launches it made): the counts set to 0 before."""
+    from rdpn6d_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launches()
+    out = fn()
+    return out, dict(cuda_build.LAUNCHES)
+
+
+def remat_gates(dev, card, work) -> None:
+    """Phase 19(a)'s gates on ``solver.remat``: (i) lm13 at full width, 4
+    ROIs, float32 with TF32 off, one step from the same weights and batch
+    (phase 7's) without and with remat: every loss within phase 7's 1e-3
+    relative, ``grad_norm`` within phase 7's bound (1e-3 or twice what the
+    no-remat step's own ``grad_norm`` moves when the input moves by 1e-6
+    relative, here on the card), every BatchNorm running statistic and
+    count bit-equal; (ii) ``torch.cuda.max_memory_allocated`` of a bf16
+    ``bench_train`` step at 96 ROIs lower with remat than without. (i)
+    runs with ``cudnn.deterministic``: otherwise cuDNN may run the head's
+    transposed convolution with an algorithm that adds atomically, and two
+    train-mode forwards of one model on one batch differ (on an H100, 14
+    of 94 running statistics, by ~1e-8)."""
+    import torch
+
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.parallel import create_train_state, make_train_step
+    from rdpn6d_tpu_torch.solver import build_schedule
+    from rdpn6d_tpu_torch.tools import bench_train
+
+    base = train_config(amp=False, out_dir=os.path.join(work, "phase19"))
+    frames, rois = train_inputs(base, 30, 2, 2)
+    batch = preprocess_rois_grouped(
+        base, {k: torch.from_numpy(v) for k, v in frames.items()},
+        {k: torch.from_numpy(v) for k, v in rois.items()}, train=True,
+        generator=torch.Generator().manual_seed(0))
+    model = init_weights(RDPN(base), torch.Generator().manual_seed(1))
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, remat, scale in (("plain", False, 1.0),
+                                   ("remat", True, 1.0),
+                                   ("moved", False, 1.0 + 1e-6)):
+            cfg = base.apply_opts([f"solver.remat={str(remat).lower()}"])
+            m = RDPN(cfg)
+            m.load_state_dict(model.state_dict())
+            m = m.to(dev)
+            schedule = build_schedule(cfg, 1000)
+            state = create_train_state(cfg, m, lr=schedule(0))
+            b = {k: v.to(dev) for k, v in batch.items()}
+            b["roi_img"] = b["roi_img"] * scale
+            _, metrics = make_train_step(cfg, schedule)(state, b)
+            out[name] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.detach().cpu()
+                          for k, v in m.state_dict().items()
+                          if k.endswith(("running_mean", "running_var",
+                                         "num_batches_tracked"))})
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def rel(a, k):
+        ref = out["plain"][0][k]
+        return abs(out[a][0][k] - ref) / max(abs(ref), 1e-6)
+
+    gn_tol = max(1e-3, 2 * rel("moved", "grad_norm"))
+    worst = 0.0
+    for k in out["plain"][0]:
+        tol = gn_tol if k == "grad_norm" else 1e-3
+        check(rel("remat", k) <= tol, f"remat: {k} "
+              f"{out['remat'][0][k]:.6g} vs {out['plain'][0][k]:.6g} "
+              f"without (tol {tol})")
+        if k != "grad_norm":
+            worst = max(worst, rel("remat", k))
+    stats = out["plain"][1]
+    check(all(torch.equal(out["remat"][1][k], v) for k, v in stats.items()),
+          "remat: a BatchNorm running statistic differs from the step "
+          "without remat")
+    print(f"remat: lm13 f32 step, 4 ROIs, with vs without remat on the "
+          f"card: max relative loss difference {worst:.3e} (tol 1e-3), "
+          f"grad_norm {out['remat'][0]['grad_norm']:.6f} vs "
+          f"{out['plain'][0]['grad_norm']:.6f}, relative "
+          f"{rel('remat', 'grad_norm'):.3e} (tol {gn_tol:.3e}); "
+          f"{len(stats)} running statistics bit-equal [{card}]")
+
+    args = bench_train.parse_args([])
+    peaks = {}
+    for remat in (False, True):
+        args.remat = remat
+        state, step, batch_at = bench_train.setup(
+            bench_train.config(args), REMAT_MEMORY_ROIS, dev)
+        float(step(state, batch_at(0))[1]["total_loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        float(step(state, batch_at(1))[1]["total_loss"])
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 20
+        del state, step, batch_at
+        torch.cuda.empty_cache()
+    check(peaks[True] < peaks[False], f"remat: peak memory {peaks[True]:.1f}"
+          f" MB with remat, {peaks[False]:.1f} MB without")
+    print(f"remat: bf16 train step at {REMAT_MEMORY_ROIS} ROIs, peak memory "
+          f"{peaks[False]:.1f} MB without remat, {peaks[True]:.1f} MB with "
+          f"({100 * (1 - peaks[True] / peaks[False]):.1f}% less) [{card}]")
+
+
+FUSED_TWO_CALL_RUNS = 2      # two-call runs, each held bit-equal to the fused
+# cuBLAS's setting for bit-reproducible products, which
+# ``torch.use_deterministic_algorithms`` asks for
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def fused_gate(dev, card) -> None:
+    """Phase 19(a)'s gate on ``data.fused_train_step``: lm13 at full width,
+    float32 with TF32 off, 2 steps from the same weights on the same raw
+    grouped frames (5 frames of 5 cubes) and the same DZI draws, through
+    ``preprocess_rois_grouped`` then ``make_train_step``
+    (``FUSED_TWO_CALL_RUNS`` times) and through ``make_fused_train_step``.
+    Both steps' metrics (losses, ``grad_norm``) and every floating tensor
+    of the state dict (parameters, BN statistics) after the 2 steps are
+    bit-equal in every run.
+
+    Without care the card does not repeat a train step bit for bit (on an
+    H100, two runs of the same two calls part after the first backward:
+    the second step's ``grad_norm`` 9e-4 apart). The gate runs under
+    ``torch.use_deterministic_algorithms(True)`` with ``cudnn
+    .deterministic`` and cuBLAS's ``CUBLAS_WORKSPACE_CONFIG``, which
+    raises on any op of the step that has no deterministic form: so a
+    difference is the fused step's, not the card's."""
+    import torch
+
+    from rdpn6d_tpu_torch.configs import lm13
+    from rdpn6d_tpu_torch.data.pipeline import preprocess_rois_grouped
+    from rdpn6d_tpu_torch.models import RDPN, init_weights
+    from rdpn6d_tpu_torch.parallel import (create_train_state,
+                                           make_fused_train_step,
+                                           make_train_step)
+    from rdpn6d_tpu_torch.solver import build_schedule
+
+    cfg = lm13.get_config().apply_opts(['head.init="fan_in"',
+                                        'backbone.pretrained=""',
+                                        "solver.amp=false"])
+    frames, rois = train_inputs(cfg, 50, 5, 5)
+    frames = {k: torch.from_numpy(v).to(dev) for k, v in frames.items()}
+    rois = {k: torch.from_numpy(v).to(dev) for k, v in rois.items()}
+    weights = init_weights(RDPN(cfg), torch.Generator().manual_seed(2)) \
+        .state_dict()
+    schedule = build_schedule(cfg, 1000)
+    names = [f"two_call{i}" for i in range(FUSED_TWO_CALL_RUNS)] + ["fused"]
+    runs = {}
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in names:
+            model = RDPN(cfg)
+            model.load_state_dict(weights)
+            state = create_train_state(cfg, model.to(dev), lr=schedule(0))
+            step = make_train_step(cfg, schedule)
+            fused = make_fused_train_step(cfg, schedule)
+            gen = torch.Generator(device=dev)
+            got = {}
+            for i in range(2):
+                gen.manual_seed(100 + i)
+                if name == "fused":
+                    state, m = fused(state, frames, rois, gen)
+                else:
+                    b = preprocess_rois_grouped(cfg, frames, rois,
+                                                train=True, generator=gen)
+                    state, m = step(state, b)
+                got.update({f"step{i}/{k}": v.detach().clone()
+                            for k, v in m.items()})
+            torch.cuda.synchronize()
+            got.update({k: v.detach().clone()
+                        for k, v in model.state_dict().items()
+                        if v.is_floating_point()})
+            runs[name] = got
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    ref = runs[names[0]]
+    for name in names[1:]:
+        apart = {k: float((runs[name][k].double() - v.double()).abs().max())
+                 for k, v in ref.items() if not same_bits(runs[name][k], v)}
+        check(not apart, f"fused step: {name} not bit-equal to {names[0]} "
+              f"on {len(apart)} of {len(ref)} keys: " + ", ".join(
+                  f"{k} {d:.3e}" for k, d in sorted(
+                      apart.items(), key=lambda kv: -kv[1])[:8]))
+    n_metrics = sum(k.startswith("step") for k in ref)
+    print(f"fused: lm13 f32, 25 ROIs of 5 frames, 2 steps, deterministic "
+          f"algorithms: {n_metrics} metrics of both steps and "
+          f"{len(ref) - n_metrics} state tensors bit-equal in "
+          f"{FUSED_TWO_CALL_RUNS} two-call runs and the fused run [{card}]")
+
+
+def bench_train_phase(dev, card, work) -> dict:
+    """Phase 19(a): ``bench_train`` at ``BENCH_TRAIN_BATCHES`` with
+    ``--decompose``, then with ``--remat``, then ``--grouped-ab`` at 24
+    (``roi_crop`` and ``surface_labels`` once a preprocessed batch), each
+    line's numbers finite and an MFU on the card; ``remat_gates`` and
+    ``fused_gate``. Returns the launches."""
+    from rdpn6d_tpu_torch.tools import bench_train
+
+    total: dict = {}
+    t0 = time.perf_counter()
+    for extra in ([], ["--remat"]):
+        lines, got = launches_of(lambda: bench_train.main(
+            ["--batch-sizes", *map(str, BENCH_TRAIN_BATCHES), "--iters",
+             str(BENCH_ITERS), "--decompose", *extra]))
+        finite_numbers(lines, "bench_train")
+        check(all(ln["mfu_pct"] is not None for ln in lines
+                  if "mfu_pct" in ln), "bench_train: no MFU on the card")
+        check(len(lines) == 6 * len(BENCH_TRAIN_BATCHES),
+              f"bench_train: {len(lines)} lines")
+        add_launches(total, got)
+    remat_gates(dev, card, work)
+    calls = PreprocessCalls()
+    with calls:
+        lines, got = launches_of(lambda: bench_train.main(
+            ["--batch-sizes", "24", "--iters", str(GROUPED_AB_ITERS),
+             "--grouped-ab"]))
+    finite_numbers(lines, "bench_train --grouped-ab")
+    # the JAX tool's frames carry no xyz maps: labels from the depth
+    # surface
+    check(got.get("roi_crop", 0) == calls.n > 0 and got.get(
+        "surface_labels", 0) == calls.n, f"grouped A/B: launches {got} "
+          f"for {calls.n} preprocessed batches")
+    add_launches(total, got)
+    fused_gate(dev, card)
+    print(f"phase 19(a): {time.perf_counter() - t0:.1f} s; grouped A/B "
+          f"roi_crop x{got.get('roi_crop', 0)} in {calls.n} preprocessed "
+          f"batches [{card}]")
+    return total
+
+
+def bench_int8_phase(card) -> dict:
+    """Phase 19(b): ``bench_int8 --batch 64``, every mode; each int8 mode
+    launches ``int8_conv`` and bf16 none. Returns the launches."""
+    from rdpn6d_tpu_torch.ops import cuda_build
+    from rdpn6d_tpu_torch.tools import bench_int8
+
+    marks = []
+    build = bench_int8.build
+
+    def marked(cfg, mode, *a, **kw):
+        marks.append((mode, dict(cuda_build.LAUNCHES)))
+        return build(cfg, mode, *a, **kw)
+
+    bench_int8.build = marked
+    try:
+        lines, got = launches_of(lambda: bench_int8.main(
+            ["--batch", "64", "--iters", str(BENCH_ITERS)]))
+    finally:
+        bench_int8.build = build
+    finite_numbers(lines, "bench_int8")
+    marks.append(("end", got))
+    per_mode = {}
+    for (mode, before), (_, after) in zip(marks, marks[1:]):
+        per_mode[mode] = after.get("int8_conv", 0) - before.get("int8_conv",
+                                                                0)
+        check((per_mode[mode] > 0) == (mode != "bf16"),
+              f"bench_int8 {mode}: int8_conv launched {per_mode[mode]} "
+              "times")
+    print(f"bench_int8: int8_conv launches by mode {per_mode} [{card}]")
+    return got
+
+
+def bench_module_phase() -> dict:
+    """Phase 19(c): ``bench_bn --batch 32 --s2d`` and ``bench_layout
+    --batch 32``, each line's numbers finite. Returns the launches."""
+    import torch
+
+    from rdpn6d_tpu_torch.tools import bench_bn, bench_layout
+
+    total: dict = {}
+    for tool, argv in ((bench_bn, ["--batch", "32", "--s2d"]),
+                       (bench_layout, ["--batch", "32"])):
+        lines, got = launches_of(lambda: tool.main(argv))
+        finite_numbers(lines, tool.__name__)
+        add_launches(total, got)
+    torch.cuda.empty_cache()
+    return total
+
+
+def bench_input_phase(work) -> dict:
+    """Phase 19(d): ``bench_input`` (on the card and on the CPU: the same
+    MB a pose) and ``bench_cli_step`` at 24 ROIs on phase 18(c)'s
+    ``make_mini_bop`` tree (made here by the same maker when phase 19
+    runs alone); ``roi_crop`` once a preprocessed batch on the card.
+    Returns the card's launches."""
+    from rdpn6d_tpu_torch.tools import bench_cli_step, bench_input
+
+    root = os.path.join(work, "minibop")
+    if not os.path.isdir(root):
+        from rdpn6d_tpu_torch.tools import make_mini_bop
+
+        make_mini_bop.make(root, n_train=REHEARSAL_TRAIN,
+                           n_test=REHEARSAL_TEST)
+    os.environ["RDPN6D_DATA_ROOT"] = root
+    argv = ["--batch", "24", "--iters", str(BENCH_ITERS)]
+    total: dict = {}
+    mb = {}
+    for device in ("cuda", "cpu"):
+        calls = PreprocessCalls()
+        with calls:
+            lines, got = launches_of(lambda: bench_input.main(
+                argv + ["--device", device]))
+        finite_numbers(lines, f"bench_input {device}")
+        mb[device] = [ln["mb_per_pose"] for ln in lines]
+        if device == "cuda":
+            check(got.get("roi_crop", 0) == calls.n > 0,
+                  f"bench_input: roi_crop x{got.get('roi_crop', 0)} for "
+                  f"{calls.n} preprocessed batches")
+            add_launches(total, got)
+    check(mb["cuda"] == mb["cpu"], f"bench_input: MB a pose {mb}")
+    calls = PreprocessCalls()
+    with calls:
+        result, got = launches_of(lambda: bench_cli_step.main(argv))
+    finite_numbers(result, "bench_cli_step")
+    check(got.get("roi_crop", 0) == calls.n > 0,
+          f"bench_cli_step: roi_crop x{got.get('roi_crop', 0)} for "
+          f"{calls.n} preprocessed batches")
+    add_launches(total, got)
+    return total
+
+
+def bench_score_phase() -> dict:
+    """Phase 19(e): ``bench_score_scale`` at its defaults (5000 targets),
+    ``min_dist2`` launched. Returns the launches."""
+    from rdpn6d_tpu_torch.tools import bench_score_scale
+
+    t0 = time.perf_counter()
+    line, got = launches_of(lambda: bench_score_scale.main([]))
+    wall = time.perf_counter() - t0
+    if wall > SCORE_SCALE_LIMIT_S:
+        print(f"bench_score_scale: the defaults took {wall:.1f} s, over "
+              f"{SCORE_SCALE_LIMIT_S:.0f} s: cut it to --frames 200",
+              flush=True)
+    finite_numbers(line, "bench_score_scale")
+    check(line["targets"] == 5000 and got.get("min_dist2", 0) > 0,
+          f"bench_score_scale: {line['targets']} targets, launches {got}")
+    return got
+
+
+def run_bench_tools(dev, card, work) -> dict:
+    """Phase 19: the seven ``bench_*`` tools at full width on the card, in
+    process, (a)-(e); returns the launches of their paths, summed (the
+    counts set to 0 before each tool and read after it)."""
+    total: dict = {}
+    for got in (bench_train_phase(dev, card, work), bench_int8_phase(card),
+                bench_module_phase(), bench_input_phase(work),
+                bench_score_phase()):
+        add_launches(total, got)
+    print(f"phase 19: launches {total} [{card}]")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5671,6 +6073,11 @@ def main(argv=None) -> int:
                          tetra_fits))
         rehearsal_launches = run_rehearsal(card, work)
         print(f"phase 18: {time.perf_counter() - t18:.1f} s [{card}]")
+
+        # 19. the bench_* tools -------------------------------------------
+        t19 = time.perf_counter()
+        bench_launches = run_bench_tools(dev, card, work)
+        print(f"phase 19: {time.perf_counter() - t19:.1f} s [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5683,7 +6090,8 @@ def main(argv=None) -> int:
                 tless_launches, mini_launches, mp6d_launches,
                 itodd_launches, flat_launches, pnp_serve_launches,
                 pnp_eval_launches, opt_train_launches, tools_launches,
-                cube_launches, tetra_launches, rehearsal_launches):
+                cube_launches, tetra_launches, rehearsal_launches,
+                bench_launches):
         add_launches(total, got)
     result = {"kernels": [{
         "name": "min_dist2", "route": "cuda",

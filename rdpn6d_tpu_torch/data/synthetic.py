@@ -2,11 +2,12 @@
 analytic cube scene.
 
 The port's own copy of ``rdpn6d_tpu/data/synthetic.py`` (which the port
-cannot import): ``dummy_train_batch`` (a preprocessed batch with pose
-targets consistent with the camera and box), ``render_cube_depth`` (a
-point-splat depth / xyz render of a cube, no GL) and
-``dummy_grouped_inputs`` (raw grouped train inputs, frames + per-ROI GT,
-for ``preprocess_rois_grouped(train=True)``). Every array is numpy, so a
+cannot import): ``dummy_batch`` (the zero eval batch of the JAX
+package's ``models.dummy_batch``), ``dummy_train_batch`` (a preprocessed
+batch with pose targets consistent with the camera and box),
+``render_cube_depth`` (a point-splat depth / xyz render of a cube, no GL)
+and ``dummy_grouped_inputs`` (raw grouped train inputs, frames + per-ROI
+GT, for ``preprocess_rois_grouped(train=True)``). Every array is numpy, so a
 test can feed the same inputs to both packages. ``write_lm_tree`` writes a
 LineMOD-layout BOP tree of rendered cubes to disk (PNGs through
 ``data/png.py``) with train and test lists and GT xyz crops, and
@@ -49,6 +50,26 @@ def _np_ego_to_allo(R_ego: np.ndarray, t: np.ndarray) -> np.ndarray:
     K = np.array([[0, 0, v[0]], [0, 0, v[1]], [-v[0], -v[1], 0]])
     corr = np.eye(3) + K + K @ K / (1.0 + v[2])
     return corr.T @ R_ego
+
+
+def dummy_batch(cfg: Config, batch_size: int = 2) -> dict[str, np.ndarray]:
+    """Minimal correctly-shaped eval batch (zero images), the JAX
+    package's ``models.dummy_batch``."""
+    res, out = cfg.backbone.input_res, cfg.head.out_res
+    b = batch_size
+    cam = np.array([[572.4, 0, 325.3], [0, 573.6, 242.0], [0, 0, 1.0]],
+                   np.float32)
+    return {
+        "roi_cls": np.zeros((b,), np.int32),
+        "roi_img": np.zeros((b, res, res, 6), np.float32),
+        "roi_coord_2d": np.zeros((b, out, out, 5), np.float32),
+        "fps": np.zeros((b, cfg.head.num_regions, 3), np.float32),
+        "roi_extent": np.ones((b, 3), np.float32),
+        "roi_cam": np.tile(cam[None], (b, 1, 1)),
+        "bbox_center": np.full((b, 2), 128.0, np.float32),
+        "roi_wh": np.full((b, 2), 128.0, np.float32),
+        "resize_ratio": np.full((b,), out / 128.0, np.float32),
+    }
 
 
 def dummy_train_batch(cfg: Config, batch_size: int = 4,

@@ -10,7 +10,11 @@ eval every ``train.eval_period`` iterations. A raw grouped batch
 (``{"frames", "rois"}``) or a raw flat one (``{"samples"}``, the
 ``data.grouped_train=false`` path) is preprocessed with ``train=True`` on
 the device first, the DZI draws coming from the trainer's seeded
-generator.
+generator. ``data.fused_train_step`` changes nothing here: the JAX
+package's fused step removes a boundary between two compiled programs,
+which eager PyTorch does not have, so ``parallel.make_fused_train_step``
+is these same two calls (the same kernels, the same state), and the loop
+keeps the preprocessed batch for its image panels.
 
 In a process group (``parallel/mesh.py``) every rank runs this loop on its
 own shard of each global batch through ``make_sharded_train_step``: the

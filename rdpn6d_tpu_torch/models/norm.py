@@ -19,10 +19,19 @@ In train mode inside a process group (``parallel/mesh.py``),
 ``BatchNorm2d`` normalises by the mean and variance of the GLOBAL batch,
 as flax's BatchNorm does inside the JAX package's one program over a
 batch-sharded array.
+
+Under ``solver.remat`` (``models/rdpn.py``) a checkpointed region runs its
+forward again in the backward pass, inside ``recomputing()``. There
+``BatchNorm2d`` normalises as it did (the same op on the same input; in a
+process group the same all-reduce, issued in the same order on every
+rank) and moves no running statistic, as flax's remat recomputes without
+mutating ``batch_stats``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from fractions import Fraction
 
 import numpy as np
@@ -33,6 +42,26 @@ from torch import nn
 from ..parallel.mesh import all_reduce_sum, in_group, rank, world
 
 _LOW = (torch.bfloat16, torch.float16)
+
+# set on the thread that re-runs a checkpointed forward (autograd's
+# device thread on a card, the caller's on the CPU)
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The forward of a checkpointed region run again for its backward:
+    ``torch.utils.checkpoint``'s recompute context."""
+    prev = getattr(_STATE, "recomputing", False)
+    _STATE.recomputing = True
+    try:
+        yield
+    finally:
+        _STATE.recomputing = prev
+
+
+def is_recomputing() -> bool:
+    return getattr(_STATE, "recomputing", False)
 
 
 def rsqrt_f32(v: np.ndarray) -> np.ndarray:
@@ -109,10 +138,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         if in_group():
             return self._forward_global(x)
         # the op updates a copy: autograd keeps the running variance it
-        # was given, which must not change under it
+        # was given, which must not change under it. A recompute updates
+        # copies of both and keeps neither
+        recompute = is_recomputing()
+        mean = self.running_mean.clone() if recompute else self.running_mean
         var = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+        y = F.batch_norm(x, mean, var, self.weight, self.bias,
                          True, self.momentum, self.eps)
+        if recompute:
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             # torch moved by momentum * var_batch * n/(n-1); flax moves by
@@ -128,6 +162,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         holds the same."""
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
                                               self.eps)
+        if is_recomputing():
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)

@@ -1,6 +1,6 @@
 """RDPN top module: backbone -> fusion -> dense head -> Patch-PnP -> pose.
 
-Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN``, without remat.
+Counterpart of ``rdpn6d_tpu/models/rdpn.py:RDPN``.
 Submodules carry the reference checkpoint's names (``backbone.*``,
 ``backbone.spatial_net.*``, ``rot_head_net.features.*``, ``pnp_net.*``,
 ``trans_head_net.*``), so ``state_dict()`` has the reference layout;
@@ -14,6 +14,12 @@ package's layout (channels last); inside, the network runs NCHW in the
 parameters' dtype (or under the caller's autocast), with logits, the PnP
 outputs and the pose recovery in float32. ``train()`` mode is the JAX
 package's ``train=True``: batch-statistics BatchNorm and DropBlock.
+``solver.remat`` checkpoints the trunk and the dense head in train mode
+(``torch.utils.checkpoint``, non-reentrant), the two modules the JAX
+package wraps in ``nn.remat``: their activations are recomputed in the
+backward pass instead of kept, under the caller's autocast, and BatchNorm
+moves its running statistics once (``models/norm.recomputing``). The
+parameters and ``state_dict`` keys do not change; eval mode ignores it.
 ``int8`` (False | "" | True | "all" | "head" | "trunk" | "trunk0".."trunk3")
 and ``int8_static`` (False | True | "per_channel") build the W8A8 serving
 model of ``models/quant.py`` with the same parameters: the head's body
@@ -24,11 +30,13 @@ net stay in the model's dtype.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..geometry import (
@@ -45,6 +53,7 @@ from ..ops.resize import (
 )
 from .conv_pnp import ConvPnPNet
 from .heads import DenseHead, TransHead
+from .norm import recomputing
 from .point_pnp import PointPnP, SimplePointPnP
 from .pointnet import SpatialPointNet
 from .quant import int8_targets
@@ -145,12 +154,17 @@ class RDPN(nn.Module):
         rgb = img[:, :3].to(self.dtype)
         depth_xyz = img[:, 3:6]
 
+        # solver.remat: the trunk and the dense head only. DropBlock, the
+        # one random op, lies in ConvPnPNet outside them: it draws from an
+        # explicit generator, whose state checkpoint would not restore. So
+        # the checkpoint saves no RNG state (``_call``)
+        remat = cfg.solver.remat and self.training
         skip64 = skip32 = None
         if cfg.backbone.rot_concat:
-            feat, skips = self.backbone(rgb, return_skips=True)
+            feat, skips = _call(remat, self.backbone, rgb, return_skips=True)
             skip64, skip32 = skips[0], skips[1]
         else:
-            feat = self.backbone(rgb)
+            feat = _call(remat, self.backbone, rgb)
         if cfg.backbone.freeze:   # the trunk takes no gradient
             feat = feat.detach()
             skip64 = None if skip64 is None else skip64.detach()
@@ -163,8 +177,8 @@ class RDPN(nn.Module):
         fused = self.backbone.spatial_net(feat, xyz32)
         if skip32 is not None:
             fused = torch.cat([fused, skip32.to(fused.dtype)], dim=1)
-        mask_logits, coord_out, region_logits = self.rot_head_net(
-            fused, skip64)                                  # float32 NCHW
+        mask_logits, coord_out, region_logits = _call(
+            remat, self.rot_head_net, fused, skip64)        # float32 NCHW
 
         def select_class(x, dim):
             B, _, H, W = x.shape
@@ -256,6 +270,16 @@ class RDPN(nn.Module):
             "rot_ego": rot_ego,
             "trans": trans,
         }
+
+
+def _call(remat: bool, module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)``, checkpointed where ``remat``."""
+    if not remat:
+        return module(*args, **kwargs)
+    return checkpoint(module, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recomputing()), **kwargs)
 
 
 def mask_prob(mask_logits: torch.Tensor, mask_loss: str) -> torch.Tensor:

@@ -16,6 +16,7 @@ from .train_step import (
     TrainState,
     create_train_state,
     make_eval_step,
+    make_fused_train_step,
     make_sharded_train_step,
     make_train_step,
 )
@@ -23,4 +24,5 @@ from .train_step import (
 __all__ = ["all_reduce_sum", "barrier", "gather_predictions", "in_group",
            "init_distributed", "is_main", "rank", "replicate", "spawn",
            "world", "TrainState", "create_train_state",
-           "make_eval_step", "make_sharded_train_step", "make_train_step"]
+           "make_eval_step", "make_fused_train_step",
+           "make_sharded_train_step", "make_train_step"]

@@ -2,8 +2,8 @@
 
 Counterpart of ``rdpn6d_tpu/parallel/train_step.py`` (``TrainState``,
 ``create_train_state``, ``make_train_step`` and
-``make_sharded_train_step`` around ``_make_step_fn``, and
-``make_eval_step``), eager: the model
+``make_sharded_train_step`` around ``_make_step_fn``,
+``make_fused_train_step`` and ``make_eval_step``), eager: the model
 and the optimizer update in place, so the state is the live objects plus
 the step count. Under ``solver.amp`` the forward runs in bf16 autocast
 over float32 parameters, as the JAX model runs bf16 compute over float32
@@ -99,6 +99,49 @@ def make_train_step(cfg: Config, schedule: Callable[[int], float]
     gradients before clipping) to device scalars, so the step does not
     wait for the device."""
     return _make_step_fn(cfg, schedule, sharded=False)
+
+
+def make_fused_train_step(cfg: Config, schedule: Callable[[int], float]
+                          ) -> Callable[..., tuple[TrainState, dict]]:
+    """(state, frames, rois, generator) -> (state, metrics): the grouped
+    path's ``preprocess_rois_grouped(train=True)`` and the step body in
+    one call, ``data.fused_train_step``'s step (the counterpart of
+    ``make_fused_sharded_train_step``). ``generator`` drives the DZI and
+    colour-aug draws; ``center_scale`` may replace the DZI boxes, as in
+    ``preprocess_rois_grouped``.
+
+    The JAX package compiles the two into one program, so that the
+    boundary between two programs puts no relayout of the input, and no
+    second dispatch, between them. In eager PyTorch there is no such
+    boundary: this step and the two calls it replaces launch the same
+    kernels in the same order, and give the same state bit for bit. So
+    ``Trainer`` makes the two calls whatever the option says (it keeps
+    the preprocessed batch for its image panels), and this step serves
+    ``tools.bench_train --grouped-ab`` and the parity with the JAX
+    package's fused step.
+
+    One process only (a process group of one included, whose step is the
+    sharded body), as the JAX package selects it only for
+    ``jax.process_count() == 1``: ranks of a larger group each hold other
+    frames."""
+    from ..data import pipeline
+
+    if world() > 1:
+        raise RuntimeError("make_fused_train_step runs in one process; "
+                           f"this group has {world()}")
+    step_fn = _make_step_fn(cfg, schedule, sharded=in_group())
+
+    def fused(state: TrainState, frames: dict, rois: dict,
+              generator: torch.Generator | None = None,
+              center_scale: tuple | None = None
+              ) -> tuple[TrainState, dict]:
+        # looked up at each call, as the eval runner does
+        batch = pipeline.preprocess_rois_grouped(
+            cfg, frames, rois, train=True, generator=generator,
+            center_scale=center_scale)
+        return step_fn(state, batch)
+
+    return fused
 
 
 def make_eval_step(cfg: Config, model: RDPN,

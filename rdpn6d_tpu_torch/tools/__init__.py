@@ -19,4 +19,13 @@ computes on a device).
     BOP19 scoring, each step a subprocess.
   * ``train_so_family``: one single-object model per object of a
     dataset.
+  * ``bench_train``: train-step throughput, MFU and its decomposition;
+    ``--remat``, and ``--grouped-ab`` (two calls against the fused step).
+  * ``bench_int8``: the serving forward in bf16 and the int8 modes.
+  * ``bench_bn``: the trunk's and the head's forward, train against eval.
+  * ``bench_layout``: the trunk's forward in three input memory layouts.
+  * ``bench_input``: the flat and grouped input paths' poses/s and bytes.
+  * ``bench_cli_step``: the training CLI's iteration split by stage.
+  * ``bench_score_scale``: BOP19 scoring and the recall tables at 5000
+    targets.
 """

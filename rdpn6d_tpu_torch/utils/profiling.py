@@ -6,6 +6,9 @@ is present) as a Chrome trace, viewable in Perfetto or chrome://tracing;
 ``annotate`` names a region inside it; ``StepTimer`` keeps wall-clock
 stats per named phase, synchronizing the card on the tensors the block
 yields to it, where the JAX version blocks on its arrays.
+``count_flops`` and ``bf16_peak_flops`` give the ``bench_*`` tools their
+MFU: the convolution and matrix-product FLOPs that
+``torch.utils.flop_counter`` counts, over the card's dense bf16 peak.
 """
 
 from __future__ import annotations
@@ -87,3 +90,29 @@ class StepTimer:
     def report(self) -> str:
         return "  ".join(f"{k}: {v * 1000:.2f}ms"
                          for k, v in sorted(self.summary().items()))
+
+
+# dense (no sparsity) bf16 tensor-core peak by the card's name, as
+# nvidia-smi and torch.cuda.get_device_name give it; NVIDIA H100 Tensor
+# Core GPU datasheet (H100 SXM5: 1,979 TFLOP/s with sparsity)
+BF16_PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": 989.4e12}
+
+
+def bf16_peak_flops(device: str | torch.device) -> float | None:
+    """The dense bf16 peak FLOP/s of ``device``'s card, or None on the
+    CPU or on a card missing from ``BF16_PEAK_FLOPS``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return BF16_PEAK_FLOPS.get(torch.cuda.get_device_name(device))
+
+
+def count_flops(fn) -> float:
+    """The FLOPs of what ``fn()`` runs, as ``torch.utils.flop_counter``
+    counts them: convolutions and matrix products, forward and backward
+    (elementwise work, norms and the port's own kernels count 0)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())

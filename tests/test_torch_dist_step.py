@@ -12,8 +12,12 @@ which combines per-rank moments, rounds differently from the one
 process's fused kernel: measured in float32, ``grad_norm`` 2.4e-5 apart
 after the first step and 3.3e-3 after the third. Cases: the fixture's
 batches, the same with rank 1's ROIs all without mask pixels (per-rank
-normalisers would clamp there and give another gradient), and DropBlock
-on (port against port: JAX draws with its own generator).
+normalisers would clamp there and give another gradient), DropBlock
+on (port against port: JAX draws with its own generator), and
+``solver.remat`` (port against port: the recomputed trunk and head issue
+their BatchNorm all-reduces again in the backward pass, and must give
+the first forward's statistics, so the ranks end bit-equal to the plain
+case's).
 
 Tolerances. Against JAX, those of ``test_torch_train_step.py``: every
 loss within 1e-6 and ``grad_norm`` within 1e-5 relative at every step,
@@ -58,7 +62,8 @@ TINY = ["backbone.depth=18", "backbone.input_res=64", "head.out_res=16",
         "head.num_regions=4", "head.num_filters=32", "data.input_res=64",
         "data.out_res=16", 'head.init="fan_in"', "solver.warmup_iters=2",
         "solver.base_lr=2e-5", "loss.use_mtl=true"]
-CASES = {"plain": [], "empty_mask": [], "dropblock": ["pnp.drop_prob=0.2"]}
+CASES = {"plain": [], "empty_mask": [], "dropblock": ["pnp.drop_prob=0.2"],
+         "remat": ["solver.remat=true"]}
 # conv biases right before a batch-statistics BatchNorm: zero gradient
 BN_CANCELLED = ("backbone.spatial_net.xyz_emb.bias",
                 "backbone.spatial_net.conv1.bias",
@@ -220,6 +225,21 @@ def test_two_ranks_match_one_process_on_the_global_batch(case, port_runs):
         # pixel, so a per-rank clamp would have made its losses count
         assert all(np.isfinite(list(m.values())).all()
                    for m in r0["metrics"])
+
+
+def test_remat_ranks_equal_the_plain_ranks(port_runs):
+    """Two ranks with remat take the plain ranks' steps bit for bit: the
+    recompute's global BatchNorm gives the first forward's statistics and
+    moves no running statistic again."""
+    for r in range(2):
+        plain, remat = (port_runs["ranks"][r][c] for c in ("plain",
+                                                            "remat"))
+        assert remat["metrics"] == plain["metrics"]
+        for k, g in plain["grads"].items():
+            assert torch.equal(remat["grads"][k], g), k
+        assert list(remat["state"]) == list(plain["state"])
+        for k, v in plain["state"].items():
+            assert torch.equal(remat["state"][k], v), k
 
 
 def test_sharded_step_needs_a_group():

@@ -18,10 +18,12 @@ PKG = os.path.join(ROOT, "rdpn6d_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rdpn6d_tpu", "cv2",
              "PIL")
 NOT_AT_IMPORT = FORBIDDEN + ("matplotlib",)
-# the trained-model tools; each but the two host-only renderers takes
-# --device
+# the trained-model tools and the bench_* tools; each but the two
+# host-only renderers takes --device
 NEW_TOOLS = ("make_mini_bop", "gen_xyz_crop", "overfit_synth",
-             "int8_gate_sweep", "rehearse_protocol", "train_so_family")
+             "int8_gate_sweep", "rehearse_protocol", "train_so_family",
+             "bench_score_scale", "bench_input", "bench_cli_step",
+             "bench_int8", "bench_bn", "bench_train", "bench_layout")
 HOST_ONLY = ("make_mini_bop", "gen_xyz_crop")
 
 
