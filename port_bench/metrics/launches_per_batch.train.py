@@ -1,0 +1,8 @@
+"""Device kernels launched per train step in the traced sub-window (a
+count)."""
+
+from port_bench.harness.readers import launches_per_item
+
+
+def read(run):
+    return launches_per_item(run)
