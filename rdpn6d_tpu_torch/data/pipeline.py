@@ -44,6 +44,7 @@ from ..ops.binning import quantize_coords
 from ..ops.gt_labels import gt_labels
 from ..ops.roi_crop import roi_crop
 from ..ops.surface_labels import surface_labels
+from ..utils.profiling import span
 from .augment import color_augment, config_ops, draw_color_aug
 
 
@@ -122,79 +123,90 @@ def preprocess_rois_grouped(
     Bernoulli), "ops": augment.draw_aug_params(...)}``, as
     ``augment.draw_color_aug`` draws them; ``generator`` drives the draws
     not given.
+
+    Traced (``utils.profiling.span``) as ``rdpn.pre``, with
+    ``rdpn.pre.crop``, ``rdpn.pre.color_aug`` and ``rdpn.pre.labels``
+    inside it.
     """
-    d = cfg.data
-    if train and any(k in frames for k in _GT_FRAME_KEYS):
-        # per-instance GT cannot live on the shared frame axis: two ROIs
-        # of different objects in one frame would share one's targets
-        raise ValueError(
-            "preprocess_rois_grouped(train=True) with per-instance GT "
-            "maps on the frame axis; pass GT maps per ROI instead")
-    input_res, out_res = d.input_res, d.out_res
-    rgb_full = frames["rgb"]
-    if rgb_full.dtype not in (torch.uint8, torch.float32):
-        rgb_full = rgb_full.float()
-    H, W = rgb_full.shape[1], rgb_full.shape[2]
-    dev = rgb_full.device
-    if "depth_raw" in frames:
-        depth, factor = frames["depth_raw"], frames["depth_factor"].float()
-        if depth.dtype == torch.uint16:     # as the JAX package ships it
-            depth = depth.to(torch.int32)
-    else:
-        depth, factor = frames["depth"].float(), None
-    fidx = rois["frame_idx"].long()
-    bbox = rois["bbox"].float()
-    K_frames = frames["K"].float()
-    K = K_frames[fidx]
+    with span("pre"):
+        d = cfg.data
+        if train and any(k in frames for k in _GT_FRAME_KEYS):
+            # per-instance GT cannot live on the shared frame axis: two ROIs
+            # of different objects in one frame would share one's targets
+            raise ValueError(
+                "preprocess_rois_grouped(train=True) with per-instance GT "
+                "maps on the frame axis; pass GT maps per ROI instead")
+        input_res, out_res = d.input_res, d.out_res
+        rgb_full = frames["rgb"]
+        if rgb_full.dtype not in (torch.uint8, torch.float32):
+            rgb_full = rgb_full.float()
+        H, W = rgb_full.shape[1], rgb_full.shape[2]
+        dev = rgb_full.device
+        if "depth_raw" in frames:
+            depth, factor = frames["depth_raw"], frames["depth_factor"].float()
+            if depth.dtype == torch.uint16:     # as the JAX package ships it
+                depth = depth.to(torch.int32)
+        else:
+            depth, factor = frames["depth"].float(), None
+        fidx = rois["frame_idx"].long()
+        bbox = rois["bbox"].float()
+        K_frames = frames["K"].float()
+        K = K_frames[fidx]
 
-    if center_scale is not None:
-        center, scale = (t.float() for t in center_scale)
-    else:
-        center, scale = dzi_jitter(
-            bbox, (H, W), d.dzi_type, d.dzi_pad_scale, d.dzi_scale_ratio,
-            d.dzi_shift_ratio, enable=train, generator=generator)
-    bw = (bbox[:, 2] - bbox[:, 0]).clamp_min(1.0)
-    bh = (bbox[:, 3] - bbox[:, 1]).clamp_min(1.0)
-    resize_ratio = out_res / scale
+        if center_scale is not None:
+            center, scale = (t.float() for t in center_scale)
+        else:
+            center, scale = dzi_jitter(
+                bbox, (H, W), d.dzi_type, d.dzi_pad_scale, d.dzi_scale_ratio,
+                d.dzi_shift_ratio, enable=train, generator=generator)
+        bw = (bbox[:, 2] - bbox[:, 0]).clamp_min(1.0)
+        bh = (bbox[:, 3] - bbox[:, 1]).clamp_min(1.0)
+        resize_ratio = out_res / scale
 
-    ops = config_ops(d.color_aug_ops, d.color_aug_type) \
-        if train and d.color_aug_prob > 0 else ()
-    # [B, S, S, 6] and [B, O, O, 5]: one kernel on the card
-    roi_img, roi_coord_2d = roi_crop(
-        rgb_full, depth, factor, K_frames, fidx, center, scale, input_res,
-        out_res, d.pixel_mean, d.pixel_std, normalize=not ops)
-    if ops:
-        # colour aug between the crop and the normalisation, on the RGB
-        rgb = roi_img[..., :3]
-        if aug_params is None:
-            aug_params = draw_color_aug(ops, fidx.shape[0], d.color_aug_prob,
-                                        generator, (input_res, input_res),
-                                        dev)
-        aug = color_augment(rgb, aug_params["ops"], ops)
-        rgb = torch.where(aug_params["apply"].to(dev)[:, None, None, None],
-                          aug, rgb)
-        mean = torch.tensor(d.pixel_mean, dtype=torch.float32, device=dev)
-        std = torch.tensor(d.pixel_std, dtype=torch.float32, device=dev)
-        roi_img[..., :3] = (rgb - mean) / std
-    out = {
-        "roi_img": roi_img,
-        "roi_coord_2d": roi_coord_2d,
-        "roi_cam": K,
-        "bbox_center": center,
-        "scale": scale,
-        "roi_wh": torch.stack([bw, bh], dim=-1),
-        "resize_ratio": resize_ratio,
-        "fps": rois["fps"].float(),
-        "roi_extent": rois["extent"].float(),
-    }
-    for k in ("roi_points", "sym_rots", "roi_cls"):
-        if k in rois:
-            out[k] = rois[k]
-    if not train:
+        ops = config_ops(d.color_aug_ops, d.color_aug_type) \
+            if train and d.color_aug_prob > 0 else ()
+        # [B, S, S, 6] and [B, O, O, 5]: one kernel on the card
+        with span("pre.crop"):
+            roi_img, roi_coord_2d = roi_crop(
+                rgb_full, depth, factor, K_frames, fidx, center, scale,
+                input_res, out_res, d.pixel_mean, d.pixel_std,
+                normalize=not ops)
+        if ops:
+            # colour aug between the crop and the normalisation, on the RGB
+            with span("pre.color_aug"):
+                rgb = roi_img[..., :3]
+                if aug_params is None:
+                    aug_params = draw_color_aug(ops, fidx.shape[0],
+                                                d.color_aug_prob, generator,
+                                                (input_res, input_res), dev)
+                aug = color_augment(rgb, aug_params["ops"], ops)
+                rgb = torch.where(
+                    aug_params["apply"].to(dev)[:, None, None, None], aug, rgb)
+                mean = torch.tensor(d.pixel_mean, dtype=torch.float32,
+                                    device=dev)
+                std = torch.tensor(d.pixel_std, dtype=torch.float32,
+                                   device=dev)
+                roi_img[..., :3] = (rgb - mean) / std
+        out = {
+            "roi_img": roi_img,
+            "roi_coord_2d": roi_coord_2d,
+            "roi_cam": K,
+            "bbox_center": center,
+            "scale": scale,
+            "roi_wh": torch.stack([bw, bh], dim=-1),
+            "resize_ratio": resize_ratio,
+            "fps": rois["fps"].float(),
+            "roi_extent": rois["extent"].float(),
+        }
+        for k in ("roi_points", "sym_rots", "roi_cls"):
+            if k in rois:
+                out[k] = rois[k]
+        if not train:
+            return out
+        with span("pre.labels"):
+            out.update(_train_labels(cfg, rois, depth, factor, fidx, K, center,
+                                     scale, bw, bh, resize_ratio))
         return out
-    out.update(_train_labels(cfg, rois, depth, factor, fidx, K, center,
-                             scale, bw, bh, resize_ratio))
-    return out
 
 
 def _train_labels(cfg: Config, rois: dict[str, torch.Tensor],

@@ -51,6 +51,7 @@ from ..ops.resize import (
     downsample_nearest_torch,
     upsample_bilinear_align_corners,
 )
+from ..utils.profiling import span
 from .conv_pnp import ConvPnPNet
 from .heads import DenseHead, TransHead
 from .norm import recomputing
@@ -150,107 +151,113 @@ class RDPN(nn.Module):
         drive DropBlock in train mode."""
         cfg = self.cfg
         h, pnp = cfg.head, cfg.pnp
-        img = batch["roi_img"].permute(0, 3, 1, 2)
-        rgb = img[:, :3].to(self.dtype)
-        depth_xyz = img[:, 3:6]
+        # the three spans cover every kernel of the forward
+        with span("model.trunk"):
+            img = batch["roi_img"].permute(0, 3, 1, 2)
+            rgb = img[:, :3].to(self.dtype)
+            depth_xyz = img[:, 3:6]
 
-        # solver.remat: the trunk and the dense head only. DropBlock, the
-        # one random op, lies in ConvPnPNet outside them: it draws from an
-        # explicit generator, whose state checkpoint would not restore. So
-        # the checkpoint saves no RNG state (``_call``)
-        remat = cfg.solver.remat and self.training
-        skip64 = skip32 = None
-        if cfg.backbone.rot_concat:
-            feat, skips = _call(remat, self.backbone, rgb, return_skips=True)
-            skip64, skip32 = skips[0], skips[1]
-        else:
-            feat = _call(remat, self.backbone, rgb)
-        if cfg.backbone.freeze:   # the trunk takes no gradient
-            feat = feat.detach()
-            skip64 = None if skip64 is None else skip64.detach()
-            skip32 = None if skip32 is None else skip32.detach()
-        feat8 = feat   # the trunk's 8x8 feature, TransHead's input
-        h8, w8 = feat.shape[2], feat.shape[3]
-        feat = upsample_bilinear_align_corners(feat, h8 * 4, w8 * 4)
-        xyz32 = downsample_nearest_torch(depth_xyz, h8 * 4,
-                                         w8 * 4).to(self.dtype)
-        fused = self.backbone.spatial_net(feat, xyz32)
-        if skip32 is not None:
-            fused = torch.cat([fused, skip32.to(fused.dtype)], dim=1)
-        mask_logits, coord_out, region_logits = _call(
-            remat, self.rot_head_net, fused, skip64)        # float32 NCHW
+            # solver.remat: the trunk and the dense head only. DropBlock,
+            # the one random op, lies in ConvPnPNet outside them: it draws
+            # from an explicit generator, whose state checkpoint would not
+            # restore. So the checkpoint saves no RNG state (``_call``)
+            remat = cfg.solver.remat and self.training
+            skip64 = skip32 = None
+            if cfg.backbone.rot_concat:
+                feat, skips = _call(remat, self.backbone, rgb,
+                                    return_skips=True)
+                skip64, skip32 = skips[0], skips[1]
+            else:
+                feat = _call(remat, self.backbone, rgb)
+            if cfg.backbone.freeze:   # the trunk takes no gradient
+                feat = feat.detach()
+                skip64 = None if skip64 is None else skip64.detach()
+                skip32 = None if skip32 is None else skip32.detach()
+            feat8 = feat   # the trunk's 8x8 feature, TransHead's input
+            h8, w8 = feat.shape[2], feat.shape[3]
+            feat = upsample_bilinear_align_corners(feat, h8 * 4, w8 * 4)
+            xyz32 = downsample_nearest_torch(depth_xyz, h8 * 4,
+                                             w8 * 4).to(self.dtype)
+            fused = self.backbone.spatial_net(feat, xyz32)
+            if skip32 is not None:
+                fused = torch.cat([fused, skip32.to(fused.dtype)], dim=1)
+        with span("model.head"):
+            mask_logits, coord_out, region_logits = _call(
+                remat, self.rot_head_net, fused, skip64)    # float32 NCHW
+        with span("model.pnp"):
+            def select_class(x, dim):
+                B, _, H, W = x.shape
+                xr = x.reshape(B, h.num_classes, dim, H, W)
+                return xr[torch.arange(B, device=x.device),
+                          batch["roi_cls"].long()]
 
-        def select_class(x, dim):
-            B, _, H, W = x.shape
-            xr = x.reshape(B, h.num_classes, dim, H, W)
-            return xr[torch.arange(B, device=x.device),
-                      batch["roi_cls"].long()]
+            if h.rot_class_aware:
+                coord_out = select_class(coord_out, h.coord_dim)
+            if h.mask_class_aware:
+                mask_logits = select_class(mask_logits, h.mask_dim)
+            if h.region_class_aware:
+                region_logits = select_class(region_logits, h.region_dim)
 
-        if h.rot_class_aware:
-            coord_out = select_class(coord_out, h.coord_dim)
-        if h.mask_class_aware:
-            mask_logits = select_class(mask_logits, h.mask_dim)
-        if h.region_class_aware:
-            region_logits = select_class(region_logits, h.region_dim)
+            if h.xyz_loss == "CE_coor":
+                nb = h.xyz_bin
+                coord3 = torch.stack([
+                    expected_coord_from_bins(
+                        coord_out[:, a * (nb + 1):(a + 1) * (nb + 1)]
+                        .permute(0, 2, 3, 1), nb) for a in range(3)], dim=1)
+            else:
+                coord3 = coord_out
+            feats = [coord3]
+            if pnp.with_2d_coord:
+                feats.append(batch["roi_coord_2d"].permute(0, 3, 1, 2))
+            region_ids = region_logits[:, 1:].argmax(dim=1)      # [B,H,W]
+            region_fps = gather_region_fps(batch["fps"], region_ids)
+            feats.append(region_fps.permute(0, 3, 1, 2))
+            coord_feat = torch.cat(feats, dim=1)
 
-        if h.xyz_loss == "CE_coor":
-            nb = h.xyz_bin
-            coord3 = torch.stack([
-                expected_coord_from_bins(
-                    coord_out[:, a * (nb + 1):(a + 1) * (nb + 1)]
-                    .permute(0, 2, 3, 1), nb) for a in range(3)], dim=1)
-        else:
-            coord3 = coord_out
-        feats = [coord3]
-        if pnp.with_2d_coord:
-            feats.append(batch["roi_coord_2d"].permute(0, 3, 1, 2))
-        region_ids = region_logits[:, 1:].argmax(dim=1)      # [B,H,W]
-        region_fps = gather_region_fps(batch["fps"], region_ids)
-        feats.append(region_fps.permute(0, 3, 1, 2))
-        coord_feat = torch.cat(feats, dim=1)
+            mask_atten = mask_concat = None
+            if pnp.mask_attention == "mul":
+                mask_atten = mask_prob(mask_logits, h.mask_loss)
+            elif pnp.mask_attention == "concat":
+                mask_concat = mask_prob(mask_logits, h.mask_loss)
+            region_atten = torch.softmax(region_logits[:, 1:], dim=1) \
+                if pnp.region_attention else None
+            if pnp.pnp_head == "ConvPnPNet":
+                rot_param, t_param = self.pnp_net(
+                    coord_feat, region=region_atten,
+                    extents=batch["roi_extent"], mask_attention=mask_atten,
+                    mask_concat=mask_concat, drop_scale=drop_scale,
+                    generator=generator, drop_shard=drop_shard)
+            else:
+                if mask_concat is not None:   # no spatial slot: one channel
+                    coord_feat = torch.cat([coord_feat, mask_concat], dim=1)
+                rot_param, t_param = self.pnp_net(
+                    coord_feat, region=region_atten,
+                    extents=batch["roi_extent"], mask_attention=mask_atten)
+            if pnp.r_only:
+                t_param = self.trans_head_net(feat8)
 
-        mask_atten = mask_concat = None
-        if pnp.mask_attention == "mul":
-            mask_atten = mask_prob(mask_logits, h.mask_loss)
-        elif pnp.mask_attention == "concat":
-            mask_concat = mask_prob(mask_logits, h.mask_loss)
-        region_atten = torch.softmax(region_logits[:, 1:], dim=1) \
-            if pnp.region_attention else None
-        if pnp.pnp_head == "ConvPnPNet":
-            rot_param, t_param = self.pnp_net(
-                coord_feat, region=region_atten,
-                extents=batch["roi_extent"], mask_attention=mask_atten,
-                mask_concat=mask_concat, drop_scale=drop_scale,
-                generator=generator, drop_shard=drop_shard)
-        else:
-            if mask_concat is not None:   # no spatial slot: one channel
-                coord_feat = torch.cat([coord_feat, mask_concat], dim=1)
-            rot_param, t_param = self.pnp_net(
-                coord_feat, region=region_atten,
-                extents=batch["roi_extent"], mask_attention=mask_atten)
-        if pnp.r_only:
-            t_param = self.trans_head_net(feat8)
+            if "rot6d" in pnp.rot_type:
+                rot_m = ortho6d_to_mat(rot_param)
+            elif "log_quat" in pnp.rot_type:
+                v = rot_param[:, 1:4]
+                n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+                q = torch.cat([torch.cos(n), v * torch.sinc(n / math.pi)],
+                              -1)
+                rot_m = quat_to_mat(torch.exp(rot_param[:, :1]) * q)
+            elif "lie_vec" in pnp.rot_type:
+                rot_m = exp_map(rot_param[:, :3])
+            else:
+                rot_m = quat_to_mat(rot_param)
 
-        if "rot6d" in pnp.rot_type:
-            rot_m = ortho6d_to_mat(rot_param)
-        elif "log_quat" in pnp.rot_type:
-            v = rot_param[:, 1:4]
-            n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-            q = torch.cat([torch.cos(n), v * torch.sinc(n / math.pi)], -1)
-            rot_m = quat_to_mat(torch.exp(rot_param[:, :1]) * q)
-        elif "lie_vec" in pnp.rot_type:
-            rot_m = exp_map(rot_param[:, :3])
-        else:
-            rot_m = quat_to_mat(rot_param)
-
-        # float32 even under autocast, which would take the 3x3 products
-        # to bf16
-        with torch.autocast(rot_m.device.type, enabled=False):
-            rot_ego, trans = recover_pose_centroid_z(
-                rot_m, centroid_rel=t_param[:, :2], z_rel=t_param[:, 2],
-                K=batch["roi_cam"], bbox_center=batch["bbox_center"],
-                bbox_wh=batch["roi_wh"], resize_ratio=batch["resize_ratio"],
-                z_type=pnp.z_type, is_allo=pnp.is_allo)
+            # float32 even under autocast, which would take the 3x3
+            # products to bf16
+            with torch.autocast(rot_m.device.type, enabled=False):
+                rot_ego, trans = recover_pose_centroid_z(
+                    rot_m, centroid_rel=t_param[:, :2], z_rel=t_param[:, 2],
+                    K=batch["roi_cam"], bbox_center=batch["bbox_center"],
+                    bbox_wh=batch["roi_wh"],
+                    resize_ratio=batch["resize_ratio"],
+                    z_type=pnp.z_type, is_allo=pnp.is_allo)
 
         def nhwc(x):
             return x.permute(0, 2, 3, 1)

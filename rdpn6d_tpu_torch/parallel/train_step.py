@@ -32,6 +32,7 @@ import torch.distributed as dist
 from ..config import Config
 from ..solver import (build_optimizer, clip_by_global_norm_, global_norm,
                       schedule_step)
+from ..utils.profiling import span
 from .mesh import in_group, rank, world
 
 if TYPE_CHECKING:
@@ -167,7 +168,7 @@ def make_eval_step(cfg: Config, model: RDPN,
 
     def eval_fn(batch: dict) -> dict[str, torch.Tensor]:
         dev = batch["roi_img"].device
-        with torch.no_grad():
+        with span("eval"), torch.no_grad():
             with torch.autocast(dev.type, dtype=autocast) if autocast \
                     else contextlib.nullcontext():
                 out = model(batch)
@@ -177,14 +178,16 @@ def make_eval_step(cfg: Config, model: RDPN,
                       "mask_prob": prob, "coord": out["coord"],
                       "region_logits": out["region_logits"]}
             if use_kabsch:
-                b = out["coord"].shape[0]
-                draws = rk.hypothesis_draws(b, rk.NUM_HYPS, rk.SAMPLE_SIZE,
-                                            dev)
-                ref = rk.refine_pose_kabsch(
-                    out["coord"], out["region_logits"], prob,
-                    batch["roi_coord_2d"][..., :3], batch["resize_ratio"],
-                    batch["fps"], batch["roi_extent"], out["rot_ego"],
-                    out["trans"], draws, mask_thr=cfg.head.mask_thr_test)
+                with span("eval.kabsch"):
+                    b = out["coord"].shape[0]
+                    draws = rk.hypothesis_draws(b, rk.NUM_HYPS,
+                                                rk.SAMPLE_SIZE, dev)
+                    ref = rk.refine_pose_kabsch(
+                        out["coord"], out["region_logits"], prob,
+                        batch["roi_coord_2d"][..., :3],
+                        batch["resize_ratio"], batch["fps"],
+                        batch["roi_extent"], out["rot_ego"], out["trans"],
+                        draws, mask_thr=cfg.head.mask_thr_test)
                 result.update(rot_ego=ref.R, trans=ref.t,
                               inlier_ratio=ref.ratio)
         return result
@@ -212,37 +215,43 @@ def _make_step_fn(cfg: Config, schedule: Callable[[int], float],
     from ..losses import compute_losses
 
     def step_fn(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        model, opt = state.model, state.optimizer
-        dev = next(model.parameters()).device
-        model.train()
-        lr = schedule(schedule_step(cfg, state.step))
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.zero_grad(set_to_none=True)
-        with torch.autocast(dev.type, dtype=torch.bfloat16,
-                            enabled=cfg.solver.amp):
-            out = model(batch, **_dropblock_kwargs(cfg, state.step, dev,
-                                                   sharded))
-        losses = compute_losses(cfg, out, batch, sharded=sharded)
-        total = sum(losses.values())
-        total.backward()
-        if sharded:
-            all_reduce_grads(model.parameters())
-        grad_norm = global_norm(p.grad for p in model.parameters())
-        if cfg.solver.max_grad_norm > 0:
-            clip_by_global_norm_(
-                (p for g in opt.param_groups for p in g["params"]),
-                cfg.solver.max_grad_norm)
-        opt.step()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        if sharded:
-            # every rank logs, guards and checkpoints on the same numbers
-            values = torch.stack(list(metrics.values()))
-            dist.all_reduce(values)
-            metrics = dict(zip(metrics, values.unbind()))
-        metrics["grad_norm"] = grad_norm
-        return state, metrics
+        with span("step"):
+            model, opt = state.model, state.optimizer
+            dev = next(model.parameters()).device
+            model.train()
+            lr = schedule(schedule_step(cfg, state.step))
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.zero_grad(set_to_none=True)
+            # the four spans cover every kernel of the step but the
+            # metrics' all-reduce in a process group
+            with span("step.forward"), torch.autocast(
+                    dev.type, dtype=torch.bfloat16, enabled=cfg.solver.amp):
+                out = model(batch, **_dropblock_kwargs(cfg, state.step, dev,
+                                                       sharded))
+            with span("step.loss"):
+                losses = compute_losses(cfg, out, batch, sharded=sharded)
+                total = sum(losses.values())
+            with span("step.backward"):
+                total.backward()
+            with span("step.optimizer"):
+                if sharded:
+                    all_reduce_grads(model.parameters())
+                grad_norm = global_norm(p.grad for p in model.parameters())
+                if cfg.solver.max_grad_norm > 0:
+                    clip_by_global_norm_(
+                        (p for g in opt.param_groups for p in g["params"]),
+                        cfg.solver.max_grad_norm)
+                opt.step()
+            state.step += 1
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total_loss"] = total.detach()
+            if sharded:
+                # every rank logs, guards and checkpoints on the same numbers
+                values = torch.stack(list(metrics.values()))
+                dist.all_reduce(values)
+                metrics = dict(zip(metrics, values.unbind()))
+            metrics["grad_norm"] = grad_norm
+            return state, metrics
 
     return step_fn

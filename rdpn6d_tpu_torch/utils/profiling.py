@@ -1,11 +1,14 @@
-"""Profiling and timing helpers.
+"""Profiling helpers.
 
 Counterpart of ``rdpn6d_tpu/utils/profiling.py``: ``trace`` captures a
 ``torch.profiler`` trace of a region (CPU activity, and CUDA where a card
-is present) as a Chrome trace, viewable in Perfetto or chrome://tracing;
-``annotate`` names a region inside it; ``StepTimer`` keeps wall-clock
-stats per named phase, synchronizing the card on the tensors the block
-yields to it, where the JAX version blocks on its arrays.
+is present) as a Chrome trace, viewable in Perfetto or chrome://tracing.
+``span`` names a region of the program inside such a trace: the
+preprocessing (``rdpn.pre``), the eval step (``rdpn.eval``), the model's
+trunk, head and PnP (``rdpn.model.*``) and the train step's forward,
+losses, backward and optimizer (``rdpn.step.*``) each show as a range on
+the host's timeline, on the clock of the kernels they launch. With no
+profiler recording a span is one flag test.
 ``count_flops`` and ``bf16_peak_flops`` give the ``bench_*`` tools their
 MFU: the convolution and matrix-product FLOPs that
 ``torch.utils.flop_counter`` counts, over the card's dense bf16 peak.
@@ -15,8 +18,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 
 import torch
 
@@ -40,56 +41,20 @@ def trace(logdir: str):
         logdir, f"trace.rank{r}.json" if r else "trace.json"))
 
 
-def annotate(name: str):
-    """A named region inside a trace (a range on the timeline)."""
-    return torch.profiler.record_function(name)
+SPAN_PREFIX = "rdpn."
+# what ``span`` returns while no profiler records: one object, reused
+_NO_SPAN = contextlib.nullcontext()
 
 
-def _sync(value) -> None:
-    """Wait for the card's work on every CUDA tensor in ``value`` (a
-    tensor, or a list, tuple or dict of them)."""
-    if isinstance(value, torch.Tensor):
-        if value.is_cuda:
-            torch.cuda.synchronize(value.device)
-    elif isinstance(value, dict):
-        for v in value.values():
-            _sync(v)
-    elif isinstance(value, (list, tuple)):
-        for v in value:
-            _sync(v)
-
-
-class StepTimer:
-    """Blocking wall-clock stats per named phase."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def measure(self, name: str):
-        """``with timer.measure("step") as sync: out = f(x); sync(out)``.
-
-        Call the yielded ``sync`` on tensors produced INSIDE the block to
-        include their queued device work in the measurement. Accounting
-        runs even if the body raises."""
-        pending = []
-        t0 = time.perf_counter()
-        try:
-            yield pending.append
-        finally:
-            for r in pending:
-                _sync(r)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> dict[str, float]:
-        return {k: self.totals[k] / max(self.counts[k], 1)
-                for k in self.totals}
-
-    def report(self) -> str:
-        return "  ".join(f"{k}: {v * 1000:.2f}ms"
-                         for k, v in sorted(self.summary().items()))
+def span(name: str):
+    """``with span("step.loss"): ...``: while a ``torch.profiler`` profile
+    records (``trace``, ``main --profile``), a range ``rdpn.<name>`` on
+    the host's timeline; otherwise a shared no-op context that records
+    and allocates nothing. The ranges of one call nest under that call's
+    top-level span (``rdpn.pre``, ``rdpn.eval``, ``rdpn.step``)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 # dense (no sparsity) bf16 tensor-core peak by the card's name, as
